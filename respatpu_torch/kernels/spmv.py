@@ -1,0 +1,155 @@
+"""CSR SpMV on the card: upload under a precision policy, the kernel's
+wrapper, and its plain PyTorch version.
+
+The counterpart of ``respatpu/kernels/spmv.py``, ``gsell.py`` and
+``gsell_df.py``. One hand-written CUDA kernel (``csrc/spmv_csr.cu``, one warp
+per row) replaces both GSELL Pallas kernels, in four instances:
+
+========  ===========  ======  ===========  ==========================
+policy    values       x       accumulator  flush
+========  ===========  ======  ===========  ==========================
+fp32      f32          f32     f32          none
+fp32_ftz  f32          f32     f32          x, products, partial sums
+bf16      bf16         f32     f32          none
+fp64      f64          f64     f64          none
+========  ===========  ======  ===========  ==========================
+
+``spmv`` launches the kernel for a matrix on a CUDA device and runs
+``spmv_plain`` for one on the CPU; nothing else chooses between them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from ..formats import CSRMatrix
+from ..precision import Policy, ftz, get_policy
+
+__all__ = ["DeviceCsr", "to_device", "spmv", "spmv_plain",
+           "spmv_csr_reference", "LAUNCHES"]
+
+# Kernel launches per instance, raised by ``spmv`` right after each launch
+# succeeds and nowhere else; read (and reset) by callers that must show
+# which instances ran.
+LAUNCHES = {"fp32": 0, "fp32_ftz": 0, "bf16": 0, "fp64": 0}
+
+_ENTRY = {"fp32": "respa_spmv_csr_f32", "fp32_ftz": "respa_spmv_csr_f32_ftz",
+          "bf16": "respa_spmv_csr_bf16", "fp64": "respa_spmv_csr_f64"}
+
+_TPU_ONLY = ("gsell", "bell", "rgell", "ell")
+
+
+@dataclasses.dataclass
+class DeviceCsr:
+    """A CSR matrix on one device, stored under a precision policy."""
+
+    indptr: torch.Tensor  # int64[m+1]
+    indices: torch.Tensor  # int32[nnz]
+    vals: torch.Tensor  # policy.dtype[nnz]
+    policy: Policy
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.indptr.device
+
+
+def to_device(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
+              device: Union[str, torch.device] = "cuda",
+              fmt: str = "auto") -> DeviceCsr:
+    """Upload host CSR to ``device`` under ``policy``.
+
+    ``fmt`` "auto" and "csr" give CSR. The DIA stencil path is not ported
+    yet. GSELL, BELL, RG-ELL and the padded ELL are TPU-only layouts that the
+    port replaces with CSR, since the card gathers in hardware.
+    """
+    policy = get_policy(policy)
+    if fmt == "dia":
+        raise NotImplementedError("fmt='dia' (kernels/dia.py) is not ported yet")
+    if fmt in _TPU_ONLY:
+        raise ValueError(f"fmt={fmt!r} is a TPU-only layout and is not ported; "
+                         "use fmt='csr'")
+    if fmt not in ("auto", "csr"):
+        raise ValueError(f"unknown fmt {fmt!r}")
+    m, n = a.shape
+    if a.nnz >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError("column indices are int32: nnz and ncols must be < 2^31")
+    device = torch.device(device)
+    return DeviceCsr(
+        indptr=torch.from_numpy(np.ascontiguousarray(a.indptr, np.int64)).to(device),
+        indices=torch.from_numpy(np.ascontiguousarray(a.indices, np.int32)).to(device),
+        vals=policy.cast_host(a.data).to(device),
+        policy=policy, shape=(m, n))
+
+
+def spmv(dev: DeviceCsr, x: torch.Tensor) -> torch.Tensor:
+    """y = A x under the matrix's policy; y has the policy's accumulator type.
+
+    On a CUDA device this launches the CSR kernel on the current stream and
+    raises if the inputs do not fit it or the launch fails. On the CPU it
+    runs :func:`spmv_plain`.
+    """
+    if dev.device.type == "cpu":
+        return spmv_plain(dev, x)
+    if dev.device.type != "cuda":
+        raise ValueError(f"no SpMV for device {dev.device}")
+    p = dev.policy
+    m, n = dev.shape
+    if x.dtype != p.accum_dtype:
+        raise TypeError(f"{p.name} SpMV takes x as {p.accum_dtype}, got {x.dtype}")
+    if x.device != dev.device:
+        raise ValueError(f"x is on {x.device}, the matrix on {dev.device}")
+    if x.shape != (n,) or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous of shape ({n},), got {tuple(x.shape)}")
+    arrays = (dev.indptr, dev.indices, dev.vals)
+    if (dev.indptr.dtype != torch.int64 or dev.indices.dtype != torch.int32
+            or dev.vals.dtype != p.dtype or dev.indptr.shape != (m + 1,)
+            or dev.vals.shape != dev.indices.shape
+            or any(t.device != dev.device or not t.is_contiguous() for t in arrays)):
+        raise ValueError("DeviceCsr arrays do not match its policy, shape and device")
+    y = torch.empty(m, dtype=p.accum_dtype, device=dev.device)
+    if m == 0:
+        return y
+    from . import _build
+    fn = getattr(_build.load(), _ENTRY[p.name])
+    rc = fn(dev.device.index, m, dev.indptr.data_ptr(), dev.indices.data_ptr(), dev.vals.data_ptr(),
+            x.data_ptr(), y.data_ptr(), torch.cuda.current_stream(dev.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{_ENTRY[p.name]} launch failed: cudaError {rc}")
+    LAUNCHES[p.name] += 1
+    return y
+
+
+def spmv_plain(dev: DeviceCsr, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain torch ops, on any device: a gather,
+    products in the accumulator type and an ``index_add_`` per row. Under
+    fp32_ftz it flushes x, each product and the result (the kernel also
+    flushes each partial sum; with normal products and results the two
+    agree). Summation order differs from the kernel's."""
+    p = dev.policy
+    acc = p.accum_dtype
+    m, _ = dev.shape
+    xv = ftz(x.to(acc), p.flush_to_zero)
+    prod = ftz(dev.vals.to(acc) * torch.index_select(xv, 0, dev.indices),
+               p.flush_to_zero)
+    rows = torch.repeat_interleave(torch.arange(m, device=dev.device),
+                                   torch.diff(dev.indptr), output_size=dev.nnz)
+    y = torch.zeros(m, dtype=acc, device=dev.device).index_add_(0, rows, prod)
+    return ftz(y, p.flush_to_zero)
+
+
+def spmv_csr_reference(a: CSRMatrix, x: np.ndarray) -> np.ndarray:
+    """Host fp64 oracle (row-wise dot), used by tests and residual gates."""
+    m, _ = a.shape
+    y = np.zeros(m, dtype=np.float64)
+    for i in range(m):
+        s, e = a.indptr[i], a.indptr[i + 1]
+        y[i] = np.dot(a.data[s:e], x[a.indices[s:e]])
+    return y
