@@ -7,6 +7,9 @@ network-less environments the bench registry substitutes structurally similar
 synthetic matrices (FEM-like Laplacians, banded, and power-law/circuit-like
 patterns) matched to each corpus entry's n/nnz scale; real ``.mtx`` files are
 used whenever present on disk.
+
+``from_row_lengths`` and ``row_block_edges`` are the port's own: shapes at
+the edges of the CSR kernel's row blocks, for its checks on the card.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ import numpy as np
 from ..formats import COOMatrix, CSRMatrix, coo_to_csr
 
 __all__ = ["laplacian_3d", "laplacian_2d", "random_banded", "powerlaw",
-           "mesh_fem_3d", "circuit_like", "make_spd_like", "synth_like"]
+           "mesh_fem_3d", "circuit_like", "make_spd_like", "synth_like",
+           "from_row_lengths", "row_block_edges"]
 
 
 def laplacian_2d(nx: int, ny: int, dtype=np.float64) -> CSRMatrix:
@@ -245,3 +249,41 @@ def synth_like(name: str, n: int, nnz: int, kind: str, seed: int = 0) -> CSRMatr
     if kind == "circuit":
         return circuit_like(n, per_row, seed=seed)
     return random_banded(n, max(per_row * 8, 16), per_row, seed=seed)
+
+
+def from_row_lengths(lens, n: int, seed: int = 0) -> CSRMatrix:
+    """A matrix with the given row lengths, distinct sorted random columns
+    in each row and values in [0.5, 1.5). The values are positive so that,
+    with an x of positive mean, |y| of a long row grows with its length and
+    the rounding of two summation orders stays small beside it."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens, np.int64)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    cols = np.concatenate([np.zeros(0, np.int64)]
+                          + [np.sort(rng.choice(n, k, replace=False)) for k in lens])
+    return CSRMatrix((lens.size, n), indptr, cols.astype(np.int32),
+                     rng.uniform(0.5, 1.5, int(indptr[-1])))
+
+
+def row_block_edges(cap: int, max_rows: int, n: int = 6000, seed: int = 77) -> dict:
+    """Named matrices at the edges of a partition of the rows into blocks of
+    at most ``cap`` entries and ``max_rows`` rows
+    (``respatpu_torch.kernels.spmv.row_blocks``)."""
+    rng = np.random.default_rng(seed)
+
+    def short(k):
+        return rng.integers(1, 12, k)
+
+    lens = {
+        # streamed alone at the capacity; one entry more takes the long-row path
+        "row_cap_and_cap+1": np.concatenate([short(40), [cap], short(300), [cap + 1], short(25)]),
+        "empty_run": np.concatenate([short(90), np.zeros(3 * max_rows + 7, np.int64), short(90)]),
+        "one_row": [37],
+        "one_row_wide": [700],
+        "rows_no_entries": np.zeros(1000, np.int64),
+        "short_last_block": np.full(3 * max_rows + 1, 8),
+        # rows of 40-600 among short ones: too long for the one lane a short row gets
+        "wide_among_short": np.where(np.arange(5000) % 61 == 0, rng.integers(40, 600, 5000),
+                                     rng.integers(0, 9, 5000)),
+    }
+    return {name: from_row_lengths(v, n, seed=i) for i, (name, v) in enumerate(lens.items())}

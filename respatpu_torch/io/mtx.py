@@ -14,10 +14,10 @@ CSR/COO loader (`ReadMatrixMarket/mm_io.cpp:54,357,404,655-791`,
 * optional transpose-on-load (CSC consumers, loadMatrixMarket.cpp:79-81);
 * 0/1-base handled on read; output is always 0-based host CSR.
 
-A copy of ``respatpu.io.mtx``. The C++ parser of ``respatpu/io/_native``
-(shared, not forked; ``respatpu_torch.io.native``) accelerates the
-entry-stream parse for multi-10M-nnz files; this module is the host
-implementation it falls back to, and defines the semantics.
+A copy of ``respatpu.io.mtx``. The port's C++ parser
+(``io/csrc/mtx_parse.cpp``, bound by ``respatpu_torch.io.native``)
+accelerates the entry-stream parse for multi-10M-nnz files; this module is
+the host implementation it falls back to, and defines the semantics.
 """
 from __future__ import annotations
 

@@ -1,24 +1,26 @@
-"""ctypes bindings for respatpu's native host library (``librespa_host.so``):
-the Matrix Market header and entry parsers only.
+"""ctypes bindings for the port's native Matrix Market parser
+(``io/csrc/mtx_parse.cpp``): the header and the coordinate-entry parsers.
 
-The C++ source stays in ``respatpu/io/_native`` and is shared, not forked:
-the library is loaded from there by path and built with its Makefile when it
-is missing. When no C++ toolchain is present the caller falls back to the
-numpy parser (host parsing; nothing on the device depends on it).
+The source is the port's own. It is compiled at first use with the host C++
+compiler into the checkout's ``build/`` directory
+(``respatpu_torch._buildlib``) and loaded from there. When no C++ compiler
+is present the caller falls back to the numpy parser (host parsing; nothing
+on the device depends on it).
 """
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
+import shutil
 import threading
 from typing import Optional
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_NATIVE_DIR = os.path.join(_REPO, "respatpu", "io", "_native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "librespa_host.so")
+from .._buildlib import CompileError, build_shared
+
+_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "mtx_parse.cpp")
+_CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lib = None
 _lock = threading.Lock()
@@ -35,15 +37,14 @@ class _MtxInfo(ctypes.Structure):
                 ("data_offset", ctypes.c_int64)]
 
 
-def _build() -> bool:
-    if not os.path.exists(os.path.join(_NATIVE_DIR, "host_ops.cpp")):
-        return False
+def _build() -> Optional[str]:
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not cxx:
+        return None
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=300)
-    except (OSError, subprocess.SubprocessError):
-        return False
-    return os.path.exists(_SO_PATH)
+        return build_shared("librespa_mtx.so", [_SOURCE], [cxx, *_CXX_FLAGS])
+    except CompileError:
+        return None
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -53,10 +54,11 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
-        if not os.path.exists(_SO_PATH) and not _build():
+        path = _build()
+        if path is None:
             _build_failed = True
             return None
-        lib = ctypes.CDLL(_SO_PATH)
+        lib = ctypes.CDLL(path)
         lib.mtx_read_header.argtypes = [ctypes.c_char_p, ctypes.POINTER(_MtxInfo)]
         lib.mtx_read_header.restype = ctypes.c_int
         lib.mtx_parse_entries.argtypes = [ctypes.c_char_p, ctypes.c_int64,
@@ -65,7 +67,6 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.mtx_parse_entries.restype = ctypes.c_int64
         _lib = lib
         return _lib
-
 
 def available() -> bool:
     return _load() is not None

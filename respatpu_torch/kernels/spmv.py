@@ -2,8 +2,8 @@
 wrapper, and its plain PyTorch version.
 
 The counterpart of ``respatpu/kernels/spmv.py``, ``gsell.py`` and
-``gsell_df.py``. One hand-written CUDA kernel (``csrc/spmv_csr.cu``, one warp
-per row) replaces both GSELL Pallas kernels, in four instances:
+``gsell_df.py``. One hand-written CUDA kernel (``csrc/spmv_csr.cu``, row-block
+streaming) replaces both GSELL Pallas kernels, in four instances:
 
 ========  ===========  ======  ===========  ==========================
 policy    values       x       accumulator  flush
@@ -16,6 +16,10 @@ fp64      f64          f64     f64          none
 
 ``spmv`` launches the kernel for a matrix on a CUDA device and runs
 ``spmv_plain`` for one on the CPU; nothing else chooses between them.
+
+The kernel gives one thread block to each group of consecutive rows that
+``row_blocks`` cuts from the row pointer at upload: at most ``CAP`` entries
+and ``MAX_ROWS`` rows a group, a longer row alone in its group.
 """
 from __future__ import annotations
 
@@ -28,8 +32,14 @@ import torch
 from ..formats import CSRMatrix
 from ..precision import Policy, ftz, get_policy
 
-__all__ = ["DeviceCsr", "to_device", "spmv", "spmv_plain",
-           "spmv_csr_reference", "LAUNCHES"]
+__all__ = ["DeviceCsr", "to_device", "row_blocks", "spmv", "spmv_plain",
+           "spmv_csr_reference", "LAUNCHES", "CAP", "MAX_ROWS"]
+
+# The kernel's compile-time sizes (kCap and kMaxRows of csrc/spmv_csr.cu):
+# the entries a block streams through shared memory, and the rows it reduces.
+# ``spmv`` checks them against the built library.
+CAP = 2048
+MAX_ROWS = 256
 
 # Kernel launches per instance, raised by ``spmv`` right after each launch
 # succeeds and nowhere else; read (and reset) by callers that must show
@@ -49,6 +59,7 @@ class DeviceCsr:
     indptr: torch.Tensor  # int64[m+1]
     indices: torch.Tensor  # int32[nnz]
     vals: torch.Tensor  # policy.dtype[nnz]
+    row_blocks: torch.Tensor  # int32[blocks+1], see :func:`row_blocks`
     policy: Policy
     shape: Tuple[int, int]
 
@@ -59,6 +70,27 @@ class DeviceCsr:
     @property
     def device(self) -> torch.device:
         return self.indptr.device
+
+
+def row_blocks(indptr: np.ndarray, cap: int = CAP, max_rows: int = MAX_ROWS) -> np.ndarray:
+    """Cut the rows of a CSR row pointer into the kernel's blocks.
+
+    Returns int32 ``b`` with ``b[0] = 0`` and ``b[-1] = m``: block ``i`` is
+    rows ``b[i]:b[i+1]``. Rows are taken greedily in order while the block
+    holds at most ``cap`` entries and ``max_rows`` rows; a row longer than
+    ``cap`` is a block of its own (the kernel's long-row path). A function
+    of ``indptr`` alone.
+    """
+    indptr = np.asarray(indptr, np.int64)
+    m = indptr.size - 1
+    bounds = [0]
+    r0 = 0
+    while r0 < m:
+        # the last row boundary within cap entries of this block's first
+        r1 = int(np.searchsorted(indptr, indptr[r0] + cap, side="right")) - 1
+        r0 = max(min(r1, r0 + max_rows, m), r0 + 1)
+        bounds.append(r0)
+    return np.asarray(bounds, np.int32)
 
 
 def to_device(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
@@ -79,14 +111,33 @@ def to_device(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
     if fmt not in ("auto", "csr"):
         raise ValueError(f"unknown fmt {fmt!r}")
     m, n = a.shape
-    if a.nnz >= 2 ** 31 or n >= 2 ** 31:
-        raise ValueError("column indices are int32: nnz and ncols must be < 2^31")
+    if a.nnz >= 2 ** 31 or n >= 2 ** 31 or m >= 2 ** 31:
+        raise ValueError("column and row-block indices are int32: nnz, nrows "
+                         "and ncols must be < 2^31")
     device = torch.device(device)
     return DeviceCsr(
         indptr=torch.from_numpy(np.ascontiguousarray(a.indptr, np.int64)).to(device),
         indices=torch.from_numpy(np.ascontiguousarray(a.indices, np.int32)).to(device),
         vals=policy.cast_host(a.data).to(device),
+        row_blocks=torch.from_numpy(row_blocks(a.indptr)).to(device),
         policy=policy, shape=(m, n))
+
+
+_lib = None
+
+
+def _library():
+    """The built kernel library, once its sizes are known to match ours."""
+    global _lib
+    if _lib is None:
+        from . import _build
+        lib = _build.load()
+        sizes = (lib.respa_spmv_csr_cap(), lib.respa_spmv_csr_max_rows())
+        if sizes != (CAP, MAX_ROWS):
+            raise RuntimeError(f"spmv_csr.cu was built for (cap, max rows) = {sizes}, "
+                               f"row_blocks cuts for {(CAP, MAX_ROWS)}")
+        _lib = lib
+    return _lib
 
 
 def spmv(dev: DeviceCsr, x: torch.Tensor) -> torch.Tensor:
@@ -108,18 +159,19 @@ def spmv(dev: DeviceCsr, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x is on {x.device}, the matrix on {dev.device}")
     if x.shape != (n,) or not x.is_contiguous():
         raise ValueError(f"x must be contiguous of shape ({n},), got {tuple(x.shape)}")
-    arrays = (dev.indptr, dev.indices, dev.vals)
+    arrays = (dev.indptr, dev.indices, dev.vals, dev.row_blocks)
     if (dev.indptr.dtype != torch.int64 or dev.indices.dtype != torch.int32
             or dev.vals.dtype != p.dtype or dev.indptr.shape != (m + 1,)
             or dev.vals.shape != dev.indices.shape
+            or dev.row_blocks.dtype != torch.int32 or dev.row_blocks.dim() != 1
             or any(t.device != dev.device or not t.is_contiguous() for t in arrays)):
         raise ValueError("DeviceCsr arrays do not match its policy, shape and device")
     y = torch.empty(m, dtype=p.accum_dtype, device=dev.device)
     if m == 0:
         return y
-    from . import _build
-    fn = getattr(_build.load(), _ENTRY[p.name])
-    rc = fn(dev.device.index, m, dev.indptr.data_ptr(), dev.indices.data_ptr(), dev.vals.data_ptr(),
+    fn = getattr(_library(), _ENTRY[p.name])
+    rc = fn(dev.device.index, dev.row_blocks.numel() - 1, dev.row_blocks.data_ptr(),
+            dev.indptr.data_ptr(), dev.indices.data_ptr(), dev.vals.data_ptr(),
             x.data_ptr(), y.data_ptr(), torch.cuda.current_stream(dev.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{_ENTRY[p.name]} launch failed: cudaError {rc}")

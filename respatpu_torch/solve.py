@@ -13,8 +13,8 @@ import torch
 from .formats import CSRMatrix
 from .kernels.spmv import spmv, to_device
 from .precision import Policy, get_policy
-from .timing import (OpTiming, check_plausible, spmv_csr_sol_bytes,
-                     stream_bandwidth, time_op)
+from .timing import (OpTiming, check_plausible, device_bandwidth,
+                     spmv_csr_sol_bytes, time_op)
 
 __all__ = ["spmv_timed", "relative_residual", "inf_norm_error",
            "make_rhs_for_known_x"]
@@ -69,8 +69,8 @@ def spmv_timed(a: CSRMatrix, x: np.ndarray, policy: Union[str, Policy] = "fp32",
     computes y once, then times ``WARMUP`` untimed and ``reps`` timed SpMVs
     with :func:`respatpu_torch.timing.time_op`. The timing must pass the
     plausibility gate against the CSR byte model at the device's measured
-    copy bandwidth, or this raises. Returns ``(y, OpTiming)``; y stays on
-    ``device``.
+    copy bandwidth (probed once per device), or this raises. Returns
+    ``(y, OpTiming)``; y stays on ``device``.
     """
     policy = get_policy(policy)
     dev = to_device(a, policy, device, fmt=fmt)
@@ -79,5 +79,5 @@ def spmv_timed(a: CSRMatrix, x: np.ndarray, policy: Union[str, Policy] = "fp32",
     t: OpTiming = time_op(lambda: spmv(dev, xd), dev.device, warmup=WARMUP, reps=reps)
     m, n = a.shape
     nbytes = spmv_csr_sol_bytes(m, n, a.nnz, dev.vals.element_size(), xd.element_size())
-    check_plausible(t, nbytes, stream_bandwidth(dev.device))
+    check_plausible(t, nbytes, device_bandwidth(dev.device))
     return y, t

@@ -18,11 +18,12 @@ from __future__ import annotations
 import dataclasses
 import statistics
 import time
-from typing import Callable, List, Union
+from typing import Callable, List, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["OpTiming", "time_op", "stream_bandwidth", "check_plausible",
+__all__ = ["OpTiming", "time_op", "stream_bandwidth", "device_bandwidth", "device_events",
+           "kernel_times", "ProfilerUnavailable", "check_plausible",
            "spmv_csr_sol_bytes", "ImplausibleTiming"]
 
 _FLUSH_BYTES = 256 << 20  # >= 5x the H100's 50 MB L2
@@ -90,6 +91,84 @@ def stream_bandwidth(device: Union[str, torch.device], reps: int = 5) -> float:
     dst = torch.empty_like(src)
     t = time_op(lambda: dst.copy_(src), device, warmup=1, reps=reps)
     return 2 * nbytes / t.min
+
+
+class ProfilerUnavailable(RuntimeError):
+    """``torch.profiler`` gave no complete trace of the device, even when
+    asked again."""
+
+
+def device_events(fn: Callable[[], object],
+                  complete: Callable[[List[Tuple[str, float]]], bool] = bool,
+                  attempts: int = 3) -> List[Tuple[str, float]]:
+    """Run ``fn`` under ``torch.profiler`` and return ``(name, seconds)`` of
+    every kernel, copy and memset the card ran for it, in the order they
+    started. A trace that is not ``complete`` (by default: one that holds no
+    device activity; the tracer now and then drops records after many traces
+    in one process) is taken again, ``fn`` included; after ``attempts`` such
+    traces this raises :class:`ProfilerUnavailable`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = sorted((e.time_range.start, e.name, e.time_range.elapsed_us() * 1e-6)
+                     for e in prof.events() if e.device_type == DeviceType.CUDA)
+        out = [(name, t) for _, name, t in out]
+        if complete(out):
+            return out
+    raise ProfilerUnavailable(f"torch.profiler gave no complete trace in {attempts} runs")
+
+
+def kernel_times(fns: Sequence[Callable[[], object]], name_part: str,
+                 reps: int = 10, flush: str = "write") -> List[List[float]]:
+    """For each of ``fns``, the seconds of each of the ``reps`` kernels whose
+    name holds ``name_part``, one launched by each call with a cold L2, read
+    from one profiler trace of all of them and so free of the event window's
+    own few microseconds.
+
+    ``flush="write"`` evicts as :func:`time_op` does, by writing the scratch
+    tensor, which leaves the L2 full of modified lines that the kernel's
+    reads must first push out to device memory. ``flush="read"`` sums the
+    scratch tensor instead and leaves unmodified lines that cost nothing to
+    evict."""
+    if flush not in ("write", "read"):
+        raise ValueError(f"flush must be 'write' or 'read', got {flush!r}")
+    scratch = torch.zeros(_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for fn in fns:
+        fn()
+
+    def run():
+        for fn in fns:
+            for i in range(reps):
+                if flush == "write":
+                    scratch.fill_(float(i))
+                else:
+                    scratch.sum()
+                fn()
+
+    def ours(events):
+        return [t for name, t in events if name_part in name]
+
+    times = ours(device_events(run, lambda ev: len(ours(ev)) == reps * len(fns)))
+    return [times[i * reps:(i + 1) * reps] for i in range(len(fns))]
+
+
+_bandwidth = {}  # device -> bytes/s, measured once per process
+
+
+def device_bandwidth(device: Union[str, torch.device]) -> float:
+    """:func:`stream_bandwidth` of ``device``, measured at the first call for
+    that device and reused after it: the probe copies 1 GiB several times,
+    far more device time than the SpMVs it gates."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _bandwidth:
+        _bandwidth[device] = stream_bandwidth(device)
+    return _bandwidth[device]
 
 
 def check_plausible(t: OpTiming, nbytes: int, bandwidth: float) -> OpTiming:

@@ -38,10 +38,19 @@ def _matrix():
                                 rng.uniform(0.5, 1.5, rows.size)))
 
 
+EDGES = ["row_cap_and_cap+1", "empty_run", "one_row", "one_row_wide", "rows_no_entries",
+         "short_last_block", "wide_among_short"]
+
+
+def test_edge_names_are_the_generators():
+    assert EDGES == list(synth.row_block_edges(K.CAP, K.MAX_ROWS))
+
+
 @pytest.mark.parametrize("policy", list(TOL))
-@pytest.mark.parametrize("name", ["rect", "mesh"])
+@pytest.mark.parametrize("name", ["rect", "mesh"] + EDGES)
 def test_kernel_matches_plain(card, name, policy):
-    a = _matrix() if name == "rect" else synth.mesh_fem_3d(5000, seed=2)
+    a = (_matrix() if name == "rect" else synth.mesh_fem_3d(5000, seed=2) if name == "mesh"
+         else synth.row_block_edges(K.CAP, K.MAX_ROWS)[name])
     x64 = np.random.default_rng(1).standard_normal(a.shape[1]) + 1.0
     dev = K.to_device(a, policy, card)
     x = torch.from_numpy(x64).to(dev.policy.accum_dtype).to(card)
@@ -51,7 +60,7 @@ def test_kernel_matches_plain(card, name, policy):
     assert K.LAUNCHES[policy] == before + 1
     ref = (torch.from_numpy(K.spmv_csr_reference(a, x64)) if policy == "fp64"
            else K.spmv_plain(dev, x).double().cpu())
-    err = float((y.double().cpu() - ref).abs().max() / ref.abs().max())
+    err = float((y.double().cpu() - ref).abs().max() / max(float(ref.abs().max()), 1e-300))
     assert err <= TOL[policy]
     assert bool((y.cpu()[torch.diff(dev.indptr).cpu() == 0] == 0).all())
     if policy == "fp64":
@@ -68,6 +77,8 @@ def test_wrapper_rejects_bad_input(card):
         K.spmv(dev, torch.zeros(125))
     x = torch.zeros(125, device=card)
     for bad in (dataclasses.replace(dev, indices=dev.indices.cpu()),
+                dataclasses.replace(dev, row_blocks=dev.row_blocks.long()),
+                dataclasses.replace(dev, row_blocks=dev.row_blocks.cpu()),
                 dataclasses.replace(dev, vals=dev.vals.repeat(2)[::2])):
         with pytest.raises(ValueError):
             K.spmv(bad, x)

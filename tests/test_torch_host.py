@@ -1,7 +1,9 @@
 """The port's host layer against respatpu's: Matrix Market loading, the
 synthetic generators, the corpus stand-in seed, and the absence of JAX."""
+import ast
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -34,7 +36,7 @@ def _same(a, b):
 @pytest.mark.parametrize("path", FIXTURES, ids=os.path.basename)
 def test_load_csr_matches_respatpu(path, native_parser):
     if native_parser and not native.available():
-        pytest.skip("librespa_host.so could not be built here")
+        pytest.skip("no host C++ compiler to build io/csrc/mtx_parse.cpp")
     _same(jio.load_csr(path, native=native_parser),
           tio.load_csr(path, native=native_parser))
     if native_parser:
@@ -95,3 +97,57 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300).stdout.split(None, 1)
     assert int(out[0]) >= 15
     assert out[1].strip() == "[]"
+
+
+PORT_PY = sorted(glob.glob(os.path.join(REPO, "respatpu_torch", "**", "*.py"), recursive=True)
+                 + [os.path.join(REPO, "chip_smoke.py")])
+PORT_NATIVE = sorted(glob.glob(os.path.join(REPO, "respatpu_torch", "**", "csrc", "*"),
+                               recursive=True))
+_INTO_REFERENCE = re.compile(r"(^|[/\\])respatpu([/\\.]|$)")
+_CITATION = re.compile(r"^respatpu/[\w/]+\.py:\d+$")  # file:line of the kernel a port replaces
+
+
+def _docstrings(tree):
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+@pytest.mark.parametrize("path", PORT_PY, ids=lambda p: os.path.relpath(p, REPO))
+def test_port_source_stays_out_of_the_reference(path):
+    """No import of jax or respatpu, and no string that names a path or a
+    module of ``respatpu/`` outside docstrings, except a file:line citation."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        roots = []
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [node.module.split(".")[0]]
+        assert not {"jax", "jaxlib", "respatpu"} & set(roots), (path, node.lineno)
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs and _INTO_REFERENCE.search(node.value)):
+            assert _CITATION.match(node.value), (path, node.lineno, node.value)
+
+
+def test_port_native_sources_include_nothing_of_the_reference():
+    assert len(PORT_NATIVE) >= 2  # the CUDA kernel and the parser
+    for path in PORT_NATIVE:
+        with open(path) as f:
+            includes = [ln for ln in f if ln.lstrip().startswith("#include")]
+        assert includes and not any("respatpu" in ln for ln in includes), path
+
+
+def test_native_parser_is_built_inside_the_ports_build_dir():
+    if not native.available():
+        pytest.skip("no host C++ compiler to build io/csrc/mtx_parse.cpp")
+    lib = os.path.realpath(native._load()._name)
+    assert lib.startswith(os.path.join(REPO, "build", "respatpu_torch") + os.sep)
+    assert os.path.realpath(native._SOURCE).startswith(
+        os.path.join(REPO, "respatpu_torch") + os.sep)

@@ -15,7 +15,7 @@ from respatpu import precision as jprec
 from respatpu.kernels.gsell import gsell_to_device, spmv_gsell
 from respatpu.kernels.gsell_df import gsell_df_to_device, spmv_gsell_df
 
-from respatpu_torch import cli, solve
+from respatpu_torch import cli, solve, timing
 from respatpu_torch.bench import runner, synth
 from respatpu_torch.interop import df_to_numpy
 from respatpu_torch.io import load_csr, write_mtx
@@ -99,3 +99,25 @@ def test_timing_gate_raises_on_too_fast():
         check_plausible(OpTiming([1e-6, 1e-9]), nbytes, 3e12)
     t = check_plausible(OpTiming([1e-6, 2e-6]), nbytes, 3e12)
     assert t.floor_s == pytest.approx(nbytes / (1.05 * 3e12)) and t.median == 1.5e-6
+
+
+def test_spmv_timed_probes_bandwidth_once_per_device(monkeypatch):
+    calls = []
+    probe = timing.stream_bandwidth
+
+    def counting(device, reps=5):
+        calls.append(torch.device(device))
+        return probe(device, reps)
+
+    monkeypatch.setattr(timing, "stream_bandwidth", counting)
+    monkeypatch.setattr(timing, "_bandwidth", {})
+    a = synth.mesh_fem_3d(1500, seed=4)
+    x = np.random.default_rng(0).standard_normal(a.shape[1])
+    t = [solve.spmv_timed(a, x, policy, device="cpu", reps=2)[1] for policy in ("fp64", "fp32")]
+    assert calls == [torch.device("cpu")]
+    assert all(0 < ti.floor_s <= ti.min for ti in t)
+    # the gate is the same one: both floors come from the one measured bandwidth
+    bw = timing._bandwidth[torch.device("cpu")]
+    assert timing.device_bandwidth("cpu") == bw and len(calls) == 1
+    nbytes = spmv_csr_sol_bytes(a.shape[0], a.shape[1], a.nnz, 8, 8)
+    assert t[0].floor_s == pytest.approx(nbytes / (1.05 * bw))

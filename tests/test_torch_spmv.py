@@ -14,6 +14,9 @@ Tolerances are max|y_port - y_ref| / max|y_ref|:
   the flush to the TPU): equal, on integer-valued inputs with subnormal
   entries in A and x, whose sums are exact in any order.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +30,8 @@ from respatpu.kernels.gsell_df import gsell_df_to_device, spmv_gsell_df
 from respatpu_torch.bench import synth
 from respatpu_torch.formats import COOMatrix, CSRMatrix, coo_to_csr
 from respatpu_torch.interop import df_to_numpy
-from respatpu_torch.kernels.spmv import spmv, spmv_csr_reference, spmv_plain, to_device
+from respatpu_torch.kernels.spmv import (CAP, MAX_ROWS, row_blocks, spmv, spmv_csr_reference,
+                                         spmv_plain, to_device)
 
 
 def _rect_empty_rows():
@@ -146,3 +150,127 @@ def test_to_device_formats():
             to_device(a, "fp32", "cpu", fmt=fmt)
     assert to_device(a, "df64", "cpu").vals.dtype == torch.float64
     assert to_device(a, "bf16", "cpu").vals.dtype == torch.bfloat16
+
+
+# --- the kernel's row partition (a pure function of the row pointer) --------
+
+PARTITION_GENERATORS = {
+    "fem": lambda seed: synth.mesh_fem_3d(2500, seed=seed),
+    "circuit": lambda seed: synth.circuit_like(3000, 5, seed=seed),
+    "hub_rows": lambda seed: synth.circuit_like(3000, 4, seed=seed, hub_fraction=4e-3,
+                                                hub_degree=180),
+}
+# the kernel's sizes, and small ones that give these matrices long rows,
+# row-bound blocks and many blocks
+SIZES = [(CAP, MAX_ROWS), (64, 256), (96, 8)]
+
+
+def _check_partition(indptr, cap, max_rows):
+    """Blocks cover every row once and in order; a block holds at most
+    ``cap`` entries unless it is one long row, and at most ``max_rows``."""
+    indptr = np.asarray(indptr, np.int64)
+    m = indptr.size - 1
+    b = row_blocks(indptr, cap, max_rows)
+    assert b.dtype == np.int32 and b[0] == 0 and b[-1] == m
+    rows = np.diff(b)
+    assert (rows > 0).all() if m else b.size == 1
+    entries = indptr[b[1:]] - indptr[b[:-1]]
+    assert (rows <= max_rows).all()
+    assert ((entries <= cap) | (rows == 1)).all()
+    # greedy: no block could have taken the next row as well
+    nxt = np.minimum(b[1:-1].astype(np.int64) + 1, m)
+    fits = (indptr[nxt] - indptr[b[:-2]] <= cap) & (rows[:-1] < max_rows)
+    assert not fits.any()
+    return b
+
+
+def _spmv_by_blocks(a, x, b):
+    """y summed block by block: what a cover of the rows must reproduce."""
+    y = np.full(a.shape[0], np.nan)
+    for r0, r1 in zip(b[:-1], b[1:]):
+        for r in range(r0, r1):
+            s, e = a.indptr[r], a.indptr[r + 1]
+            y[r] = np.dot(a.data[s:e], x[a.indices[s:e]])
+    return y
+
+
+@pytest.mark.parametrize("sizes", SIZES, ids=lambda s: f"cap{s[0]}_rows{s[1]}")
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("gen", list(PARTITION_GENERATORS))
+def test_row_blocks_cover_rows_within_sizes(gen, seed, sizes):
+    a = PARTITION_GENERATORS[gen](seed)
+    b = _check_partition(a.indptr, *sizes)
+    x = np.random.default_rng(seed).standard_normal(a.shape[1])
+    np.testing.assert_array_equal(_spmv_by_blocks(a, x, b), spmv_csr_reference(a, x))
+    if sizes == (CAP, MAX_ROWS):
+        dev = to_device(a, "fp32", "cpu")
+        assert dev.row_blocks.dtype == torch.int32 and dev.row_blocks.device.type == "cpu"
+        np.testing.assert_array_equal(dev.row_blocks.numpy(), b)
+    elif gen == "hub_rows":
+        lens = np.diff(a.indptr)
+        assert (lens > sizes[0]).any()  # the long-row case is really reached
+
+
+def _indptr(lens):
+    return np.concatenate([[0], np.cumsum(np.asarray(lens, np.int64))])
+
+
+EDGES = {
+    "no_rows": ([], [0]),
+    "one_empty_row": ([0], [0, 1]),
+    "one_row": ([5], [0, 1]),
+    "rows_no_entries": ([0] * (2 * MAX_ROWS + 3), [0, MAX_ROWS, 2 * MAX_ROWS, 2 * MAX_ROWS + 3]),
+    "row_of_cap": ([3, CAP, 3], [0, 1, 2, 3]),
+    "row_of_cap_alone": ([CAP], [0, 1]),
+    "row_of_cap_plus_1": ([3, CAP + 1, 3], [0, 1, 2, 3]),
+    "cap_filled_exactly": ([CAP // 2, CAP // 2, 1], [0, 2, 3]),
+    "empty_run_after_full_block": ([CAP] + [0] * (MAX_ROWS + 5) + [2],
+                                   [0, MAX_ROWS, MAX_ROWS + 7]),
+    "short_last_block": ([8] * (MAX_ROWS + 1), [0, MAX_ROWS, MAX_ROWS + 1]),
+}
+
+
+@pytest.mark.parametrize("name", list(EDGES))
+def test_row_blocks_edges(name):
+    lens, want = EDGES[name]
+    b = _check_partition(_indptr(lens), CAP, MAX_ROWS)
+    assert b.tolist() == want
+
+
+EDGE_SHAPES = list(synth.row_block_edges(CAP, MAX_ROWS))
+
+
+@pytest.mark.parametrize("policy", ["fp32", "fp64"])
+@pytest.mark.parametrize("name", EDGE_SHAPES)
+def test_edge_shapes_on_the_cpu(name, policy):
+    """The shapes the card's checks use: partitioned within the sizes, and
+    the plain version (the CPU wrapper) against the host oracle."""
+    a = synth.row_block_edges(CAP, MAX_ROWS)[name]
+    b = _check_partition(a.indptr, CAP, MAX_ROWS)
+    x = np.random.default_rng(3).standard_normal(a.shape[1]) + 1.0
+    np.testing.assert_array_equal(_spmv_by_blocks(a, x, b), spmv_csr_reference(a, x))
+    ref = spmv_csr_reference(a, x)
+    assert _rel(_port(a, policy, x), ref) <= (1e-14 if policy == "fp64" else 2e-5)
+    if name == "row_cap_and_cap+1":
+        assert {CAP, CAP + 1} <= set(np.diff(a.indptr[b]).tolist())
+
+
+def test_to_device_carries_row_blocks_of_empty_matrices():
+    for shape, lens in (((0, 4), []), ((5, 4), [0] * 5)):
+        a = CSRMatrix(shape, _indptr(lens), np.zeros(0, np.int32), np.zeros(0))
+        dev = to_device(a, "fp64", "cpu")
+        assert dev.row_blocks.tolist() == ([0, shape[0]] if shape[0] else [0])
+        y = spmv(dev, torch.ones(4, dtype=torch.float64))
+        assert y.shape == (shape[0],) and bool((y == 0).all())
+
+
+def test_partition_sizes_match_the_kernel_source():
+    src = os.path.join(os.path.dirname(os.path.abspath(synth.__file__)), os.pardir,
+                       "kernels", "csrc", "spmv_csr.cu")
+    with open(src) as f:
+        text = f.read()
+    threads = int(re.search(r"#define RESPA_SPMV_THREADS (\d+)", text).group(1))
+    per_thread = int(re.search(r"#define RESPA_SPMV_PER_THREAD (\d+)", text).group(1))
+    assert "kCap = kThreads * kPerThread" in text and "kMaxRows = kThreads" in text
+    assert (CAP, MAX_ROWS) == (threads * per_thread, threads)
+    assert "atomic" not in text.split("#include", 1)[1]  # fixed-order sums only
