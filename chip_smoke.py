@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: requires CUDA, prints the card's name and power limit, keeps TF32 off;
-2. build: compiles the CSR SpMV kernel and the Matrix Market parser from the
-   checkout's sources, and reads a file through the parser;
+2. build: compiles the CUDA kernels (one compiler process a source, started
+   together) and the host library (Matrix Market parser, RCM ordering) from
+   the checkout's sources, and reads a file through the parser;
 3. kernel vs plain: every kernel instance against its plain PyTorch version
    on the card, on small matrices with empty rows, rows wider than 32, one
    50,000-entry row, a rectangular shape and subnormal inputs, on shapes at
@@ -23,8 +24,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    stand-ins with fp64 and each low precision, with the launch counts, the
    fp64 result against the host oracle and the rows' cross-precision error;
    then one sweep row under the profiler, for where its time goes;
-5. result: a JSON line of the kernels, then the device line last.
+5. band kernels vs plain: the block-LU kernel against ``block_lu_plain`` on
+   diagonally dominant blocks and blocks with planted zero, tiny and
+   exactly-eps pivots (P in 16, 32, 128; 1 and 7 blocks; read in place from a
+   band and contiguous; fp32, fp32_ftz, fp64 and bf16 input), and the sweep
+   kernel against ``band_sweep_plain`` on factored bands (one block row,
+   ml != mu, n not a multiple of P, ml = nb, all four instances), each twice,
+   bitwise equal;
+6. direct path at full width: ``factorize(a, "fp32", method="auto")`` and
+   ``solve_refined`` on the 2cubes_sphere stand-in at catalogue size, with
+   the launch counts of the block-LU, sweep and fp64 SpMV kernels, the host
+   oracle's residual and the error against the known solution; then the fp64
+   factorization and direct solve of the same matrix, bf16 and fp32_ftz with
+   refinement on a 300 x 300 grid Laplacian, the condition estimate, and the
+   refusals of the auto chain (offshore, dc1); the phase times, and both band
+   kernels timed at the full-width shapes beside bound, library and plain;
+7. result: a JSON line of the kernels, then the device line last.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,11 +56,15 @@ import torch  # noqa: E402
 
 from respatpu_torch import io as rio  # noqa: E402
 from respatpu_torch.bench import corpus, runner  # noqa: E402
-from respatpu_torch.bench.synth import mesh_fem_3d, row_block_edges  # noqa: E402
+from respatpu_torch import solve as slv  # noqa: E402
+from respatpu_torch.bench.synth import (laplacian_2d, mesh_fem_3d, random_banded,  # noqa: E402
+                                        row_block_edges, skew_banded)
 from respatpu_torch.formats import COOMatrix, CSRMatrix, coo_to_csr  # noqa: E402
 from respatpu_torch.io import native  # noqa: E402
 from respatpu_torch.kernels import _build  # noqa: E402
+from respatpu_torch.kernels import bandlu as B  # noqa: E402
 from respatpu_torch.kernels import spmv as K  # noqa: E402
+from respatpu_torch.precision import get_policy  # noqa: E402
 from respatpu_torch.solve import WARMUP  # noqa: E402
 from respatpu_torch.timing import (OpTiming, ProfilerUnavailable, check_plausible,  # noqa: E402
                                    device_bandwidth, device_events, kernel_times,
@@ -63,6 +84,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 # PyTorch has a sparse CSR product for fp32 and fp64 only: none that flushes
 # subnormals, none with bf16 values against an fp32 vector.
 HAS_LIBRARY = ("fp32", "fp64")
+# The band kernels (csrc/band_lu.cu): what each replaces, and the card's
+# published rates outside the tensor cores (NVIDIA's H100 SXM data sheet).
+BAND_SOURCE = "respatpu_torch/kernels/csrc/band_lu.cu"
+LU_REPLACES = "respatpu/kernels/dflinalg.py:43"
+SWEEP_REPLACES = "respatpu/kernels/bandlu.py:284"
+FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 33.5e12}
+INST = {"fp32": "f32", "fp32_ftz": "f32_ftz", "bf16": "bf16", "fp64": "f64"}
+# max|kernel - plain| / max|plain|: the block LU takes the plain version's
+# operations in the plain version's order; the sweep sums in another order
+LU_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-5, torch.float64: 1e-13}
+SWEEP_TOL = {"fp32": 2e-5, "fp32_ftz": 2e-5, "bf16": 2e-5, "fp64": 1e-12}
 
 
 def card() -> str:
@@ -241,6 +273,293 @@ def profile_sweep_row(name_limit):
         print(f"[profile]   {kind}: {len(v)} events, {sum(v) * 1e3:.3f} ms", flush=True)
 
 
+def check_block_lu(errs):
+    """The block-LU kernel against its plain version; see the docstring."""
+    rng = np.random.default_rng(11)
+    for dt, flush in ((torch.float32, False), (torch.float32, True), (torch.bfloat16, False),
+                      (torch.float64, False)):
+        eps = 1e-13 if dt == torch.float64 else 2.0 ** -13  # exact in bf16 and fp32
+        plants = [0.0, eps, eps / 2, -eps / 2, -eps, 2 * eps, None]
+        name = "respa_block_lu_" + ("f64" if dt == torch.float64 else "f32_ftz" if flush
+                                    else "f32")
+        for p in (16, 32, 128):
+            for nblocks in (1, 7):
+                blk = rng.standard_normal((nblocks, p, 3 * p)) + np.tile(4 * np.sqrt(p) * np.eye(p), 3)
+                for i in range(nblocks):
+                    plant = plants[i if nblocks > 1 else 0]
+                    if plant is not None:
+                        blk[i, 0, p] = plant
+                if flush:
+                    blk[:, 1, p + 2] = 1e-40  # a subnormal entry, flushed on load
+                band = torch.from_numpy(blk).to(dt).cuda()
+                for x in (band[:, :, p:2 * p], band[:, :, p:2 * p].contiguous()):
+                    lu, cnt = B.block_lu(x, eps, flush)
+                    torch.cuda.synchronize()
+                    ref, rcnt = B.block_lu_plain(x, eps, flush)
+                    scale = float(ref.abs().max())
+                    err = float((lu - ref).abs().max()) / scale
+                    again = B.block_lu(x, eps, flush)
+                    planted = sum(pl is not None and abs(pl) <= eps
+                                  for pl in plants[:nblocks if nblocks > 1 else 1])
+                    if (not np.isfinite(err) or err > LU_TOL[dt] or not torch.equal(cnt, rcnt)
+                            or int(cnt.sum()) < planted
+                            or not (torch.equal(lu, again[0]) and torch.equal(cnt, again[1]))):
+                        raise AssertionError(f"{name} P={p} B={nblocks}: err {err:.3e}, counts "
+                                             f"{cnt.tolist()} vs plain {rcnt.tolist()}")
+                    errs[name] = max(errs.get(name, 0.0), float((lu - ref).abs().max()))
+                print(f"[kernel] {name:24s} {str(dt):15s} P={p:3d} B={nblocks} in-band and "
+                      f"contiguous: rel_err={err:.3e} (tol {LU_TOL[dt]:.0e}) perturbed="
+                      f"{int(cnt.sum())} bitwise twice", flush=True)
+
+
+def sweep_cases():
+    """(name, matrix, P): one block row, ml != mu, n not a multiple of P,
+    ml = nb, a grid Laplacian, and P = 128."""
+    return [("one_block_row", random_banded(100, 30, 6, seed=1), 128),
+            ("ml_ne_mu", skew_banded(500, 70, 20, 7, seed=2), 16),
+            ("ml_ne_mu_32", skew_banded(700, 40, 130, 7, seed=3), 32),
+            ("ml_eq_nb", random_banded(100, 99, 10, seed=4), 16),
+            ("laplacian_2d", laplacian_2d(40, 23), 32),
+            ("banded_p128", random_banded(1000, 300, 9, seed=5), 128)]
+
+
+def check_band_sweep(errs):
+    """The sweep kernel against its plain version on factored bands."""
+    rng = np.random.default_rng(12)
+    for cname, a, p in sweep_cases():
+        for policy in SWEEP_TOL:
+            lu = B.band_lu(B.csr_to_device_band(a, policy, "cuda", p=p)).lu
+            if cname == "ml_ne_mu" and lu.ml == lu.mu or cname == "ml_eq_nb" and lu.ml != lu.nb:
+                raise AssertionError(f"{cname}: shape ml={lu.ml} mu={lu.mu} nb={lu.nb}")
+            b = torch.from_numpy(rng.standard_normal(lu.nb * p)).to(lu.policy.accum_dtype).cuda()
+            if policy == "fp32_ftz":
+                b[::7] = 1e-40  # subnormal right-hand-side entries, flushed on load
+            worst = 0.0
+            for fwd in (True, False):
+                name = f"respa_band_sweep_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
+                y = B.band_sweep(lu, b, fwd)
+                torch.cuda.synchronize()
+                ref = B.band_sweep_plain(lu, b, fwd)
+                err = float((y - ref).abs().max() / ref.abs().max())
+                if not (err <= SWEEP_TOL[policy]) or not torch.equal(y, B.band_sweep(lu, b, fwd)):
+                    raise AssertionError(f"{name} {cname}: err {err:.3e} or not reproducible")
+                errs[name] = max(errs.get(name, 0.0), float((y - ref).abs().max()))
+                worst = max(worst, err)
+            print(f"[kernel] band_sweep {cname:14s} {policy:8s} n={a.nrows} P={p} nb={lu.nb} "
+                  f"ml={lu.ml} mu={lu.mu}: rel_err={worst:.3e} (tol {SWEEP_TOL[policy]:.0e}) "
+                  f"bitwise twice", flush=True)
+
+
+def events_ms(fn, reps):
+    """Median milliseconds of ``fn`` by CUDA events, after one warm call."""
+    return time_op(fn, "cuda", warmup=1, reps=reps).median * 1e3
+
+
+def profiler_ms(fn, name_part, reps):
+    try:
+        return float(np.median(kernel_times([fn], name_part, reps=reps)[0])) * 1e3
+    except ProfilerUnavailable as e:
+        print(f"[time] {name_part}: profiler time not measured ({e})", flush=True)
+        return None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def time_block_lu(name_limit, fac32, fac64, times):
+    """The block-LU kernel at the main path's shape: one diagonal block of
+    128 read in place from the uploaded band."""
+    for name, fac, flush in (("respa_block_lu_f32", fac32, False),
+                             ("respa_block_lu_f32_ftz", fac32, True),
+                             ("respa_block_lu_f64", fac64, False)):
+        band = fac._dev
+        p, ml = band.p, band.ml
+        x = band.data[band.nb // 2][None, :, ml * p:(ml + 1) * p]
+        eps = 1e-6
+        acc = band.policy.accum_dtype
+        nbytes = p * p * (x.element_size() + torch.empty(0, dtype=acc).element_size()) + 4
+        flops = 2 * p ** 3 / 3
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[acc] * 1e3
+        dense = x[0].contiguous()
+        lib_lu = torch.linalg.lu_factor(dense, pivot=False)[0]
+        ours = B.block_lu(x, eps, flush)[0][0]
+        if float((lib_lu - ours).abs().max() / ours.abs().max()) > LU_TOL[x.dtype] * 50:
+            raise AssertionError(f"{name}: lu_factor(pivot=False) disagrees with the kernel")
+        t = {"ms": events_ms(lambda: B.block_lu(x, eps, flush), 20),
+             "plain_ms": events_ms(lambda: B.block_lu_plain(x, eps, flush), 2),
+             "library_ms": events_ms(lambda: torch.linalg.lu_factor(dense, pivot=False), 20),
+             "profiler_ms": profiler_ms(lambda: B.block_lu(x, eps, flush), "block_lu_kernel", 10),
+             "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "shape": f"1 block of {p} x {p}, row stride {band.width}"}
+        times[name] = t
+        print(f"[time] {name_limit} | {name} {t['shape']}: kernel {fmt_ms(t['ms'])} by events, "
+              f"{fmt_ms(t['profiler_ms'])} by the profiler; bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({nbytes} bytes at 3.35 TB/s = {by_bytes * 1e3:.3f} us, {flops:.0f} flops at "
+              f"{FLOPS_PER_S[acc] / 1e12:.1f} TFLOP/s = {by_ops * 1e3:.3f} us); what it sits at is "
+              f"the chain of {p} dependent pivots; library lu_factor(pivot=False) "
+              f"{fmt_ms(t['library_ms'])}; plain {fmt_ms(t['plain_ms'])}", flush=True)
+
+
+def time_band_sweep(name_limit, lu, policy, times):
+    """Both sweeps of one factored band at the main path's shape."""
+    lu = dataclasses.replace(lu, policy=get_policy(policy),
+                             data=lu.data.to(get_policy(policy).dtype))
+    acc = lu.policy.accum_dtype
+    b = torch.ones(lu.nb * lu.p, dtype=acc, device="cuda")
+    vec = torch.empty(0, dtype=acc).element_size()
+    for fwd in (True, False):
+        name = f"respa_band_sweep_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
+        m = lu.ml if fwd else lu.mu
+        # the panels a sweep reads: min(m, q) of them in row q, and the diagonal block
+        blocks = sum(min(m, q) + 1 for q in range(lu.nb))
+        nbytes = blocks * lu.p * lu.p * lu.data.element_size() + 3 * lu.nb * lu.p * vec
+        flops = 2 * blocks * lu.p * lu.p
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[acc] * 1e3
+        y = B.band_sweep(lu, b, fwd)
+        t0 = time.perf_counter()
+        ref = B.band_sweep_plain(lu, b, fwd)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((y - ref).abs().max() / ref.abs().max())
+        if not err <= SWEEP_TOL[policy]:
+            raise AssertionError(f"{name} at full width: err {err:.3e}")
+        t = {"ms": events_ms(lambda: B.band_sweep(lu, b, fwd), 5), "plain_ms": plain_ms,
+             "library_ms": None,
+             "profiler_ms": profiler_ms(lambda: B.band_sweep(lu, b, fwd), "band_sweep_kernel", 5),
+             "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "shape": f"nb={lu.nb} P={lu.p} ml={lu.ml} mu={lu.mu}", "max_abs_err_full": err}
+        times[name] = t
+        print(f"[time] {name_limit} | {name} {t['shape']}: kernel {fmt_ms(t['ms'])} by events, "
+              f"{fmt_ms(t['profiler_ms'])} by the profiler; bound {t['bound_ms']:.4f} ms "
+              f"({nbytes} bytes at 3.35 TB/s; {flops} flops would take {by_ops:.4f} ms); "
+              f"library none; plain {plain_ms:.1f} ms (one run, synchronised host clock); "
+              f"rel_err vs plain {err:.2e}", flush=True)
+
+
+def factor_bound(band, acc):
+    """Least milliseconds of one band factorization: its products' and
+    TRSMs' flops at the card's rate for the type, or the band read and
+    written once at the memory rate, whichever is more."""
+    p, ml, mu, nb = band.p, band.ml, band.mu, band.nb
+    flops = 0
+    for r in range(nb):
+        k = min(ml, nb - 1 - r)
+        flops += 2 * p ** 3 / 3 + p * p * mu * p + k * p * p * p + 2 * k * p * p * mu * p
+    nbytes = 2 * band.data.numel() * band.data.element_size()
+    return flops, nbytes, max(flops / FLOPS_PER_S[acc], nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def reset_counts():
+    for counts in (B.LAUNCHES, K.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def direct_path(name_limit, a, times):
+    """Phase 6; returns the band kernels' launch counts on the direct path
+    and the fp64 SpMV's."""
+    b, x_true = slv.make_rhs_for_known_x(a)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+    # fp32 factorization, a second (warm) one, and the refined solve
+    fac = slv.factorize(a, "fp32", method="auto", device="cuda")
+    t_warm = fac.refactorize_timed()
+    x, rep = slv.solve_refined(a, b, fac=fac)
+    peak = torch.cuda.max_memory_allocated()
+    nb = fac._lu.nb
+    err = slv.inf_norm_error(x, x_true)
+    got = dict(B.LAUNCHES, spmv_fp64=K.LAUNCHES["fp64"])
+    solves = rep.iterations - 1  # the last residual is followed by no solve
+    want = {"respa_block_lu_f32": 2 * nb, "respa_band_sweep_fwd_f32": solves,
+            "respa_band_sweep_bwd_f32": solves, "spmv_fp64": rep.iterations}
+    if any(got[k] != want.get(k, 0) for k in got):
+        raise AssertionError(f"direct path launches {got}, expected {want}")
+    if not (rep.notes.startswith("method=band") and rep.converged and rep.residual <= 1e-10
+            and err <= 1e-8 and np.isfinite(x).all() and x.shape == (a.nrows,)):
+        raise AssertionError(f"direct path: {rep}, inf_norm_error {err:.3e}")
+    flops, nbytes, bound = factor_bound(fac._dev, torch.float32)
+    print(f"[direct] {name_limit} | 2cubes_sphere n={a.nrows} nnz={a.nnz} fp32 [{rep.notes}] "
+          f"P={fac._lu.p} nb={nb} ml={fac._lu.ml} mu={fac._lu.mu} band "
+          f"{fac.report.factor_bytes / 1e9:.2f} GB: analyze {rep.t_analyze:.3f} s, factor cold "
+          f"{rep.t_factorize * 1e3:.1f} ms, factor warm {t_warm * 1e3:.1f} ms, refined solve "
+          f"{rep.t_solve * 1e3:.1f} ms in {rep.iterations} iterations (host clock, each phase "
+          f"ended by a device synchronize); residual {rep.residual:.3e} (host oracle), "
+          f"inf_norm_error {err:.3e}, pivots perturbed {rep.n_pivot_perturbed}, pivot growth "
+          f"{fac.report.pivot_growth:.3e}, peak device memory {peak / 1e9:.2f} GB", flush=True)
+    print(f"[direct] {name_limit} | factorization bound {bound:.2f} ms ({flops:.3e} flops at 67 "
+          f"TFLOP/s, fp32 outside the tensor cores, NVIDIA's data sheet; {nbytes} bytes at 3.35 "
+          f"TB/s); warm factorization is {t_warm * 1e3 / bound:.1f}x its bound", flush=True)
+    print(f"[direct] launches of the fp32 row {got}", flush=True)
+
+    # fp64 factorization and direct solve of the same matrix
+    fac64 = slv.factorize(a, "fp64", method="auto", device="cuda")
+    x64 = fac64.solve(b)
+    r64 = fac64.report
+    if not (r64.residual <= 1e-12 and slv.inf_norm_error(x64, x_true) <= 1e-8
+            and r64.notes.startswith("method=band")):
+        raise AssertionError(f"fp64 direct: {r64}")
+    flops, nbytes, bound64 = factor_bound(fac64._dev, torch.float64)
+    print(f"[direct] {name_limit} | 2cubes_sphere fp64 [{r64.notes}] band "
+          f"{r64.factor_bytes / 1e9:.2f} GB: analyze {r64.t_analyze:.3f} s, factor "
+          f"{r64.t_factorize * 1e3:.1f} ms (bound {bound64:.2f} ms at 33.5 TFLOP/s), solve "
+          f"{r64.t_solve * 1e3:.1f} ms, residual {r64.residual:.3e}, pivots perturbed "
+          f"{r64.n_pivot_perturbed}", flush=True)
+
+    # bf16 and fp32_ftz with refinement on a grid Laplacian
+    lap = laplacian_2d(300, 300)
+    bl, _ = slv.make_rhs_for_known_x(lap)
+    for policy, tol in (("bf16", 1e-8), ("fp32_ftz", 1e-10)):
+        _, rl = slv.solve_refined(lap, bl, policy=policy, max_iters=60, device="cuda")
+        if not rl.residual <= tol:
+            raise AssertionError(f"{policy} + IR on laplacian_2d(300, 300): {rl}")
+        print(f"[direct] {name_limit} | laplacian_2d(300, 300) {rl.policy}: factor "
+              f"{rl.t_factorize * 1e3:.1f} ms, refined solve {rl.t_solve * 1e3:.1f} ms in "
+              f"{rl.iterations} iterations, residual {rl.residual:.3e} (tol {tol:.0e})", flush=True)
+
+    # the auto chain's refusals
+    for name in ("offshore", "dc1"):
+        try:
+            slv.factorize(corpus.load_matrix(name)[0], "fp32", method="auto", device="cuda")
+        except MemoryError as e:
+            text = str(e)
+            if not ("band: band storage would need" in text and "snlu: not ported" in text
+                    and "sparse: not ported" in text):
+                raise AssertionError(f"{name}: refusal text {text!r}") from e
+            print(f"[direct] {name} refused: {text}", flush=True)
+        else:
+            raise AssertionError(f"{name}: the auto chain did not refuse")
+
+    launches, spmv_direct = dict(B.LAUNCHES), K.LAUNCHES["fp64"]
+    fp64_row = {"respa_block_lu_f64": nb, "respa_band_sweep_fwd_f64": 1,
+                "respa_band_sweep_bwd_f64": 1}
+    if any(launches[k] != v for k, v in fp64_row.items()) or min(launches.values()) < 1:
+        raise AssertionError(f"direct path launches {launches}")
+    print(f"[direct] launches of the whole direct path {launches}, fp64 SpMV {spmv_direct}",
+          flush=True)
+
+    # beside the path, not counted: one unrefined solve, the condition
+    # estimate, and the kernels' times at the full-width shapes
+    t0 = time.perf_counter()
+    x1 = fac.solve(b)
+    t_one = time.perf_counter() - t0
+    print(f"[direct] {name_limit} | one fp32 solve without refinement {t_one * 1e3:.1f} ms, "
+          f"residual {fac.report.residual:.3e}", flush=True)
+    rcond = fac.condest()
+    if not (np.isfinite(rcond) and 0 < rcond <= 1 and np.isfinite(x1).all()):
+        raise AssertionError(f"condest {rcond}")
+    print(f"[direct] condest (Hager, with transpose solves from the band): rcond {rcond:.3e}",
+          flush=True)
+    time_block_lu(name_limit, fac, fac64, times)
+    for policy in ("fp32", "fp32_ftz", "bf16"):
+        time_band_sweep(name_limit, fac._lu, policy, times)
+    time_band_sweep(name_limit, fac64._lu, "fp64", times)
+    return launches, spmv_direct
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -258,7 +577,8 @@ def main():
     t0 = time.perf_counter()
     lib = _build.load()
     print(f"[build] {lib._name} ready in {time.perf_counter() - t0:.2f} s "
-          f"(cap {lib.respa_spmv_csr_cap()}, max rows {lib.respa_spmv_csr_max_rows()})", flush=True)
+          f"(cap {lib.respa_spmv_csr_cap()}, max rows {lib.respa_spmv_csr_max_rows()}, "
+          f"largest band block {lib.respa_band_max_p()})", flush=True)
     check_parser()
 
     # 3. kernel vs plain
@@ -307,8 +627,7 @@ def main():
                   f"plain {us(t['plain_ms'])}", flush=True)
 
     # 4. main path
-    for p in K.LAUNCHES:
-        K.LAUNCHES[p] = 0
+    reset_counts()
     rows = {p: runner.sweep_spmv(list(MAIN), policies=("fp64", p), reps=REPS, device="cuda")
             for p in LOW}
     launches = dict(K.LAUNCHES)
@@ -348,15 +667,31 @@ def main():
                   f"gate_floor_lo={row['timing_lo'].floor_s * 1e6:.2f} us", flush=True)
     profile_sweep_row(name_limit)
 
-    # 5. result
+    # 5. band kernels vs plain
+    band_errs, band_times = {}, {}
+    check_block_lu(band_errs)
+    check_band_sweep(band_errs)
+
+    # 6. direct path at full width
+    band_launches, spmv_direct = direct_path(name_limit, mats[MAIN[0]], band_times)
+    for name, n in band_launches.items():
+        if n < 1:
+            raise AssertionError(f"{name} was not launched on the direct path")
+
+    # 7. result
     kernels = []
     for p in TOL:
-        inst = {"fp32": "f32", "fp32_ftz": "f32_ftz", "bf16": "bf16", "fp64": "f64"}[p]
-        kernels.append({"name": f"respa_spmv_csr_{inst}", "route": "cuda", "source": SOURCE,
+        kernels.append({"name": f"respa_spmv_csr_{INST[p]}", "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[p], "launches": launches[p],
                         "max_abs_err": errs[p], **times[MAIN[0], p], "bound_by": "bytes",
                         "shape": MAIN[0],
-                        "by_matrix": {m: times[m, p] for m in MAIN}})
+                        "by_matrix": {m: times[m, p] for m in MAIN},
+                        **({"launches_direct_path": spmv_direct} if p == "fp64" else {})})
+    for name in B.LAUNCHES:
+        kernels.append({"name": name, "route": "cuda", "source": BAND_SOURCE,
+                        "replaces": LU_REPLACES if "block_lu" in name else SWEEP_REPLACES,
+                        "launches": band_launches[name], "max_abs_err": band_errs[name],
+                        **band_times[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

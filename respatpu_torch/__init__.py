@@ -7,8 +7,11 @@ imports ``torch`` and never ``jax``.
 Ported so far: the dual-precision SpMV path (Matrix Market or corpus
 stand-in input, upload under a precision policy, a hand-written CUDA CSR
 SpMV kernel in fp32, fp32+FTZ, bf16-value and fp64 instances, the
-cross-precision error, timed sweeps). See ROADMAP.md for the order of the
-rest.
+cross-precision error, timed sweeps), and the direct-solve path (RCM
+ordering, blocked band LU with two hand-written CUDA kernels for its
+dependent chains, ``factorize(method="auto")``, mixed-precision iterative
+refinement with fp64 residuals and the GMRES-IR fallback). See ROADMAP.md
+for the order of the rest.
 """
 from . import formats, precision
 from .formats import COOMatrix, CSRMatrix, coo_to_csr
@@ -19,7 +22,8 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    if name in ("solve", "timing", "kernels", "bench", "io", "interop", "cli"):
+    if name in ("solve", "timing", "kernels", "bench", "io", "interop", "cli",
+                "analysis"):
         import importlib
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
@@ -31,5 +35,5 @@ __all__ = [
     "COOMatrix", "CSRMatrix", "coo_to_csr",
     "FP32", "FP32_FTZ", "BF16", "FP64", "Policy", "get_policy",
     "downcast_check", "ftz", "formats", "precision",
-    "solve", "timing", "kernels", "bench", "io", "interop", "cli",
+    "solve", "timing", "kernels", "bench", "io", "interop", "cli", "analysis",
 ]

@@ -10,6 +10,7 @@ from __future__ import annotations
 import hashlib
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 _PACKAGE = os.path.dirname(os.path.abspath(__file__))
@@ -20,10 +21,23 @@ class CompileError(RuntimeError):
     """The compiler could not be run, or failed; carries its stderr."""
 
 
-def build_shared(name: str, sources: Sequence[str], command: Sequence[str]) -> str:
+def _run(cmd: Sequence[str]) -> None:
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    except (OSError, subprocess.SubprocessError) as e:
+        raise CompileError(f"could not run {' '.join(cmd)}: {e}") from e
+    if proc.returncode != 0:
+        raise CompileError(f"{cmd[0]} failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stderr}")
+
+
+def build_shared(name: str, sources: Sequence[str], command: Sequence[str],
+                 per_source: bool = False) -> str:
     """Path of the shared library ``name`` built from ``sources`` (absolute
     paths) by ``command + ["-o", out, *sources]``; compiles only if that
-    library is not there yet."""
+    library is not there yet. With ``per_source`` each source is compiled to
+    an object file by a compiler process of its own, all started together,
+    and the objects are then linked by the same command."""
     h = hashlib.sha256()
     for src in sources:
         with open(src, "rb") as f:
@@ -34,13 +48,17 @@ def build_shared(name: str, sources: Sequence[str], command: Sequence[str]) -> s
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [*command, "-o", tmp, *sources]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    except (OSError, subprocess.SubprocessError) as e:
-        raise CompileError(f"could not run {' '.join(cmd)}: {e}") from e
-    if proc.returncode != 0:
-        raise CompileError(f"{command[0]} failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stderr}")
+    inputs = list(sources)
+    if per_source and len(sources) > 1:
+        inputs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+        with ThreadPoolExecutor(len(sources)) as pool:
+            jobs = [pool.submit(_run, [*command, "-c", "-o", obj, src])
+                    for obj, src in zip(inputs, sources)]
+            for job in jobs:
+                job.result()
+    _run([*command, "-o", tmp, *inputs])
+    for obj in inputs:
+        if obj not in sources:
+            os.remove(obj)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out

@@ -3,8 +3,10 @@ run_*.sh equivalents; the counterpart of ``respatpu.bench.runner``).
 
 Rows follow respatpu's schema, which follows test_spmv.c:51-219
 (threads,matrix,t64,t32,err,date). Synthetic stand-ins are flagged in the
-row, and the append-mode CSV keeps sweeps resumable (test_spmv.c:50). The
-ILU(0) and LU sweeps are ported with their solvers in later slices.
+row, and the append-mode CSV keeps sweeps resumable (test_spmv.c:50).
+``sweep_lu`` is the direct LU sweep with optional fp64 refinement
+(test_pardiso.c / run_pardiso.sh protocol). The ILU(0) sweeps are ported
+with their solvers in later slices.
 """
 from __future__ import annotations
 
@@ -20,11 +22,17 @@ from . import corpus
 from .. import solve as slv
 from ..precision import downcast_check, get_policy
 
-__all__ = ["sweep_spmv", "SPMV_HEADER"]
+__all__ = ["sweep_spmv", "sweep_lu", "SPMV_HEADER", "LU_HEADER"]
 
 SPMV_HEADER = ["policy_hi", "policy_lo", "chips", "matrix", "n", "nnz",
                "synthetic", "t_hi_s", "t_lo_s", "t_lo_min_s", "t_lo_std_s",
                "mean_abs_err", "n_overflow", "timestamp"]
+
+
+LU_HEADER = ["policy", "matrix", "n", "nnz", "synthetic", "method",
+             "t_analyze_s", "t_factor_s", "t_factor_warm_s", "t_solve_s",
+             "iterations", "rel_residual", "pivots_perturbed", "status",
+             "timestamp"]
 
 
 def _ts() -> str:
@@ -75,4 +83,63 @@ def sweep_spmv(names: Sequence[str], csv_path: Optional[str] = None,
             print(f"[spmv] {name}: t_{policies[0]}={t_hi.median*1e6:.2f}us "
                   f"t_{policies[1]}={t_lo.median*1e6:.2f}us err={err:.2e}"
                   f"{' (synthetic)' if synth else ''}")
+    return out
+
+
+def sweep_lu(names: Sequence[str], csv_path: Optional[str] = None,
+             policy="fp32", refine: bool = True, method: str = "auto",
+             matching="auto", max_synth_nnz: Optional[int] = 8_000_000,
+             max_band_bytes: int = 4 << 30, verbose: bool = True,
+             device: Union[str, torch.device] = "cuda"):
+    """Direct LU factorize+solve sweep with optional fp64 refinement
+    (test_pardiso.c / run_pardiso.sh protocol).
+
+    Routes through ``solve.factorize``'s auto chain, of which band LU is the
+    one method ported so far: a matrix whose band does not fit
+    ``max_band_bytes`` gets an ``infeasible`` row that names the refusal.
+    The method that served each row is recorded in the ``method`` column;
+    ``t_factor_s`` is the first factorization, ``t_factor_warm_s`` a second
+    one (PARDISO phase 22 is reported warm by the reference protocol too,
+    run_pardiso.sh 11-rep loop)."""
+    out = []
+    for name in names:
+        a, synth = corpus.load_matrix(name, max_synth_nnz=max_synth_nnz)
+        b, _ = slv.make_rhs_for_known_x(a)
+        used = ""
+        t_warm = float("nan")
+        try:
+            fac = slv.factorize(a, policy=policy, method=method,
+                                matching=matching,
+                                max_band_bytes=max_band_bytes, device=device)
+            used = fac.report.notes
+            t_warm = fac.refactorize_timed()
+            if refine:
+                _, rep = slv.solve_refined(a, b, fac=fac)
+            else:
+                fac.solve(b)
+                rep = fac.report
+            # status gates on convergence, not mere completion: a refined
+            # solve that stagnated above the 1e-10 reference gate must not
+            # read "ok" (the SuperLU_MT test program alarms at exactly this
+            # threshold, test_superLU_MT.c:230-234)
+            status = "ok" if rep.converged else "stagnated"
+        except MemoryError as e:
+            rep = slv.SolveReport(policy=get_policy(policy).name, notes=str(e))
+            status = "infeasible"
+            used = str(e)[:120]  # surface the binding ceiling in the row
+        except Exception as e:  # a sweep must report, not abort (run_*.sh)
+            rep = slv.SolveReport(policy=get_policy(policy).name,
+                                  notes=f"{type(e).__name__}: {e}")
+            status = "error"
+            used = f"{type(e).__name__}: {e}"[:120]
+        row = [rep.policy, name, a.shape[0], a.nnz, int(synth), used,
+               f"{rep.t_analyze:.4f}", f"{rep.t_factorize:.4f}",
+               f"{t_warm:.4f}", f"{rep.t_solve:.4f}", rep.iterations,
+               f"{rep.residual:.3e}", rep.n_pivot_perturbed, status, _ts()]
+        _append(csv_path, LU_HEADER, row)
+        out.append(dict(zip(LU_HEADER, row)))
+        if verbose:
+            print(f"[lu] {name}: {status} [{used}] "
+                  f"factor={rep.t_factorize:.3f}s "
+                  f"resid={rep.residual:.2e}{' (synthetic)' if synth else ''}")
     return out

@@ -17,7 +17,7 @@ import numpy as np
 
 from ..formats import COOMatrix, CSRMatrix, coo_to_csr
 
-__all__ = ["laplacian_3d", "laplacian_2d", "random_banded", "powerlaw",
+__all__ = ["laplacian_3d", "laplacian_2d", "random_banded", "skew_banded", "powerlaw",
            "mesh_fem_3d", "circuit_like", "make_spd_like", "synth_like",
            "from_row_lengths", "row_block_edges"]
 
@@ -73,6 +73,21 @@ def random_banded(n: int, bandwidth: int, nnz_per_row: int, seed: int = 0,
     if diag_dominant:
         a = _add_dominant_diag(a)
     return a
+
+
+def skew_banded(n: int, lower: int, upper: int, nnz_per_row: int, seed: int = 0) -> CSRMatrix:
+    """Diagonally dominant random matrix whose lower and upper bandwidths
+    differ: offsets drawn from [-lower, upper], with one entry at each
+    extreme so that both bandwidths are reached."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), nnz_per_row)
+    offs = rng.integers(-lower, upper + 1, size=rows.shape[0])
+    cols = np.clip(rows + offs, 0, n - 1)
+    rows = np.concatenate([rows, [lower, 0]])
+    cols = np.concatenate([cols, [0, upper]])
+    vals = rng.standard_normal(rows.shape[0])
+    coo = COOMatrix((n, n), rows.astype(np.int32), cols.astype(np.int32), vals)
+    return _add_dominant_diag(coo_to_csr(coo))
 
 
 def powerlaw(n: int, avg_nnz_per_row: int, alpha: float = 1.8, seed: int = 0,

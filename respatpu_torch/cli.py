@@ -1,14 +1,15 @@
 """Command-line drivers of the port:
 
   python -m respatpu_torch spmv  <matrix.mtx|corpus-name> [--policy fp32] [--csv out.csv]
-  python -m respatpu_torch sweep spmv [--group moderate|big|all]
+  python -m respatpu_torch lu    <matrix.mtx|corpus-name> [--method auto|band] [--no-refine]
+  python -m respatpu_torch sweep spmv|lu [--group moderate|big|all]
 
-Both run on ``--device cuda`` (the default), through the hand-written CSR
-kernel; without a card they refuse to run unless ``--device cpu`` is given,
-which runs the kernel's plain PyTorch version on the host. The high
+All run on ``--device cuda`` (the default), through the hand-written
+kernels; without a card they refuse to run unless ``--device cpu`` is given,
+which runs the kernels' plain PyTorch versions on the host. The high
 precision is fp64; ``--policy`` picks the low one (fp32 | fp32_ftz | bf16).
-respatpu's other subcommands (ilu0, lu, sweep ilu0|lu|ilu0dist, fetch,
-study, scaling) are not ported yet.
+respatpu's other subcommands (ilu0, sweep ilu0|ilu0dist, fetch, study,
+scaling) are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-_NOT_PORTED = ("ilu0", "lu", "fetch", "study", "scaling")
+_NOT_PORTED = ("ilu0", "fetch", "study", "scaling")
 
 
 def _load(spec: str):
@@ -59,8 +60,28 @@ def cmd_spmv(args):
                           device=device)
 
 
+def cmd_lu(args):
+    from . import solve as slv
+    device = _device(args.device)
+    a, synth, name = _load(args.matrix)
+    b, x_true = slv.make_rhs_for_known_x(a)
+    fac = slv.factorize(a, policy=args.policy, method=args.method, device=device)
+    if args.no_refine:
+        x = fac.solve(b)
+        rep = fac.report
+    else:
+        x, rep = slv.solve_refined(a, b, fac=fac)
+    print(f"{name}: policy={rep.policy} [{fac.report.notes}] "
+          f"analyze={rep.t_analyze:.3f}s factorize={rep.t_factorize:.3f}s "
+          f"solve={rep.t_solve:.3f}s iterations={rep.iterations} "
+          f"rel_residual={rep.residual:.3e} "
+          f"inf_norm_error={slv.inf_norm_error(x, x_true):.3e} "
+          f"pivots_perturbed={rep.n_pivot_perturbed} device={device}"
+          f"{' (synthetic)' if synth else ''}")
+
+
 def cmd_sweep(args):
-    if args.kind != "spmv":
+    if args.kind not in ("spmv", "lu"):
         raise SystemExit(f"sweep {args.kind} is not ported to respatpu_torch yet")
     from .bench import corpus, runner
     device = _device(args.device)
@@ -69,6 +90,11 @@ def cmd_sweep(args):
     kw = {}
     if args.max_synth_nnz is not None:
         kw["max_synth_nnz"] = args.max_synth_nnz
+    if args.kind == "lu":
+        runner.sweep_lu([e.name for e in entries], csv_path=args.csv,
+                        policy=args.policy, method=args.method,
+                        refine=not args.no_refine, device=device, **kw)
+        return
     runner.sweep_spmv([e.name for e in entries], csv_path=args.csv,
                       policies=("fp64", args.policy), reps=args.reps,
                       device=device, **kw)
@@ -98,6 +124,19 @@ def main(argv=None):
     common(sp)
     sp.set_defaults(fn=cmd_spmv)
 
+    def direct(sp):
+        sp.add_argument("--method", default="auto",
+                        choices=["auto", "band", "snlu", "multifrontal", "sparse"],
+                        help="auto | band (the others are not ported yet)")
+        sp.add_argument("--no-refine", action="store_true",
+                        help="one direct solve, no fp64 iterative refinement")
+
+    sp = sub.add_parser("lu", help="direct LU factorize + refined solve")
+    sp.add_argument("matrix")
+    common(sp)
+    direct(sp)
+    sp.set_defaults(fn=cmd_lu)
+
     sp = sub.add_parser("sweep", help="corpus sweep")
     sp.add_argument("kind", choices=["spmv", "ilu0", "lu", "ilu0dist"])
     sp.add_argument("--group", default="moderate",
@@ -105,6 +144,7 @@ def main(argv=None):
     sp.add_argument("--max-synth-nnz", type=int, default=None,
                     help="cap synthetic stand-in size (default: per-sweep)")
     common(sp)
+    direct(sp)
     sp.set_defaults(fn=cmd_sweep)
 
     for name in _NOT_PORTED:

@@ -1,11 +1,12 @@
-"""ctypes bindings for the port's native Matrix Market parser
-(``io/csrc/mtx_parse.cpp``): the header and the coordinate-entry parsers.
+"""ctypes bindings for the port's native host library: the Matrix Market
+parser (``io/csrc/mtx_parse.cpp``: the header and the coordinate-entry
+parsers) and the reverse Cuthill-McKee ordering (``io/csrc/rcm_order.cpp``).
 
-The source is the port's own. It is compiled at first use with the host C++
+The sources are the port's own. They are compiled at first use with the host C++
 compiler into the checkout's ``build/`` directory
 (``respatpu_torch._buildlib``) and loaded from there. When no C++ compiler
-is present the caller falls back to the numpy parser (host parsing; nothing
-on the device depends on it).
+is present the callers fall back to the numpy parser and the Python
+breadth-first search (host work; nothing on the device depends on it).
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import numpy as np
 
 from .._buildlib import CompileError, build_shared
 
-_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "mtx_parse.cpp")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_SOURCE = os.path.join(_CSRC, "mtx_parse.cpp")
+_SOURCES = (_SOURCE, os.path.join(_CSRC, "rcm_order.cpp"))
 _CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lib = None
@@ -27,6 +30,7 @@ _lock = threading.Lock()
 _build_failed = False
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
+_i64p = ctypes.POINTER(ctypes.c_int64)
 _f64p = ctypes.POINTER(ctypes.c_double)
 
 
@@ -42,7 +46,7 @@ def _build() -> Optional[str]:
     if not cxx:
         return None
     try:
-        return build_shared("librespa_mtx.so", [_SOURCE], [cxx, *_CXX_FLAGS])
+        return build_shared("librespa_host.so", list(_SOURCES), [cxx, *_CXX_FLAGS])
     except CompileError:
         return None
 
@@ -65,8 +69,11 @@ def _load() -> Optional[ctypes.CDLL]:
                                           ctypes.c_int64, ctypes.c_int32,
                                           _i32p, _i32p, _f64p, ctypes.c_int32]
         lib.mtx_parse_entries.restype = ctypes.c_int64
+        lib.rcm_order_csr.argtypes = [ctypes.c_int64, _i64p, _i32p, _i32p]
+        lib.rcm_order_csr.restype = ctypes.c_int
         _lib = lib
         return _lib
+
 
 def available() -> bool:
     return _load() is not None
@@ -102,3 +109,20 @@ def mtx_parse(path: str, nthreads: int = 0):
     if got < nnz:
         raise ValueError(f"native mtx parse failed ({got}) for {path}")
     return info, row, col, val
+
+
+def rcm(n: int, indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Reverse Cuthill-McKee order of an n x n matrix given by its CSR
+    pattern (int64 row pointer, int32 columns); the routine symmetrizes it
+    and drops the diagonal itself."""
+    lib = _load()
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = np.ascontiguousarray(indices, np.int32)
+    if indptr.shape != (n + 1,) or indices.shape != (int(indptr[-1]),):
+        raise ValueError("rcm: indptr and indices do not describe n rows")
+    order = np.empty(n, dtype=np.int32)
+    rc = lib.rcm_order_csr(n, indptr.ctypes.data_as(_i64p), indices.ctypes.data_as(_i32p),
+                           order.ctypes.data_as(_i32p))
+    if rc != 0:
+        raise ValueError(f"rcm: a column index is out of range ({rc})")
+    return order

@@ -16,11 +16,14 @@ from typing import Sequence
 from .._buildlib import CompileError, build_shared
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("spmv_csr.cu",)
+SOURCES = ("spmv_csr.cu", "band_lu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 _ENTRIES = ("respa_spmv_csr_f32", "respa_spmv_csr_f32_ftz",
             "respa_spmv_csr_bf16", "respa_spmv_csr_f64")
+_BLOCK_LU = ("respa_block_lu_f32", "respa_block_lu_f32_ftz", "respa_block_lu_f64")
+_BAND_SWEEP = tuple(f"respa_band_sweep_{d}_{i}" for d in ("fwd", "bwd")
+                    for i in ("f32", "f32_ftz", "bf16", "f64"))
 
 _lib = None
 _lock = threading.Lock()
@@ -32,7 +35,7 @@ def _nvcc() -> str:
         path = "/usr/local/cuda/bin/nvcc"
     if path is None:
         raise CompileError("nvcc not found on PATH or in /usr/local/cuda/bin; "
-                           "the CUDA toolkit is needed to build the SpMV kernel")
+                           "the CUDA toolkit is needed to build the kernels")
     return path
 
 
@@ -45,14 +48,26 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """
     path = build_shared("librespa_kernels.so",
                         [os.path.join(_CSRC, s) for s in SOURCES],
-                        [_nvcc(), *NVCC_FLAGS, *extra_flags])
+                        [_nvcc(), *NVCC_FLAGS, *extra_flags], per_source=True)
     lib = ctypes.CDLL(path)
     for name in _ENTRIES:
         fn = getattr(lib, name)
         # device, n_blocks, then row_blocks, indptr, indices, vals, x, y, stream
         fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
         fn.restype = ctypes.c_int
-    for name in ("respa_spmv_csr_cap", "respa_spmv_csr_max_rows"):
+    for name in _BLOCK_LU:
+        fn = getattr(lib, name)
+        # device, nblocks, p, in, in_is_bf16, ld, batch_stride, eps, lu, n_perturbed, stream
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in _BAND_SWEEP:
+        fn = getattr(lib, name)
+        # device, nb, p, ml, mu, then band, b, out, mail, stream
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+        fn.restype = ctypes.c_int
+    for name in ("respa_spmv_csr_cap", "respa_spmv_csr_max_rows", "respa_band_max_p"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     return lib

@@ -1,22 +1,44 @@
-"""SpMV front end and the verification idioms (SURVEY.md §4).
+"""User-facing solver API: SpMV front end, the banded direct solver, the
+automatic method choice, mixed-precision iterative refinement, and the
+verification idioms (SURVEY.md §4).
 
-The counterpart of ``respatpu/solve.py:100-174``. The direct solvers, the
-ILU(0) preconditioner and the Krylov loops are ported in later slices.
+The counterpart of ``respatpu/solve.py``:
+
+* ``spmv_timed``           — test_spmv.c / GPU/spmv.cu
+* ``BandLuFactorization``  — test_pardiso.c / test_superLU_MT.c /
+                             test_mumps.c (direct LU factorize + solve)
+* ``factorize``            — the method chain; band LU is the one method
+                             ported so far
+* ``solve_refined``        — factor in fp32/bf16, residual in fp64: the
+                             study's headline pipeline
+* residual / error verification — the reference's three idioms.
+
+Phase timing (analyze / factorize / solve) mirrors PARDISO phases 11/22/33
+(test_pardiso.c:185-244); each phase ends after a device synchronize. The
+multifrontal and the scheduled sparse LU, GESP matching, the ILU(0)
+preconditioner and the Krylov loops are ported in later slices.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import inspect
+import time
+from dataclasses import dataclass
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .analysis import permute_csr, rcm_ordering, structural_symmetry
 from .formats import CSRMatrix
+from .kernels import bandlu
 from .kernels.spmv import spmv, to_device
 from .precision import Policy, get_policy
 from .timing import (OpTiming, check_plausible, device_bandwidth,
                      spmv_csr_sol_bytes, time_op)
 
-__all__ = ["spmv_timed", "relative_residual", "inf_norm_error",
+__all__ = ["SolveReport", "spmv_timed", "condition_estimate",
+           "BandLuFactorization", "factorize_band", "factorize",
+           "solve_refined", "relative_residual", "inf_norm_error",
            "make_rhs_for_known_x"]
 
 WARMUP = 3  # untimed SpMVs before the timed repetitions
@@ -81,3 +103,377 @@ def spmv_timed(a: CSRMatrix, x: np.ndarray, policy: Union[str, Policy] = "fp32",
     nbytes = spmv_csr_sol_bytes(m, n, a.nnz, dev.vals.element_size(), xd.element_size())
     check_plausible(t, nbytes, device_bandwidth(dev.device))
     return y, t
+
+
+# ---------------------------------------------------------------------------
+# Banded direct LU
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SolveReport:
+    """Diagnostics mirroring the reference CSV rows (precision, phase times,
+    residual; test_pardiso.c:290-291) plus the expert-routine extras the
+    superILU path reports (pivot growth / rcond, test_superILU.c:117-152)."""
+
+    policy: str = ""
+    t_analyze: float = 0.0
+    t_factorize: float = 0.0
+    t_solve: float = 0.0
+    iterations: int = 0
+    residual: float = float("nan")
+    n_pivot_perturbed: int = 0
+    converged: bool = True
+    pivot_growth: float = float("nan")  # max|U| / max|A|
+    rcond_est: float = float("nan")  # 1 / (||A||_1 * est ||A^-1||_1)
+    factor_bytes: int = 0  # L/U memory (dQuerySpace equivalent)
+    notes: str = ""
+
+
+def condition_estimate(a: CSRMatrix, solve_fn, iters: int = 5,
+                       solve_t_fn=None) -> float:
+    """Hager/Higham 1-norm estimate of ||A^-1||_1 via repeated solves
+    (the rcond machinery behind gsisx's expert routine). ``solve_fn`` maps a
+    host vector b to A^-1 b; ``solve_t_fn`` maps s to A^-T s (the true
+    Hager iteration). Without it the A^-1 s substitute gives only an
+    order-of-magnitude lower bound."""
+    n = a.nrows
+    x = np.ones(n) / n
+    est = 0.0
+    for _ in range(iters):
+        y = solve_fn(x)
+        est = np.abs(y).sum()
+        s = np.sign(y)
+        s[s == 0] = 1.0
+        z = solve_t_fn(s) if solve_t_fn is not None else solve_fn(s)
+        j = int(np.argmax(np.abs(z)))
+        if np.abs(z[j]) <= float(z @ x):
+            break
+        x = np.zeros(n)
+        x[j] = 1.0
+    return float(est)
+
+
+def _norm1(a: CSRMatrix) -> float:
+    col_abs = np.zeros(a.ncols)
+    np.add.at(col_abs, a.indices, np.abs(a.data))
+    return float(col_abs.max()) if a.ncols else 0.0
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class BandLuFactorization:
+    """RCM + blocked band LU: the direct solver (PARDISO-equivalent pipeline).
+
+    Phases: analyze (ordering on the host, band packing on the device) /
+    factorize (the block-row loop of ``kernels.bandlu.band_lu``) / solve
+    (the two sweep kernels), each timed like phases 11/22/33 and each ended
+    by a device synchronize. ``condest`` runs the true Hager iteration, with
+    A^-T solves read straight from the band factors
+    (``kernels.bandlu.band_solve_transpose``).
+
+    The uploaded band is kept beside its factors (twice the band's bytes on
+    the device) so that :meth:`refactorize_timed` can factor it again.
+    """
+
+    def __init__(self, a: CSRMatrix, policy: Union[str, Policy] = "fp32",
+                 order: str = "rcm", p: int = 128,
+                 max_band_bytes: int = 8 << 30,
+                 device: Union[str, torch.device] = "cuda"):
+        policy = get_policy(policy)
+        if a.shape[0] != a.shape[1]:
+            raise ValueError(f"band LU requires a square matrix, got {a.shape}")
+        self.policy = policy
+        self.a = a
+        self.device = torch.device(device)
+        self.report = SolveReport(policy=policy.name)
+        if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on; the band "
+                               "factorization needs full fp32 products")
+
+        t0 = time.perf_counter()
+        rows = np.repeat(np.arange(a.nrows, dtype=np.int64), a.row_lengths())
+
+        def _bandwidth(perm):
+            # bandwidth under a symmetric permutation, from the edge list
+            # alone (no permuted-CSR materialization)
+            pos = np.empty(a.nrows, dtype=np.int64)
+            pos[perm] = np.arange(a.nrows)
+            d = pos[a.indices] - pos[rows]
+            return ((int(max(0, -d.min())), int(max(0, d.max())))
+                    if d.size else (0, 0))
+
+        self.perm = np.arange(a.nrows, dtype=np.int32)
+        bl, bu = _bandwidth(self.perm)
+        if order == "rcm":
+            # keep whichever of natural / RCM gives the narrower band —
+            # RCM can widen an already-banded matrix
+            rperm = rcm_ordering(a)
+            rbl, rbu = _bandwidth(rperm)
+            if rbl + rbu < bl + bu:
+                self.perm, bl, bu = rperm, rbl, rbu
+        elif order != "natural":
+            raise ValueError(f"unknown order {order!r}")
+        need = bandlu.band_memory_bytes(a.nrows, bl, bu, p,
+                                        policy.dtype == torch.float64)
+        if need > max_band_bytes:
+            raise MemoryError(
+                f"band storage would need {need/2**30:.1f} GiB "
+                f"(bandwidth {bl}+{bu} after RCM); use ILU+Krylov instead")
+        # the permuted matrix; solve_refined's residuals use it too
+        natural = bool((self.perm == np.arange(a.nrows)).all())
+        self._ap = a if natural else permute_csr(a, self.perm)
+        self._dev = bandlu.csr_to_device_band(self._ap, policy, self.device, p=p)
+        _sync(self.device)
+        self.report.t_analyze = time.perf_counter() - t0
+
+        self.report.t_factorize = self.refactorize_timed()
+        amax = float(np.abs(a.data).max()) if a.nnz else 1.0
+        # aminmax allocates nothing of the factor's size; abs().max() would
+        lo, hi = torch.aminmax(self._lu.data)
+        umax = max(abs(float(lo)), abs(float(hi)))
+        self.report.pivot_growth = umax / max(amax, 1e-300)
+        self.report.factor_bytes = self._lu.data.numel() * self._lu.data.element_size()
+
+    def refactorize_timed(self) -> float:
+        """Numeric factorization wall time, to the device synchronize; the
+        port compiles nothing at the first call, so this is simply a second
+        timed run. Refreshes the stored factor."""
+        self._lu = None  # free the old factor before the new one is allocated
+        t0 = time.perf_counter()
+        res = bandlu.band_lu(self._dev)
+        _sync(self.device)
+        dt = time.perf_counter() - t0
+        self._lu = res.lu
+        self.report.n_pivot_perturbed = res.n_pivot_perturbed
+        return dt
+
+    def solve_device(self, bp_dev: torch.Tensor) -> torch.Tensor:
+        """Device-side solve in permuted coordinates (for refinement loops):
+        a tensor in, the solution in the factor's accumulator type out."""
+        return bandlu.band_solve(self._lu, bp_dev)
+
+    def _solve_host(self, b: np.ndarray, solver) -> np.ndarray:
+        bp = np.asarray(b, np.float64)[self.perm]
+        xs = solver(self._lu, torch.from_numpy(bp).to(self.device).to(self.policy.accum_dtype))
+        xh = _to_host_f64(xs)
+        x = np.empty_like(xh)
+        x[self.perm] = xh
+        return x
+
+    def solve(self, b: np.ndarray) -> np.ndarray:
+        """Solve A x = b (host in/out), applying the RCM permutation."""
+        t0 = time.perf_counter()
+        x = self._solve_host(b, bandlu.band_solve)
+        self.report.t_solve = time.perf_counter() - t0
+        self.report.residual = relative_residual(self.a, x, np.asarray(b, np.float64))
+        return x
+
+    def solve_transpose(self, s: np.ndarray) -> np.ndarray:
+        """Solve A^T z = s (host in/out) from the same factors."""
+        return self._solve_host(s, bandlu.band_solve_transpose)
+
+    def condest(self, iters: int = 5) -> float:
+        inv_norm = condition_estimate(self.a, self.solve, iters=iters,
+                                      solve_t_fn=self.solve_transpose)
+        self.report.rcond_est = 1.0 / max(_norm1(self.a) * inv_norm, 1e-300)
+        return self.report.rcond_est
+
+
+def factorize_band(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
+                   **kw) -> BandLuFactorization:
+    return BandLuFactorization(a, policy=policy, **kw)
+
+
+_SLICE = {"snlu": "multifrontal LU (ROADMAP Queue 1, slice 3)",
+          "multifrontal": "multifrontal LU (ROADMAP Queue 1, slice 3)",
+          "sparse": "scheduled sparse LU (ROADMAP Queue 1, slice 4)"}
+
+
+def _memlike(e: Exception) -> bool:
+    """A refusal for lack of memory: the host-side guard's MemoryError, the
+    device allocator's OutOfMemoryError, or a message that says so."""
+    s = str(e)
+    return (isinstance(e, (MemoryError, torch.cuda.OutOfMemoryError))
+            or "RESOURCE_EXHAUSTED" in s or "Out of memory" in s
+            or "out of memory" in s)
+
+
+def factorize(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
+              method: str = "auto", matching: Union[bool, str] = "auto",
+              **kw):
+    """Direct factorization with automatic method choice — the PARDISO-parity
+    entry point every command routes through (test_pardiso.c:185-244).
+
+    * method="band":  dense band LU after RCM (BandLuFactorization)
+    * method="snlu" / "multifrontal" / "sparse": not ported yet; they raise
+      ``NotImplementedError`` naming the slice that brings them
+    * method="auto":  band when the band fits the memory budget. When band
+      refuses for lack of memory this raises ``MemoryError`` naming each
+      method's refusal; there is no retry on the CPU and no quiet change of
+      method.
+
+    ``matching``: "auto" is computed as respatpu does (on when the pattern
+    is structurally unsymmetric, < 90 % mirrored positions). The band class
+    takes no matching, so an explicit ``matching=True`` lands in
+    ``report.notes`` as ``matching=unavailable``. The chosen method lands
+    there as ``method=...`` so sweep rows are auditable. ``device`` (in
+    ``kw``) defaults to "cuda".
+    """
+    if matching == "auto":
+        matching = a.nrows == a.ncols and structural_symmetry(a) < 0.9
+    if method in _SLICE:
+        raise NotImplementedError(f"method={method!r} is not ported yet: {_SLICE[method]}")
+    if method not in ("band", "auto"):
+        raise ValueError(f"unknown method {method!r}")
+
+    def _mk(cls, tag):
+        params = inspect.signature(cls.__init__).parameters
+        got = {k: v for k, v in kw.items() if k in params}
+        if "matching" in params:
+            got["matching"] = matching
+        fac = cls(a, policy=policy, **got)
+        fac.report.notes = (f"method={tag}" +
+                            (f",{fac.report.notes}" if fac.report.notes else ""))
+        if matching is True and "matching" not in params:
+            # an explicitly requested GESP matching that the serving method
+            # cannot honor must stay auditable in the row
+            fac.report.notes += ",matching=unavailable"
+        return fac
+
+    if method == "band":
+        return _mk(BandLuFactorization, "band")
+    try:
+        return _mk(BandLuFactorization, "band")
+    except Exception as e:
+        if not _memlike(e):
+            raise
+        raise MemoryError(f"every direct method refused: band: {e}; "
+                          "snlu: not ported; sparse: not ported") from e
+
+
+# ---------------------------------------------------------------------------
+# Mixed-precision iterative refinement
+# ---------------------------------------------------------------------------
+
+
+def _gmres_ir(a: CSRMatrix, b: np.ndarray, fac, x0: np.ndarray,
+              tol: float, max_outer: int = 4, m: int = 40):
+    """GMRES-based iterative refinement (Carson & Higham 2017/18): when
+    plain IR stalls (cond(A) * u_factor >~ 1), right-preconditioned GMRES
+    on the fp32 factorization still contracts — cond(A M^-1) ~ 1 +
+    cond(A) * u_factor — and fp64 outer residuals drive the composite to
+    reference accuracy.  Arnoldi runs on the host in fp64 (small m), the
+    preconditioner applies are the device factor solves."""
+    bb = np.asarray(b, np.float64)
+    nb = np.linalg.norm(bb)
+    nb = nb if nb > 0 else 1.0
+    rows = np.repeat(np.arange(a.nrows), a.row_lengths())
+
+    def amul(v):
+        out = np.zeros(a.nrows)
+        np.add.at(out, rows, a.data * v[a.indices])
+        return out
+
+    x = np.asarray(x0, np.float64).copy()
+    total_inner = 0
+    for _ in range(max_outer):
+        r = bb - amul(x)
+        beta = np.linalg.norm(r)
+        if beta / nb <= tol:
+            break
+        V = np.zeros((m + 1, a.nrows))
+        Z = np.zeros((m, a.nrows))
+        H = np.zeros((m + 1, m))
+        V[0] = r / beta
+        k = m
+        for j in range(m):
+            Z[j] = fac.solve(V[j])
+            w = amul(Z[j])
+            for i in range(j + 1):          # MGS in fp64
+                H[i, j] = w @ V[i]
+                w -= H[i, j] * V[i]
+            H[j + 1, j] = np.linalg.norm(w)
+            total_inner += 1
+            if H[j + 1, j] < 1e-300:
+                k = j + 1
+                break
+            V[j + 1] = w / H[j + 1, j]
+        e1 = np.zeros(k + 1)
+        e1[0] = beta
+        y, *_ = np.linalg.lstsq(H[:k + 1, :k], e1, rcond=None)
+        x = x + Z[:k].T @ y
+    return x, total_inner
+
+
+def solve_refined(a: CSRMatrix, b: np.ndarray,
+                  fac: Optional[BandLuFactorization] = None,
+                  policy: Union[str, Policy] = "fp32",
+                  tol: float = 1e-12, max_iters: int = 40,
+                  device: Union[str, torch.device] = "cuda",
+                  ) -> Tuple[np.ndarray, SolveReport]:
+    """Low-precision factorization + fp64 iterative refinement.
+
+    x_{k+1} = x_k + M^-1 (b - A x_k), all on the factor's device: the
+    residual in fp64 on the CSR SpMV kernel, the correction solve in the
+    factorization's precision, one host sync an iteration (the residual
+    norm). Achieves reference-fp64 residuals from an fp32/bf16
+    factorization (the study's headline result). A solve that stalls
+    escalates to GMRES-IR. ``device`` is used only when ``fac`` is None.
+    ``report.policy`` is ``"<policy>+ir_fp64"``; respatpu, whose fp64 is a
+    pair of fp32 words, writes ``+ir_df64``.
+    """
+    if fac is None:
+        fac = BandLuFactorization(a, policy=policy, device=device)
+    if getattr(fac, "matched", False):
+        raise NotImplementedError("refinement of a matched factorization is not "
+                                  "ported yet (ROADMAP Queue 1, slice 3)")
+    report = SolveReport(policy=f"{fac.policy.name}+ir_fp64",
+                         t_analyze=fac.report.t_analyze,
+                         t_factorize=fac.report.t_factorize,
+                         n_pivot_perturbed=fac.report.n_pivot_perturbed,
+                         notes=fac.report.notes)
+    t0 = time.perf_counter()
+    dev = fac.device
+    acc = fac.policy.accum_dtype
+    bp = np.asarray(b, np.float64)[fac.perm]
+    a64 = to_device(fac._ap, "fp64", dev)
+    b64 = torch.from_numpy(bp).to(dev)
+    x = torch.zeros(a.nrows, dtype=torch.float64, device=dev)
+    nb = float(np.linalg.norm(bp))
+    nb = nb if nb > 0 else 1.0
+    res_hist = []
+    for _ in range(max_iters):
+        r = b64 - spmv(a64, x)
+        rnorm = float(torch.linalg.vector_norm(r)) / nb
+        res_hist.append(rnorm)
+        if rnorm < tol:
+            break
+        if len(res_hist) > 3 and rnorm > 0.9 * res_hist[-2]:
+            break  # stagnated
+        x += fac.solve_device(r.to(acc)).double()
+    xh = _to_host_f64(x)
+    out = np.empty_like(xh)
+    out[fac.perm] = xh
+    report.t_solve = time.perf_counter() - t0
+    report.iterations = len(res_hist)
+    report.residual = relative_residual(a, out, np.asarray(b, np.float64))
+    report.converged = report.residual < max(tol * 100, 1e-10)
+    if not report.converged:
+        out, report = _refine_gmres_fallback(a, b, fac, out, tol, report, t0)
+    return out, report
+
+
+def _refine_gmres_fallback(a, b, fac, x, tol, report, t0):
+    """Escalate a stalled plain-IR solve to GMRES-IR (see _gmres_ir)."""
+    x2, inner = _gmres_ir(a, b, fac, x, tol=max(tol, 1e-12))
+    report.t_solve = time.perf_counter() - t0
+    report.iterations += inner
+    report.residual = relative_residual(a, x2, np.asarray(b, np.float64))
+    report.converged = report.residual < max(tol * 100, 1e-10)
+    report.notes = ((report.notes + "," if report.notes else "")
+                    + f"gmres_ir={inner}it")
+    return x2, report

@@ -119,7 +119,10 @@ def device_events(fn: Callable[[], object],
         out = [(name, t) for _, name, t in out]
         if complete(out):
             return out
-    raise ProfilerUnavailable(f"torch.profiler gave no complete trace in {attempts} runs")
+    seen = sorted({name for name, _ in out})
+    raise ProfilerUnavailable(f"torch.profiler gave no complete trace in {attempts} runs; the "
+                              f"last one held {len(out)} device records of {len(seen)} names: "
+                              f"{[n[:60] for n in seen[:6]]}")
 
 
 def kernel_times(fns: Sequence[Callable[[], object]], name_part: str,

@@ -1,0 +1,289 @@
+"""The port's band LU (``respatpu_torch.kernels.bandlu``) against respatpu's
+on the same inputs, on the CPU: the wrappers run their kernels' plain
+versions here, respatpu runs under CPU JAX as ``tests/test_bandlu.py`` does."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from respatpu.bench.synth import circuit_like, laplacian_2d, mesh_fem_3d, random_banded
+from respatpu.kernels import bandlu as jband
+from respatpu.kernels import dflinalg
+from respatpu.precision import df_from_f64, df_to_f64
+
+from respatpu_torch.interop import (band_from_respatpu, band_to_numpy, csr_from_respatpu,
+                                    df_to_numpy)
+from respatpu_torch.kernels import bandlu
+
+PACK = {"random_banded": lambda: random_banded(100, 6, 4, seed=1),
+        "laplacian_2d": lambda: laplacian_2d(16, 12),
+        "mesh_fem_3d": lambda: mesh_fem_3d(250, seed=4),      # n not a multiple of p
+        "circuit_like": lambda: circuit_like(90, 4, seed=6)}  # a band as wide as the matrix
+
+
+@pytest.mark.parametrize("p", [16, 32])
+@pytest.mark.parametrize("name", list(PACK))
+def test_csr_to_band_bitwise(name, p):
+    a = PACK[name]()
+    jb, tb = jband.csr_to_band(a, p=p), bandlu.csr_to_band(csr_from_respatpu(a), p=p)
+    assert (jb.n, jb.p, jb.ml, jb.mu) == (tb.n, tb.p, tb.ml, tb.mu)
+    assert jb.data.tobytes() == tb.data.tobytes()
+    assert tb.nb == jb.nb and tb.width == jb.width
+
+
+@pytest.mark.parametrize("policy", ["fp32", "fp32_ftz", "bf16", "fp64"])
+@pytest.mark.parametrize("name", list(PACK))
+def test_device_scatter_packing_bitwise(name, policy):
+    """The device-side scatter gives the bits of the host packing, and both
+    give respatpu's upload (fp64 against hi + lo, which carries about 48
+    bits: 1e-13 relative)."""
+    a = PACK[name]()
+    t = csr_from_respatpu(a)
+    host = bandlu.band_to_device(bandlu.csr_to_band(t, p=16), policy, "cpu")
+    dev = bandlu.csr_to_device_band(t, policy, "cpu", p=16)
+    assert torch.equal(host.data, dev.data) and dev.data.dtype == dev.policy.dtype
+    jd = jband.band_to_device(jband.csr_to_band(a, p=16), "df64" if policy == "fp64" else policy)
+    ours = band_from_respatpu(jd)
+    assert (ours.n, ours.p, ours.ml, ours.mu) == (dev.n, dev.p, dev.ml, dev.mu)
+    if policy == "fp64":
+        assert float((ours.data - dev.data).abs().max()) <= 1e-13 * float(dev.data.abs().max())
+    else:
+        assert torch.equal(ours.data, dev.data)
+
+
+def test_band_memory_bytes():
+    assert bandlu.band_memory_bytes(1000, 100, 100, p=128) == 8 * 128 * 3 * 128 * 4
+    assert bandlu.band_memory_bytes(1000, 100, 100, p=128, fp64=True) == 8 * 128 * 3 * 128 * 8
+    assert (jband.band_memory_bytes(1000, 100, 100, p=128, double_word=True)
+            == bandlu.band_memory_bytes(1000, 100, 100, p=128, fp64=True))
+
+
+def _planted(p, seed):
+    """A diagonally dominant block whose first pivot is planted, and one
+    whose later pivot cancels to exactly zero."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((p, p)) + 4 * np.sqrt(p) * np.eye(p)
+
+
+# the first pivot: zero, exactly eps, eps / 2, negative tiny, exactly -eps,
+# twice eps (kept), and an ordinary one
+EPS = 2.0 ** -13
+PLANTS = [0.0, EPS, EPS / 2, -EPS / 2, -EPS, 2 * EPS, None]
+
+
+@pytest.mark.parametrize("plant", PLANTS, ids=lambda v: "plain" if v is None else f"{v:g}")
+@pytest.mark.parametrize("p", [16, 32])
+def test_block_lu_plain_matches_lu_unpivoted(p, plant):
+    """Same operations in the same order as dflinalg.lu_unpivoted: 1e-6
+    relative leaves room only for XLA's choice of fused multiply-adds."""
+    d = _planted(p, seed=p)
+    if plant is not None:
+        d[0, 0] = plant
+    d32 = d.astype(np.float32)
+    jlu, jbad = dflinalg.lu_unpivoted(jnp.asarray(d32), jnp.float32(EPS))
+    tlu, tbad = bandlu.block_lu_plain(torch.from_numpy(d32)[None], EPS)
+    jlu = np.asarray(jlu, np.float64)
+    assert int(jbad) == int(tbad[0]) == (0 if plant is None or abs(plant) > EPS else 1)
+    assert np.abs(tlu[0].double().numpy() - jlu).max() <= 1e-6 * np.abs(jlu).max()
+    # a zero pivot becomes +eps, a negative tiny one -eps
+    if plant is not None and abs(plant) <= EPS:
+        assert float(tlu[0, 0, 0]) == (-EPS if plant < 0 else EPS)
+
+
+def test_block_lu_plain_zero_pivot_from_cancellation():
+    d = np.array([[2.0, 4.0, 1.0], [1.0, 2.0, 3.0], [0.5, 1.0, 4.0]], np.float32)
+    jlu, jbad = dflinalg.lu_unpivoted(jnp.asarray(d), jnp.float32(1e-4))
+    tlu, tbad = bandlu.block_lu_plain(torch.from_numpy(d)[None], 1e-4)
+    assert int(jbad) == int(tbad[0]) == 1  # pivot 1 cancels to exactly zero -> +eps
+    np.testing.assert_allclose(tlu[0].numpy(), np.asarray(jlu), rtol=1e-6)
+    assert float(tlu[0, 1, 1]) == pytest.approx(1e-4)
+
+
+def test_block_lu_wrapper_batches_strides_and_checks():
+    rng = np.random.default_rng(3)
+    band = torch.from_numpy(rng.standard_normal((5, 16, 48)) + np.tile(9 * np.eye(16), 3))
+    view = band[:, :, 16:32]  # read in place: row stride 48
+    lu, cnt = bandlu.block_lu(view, 1e-13)
+    ref, rcnt = bandlu.block_lu_plain(view.contiguous(), 1e-13)
+    assert torch.equal(lu, ref) and torch.equal(cnt, rcnt) and lu.is_contiguous()
+    for i in range(5):  # L U gives the block back
+        low = torch.tril(lu[i], -1) + torch.eye(16, dtype=torch.float64)
+        assert torch.allclose(low @ torch.triu(lu[i]), view[i], atol=1e-12)
+    bf = bandlu.block_lu(view.to(torch.bfloat16), 1e-4)[0]
+    assert bf.dtype == torch.float32  # bf16 blocks are read as fp32
+    with pytest.raises(ValueError):
+        bandlu.block_lu(torch.zeros(16, 16), 1e-4)
+    with pytest.raises(TypeError):
+        bandlu.block_lu(torch.zeros(1, 4, 4, dtype=torch.float16), 1e-4)
+
+
+def _dense_unpivoted_lu(dense):
+    lu = dense.astype(np.float64).copy()
+    for k in range(lu.shape[0]):
+        lu[k + 1:, k] /= lu[k, k]
+        lu[k + 1:, k + 1:] -= np.outer(lu[k + 1:, k], lu[k, k + 1:])
+    return lu
+
+
+def _band_as_dense(band, data):
+    n, p, ml = band.n, band.p, band.ml
+    got = np.zeros((n, n))
+    for i in range(n):
+        r, pr = i // p, i % p
+        j = (r - ml) * p + np.arange(data.shape[2])
+        ok = (j >= 0) & (j < n)
+        got[i, j[ok]] = data[r, pr, ok]
+    return got
+
+
+# factor values against respatpu's: fp32 differs by rounding order only;
+# bf16 rounds what it stores at the same places, so one bf16 ulp (2^-8) of
+# max|LU| covers a differently rounded fp32 intermediate; fp64 against the
+# double-float factor
+FACTOR_TOL = {"fp32": 2e-5, "bf16": 1e-2, "fp64": 1e-12}
+
+
+FACTOR_MATRICES = {"random_banded": lambda: random_banded(70, 5, 4, seed=2),
+                   "laplacian_2d": lambda: laplacian_2d(9, 8)}
+
+
+@pytest.mark.parametrize("policy", list(FACTOR_TOL))
+@pytest.mark.parametrize("p", [16, 32])
+@pytest.mark.parametrize("name", list(FACTOR_MATRICES))
+def test_band_lu_matches_respatpu_and_dense(name, p, policy):
+    a = FACTOR_MATRICES[name]()
+    t = csr_from_respatpu(a)
+    jres = jband.band_lu(jband.band_to_device(jband.csr_to_band(a, p=p),
+                                              "df64" if policy == "fp64" else policy))
+    dev = bandlu.csr_to_device_band(t, policy, "cpu", p=p)
+    before = dev.data.clone()
+    tres = bandlu.band_lu(dev)
+    assert torch.equal(dev.data, before)  # the uploaded band is left as it was
+    jlu = band_from_respatpu(jres.lu).data.double().numpy()
+    tlu = tres.lu.data.double().numpy()
+    scale = np.abs(jlu).max()
+    assert np.abs(tlu - jlu).max() <= FACTOR_TOL[policy] * scale
+    assert tres.n_pivot_perturbed == int(jres.n_pivot_perturbed) == 0
+    ref = _dense_unpivoted_lu(t.toarray())
+    tol = {"fp32": 2e-3, "bf16": 5e-2, "fp64": 1e-12}[policy]
+    np.testing.assert_allclose(_band_as_dense(tres.lu, tlu), ref, rtol=tol,
+                               atol=tol * np.abs(ref).max())
+
+
+def test_band_lu_counts_perturbed_pivots_like_respatpu():
+    """A matrix with zero diagonal entries: same count on both sides."""
+    a = random_banded(90, 4, 3, seed=8, diag_dominant=False)
+    t = csr_from_respatpu(a)
+    jres = jband.band_lu(jband.band_to_device(jband.csr_to_band(a, p=16), "fp32"),
+                         pivot_eps=0.05)
+    tres = bandlu.band_lu(bandlu.csr_to_device_band(t, "fp32", "cpu", p=16), pivot_eps=0.05)
+    assert tres.n_pivot_perturbed == int(jres.n_pivot_perturbed) > 0
+
+
+@pytest.mark.parametrize("p", [16, 32])
+@pytest.mark.parametrize("nrhs", [1, 5])
+def test_band_solve_fp32_matches_respatpu(nrhs, p):
+    a = random_banded(150, 6, 4, seed=15)
+    t = csr_from_respatpu(a)
+    jres = jband.band_lu(jband.band_to_device(jband.csr_to_band(a, p=p), "fp32"))
+    tres = bandlu.band_lu(bandlu.csr_to_device_band(t, "fp32", "cpu", p=p))
+    rng = np.random.default_rng(2)
+    b = rng.standard_normal((150, nrhs) if nrhs > 1 else 150)
+    xj = np.asarray(jband.band_solve(jres.lu, jnp.asarray(b, jnp.float32)), np.float64)
+    xt = bandlu.band_solve(tres.lu, torch.from_numpy(b).float())
+    assert xt.dtype == torch.float32 and xt.shape == b.shape
+    xt = xt.double().numpy()
+    ref = np.linalg.solve(t.toarray(), b)
+    # against respatpu: fp32 rounding in another order; against numpy: the
+    # JAX tests' own 1e-3
+    assert np.abs(xt - xj).max() <= 1e-5 * np.abs(xj).max()
+    np.testing.assert_allclose(xt, ref, rtol=1e-3, atol=1e-3 * np.abs(ref).max())
+
+
+def test_band_solve_fp64_matches_respatpu_df64():
+    a = random_banded(150, 6, 4, seed=4)
+    t = csr_from_respatpu(a)
+    jres = jband.band_lu(jband.band_to_device(jband.csr_to_band(a, p=32), "df64"))
+    tres = bandlu.band_lu(bandlu.csr_to_device_band(t, "fp64", "cpu", p=32))
+    b = np.random.default_rng(1).standard_normal(150)
+    xj = df_to_f64(jband.band_solve(jres.lu, df_from_f64(b)))
+    xt = bandlu.band_solve(tres.lu, torch.from_numpy(b)).numpy()
+    ref = np.linalg.solve(t.toarray(), b)
+    np.testing.assert_allclose(xt, ref, rtol=1e-10, atol=1e-10 * np.abs(ref).max())
+    assert np.abs(xt - xj).max() <= 1e-11 * np.abs(ref).max()  # double-float carries ~48 bits
+
+
+@pytest.mark.parametrize("direction", ["respatpu_factor_port_solve", "port_factor_respatpu_solve"])
+def test_interop_band_roundtrip(direction):
+    """A factor made by one package is solved by the other."""
+    a = laplacian_2d(16, 12)
+    t = csr_from_respatpu(a)
+    b = np.random.default_rng(5).standard_normal(a.nrows)
+    ref = np.linalg.solve(t.toarray(), b)
+    if direction == "respatpu_factor_port_solve":
+        for jpol in ("fp32", "df64"):
+            jres = jband.band_lu(jband.band_to_device(jband.csr_to_band(a, p=16), jpol))
+            lu = band_from_respatpu(jres.lu)
+            assert lu.policy.name == ("fp64" if jpol == "df64" else "fp32")
+            x = bandlu.band_solve(lu, torch.from_numpy(b).to(lu.policy.accum_dtype))
+            tol = 1e-10 if jpol == "df64" else 1e-3
+            np.testing.assert_allclose(x.double().numpy(), ref, rtol=tol, atol=tol)
+    else:
+        for policy in ("fp32", "fp64"):
+            tres = bandlu.band_lu(bandlu.csr_to_device_band(t, policy, "cpu", p=16))
+            arrays = band_to_numpy(tres.lu)
+            jlu = jband.DeviceBand(tres.lu.n, 16, tres.lu.ml, tres.lu.mu,
+                                   "df64" if policy == "fp64" else "fp32",
+                                   tuple(jnp.asarray(x) for x in arrays))
+            if policy == "fp64":
+                assert np.abs(df_to_numpy(*arrays) - tres.lu.data.numpy()).max() <= 1e-13
+                x = df_to_f64(jband.band_solve(jlu, df_from_f64(b)))
+                np.testing.assert_allclose(x, ref, rtol=1e-9, atol=1e-9)
+            else:
+                x = np.asarray(jband.band_solve(jlu, jnp.asarray(b, jnp.float32)), np.float64)
+                np.testing.assert_allclose(x, ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("policy", ["fp32", "fp32_ftz", "bf16", "fp64"])
+def test_band_solve_transpose(policy):
+    a = csr_from_respatpu(random_banded(130, 9, 5, seed=6))
+    lu = bandlu.band_lu(bandlu.csr_to_device_band(a, policy, "cpu", p=16)).lu
+    s = np.random.default_rng(7).standard_normal(130)
+    z = bandlu.band_solve_transpose(lu, torch.from_numpy(s).to(lu.policy.accum_dtype))
+    ref = np.linalg.solve(a.toarray().T, s)
+    tol = {"fp64": 1e-10, "bf16": 5e-2}.get(policy, 1e-3)  # the stored factor's precision
+    np.testing.assert_allclose(z.double().numpy(), ref, rtol=tol, atol=tol * np.abs(ref).max())
+
+
+def test_fp32_ftz_flushes_band_and_rhs():
+    """A subnormal band entry is stored as zero and a subnormal right-hand
+    side entry is read as zero, so the result equals the one with exact
+    zeros in their place; under plain fp32 the entries stay."""
+    a = csr_from_respatpu(random_banded(60, 4, 3, seed=9))
+    a.data[5] = 1e-40
+    ftz = bandlu.csr_to_device_band(a, "fp32_ftz", "cpu", p=16)
+    keep = bandlu.csr_to_device_band(a, "fp32", "cpu", p=16)
+    assert int((keep.data != 0).sum()) == int((ftz.data != 0).sum()) + 1
+    b = np.random.default_rng(3).standard_normal(60)
+    b[7] = 1e-40
+    lu = bandlu.band_lu(ftz).lu
+    x = bandlu.band_solve(lu, torch.from_numpy(b).float())
+    a.data[5], b[7] = 0.0, 0.0
+    lu0 = bandlu.band_lu(bandlu.csr_to_device_band(a, "fp32", "cpu", p=16)).lu
+    x0 = bandlu.band_solve(lu0, torch.from_numpy(b).float())
+    assert torch.equal(lu.data, lu0.data) and torch.equal(x, x0)
+    tiny = torch.finfo(torch.float32).tiny
+    assert not bool(((lu.data != 0) & (lu.data.abs() < tiny)).any())
+
+
+def test_wrappers_refuse_what_does_not_fit():
+    a = csr_from_respatpu(laplacian_2d(8, 8))
+    lu = bandlu.band_lu(bandlu.csr_to_device_band(a, "fp32", "cpu", p=16)).lu
+    with pytest.raises(ValueError):
+        bandlu.band_solve(lu, torch.zeros(63))
+    bad = bandlu.DeviceBand(lu.n, lu.p, lu.ml, lu.mu, lu.policy, lu.data.double())
+    with pytest.raises(ValueError):
+        bandlu.band_sweep(bad, torch.zeros(64), True)
+    with pytest.raises(ValueError):
+        bandlu.band_lu(bandlu.DeviceBand(lu.n, lu.p, lu.ml + 1, lu.mu, lu.policy, lu.data))
+    assert set(bandlu.LAUNCHES.values()) == {0}  # nothing on the CPU counts as a launch
