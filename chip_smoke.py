@@ -36,10 +36,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the launch counts of the block-LU, sweep and fp64 SpMV kernels, the host
    oracle's residual and the error against the known solution; then the fp64
    factorization and direct solve of the same matrix, bf16 and fp32_ftz with
-   refinement on a 300 x 300 grid Laplacian, the condition estimate, and the
-   refusals of the auto chain (offshore, dc1); the phase times, and both band
-   kernels timed at the full-width shapes beside bound, library and plain;
-7. result: a JSON line of the kernels, then the device line last.
+   refinement on a 300 x 300 grid Laplacian and the condition estimate; the
+   phase times, and both band kernels timed at the full-width shapes beside
+   bound, library and plain;
+7. frontal kernels vs plain: extend-add, the forward and backward frontal
+   sweep and the row reduction against their plain versions on synthetic
+   groups (one front; a parent with hundreds of children in one group; roots
+   with no update rows; pivot widths 8, 24, 128 and 192, the last past what
+   a sweep block solves itself; fp32, fp32_ftz with subnormal inputs, fp64),
+   each twice, bitwise equal;
+8. multifrontal path at full width: the dc1 stand-in at catalogue size
+   through ``factorize(a, "fp32", method="auto")`` (band refuses, the
+   multifrontal LU serves with GESP matching) and ``solve_refined`` to a
+   host-oracle residual <= 1e-10; 2cubes_sphere with ``method="snlu"`` in
+   fp32 with refinement and in fp64 without; fp32_ftz on the grid Laplacian;
+   offshore through ``auto``; with the launch counts of the block-LU,
+   extend-add, sweep, reduction and fp64 SpMV kernels, twice-factored pools
+   compared bit for bit, and the frontal kernels timed at the full-width
+   group shapes beside bound, library and plain;
+9. result: a JSON line of the kernels, then the device line last.
 """
 import dataclasses
 import json
@@ -57,12 +72,13 @@ import torch  # noqa: E402
 from respatpu_torch import io as rio  # noqa: E402
 from respatpu_torch.bench import corpus, runner  # noqa: E402
 from respatpu_torch import solve as slv  # noqa: E402
-from respatpu_torch.bench.synth import (laplacian_2d, mesh_fem_3d, random_banded,  # noqa: E402
-                                        row_block_edges, skew_banded)
+from respatpu_torch.bench.synth import (frontal_group, laplacian_2d, mesh_fem_3d,  # noqa: E402
+                                        random_banded, row_block_edges, skew_banded)
 from respatpu_torch.formats import COOMatrix, CSRMatrix, coo_to_csr  # noqa: E402
 from respatpu_torch.io import native  # noqa: E402
 from respatpu_torch.kernels import _build  # noqa: E402
 from respatpu_torch.kernels import bandlu as B  # noqa: E402
+from respatpu_torch.kernels import snlu_device as F  # noqa: E402
 from respatpu_torch.kernels import spmv as K  # noqa: E402
 from respatpu_torch.precision import get_policy  # noqa: E402
 from respatpu_torch.solve import WARMUP  # noqa: E402
@@ -95,6 +111,17 @@ INST = {"fp32": "f32", "fp32_ftz": "f32_ftz", "bf16": "bf16", "fp64": "f64"}
 # operations in the plain version's order; the sweep sums in another order
 LU_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-5, torch.float64: 1e-13}
 SWEEP_TOL = {"fp32": 2e-5, "fp32_ftz": 2e-5, "bf16": 2e-5, "fp64": 1e-12}
+# The frontal kernels (csrc/frontal.cu) and what each replaces. The extend-add
+# and the reduction add in their plain versions' order; the sweeps' triangles
+# and panel products are summed in another order than the library's.
+FRONTAL_SOURCE = "respatpu_torch/kernels/csrc/frontal.cu"
+FRONTAL_REPLACES = {"extend_add": "respatpu/kernels/snlu_device.py:373",
+                    "front_sweep_fwd": "respatpu/kernels/snlu_device.py:467",
+                    "front_sweep_bwd": "respatpu/kernels/snlu_device.py:490",
+                    "rows_reduce": "respatpu/kernels/snlu_device.py:486"}
+FRONT_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+FRONT_INST = ((torch.float32, False, "f32"), (torch.float32, True, "f32_ftz"),
+              (torch.float64, False, "f64"))
 
 
 def card() -> str:
@@ -453,7 +480,7 @@ def factor_bound(band, acc):
 
 
 def reset_counts():
-    for counts in (B.LAUNCHES, K.LAUNCHES):
+    for counts in (B.LAUNCHES, K.LAUNCHES, F.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -520,19 +547,6 @@ def direct_path(name_limit, a, times):
               f"{rl.t_factorize * 1e3:.1f} ms, refined solve {rl.t_solve * 1e3:.1f} ms in "
               f"{rl.iterations} iterations, residual {rl.residual:.3e} (tol {tol:.0e})", flush=True)
 
-    # the auto chain's refusals
-    for name in ("offshore", "dc1"):
-        try:
-            slv.factorize(corpus.load_matrix(name)[0], "fp32", method="auto", device="cuda")
-        except MemoryError as e:
-            text = str(e)
-            if not ("band: band storage would need" in text and "snlu: not ported" in text
-                    and "sparse: not ported" in text):
-                raise AssertionError(f"{name}: refusal text {text!r}") from e
-            print(f"[direct] {name} refused: {text}", flush=True)
-        else:
-            raise AssertionError(f"{name}: the auto chain did not refuse")
-
     launches, spmv_direct = dict(B.LAUNCHES), K.LAUNCHES["fp64"]
     fp64_row = {"respa_block_lu_f64": nb, "respa_band_sweep_fwd_f64": 1,
                 "respa_band_sweep_bwd_f64": 1}
@@ -558,6 +572,324 @@ def direct_path(name_limit, a, times):
         time_band_sweep(name_limit, fac._lu, policy, times)
     time_band_sweep(name_limit, fac64._lu, "fp64", times)
     return launches, spmv_direct
+
+
+def kernel_kind(name):
+    """'respa_front_sweep_fwd_f32_ftz' -> 'front_sweep_fwd'."""
+    for suffix in ("_f32_ftz", "_f32", "_f64"):
+        if name.endswith(suffix):
+            return name[len("respa_"):-len(suffix)]
+    raise ValueError(name)
+
+
+def group_on_card(g, dtype):
+    """A synthetic group's arrays as tensors on the card, its pool and y in
+    ``dtype``."""
+    t = {k: torch.from_numpy(v).cuda() for k, v in g.items() if isinstance(v, np.ndarray)}
+    t["pool"], t["y"] = t["pool"].to(dtype), t["y"].to(dtype)
+    return t
+
+
+def no_subnormals(*tensors):
+    return all(not bool(((t != 0) & (t.abs() < torch.finfo(t.dtype).tiny)).any())
+               for t in tensors)
+
+
+def check_frontal_kernels(errs):
+    """Extend-add, both frontal sweeps and the row reduction against their
+    plain versions on synthetic groups; see the docstring."""
+    shapes = [("one_front", 1, 8, 8, 1), ("many_children", 700, 8, 16, 2),
+              ("roots_rp0", 3, 24, 0, 0), ("wp24", 6, 24, 32, 4), ("wp128", 5, 128, 48, 3),
+              ("wp192_split", 2, 192, 96, 1)]
+    for dtype, flush, inst in FRONT_INST:
+        tol = FRONT_TOL[dtype]
+
+        def held(name, got, ref, again):
+            scale = max(float(ref.abs().max()), 1e-300)
+            err = float((got - ref).abs().max())
+            if not (np.isfinite(err) and err / scale <= tol and torch.equal(got, again)):
+                raise AssertionError(f"{name} {cname}: rel_err {err / scale:.3e} (tol {tol:.0e}) "
+                                     f"or not bitwise repeatable")
+            errs[name] = max(errs.get(name, 0.0), err)
+            return err / scale
+
+        for cname, nf, wp, rp, npar in shapes:
+            t = group_on_card(frontal_group(nf, wp, rp, npar, seed=nf + wp), dtype)
+            kids = nf * (wp + rp) ** 2
+            if flush:  # subnormal entries in the fronts and the right-hand side, and
+                # zeroed parents, so that the extend-add's sums are subnormal too
+                t["pool"][:kids][wp * (wp + rp) + wp::97] = 1e-40
+                t["pool"][:kids][3::101] = -1e-40
+                t["pool"][kids:] = 0
+                d = torch.arange(wp)
+                t["pool"][:kids].view(nf, wp + rp, wp + rp)[:, d, d] = 2.5  # keep the pivots
+                t["y"][:-1:5] = 1e-40
+            rows = t["piv"][t["piv"] < t["y"].numel() - 1].long()
+            idx = (t["lp"], t["poff"], t["pmp"], t["seg_ptr"])
+            grp = (0, nf, wp, rp)
+            worst = 0.0
+            if npar:
+                name = f"respa_extend_add_{inst}"
+                out = [t["pool"].clone() for _ in range(3)]
+                F.extend_add(out[0], *grp, *idx, flush)
+                F.extend_add(out[1], *grp, *idx, flush)
+                F.extend_add_plain(out[2], *grp, *idx, flush)
+                torch.cuda.synchronize()
+                worst = max(worst, held(name, out[0], out[2], out[1]))
+                if not torch.equal(out[0], out[2]):  # same operations in the same order
+                    raise AssertionError(f"{name} {cname}: kernel != plain bit for bit")
+                if flush and not no_subnormals(out[0][kids:]):
+                    raise AssertionError(f"{name} {cname}: a subnormal sum was not flushed")
+            for fwd in (True, False):
+                name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
+                ys = [t["y"].clone() for _ in range(3)]
+                u0 = F.front_sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush)
+                u1 = F.front_sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush)
+                u2 = F.front_sweep_plain(t["pool"], ys[2], *grp, t["piv"], t["rsx"], fwd, flush)
+                torch.cuda.synchronize()
+                worst = max(worst, held(name, ys[0], ys[2], ys[1]))
+                if float(ys[0][-1]) != 0.0:
+                    raise AssertionError(f"{name} {cname}: the padding's slot of y was written")
+                if fwd and rp:
+                    worst = max(worst, held(name, u0, u2, u1))
+                    name = ("respa_rows_reduce_f64" if dtype == torch.float64
+                            else "respa_rows_reduce_f32")
+                    red = (t["red_rows"], t["red_ptr"], t["red_src"])
+                    F.rows_reduce(ys[0], u0, *red, flush)
+                    F.rows_reduce(ys[1], u0, *red, flush)
+                    F.rows_reduce_plain(ys[2], u0, *red, flush)
+                    torch.cuda.synchronize()
+                    worst = max(worst, held(name, ys[0], ys[2], ys[1]))
+                written = torch.cat([rows, t["red_rows"].long()]) if fwd and rp else rows
+                if flush and not no_subnormals(ys[0][written], *([u0] if fwd and rp else [])):
+                    raise AssertionError(f"{name} {cname}: a subnormal result was not flushed")
+            print(f"[kernel] frontal {cname:14s} {inst:8s} B={nf} wp={wp} rp={rp} parents={npar}: "
+                  f"extend-add == plain bitwise, sweeps and reduction rel_err={worst:.3e} "
+                  f"(tol {tol:.0e}), all bitwise twice", flush=True)
+
+
+def time_frontal(name_limit, fac, times):
+    """The frontal kernels of ``fac``'s instance at two group shapes of its
+    plan: the group with the most fronts among those with parents, and the
+    widest front. By events (a cold L2; the sweeps' windows include the copy
+    that resets y, and for a front wider than 128 the library's triangular
+    solve beside the kernel), by the profiler (the kernel alone), beside the
+    byte bound, the plain version and, for the extend-add, ``index_add_`` on
+    materialised indices."""
+    plan, pool, flush = fac._plan, fac._frontal.pool, fac._frontal.flush
+    inst = F._INST[pool.dtype, flush]
+    item = pool.element_size()
+    dgs = plan.on_device(pool.device)
+    with_parents = [i for i, g in enumerate(plan.groups) if g.seg_ptr.size > 1]
+    picks = {"populous": max(with_parents, key=lambda i: plan.groups[i].nfronts),
+             "widest": max(range(len(plan.groups)), key=lambda i: plan.groups[i].wp)}
+    y0 = torch.randn(plan.part.n + 1, dtype=pool.dtype, device=pool.device)
+    y0[-1] = 0
+    y = y0.clone()
+
+    def record(name, tag, shape, fn, plain_fn, lib_fn, kernel_name, nbytes, reps=10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_fn()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        t = {"ms": events_ms(fn, reps), "plain_ms": plain_ms,
+             "library_ms": events_ms(lib_fn, reps) if lib_fn else None,
+             "profiler_ms": profiler_ms(fn, kernel_name, 5),
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "shape": shape}
+        print(f"[time] {name_limit} | {name} {tag} {shape}: {fmt_ms(t['ms'])} by events, "
+              f"{fmt_ms(t['profiler_ms'])} the kernel alone by the profiler; bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} bytes at 3.35 TB/s); library "
+              f"{fmt_ms(t['library_ms']).replace('not measured', 'none')}; plain "
+              f"{t['plain_ms']:.2f} ms (one run, synchronised host clock)", flush=True)
+        if tag == "populous":
+            times.setdefault(name, t)
+        elif name in times:
+            times[name].setdefault("widest", t)
+
+    for tag, gi in picks.items():
+        g, d = plan.groups[gi], dgs[gi]
+        grp = (g.g0, g.nfronts, g.wp, g.rp)
+        shape = f"B={g.nfronts} wp={g.wp} rp={g.rp} level={g.level}"
+        nf, wp, rp, mp = g.nfronts, g.wp, g.rp, g.mp
+        if g.seg_ptr.size > 1 and rp:
+            # materialised indices: what index_add_ needs, and the distinct
+            # parent entries for the bound
+            l = d["lp"].long()
+            ok = l >= 0
+            dst = (d["poff"][:, None, None] + l[:, :, None] * d["pmp"].long()[:, None, None]
+                   + l[:, None, :])[ok[:, :, None] & ok[:, None, :]]
+            corner = pool[g.g0:g.g0 + nf * mp * mp].view(nf, mp, mp)[:, wp:, wp:]
+            src = corner[ok[:, :, None] & ok[:, None, :]]
+            touched = int(torch.unique(dst).numel())
+            nbytes = (src.numel() + 2 * touched) * item + nf * (rp * 4 + 12)
+            scratch = pool.clone()  # the extend-add accumulates: time it on a copy
+            idx = (d["lp"], d["poff"], d["pmp"], d["seg_ptr"])
+            record(f"respa_extend_add_{inst}", tag,
+                   f"{shape}, {g.seg_ptr.size - 1} parents, most children "
+                   f"{int(np.diff(g.seg_ptr).max())}",
+                   lambda: F.extend_add(scratch, *grp, *idx, flush),
+                   lambda: F.extend_add_plain(scratch, *grp, *idx, flush),
+                   lambda: scratch.index_add_(0, dst, src), "extend_add_kernel", nbytes)
+            del scratch, dst, src
+        fwd_bytes = nf * (wp * mp * item + 2 * wp * item + rp * item + wp * 4)
+        bwd_bytes = nf * (wp * mp * item + (2 * wp + rp) * item + (wp + rp) * 4)
+        for fwd, nbytes in ((True, fwd_bytes), (False, bwd_bytes)):
+            def sweep(fn=F.front_sweep, fwd=fwd):
+                y.copy_(y0)
+                return fn(pool, y, *grp, d["piv"], d["rsx"], fwd, flush)
+            record(f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}", tag, shape, sweep,
+                   lambda: sweep(F.front_sweep_plain), None,
+                   "front_fwd_kernel" if fwd else "front_bwd_kernel", nbytes)
+        if rp and not flush:
+            upd = F.front_sweep(pool, y0.clone(), *grp, d["piv"], d["rsx"], True, flush)
+            red = (d["red_rows"], d["red_ptr"], d["red_src"])
+            nnz, nd = g.red_src.size, g.red_rows.size
+            nbytes = nnz * (item + 4) + (nd + 1) * 8 + nd * 4 + 2 * nd * item
+            record("respa_rows_reduce_f64" if item == 8 else "respa_rows_reduce_f32", tag,
+                   f"{shape}, {nd} rows from {nnz} sources, longest "
+                   f"{int(np.diff(g.red_ptr).max())}",
+                   lambda: F.rows_reduce(y, upd, *red, flush),
+                   lambda: F.rows_reduce_plain(y, upd, *red, flush), None,
+                   "rows_reduce_kernel", nbytes)
+
+
+def frontal_counts(fac):
+    """Launches one factorization and one solve of ``fac`` make, from its
+    plan: (block-LU, extend-add, forward sweeps, backward sweeps, reductions)."""
+    groups = fac._plan.groups
+    return (sum(-(-g.wp // B.MAX_P) for g in groups),
+            sum(g.seg_ptr.size > 1 and g.rp > 0 for g in groups),
+            # a front wider than a sweep block solves and without update rows
+            # leaves the forward kernel nothing to do
+            sum(g.wp <= F.MAX_TRI or g.rp > 0 for g in groups),
+            len(groups), sum(g.rp > 0 for g in groups))
+
+
+def frontal_row(name_limit, name, a, policy, method, refine, inst, want_matching=None):
+    """One matrix through ``factorize`` and a (refined) solve on the
+    multifrontal path, with its launches held to the plan's and its
+    factorization run twice and compared bit for bit."""
+    b, x_true = slv.make_rhs_for_known_x(a)
+    before = dict(F.LAUNCHES, **B.LAUNCHES)
+    held = torch.cuda.memory_allocated()  # earlier rows' factors
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fac = slv.factorize(a, policy, method=method, device="cuda")
+    t_all = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    notes = fac.report.notes
+    if not notes.startswith("method=snlu") or (want_matching is not None and
+                                               ("matching+ruiz" in notes) != want_matching):
+        raise AssertionError(f"{name}: served by [{notes}]")
+    first = fac._frontal.pool.clone()
+    t_warm = fac.refactorize_timed()
+    if not torch.equal(first, fac._frontal.pool):
+        raise AssertionError(f"{name}: two factorizations differ bit for bit")
+    del first
+    if refine:
+        x, rep = slv.solve_refined(a, b, fac=fac)
+        solves = rep.iterations - 1  # the last residual is followed by no solve
+    else:
+        x, rep, solves = fac.solve(b), fac.report, 1
+    n_lu, n_add, n_fwd, n_bwd, n_red = frontal_counts(fac)
+    now = dict(F.LAUNCHES, **B.LAUNCHES)
+    got = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    red = "respa_rows_reduce_f64" if inst == "f64" else "respa_rows_reduce_f32"
+    want = {f"respa_block_lu_{inst}": 2 * n_lu, f"respa_extend_add_{inst}": 2 * n_add,
+            f"respa_front_sweep_fwd_{inst}": solves * n_fwd,
+            f"respa_front_sweep_bwd_{inst}": solves * n_bwd, red: solves * n_red}
+    want = {k: v for k, v in want.items() if v}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, the plan gives {want}")
+    err = slv.inf_norm_error(x, x_true)
+    if not (rep.residual <= 1e-10 and np.isfinite(x).all() and x.shape == (a.nrows,)):
+        raise AssertionError(f"{name}: {rep}")
+    ph = fac.phases
+    plan = fac._plan
+    print(f"[frontal] {name_limit} | {name} n={a.nrows} nnz={a.nnz} {rep.policy} [{rep.notes}] "
+          f"fronts {fac.part.nsn}, groups {len(plan.groups)}, widest front "
+          f"{int((plan.wp + plan.rp).max())}, fill {fac.part.fill_nnz}, pool "
+          f"{fac.report.factor_bytes} bytes, peak device memory of factorize() {peak / 1e9:.2f} GB: analyze "
+          f"{fac.report.t_analyze:.2f} s (matching {ph['matching']:.2f}, ordering and symbolic "
+          f"{ph['symbolic']:.2f}, plan {ph['plan']:.2f}), factor cold "
+          f"{fac.report.t_factorize * 1e3:.1f} ms, warm {t_warm * 1e3:.1f} ms, "
+          f"{'refined ' if refine else ''}solve {rep.t_solve * 1e3:.1f} ms in {rep.iterations} "
+          f"iterations, {fac._frontal.launches_per_solve} launches a solve (host clock, each "
+          f"phase ended by a device synchronize; factorize() as a whole {t_all:.2f} s); residual "
+          f"{rep.residual:.3e} (host oracle), inf_norm_error {err:.3e}, pivots perturbed "
+          f"{rep.n_pivot_perturbed}, pivot growth {fac.report.pivot_growth:.3e}, both "
+          f"factorizations bitwise equal", flush=True)
+    print(f"[frontal] launches of this row {got}", flush=True)
+    return fac, x, rep
+
+
+def multifrontal_path(name_limit, mats, times):
+    """Phase 8; returns the launch counts of the frontal, block-LU and fp64
+    SpMV kernels on the multifrontal path."""
+    reset_counts()
+    a = mats["dc1"]
+    if slv.structural_symmetry(a) >= 0.9:
+        raise AssertionError("the dc1 stand-in should be structurally unsymmetric")
+    # the circuit stand-in: band refuses, the multifrontal LU serves, matched
+    fac, x, rep = frontal_row(name_limit, "dc1", a, "fp32", "auto", True, "f32", True)
+    # the FEM stand-in the band path serves, by the other method, and in fp64
+    cubes = mats["2cubes_sphere"]
+    fac_c, _, rep_c = frontal_row(name_limit, "2cubes_sphere", cubes, "fp32", "snlu", True, "f32",
+                                  False)
+    del fac_c
+    fac64, _, _ = frontal_row(name_limit, "2cubes_sphere", cubes, "fp64", "snlu", False, "f64")
+    lap = laplacian_2d(300, 300)
+    fac_z, _, _ = frontal_row(name_limit, "laplacian_2d(300, 300)", lap, "fp32_ftz", "snlu", True,
+                              "f32_ftz")
+    # offshore through the chain: served, or refused with each method's reason
+    t0 = time.perf_counter()
+    try:
+        fac_o = slv.factorize(mats["offshore"], "fp32", method="auto", device="cuda")
+    except MemoryError as e:
+        text = str(e)
+        if not ("band: band storage would need" in text and "snlu: front pool would need" in text
+                and text.endswith("sparse: not ported")):
+            raise AssertionError(f"offshore: refusal text {text!r}") from e
+        print(f"[frontal] offshore refused in {time.perf_counter() - t0:.1f} s: {text}", flush=True)
+    else:
+        bo, _ = slv.make_rhs_for_known_x(mats["offshore"])
+        _, ro = slv.solve_refined(mats["offshore"], bo, fac=fac_o)
+        if not (ro.notes.startswith("method=snlu") and ro.residual <= 1e-10):
+            raise AssertionError(f"offshore: {ro}")
+        print(f"[frontal] {name_limit} | offshore n={mats['offshore'].nrows} [{ro.notes}] fronts "
+              f"{fac_o.part.nsn}, groups {len(fac_o._plan.groups)}, fill {fac_o.part.fill_nnz}, "
+              f"pool {fac_o.report.factor_bytes} bytes: analyze {ro.t_analyze:.2f} s, factor "
+              f"{ro.t_factorize * 1e3:.1f} ms, refined solve {ro.t_solve * 1e3:.1f} ms in "
+              f"{ro.iterations} iterations, residual {ro.residual:.3e}, pivots perturbed "
+              f"{ro.n_pivot_perturbed}", flush=True)
+        del fac_o
+    launches = dict(F.LAUNCHES, **B.LAUNCHES, spmv_fp64=K.LAUNCHES["fp64"])
+    print(f"[frontal] launches of the whole multifrontal path {launches}", flush=True)
+
+    # beside the path, not counted: one unrefined solve, the condition
+    # estimate, a solve by the plain versions, and the kernels' times
+    b, _ = slv.make_rhs_for_known_x(a)
+    t0 = time.perf_counter()
+    fac.solve(b)
+    t_one, r_one = time.perf_counter() - t0, fac.report.residual
+    bd = torch.from_numpy(b).cuda()
+    x1 = fac.solve_original_device(bd)
+    again = fac.solve_original_device(bd)
+    if not torch.equal(x1, again):
+        raise AssertionError("dc1: two solves differ bit for bit")
+    rcond = fac.condest()
+    if not (np.isfinite(rcond) and 0 < rcond <= 1):
+        raise AssertionError(f"condest {rcond}")
+    print(f"[frontal] {name_limit} | dc1 one fp32 solve without refinement {t_one * 1e3:.1f} ms, "
+          f"residual {r_one:.3e}, bitwise equal twice; condest (Hager, transpose "
+          f"solves from the pool): rcond {rcond:.3e}", flush=True)
+    time_frontal(name_limit, fac, times)
+    del fac
+    time_frontal(name_limit, fac64, times)
+    del fac64
+    time_frontal(name_limit, fac_z, times)
+    return launches
 
 
 def main():
@@ -678,7 +1010,18 @@ def main():
         if n < 1:
             raise AssertionError(f"{name} was not launched on the direct path")
 
-    # 7. result
+    # 7. frontal kernels vs plain
+    front_errs, front_times = {}, {}
+    check_frontal_kernels(front_errs)
+
+    # 8. multifrontal path at full width
+    front_launches = multifrontal_path(name_limit, mats, front_times)
+    for name in (*F.LAUNCHES, "respa_block_lu_f32", "respa_block_lu_f32_ftz",
+                 "respa_block_lu_f64", "spmv_fp64"):
+        if front_launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the multifrontal path")
+
+    # 9. result
     kernels = []
     for p in TOL:
         kernels.append({"name": f"respa_spmv_csr_{INST[p]}", "route": "cuda", "source": SOURCE,
@@ -686,12 +1029,21 @@ def main():
                         "max_abs_err": errs[p], **times[MAIN[0], p], "bound_by": "bytes",
                         "shape": MAIN[0],
                         "by_matrix": {m: times[m, p] for m in MAIN},
-                        **({"launches_direct_path": spmv_direct} if p == "fp64" else {})})
+                        **({"launches_direct_path": spmv_direct,
+                            "launches_frontal_path": front_launches["spmv_fp64"]}
+                           if p == "fp64" else {})})
     for name in B.LAUNCHES:
         kernels.append({"name": name, "route": "cuda", "source": BAND_SOURCE,
                         "replaces": LU_REPLACES if "block_lu" in name else SWEEP_REPLACES,
                         "launches": band_launches[name], "max_abs_err": band_errs[name],
-                        **band_times[name]})
+                        **band_times[name],
+                        **({"launches_frontal_path": front_launches[name]}
+                           if "block_lu" in name else {})})
+    for name in F.LAUNCHES:
+        kernels.append({"name": name, "route": "cuda", "source": FRONTAL_SOURCE,
+                        "replaces": FRONTAL_REPLACES[kernel_kind(name)],
+                        "launches": front_launches[name], "max_abs_err": front_errs[name],
+                        **front_times[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

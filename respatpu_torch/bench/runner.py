@@ -94,10 +94,12 @@ def sweep_lu(names: Sequence[str], csv_path: Optional[str] = None,
     """Direct LU factorize+solve sweep with optional fp64 refinement
     (test_pardiso.c / run_pardiso.sh protocol).
 
-    Routes through ``solve.factorize``'s auto chain, of which band LU is the
-    one method ported so far: a matrix whose band does not fit
-    ``max_band_bytes`` gets an ``infeasible`` row that names the refusal.
-    The method that served each row is recorded in the ``method`` column;
+    Routes through ``solve.factorize``'s auto chain: band LU when the band
+    fits ``max_band_bytes``, else the multifrontal LU (with GESP matching on
+    structurally unsymmetric patterns); a matrix that both refuse gets an
+    ``infeasible`` row that names each refusal. The method that served each
+    row is recorded in the ``method`` column (``method=band`` or
+    ``method=snlu,...``);
     ``t_factor_s`` is the first factorization, ``t_factor_warm_s`` a second
     one (PARDISO phase 22 is reported warm by the reference protocol too,
     run_pardiso.sh 11-rep loop)."""

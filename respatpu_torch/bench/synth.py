@@ -302,3 +302,62 @@ def row_block_edges(cap: int, max_rows: int, n: int = 6000, seed: int = 77) -> d
                                      rng.integers(0, 9, 5000)),
     }
     return {name: from_row_lengths(v, n, seed=i) for i, (name, v) in enumerate(lens.items())}
+
+
+def frontal_group(nf: int, wp: int, rp: int, nparents: int, seed: int = 0) -> dict:
+    """One synthetic (level, bucket) group of the multifrontal pool with its
+    parent fronts, for exercising the frontal kernels at chosen shapes: ``nf``
+    fronts of ``wp`` pivot columns and ``rp`` update rows (each with 1..rp
+    rows in use, and a few padded pivots), dealt to ``nparents`` parent fronts
+    in runs, so that siblings collide in their parent and in the right-hand
+    side's update rows. ``nparents = 0`` makes them roots (``rp`` must be 0).
+
+    Returns host arrays named as ``kernels.snlu_device._Group``'s, plus
+    ``pool`` (float64: children first, then the parents, diagonally dominant
+    pivot blocks so both triangles solve stably), ``g0``, ``n`` and ``y``
+    (float64[n + 1], its last slot 0).
+    """
+    rng = np.random.default_rng(seed)
+    mp = wp + rp
+    pm = 2 * max(rp, 1) + 8  # a parent front's size
+    if (rp == 0) != (nparents == 0):
+        raise ValueError("roots, and only roots, have rp = 0")
+    pool = np.zeros(nf * mp * mp + nparents * pm * pm)
+    fronts = pool[:nf * mp * mp].reshape(nf, mp, mp)
+    fronts[:] = 0.3 * rng.standard_normal((nf, mp, mp)) / np.sqrt(mp)
+    w = rng.integers(max(1, wp - 3), wp + 1, nf)  # pivots in use
+    r = rng.integers(1, rp + 1, nf) if rp else np.zeros(nf, np.int64)
+    for b in range(nf):
+        fronts[b, w[b]:wp, :] = 0.0
+        fronts[b, :, w[b]:wp] = 0.0
+        fronts[b, wp + r[b]:, :] = 0.0
+        fronts[b, :, wp + r[b]:] = 0.0
+    d = np.arange(wp)
+    fronts[:, d, d] = 2.0 + rng.random((nf, wp))
+    pool[nf * mp * mp:] = rng.standard_normal(nparents * pm * pm)
+    n_piv = int(w.sum())
+    n = n_piv + nparents * pm
+    piv = np.full((nf, wp), n, dtype=np.int32)
+    start = np.cumsum(w) - w
+    for b in range(nf):
+        piv[b, :w[b]] = start[b] + np.arange(w[b])
+    parent = np.sort(rng.integers(0, nparents, nf)) if nparents else np.full(nf, -1)
+    lp = np.full((nf, rp), -1, dtype=np.int32)
+    rsx = np.full((nf, rp), n, dtype=np.int32)
+    for b in range(nf):
+        if r[b]:
+            lp[b, :r[b]] = np.sort(rng.choice(pm, r[b], replace=False))
+            rsx[b, :r[b]] = n_piv + parent[b] * pm + lp[b, :r[b]]
+    poff = np.where(parent >= 0, nf * mp * mp + parent * pm * pm, -1).astype(np.int64)
+    pmp = np.where(parent >= 0, pm, 0).astype(np.int32)
+    if nparents:
+        cut = np.flatnonzero(np.r_[True, parent[1:] != parent[:-1]])
+        seg_ptr = np.r_[cut, nf].astype(np.int32)
+    else:
+        seg_ptr = np.zeros(1, np.int32)
+    from ..kernels.snlu_device import reduction_csr
+    red_rows, red_ptr, red_src = reduction_csr(rsx, n)
+    y = np.r_[rng.standard_normal(n), 0.0]
+    return dict(pool=pool, g0=0, nf=nf, wp=wp, rp=rp, n=n, y=y, piv=piv, rsx=rsx, lp=lp,
+                poff=poff, pmp=pmp, seg_ptr=seg_ptr, red_rows=red_rows, red_ptr=red_ptr,
+                red_src=red_src)

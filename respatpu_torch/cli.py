@@ -127,7 +127,8 @@ def main(argv=None):
     def direct(sp):
         sp.add_argument("--method", default="auto",
                         choices=["auto", "band", "snlu", "multifrontal", "sparse"],
-                        help="auto | band (the others are not ported yet)")
+                        help="auto (band, then multifrontal) | band | snlu "
+                             "(= multifrontal); sparse is not ported yet")
         sp.add_argument("--no-refine", action="store_true",
                         help="one direct solve, no fp64 iterative refinement")
 

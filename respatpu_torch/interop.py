@@ -11,10 +11,13 @@ import torch
 
 from .formats import CSRMatrix
 from .kernels.bandlu import DeviceBand
+from .kernels.snlu import SupernodePartition
+from .kernels.snlu_device import FrontalPlan, build_frontal_plan, values_from_pool
 from .precision import get_policy
 
 __all__ = ["csr_from_respatpu", "df_to_numpy", "band_from_respatpu",
-           "band_to_numpy"]
+           "band_to_numpy", "partition_from_respatpu", "plan_from_respatpu",
+           "pool_from_respatpu", "pool_to_numpy"]
 
 
 def csr_from_respatpu(obj) -> CSRMatrix:
@@ -58,3 +61,48 @@ def band_to_numpy(band: DeviceBand):
         hi = full.astype(np.float32)
         return hi, (full - hi.astype(np.float64)).astype(np.float32)
     return (data.float().numpy(),)
+
+
+def partition_from_respatpu(obj) -> SupernodePartition:
+    """The port's partition from anything shaped like respatpu's
+    ``SupernodePartition``."""
+    return SupernodePartition(
+        n=int(obj.n), perm=np.asarray(obj.perm), filled=csr_from_respatpu(obj.filled),
+        snode_ptr=np.asarray(obj.snode_ptr, np.int64),
+        sn_parent=np.asarray(obj.sn_parent, np.int64),
+        rowstruct=[np.asarray(rs, np.int64) for rs in obj.rowstruct],
+        levels=[np.asarray(lv, np.int64) for lv in obj.levels],
+        fill_nnz=int(obj.fill_nnz))
+
+
+def plan_from_respatpu(plan) -> FrontalPlan:
+    """The port's frontal plan for the partition of respatpu's ``FrontalPlan``
+    (anything with ``part``). Front shapes are the same; the pool's layout is
+    the port's own (group by group), so ``off`` differs from respatpu's by
+    the permutation that :func:`pool_from_respatpu` applies."""
+    return build_frontal_plan(partition_from_respatpu(plan.part))
+
+
+def _front_gather(src_off: np.ndarray, dst_off: np.ndarray, mp: np.ndarray):
+    """Flat index pairs that move every front from one pool layout to another."""
+    size = mp * mp
+    within = np.arange(int(size.sum()), dtype=np.int64) - np.repeat(np.cumsum(size) - size, size)
+    return np.repeat(src_off, size) + within, np.repeat(dst_off, size) + within
+
+
+def pool_from_respatpu(plan, pool_np, device: Union[str, torch.device] = "cpu",
+                       dtype: torch.dtype = torch.float32):
+    """``(port plan, port pool)`` from respatpu's ``FrontalPlan`` and its pool
+    (assembled or factored) as a numpy array: every front moved from
+    respatpu's layout (supernode order) to the port's (group by group)."""
+    tplan = plan_from_respatpu(plan)
+    src, dst = _front_gather(np.asarray(plan.off, np.int64), tplan.off, tplan.wp + tplan.rp)
+    out = np.zeros(tplan.pool_size, dtype=np.float64)
+    out[dst] = np.asarray(pool_np, np.float64)[src]
+    return tplan, torch.from_numpy(out).to(dtype).to(torch.device(device))
+
+
+def pool_to_numpy(plan: FrontalPlan, pool: torch.Tensor) -> np.ndarray:
+    """A port pool's entries in ``plan.part.filled.data`` layout (float64),
+    which is what respatpu's ``values_from_pool`` gives for its own pool."""
+    return values_from_pool(plan, pool)

@@ -1,12 +1,19 @@
 """ctypes bindings for the port's native host library: the Matrix Market
 parser (``io/csrc/mtx_parse.cpp``: the header and the coordinate-entry
-parsers) and the reverse Cuthill-McKee ordering (``io/csrc/rcm_order.cpp``).
+parsers), the reverse Cuthill-McKee ordering (``io/csrc/rcm_order.cpp``) and
+what the multifrontal analysis needs: the symmetric symbolic fill
+(``io/csrc/symbolic_fill.cpp``), the weighted-matching assignment
+(``io/csrc/sparse_assignment.cpp``), the fill-reducing orderings
+(``io/csrc/fill_order.cpp``: approximate minimum degree, nested dissection)
+and the front pool's assembly map (``io/csrc/frontal_assembly.cpp``).
 
 The sources are the port's own. They are compiled at first use with the host C++
 compiler into the checkout's ``build/`` directory
 (``respatpu_torch._buildlib``) and loaded from there. When no C++ compiler
-is present the callers fall back to the numpy parser and the Python
-breadth-first search (host work; nothing on the device depends on it).
+is present the callers fall back to the numpy parser, the Python
+breadth-first search, the row-merge symbolic fill, scipy's matching, a
+naive minimum degree and array operations for the assembly map (host work;
+nothing on the device depends on it).
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ from .._buildlib import CompileError, build_shared
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SOURCE = os.path.join(_CSRC, "mtx_parse.cpp")
-_SOURCES = (_SOURCE, os.path.join(_CSRC, "rcm_order.cpp"))
+_SOURCES = (_SOURCE, *(os.path.join(_CSRC, f) for f in (
+    "rcm_order.cpp", "symbolic_fill.cpp", "sparse_assignment.cpp", "fill_order.cpp",
+    "frontal_assembly.cpp")))
 _CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lib = None
@@ -71,6 +80,19 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.mtx_parse_entries.restype = ctypes.c_int64
         lib.rcm_order_csr.argtypes = [ctypes.c_int64, _i64p, _i32p, _i32p]
         lib.rcm_order_csr.restype = ctypes.c_int
+        lib.symbolic_fill_sym_compute.argtypes = [ctypes.c_int64, _i64p, _i32p]
+        lib.symbolic_fill_sym_compute.restype = ctypes.c_int64
+        lib.symbolic_fill_fetch.argtypes = [ctypes.c_int64, _i64p, _i32p]
+        lib.symbolic_fill_fetch.restype = ctypes.c_int
+        lib.sparse_assignment.argtypes = [ctypes.c_int64, _i64p, _i32p, _f64p, _i32p]
+        lib.sparse_assignment.restype = ctypes.c_int
+        lib.amd_order.argtypes = [ctypes.c_int64, _i64p, _i32p, _i32p, ctypes.c_double]
+        lib.amd_order.restype = ctypes.c_int
+        lib.nd_order.argtypes = [ctypes.c_int64, _i64p, _i32p, _i32p, ctypes.c_int32]
+        lib.nd_order.restype = ctypes.c_int
+        lib.frontal_asm_dst.argtypes = [ctypes.c_int64, ctypes.c_int64, _i64p, _i32p,
+                                        _i64p, _i64p, _i64p, _i64p, _i64p, _i64p, _i64p]
+        lib.frontal_asm_dst.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -126,3 +148,104 @@ def rcm(n: int, indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
     if rc != 0:
         raise ValueError(f"rcm: a column index is out of range ({rc})")
     return order
+
+
+def _pattern(n: int, indptr: np.ndarray, indices: np.ndarray, what: str):
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = np.ascontiguousarray(indices, np.int32)
+    if indptr.shape != (n + 1,) or indices.shape != (int(indptr[-1]),):
+        raise ValueError(f"{what}: indptr and indices do not describe n rows")
+    return indptr, indices
+
+
+def symbolic_fill(n: int, indptr: np.ndarray, indices: np.ndarray):
+    """Filled pattern of the unpivoted LU of a structurally SYMMETRIC pattern
+    (the caller checks or symmetrizes), by the elimination tree: returns
+    ``(fill_indptr int64[n+1], fill_indices int32[fnnz])``, columns ascending
+    in each row."""
+    lib = _load()
+    indptr, indices = _pattern(n, indptr, indices, "symbolic_fill")
+    with _lock:  # the library keeps one result between compute and fetch
+        fnnz = lib.symbolic_fill_sym_compute(n, indptr.ctypes.data_as(_i64p),
+                                             indices.ctypes.data_as(_i32p))
+        if fnnz < 0:
+            raise RuntimeError("symbolic fill failed")
+        if fnnz * 4 > 32 << 30:
+            # a refusal with its size in the message, never a raw allocator
+            # error: no numeric phase could hold a factor this dense anyway
+            raise MemoryError(
+                f"symbolic fill has {fnnz/1e9:.2f}G entries "
+                f"({fnnz * 4 / 2**30:.0f} GiB of indices); the ordering "
+                "does not control fill on this pattern")
+        out_ptr = np.empty(n + 1, dtype=np.int64)
+        out_idx = np.empty(fnnz, dtype=np.int32)
+        lib.symbolic_fill_fetch(n, out_ptr.ctypes.data_as(_i64p),
+                                out_idx.ctypes.data_as(_i32p))
+    return out_ptr, out_idx
+
+
+def sparse_assignment(n: int, indptr: np.ndarray, indices: np.ndarray,
+                      cost: np.ndarray) -> Optional[np.ndarray]:
+    """Min-cost perfect bipartite matching (MC64 slot). Returns
+    ``match[i] = column of row i`` or None when structurally singular."""
+    lib = _load()
+    indptr, indices = _pattern(n, indptr, indices, "sparse_assignment")
+    cost = np.ascontiguousarray(cost, dtype=np.float64)
+    if cost.shape != indices.shape:
+        raise ValueError("sparse_assignment: one cost an entry")
+    out = np.empty(n, dtype=np.int32)
+    rc = lib.sparse_assignment(n, indptr.ctypes.data_as(_i64p),
+                               indices.ctypes.data_as(_i32p),
+                               cost.ctypes.data_as(_f64p), out.ctypes.data_as(_i32p))
+    return out if rc == 0 else None
+
+
+def amd(n: int, indptr: np.ndarray, indices: np.ndarray,
+        dense_alpha: float = 10.0) -> np.ndarray:
+    """Approximate minimum degree (quotient graph) on a SYMMETRIC pattern."""
+    lib = _load()
+    indptr, indices = _pattern(n, indptr, indices, "amd")
+    out = np.empty(n, dtype=np.int32)
+    rc = lib.amd_order(n, indptr.ctypes.data_as(_i64p), indices.ctypes.data_as(_i32p),
+                       out.ctypes.data_as(_i32p), dense_alpha)
+    if rc != 0:
+        raise RuntimeError("amd_order failed (incomplete elimination)")
+    return out
+
+
+def nd(n: int, indptr: np.ndarray, indices: np.ndarray,
+       leaf_size: int = 256) -> np.ndarray:
+    """Nested dissection (level separators, AMD leaves) on a SYMMETRIC
+    pattern: the METIS slot for large 3-D meshes."""
+    lib = _load()
+    indptr, indices = _pattern(n, indptr, indices, "nd")
+    out = np.empty(n, dtype=np.int32)
+    rc = lib.nd_order(n, indptr.ctypes.data_as(_i64p), indices.ctypes.data_as(_i32p),
+                      out.ctypes.data_as(_i32p), leaf_size)
+    if rc != 0:
+        raise RuntimeError("nd_order failed (incomplete ordering)")
+    return out
+
+
+def frontal_asm_dst(n: int, indptr: np.ndarray, indices: np.ndarray, snode_ptr: np.ndarray,
+                    rs_ptr: np.ndarray, rs: np.ndarray, off: np.ndarray, wp: np.ndarray,
+                    mp: np.ndarray) -> np.ndarray:
+    """Flat front-pool position of every entry of the filled pattern
+    (``indptr``, ``indices``), given the supernode column ranges, the
+    concatenated row structures (``rs_ptr``, ``rs``), and each front's pool
+    offset, padded pivot width and size. Raises if an entry falls outside its
+    front's row structure."""
+    lib = _load()
+    indptr, indices = _pattern(n, indptr, indices, "frontal_asm_dst")
+    nsn = int(snode_ptr.size) - 1
+    arrs = [np.ascontiguousarray(v, np.int64) for v in (snode_ptr, rs_ptr, rs, off, wp, mp)]
+    if arrs[1].shape != (nsn + 1,) or any(v.shape != (nsn,) for v in arrs[3:]):
+        raise ValueError("frontal_asm_dst: the per-front arrays do not match snode_ptr")
+    out = np.empty(indices.size, dtype=np.int64)
+    rc = lib.frontal_asm_dst(n, nsn, indptr.ctypes.data_as(_i64p), indices.ctypes.data_as(_i32p),
+                             *(v.ctypes.data_as(_i64p) for v in arrs),
+                             out.ctypes.data_as(_i64p))
+    if rc != 0:
+        raise AssertionError("filled pattern is not structurally symmetric: an entry "
+                             "falls outside its front's row structure")
+    return out

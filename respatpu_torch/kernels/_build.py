@@ -16,7 +16,7 @@ from typing import Sequence
 from .._buildlib import CompileError, build_shared
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("spmv_csr.cu", "band_lu.cu")
+SOURCES = ("spmv_csr.cu", "band_lu.cu", "frontal.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 _ENTRIES = ("respa_spmv_csr_f32", "respa_spmv_csr_f32_ftz",
@@ -24,6 +24,11 @@ _ENTRIES = ("respa_spmv_csr_f32", "respa_spmv_csr_f32_ftz",
 _BLOCK_LU = ("respa_block_lu_f32", "respa_block_lu_f32_ftz", "respa_block_lu_f64")
 _BAND_SWEEP = tuple(f"respa_band_sweep_{d}_{i}" for d in ("fwd", "bwd")
                     for i in ("f32", "f32_ftz", "bf16", "f64"))
+_INSTANCES = ("f32", "f32_ftz", "f64")
+_EXTEND_ADD = tuple(f"respa_extend_add_{i}" for i in _INSTANCES)
+_FRONT_FWD = tuple(f"respa_front_sweep_fwd_{i}" for i in _INSTANCES)
+_FRONT_BWD = tuple(f"respa_front_sweep_bwd_{i}" for i in _INSTANCES)
+_ROWS_REDUCE = ("respa_rows_reduce_f32", "respa_rows_reduce_f64")
 
 _lib = None
 _lock = threading.Lock()
@@ -67,7 +72,29 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
         # device, nb, p, ml, mu, then band, b, out, mail, stream
         fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
-    for name in ("respa_spmv_csr_cap", "respa_spmv_csr_max_rows", "respa_band_max_p"):
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for name in _EXTEND_ADD:
+        fn = getattr(lib, name)
+        # device, pool, g0, nfronts, wp, rp, lp, poff, pmp, seg_ptr, nseg, tiles, stream
+        fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr]
+        fn.restype = ctypes.c_int
+    for name in _FRONT_FWD:
+        fn = getattr(lib, name)
+        # device, pool, g0, nfronts, wp, rp, piv, y, n, zbuf, upd, split, tiles, stream
+        fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, i32, ptr, ptr, i32, i32, ptr]
+        fn.restype = ctypes.c_int
+    for name in _FRONT_BWD:
+        fn = getattr(lib, name)
+        # device, pool, g0, nfronts, wp, rp, piv, rsx, y, n, zbuf, split, tiles, stream
+        fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i32, ptr, i32, i32, ptr]
+        fn.restype = ctypes.c_int
+    for name in _ROWS_REDUCE:
+        fn = getattr(lib, name)
+        # device, y, upd, rows, ptr, src, nd, flush, stream
+        fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
+        fn.restype = ctypes.c_int
+    for name in ("respa_spmv_csr_cap", "respa_spmv_csr_max_rows", "respa_band_max_p",
+                 "respa_front_max_tri"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     return lib

@@ -1,22 +1,23 @@
-"""User-facing solver API: SpMV front end, the banded direct solver, the
-automatic method choice, mixed-precision iterative refinement, and the
-verification idioms (SURVEY.md §4).
+"""User-facing solver API: SpMV front end, the banded and the multifrontal
+direct solver, the automatic method choice, mixed-precision iterative
+refinement, and the verification idioms (SURVEY.md §4).
 
 The counterpart of ``respatpu/solve.py``:
 
 * ``spmv_timed``           — test_spmv.c / GPU/spmv.cu
 * ``BandLuFactorization``  — test_pardiso.c / test_superLU_MT.c /
                              test_mumps.c (direct LU factorize + solve)
-* ``factorize``            — the method chain; band LU is the one method
-                             ported so far
+* ``SupernodalLuFactorization`` — the same slot for patterns whose band does
+                             not fit: multifrontal LU with GESP matching
+* ``factorize``            — the method chain: band, then multifrontal
 * ``solve_refined``        — factor in fp32/bf16, residual in fp64: the
                              study's headline pipeline
 * residual / error verification — the reference's three idioms.
 
 Phase timing (analyze / factorize / solve) mirrors PARDISO phases 11/22/33
 (test_pardiso.c:185-244); each phase ends after a device synchronize. The
-multifrontal and the scheduled sparse LU, GESP matching, the ILU(0)
-preconditioner and the Krylov loops are ported in later slices.
+scheduled sparse LU, the ILU(0) preconditioner and the Krylov loops are
+ported in later slices.
 """
 from __future__ import annotations
 
@@ -28,16 +29,19 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .analysis import permute_csr, rcm_ordering, structural_symmetry
+from .analysis import (apply_matching_scaling, permute_csr, rcm_ordering,
+                       structural_symmetry, weighted_matching_scaling)
 from .formats import CSRMatrix
-from .kernels import bandlu
+from .kernels import bandlu, snlu_device
+from .kernels.snlu import analyze_supernodes
 from .kernels.spmv import spmv, to_device
 from .precision import Policy, get_policy
 from .timing import (OpTiming, check_plausible, device_bandwidth,
                      spmv_csr_sol_bytes, time_op)
 
 __all__ = ["SolveReport", "spmv_timed", "condition_estimate",
-           "BandLuFactorization", "factorize_band", "factorize",
+           "BandLuFactorization", "factorize_band",
+           "SupernodalLuFactorization", "factorize",
            "solve_refined", "relative_residual", "inf_norm_error",
            "make_rhs_for_known_x"]
 
@@ -256,6 +260,16 @@ class BandLuFactorization:
         a tensor in, the solution in the factor's accumulator type out."""
         return bandlu.band_solve(self._lu, bp_dev)
 
+    def solve_original_device(self, r: torch.Tensor) -> torch.Tensor:
+        """Solve A x = r in the original coordinates, fp64 tensors on the
+        factor's device in and out (GMRES-IR's preconditioner apply)."""
+        if getattr(self, "_perm_dev", None) is None:
+            self._perm_dev = torch.from_numpy(self.perm.astype(np.int64)).to(self.device)
+        x = torch.empty_like(r)
+        x[self._perm_dev] = self.solve_device(
+            r[self._perm_dev].to(self.policy.accum_dtype)).double()
+        return x
+
     def _solve_host(self, b: np.ndarray, solver) -> np.ndarray:
         bp = np.asarray(b, np.float64)[self.perm]
         xs = solver(self._lu, torch.from_numpy(bp).to(self.device).to(self.policy.accum_dtype))
@@ -288,9 +302,175 @@ def factorize_band(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
     return BandLuFactorization(a, policy=policy, **kw)
 
 
-_SLICE = {"snlu": "multifrontal LU (ROADMAP Queue 1, slice 3)",
-          "multifrontal": "multifrontal LU (ROADMAP Queue 1, slice 3)",
-          "sparse": "scheduled sparse LU (ROADMAP Queue 1, slice 4)"}
+# ---------------------------------------------------------------------------
+# Multifrontal direct LU
+# ---------------------------------------------------------------------------
+
+
+class SupernodalLuFactorization:
+    """Supernodal multifrontal LU with the numeric phase on the device.
+
+    The PARDISO-class pipeline (phases 11/22/33, test_pardiso.c:185-244) for
+    patterns whose dense band does not fit in memory (3-D FEM at catalogue
+    size, the circuit class): symbolic multifrontal analysis on the host
+    (kernels/snlu.py), numeric factorization as batched dense frontal partial
+    LUs in one device-resident pool, and solves straight from that pool
+    (kernels/snlu_device.py). The fp32, fp32_ftz and bf16 policies factor and
+    solve in an fp32 pool (reference accuracy is recovered with
+    :func:`solve_refined`, the study's recipe; ``notes`` says
+    ``apply=frontal_fp32``); fp64 takes a native fp64 pool.
+
+    ``matching`` turns on the GESP static-pivoting pre-step: MC64-style
+    weighted matching and Ruiz scaling, so that the max-product entries sit
+    on the diagonal at magnitude ~1, static perturbation rarely triggers and
+    refinement converges on circuit-class unsymmetric matrices. The scaling
+    and both permutations are unwound inside :meth:`solve`.
+
+    ``max_pool_bytes`` caps the front pool; by default it is nine tenths of
+    the device's free memory (4 GiB on the CPU). A pool past it is refused
+    with ``MemoryError`` before anything is allocated.
+    """
+
+    def __init__(self, a: CSRMatrix, policy: Union[str, Policy] = "fp32",
+                 order: str = "fillauto", amalg: int = 32,
+                 pivot_eps: Optional[float] = None, matching: bool = False,
+                 device: Union[str, torch.device] = "cuda",
+                 max_pool_bytes: Optional[int] = None):
+        policy = get_policy(policy)
+        if a.shape[0] != a.shape[1]:
+            raise ValueError(f"multifrontal LU requires a square matrix, got {a.shape}")
+        self.policy = policy
+        self.a = a
+        self.device = torch.device(device)
+        self.report = SolveReport(policy=policy.name)
+        self.matched = bool(matching)
+        if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on; the front "
+                               "factorization needs full fp32 products")
+        self._dtype = policy.accum_dtype  # bf16 values are factored in fp32
+
+        t0 = time.perf_counter()
+        a_work = a
+        # seconds of the analysis' parts (all inside report.t_analyze)
+        self.phases = {"matching": 0.0}
+        if matching:
+            self._cperm, self._dr, self._dc, matched_ok = weighted_matching_scaling(a)
+            a_work = apply_matching_scaling(a, self._cperm, self._dr, self._dc)
+            self.phases["matching"] = time.perf_counter() - t0
+            self.report.notes = ("matching+ruiz scaling (GESP static pivoting)"
+                                 if matched_ok else
+                                 "MATCHING FAILED (structurally singular): "
+                                 "identity matching + ruiz scaling only")
+        t1 = time.perf_counter()
+        part = analyze_supernodes(a_work, order=order, amalg=amalg)
+        self.phases["symbolic"] = time.perf_counter() - t1
+        self.part = part
+        self.perm = part.perm
+        if max_pool_bytes is None:
+            max_pool_bytes = (int(0.9 * torch.cuda.mem_get_info(self.device)[0])
+                              if self.device.type == "cuda" else 4 << 30)
+        t1 = time.perf_counter()
+        self._plan = snlu_device.build_frontal_plan(
+            part, itemsize=torch.finfo(self._dtype).bits // 8, max_pool_bytes=max_pool_bytes)
+        self.phases["plan"] = time.perf_counter() - t1
+        self._plan.on_device(self.device)
+
+        def to_dev(v):
+            return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+
+        self._perm_dev = to_dev(part.perm.astype(np.int64))
+        if matching:
+            self._cperm_dev = to_dev(self._cperm)
+            self._dr_dev, self._dc_dev = to_dev(self._dr), to_dev(self._dc)
+        _sync(self.device)
+        self.report.t_analyze = time.perf_counter() - t0
+
+        amax = float(np.abs(part.filled.data).max()) if part.filled.nnz else 1.0
+        self._pivot_eps = (snlu_device.default_pivot_eps(amax, self._dtype)
+                           if pivot_eps is None else float(pivot_eps))
+        self._frontal = None
+        self.report.t_factorize = self.refactorize_timed()
+        amax = float(np.abs(a.data).max()) if a.nnz else 1.0
+        # element growth over the whole pool: includes intermediate Schur
+        # values, the textbook growth factor of Gaussian elimination
+        lo, hi = torch.aminmax(self._frontal.pool)
+        self.report.pivot_growth = max(abs(float(lo)), abs(float(hi))) / max(amax, 1e-300)
+        self.report.factor_bytes = self._plan.pool_size * self._frontal.pool.element_size()
+        self.report.notes = ((self.report.notes + "," if self.report.notes else "")
+                             + f"apply=frontal_{'fp64' if self._dtype == torch.float64 else 'fp32'}")
+
+    def refactorize_timed(self) -> float:
+        """Numeric phase wall time (PARDISO phase 22), to the device
+        synchronize: assembly of the pool from the filled pattern's values
+        and the group-by-group factorization. Refreshes the stored factor."""
+        self._frontal = None  # free the old pool before the new one is allocated
+        t0 = time.perf_counter()
+        pool, nbad = snlu_device.frontal_factor_pool(
+            self._plan, self._dtype, self.device, pivot_eps=self._pivot_eps,
+            flush=self.policy.flush_to_zero)
+        _sync(self.device)
+        dt = time.perf_counter() - t0
+        self._frontal = snlu_device.FrontalSolver(self._plan, pool,
+                                                  flush=self.policy.flush_to_zero)
+        self.report.n_pivot_perturbed = nbad
+        return dt
+
+    def factor_values(self) -> np.ndarray:
+        """Factored entries in ``part.filled.data`` layout (host fp64, the
+        pool's accuracy): diagnostics; one pull of the whole pool."""
+        return snlu_device.values_from_pool(self._plan, self._frontal.pool)
+
+    def solve_device(self, bp_dev: torch.Tensor) -> torch.Tensor:
+        """Device-side solve in the permuted (and, if matched, scaled)
+        system's coordinates; the solution comes back in the pool's type."""
+        return self._frontal.solve_device(bp_dev)
+
+    def solve_original_device(self, r: torch.Tensor) -> torch.Tensor:
+        """Solve A x = r in the original coordinates, fp64 tensors on the
+        factor's device in and out: the scaling, the matching's column
+        permutation and the fill-reducing permutation all unwound on the
+        device (the refinement loops' correction solve)."""
+        bw = self._dr_dev * r if self.matched else r      # A' x' = Dr b
+        x = torch.empty_like(r)
+        x[self._perm_dev] = self.solve_device(bw[self._perm_dev].to(self._dtype)).double()
+        if self.matched:
+            xo = torch.empty_like(x)
+            xo[self._cperm_dev] = self._dc_dev * x        # x[cperm[j]] = dc[j] * x'[j]
+            x = xo
+        return x
+
+    def solve(self, b: np.ndarray) -> np.ndarray:
+        """Solve A x = b (host in/out)."""
+        t0 = time.perf_counter()
+        bb = np.asarray(b, np.float64)
+        x = _to_host_f64(self.solve_original_device(torch.from_numpy(bb).to(self.device)))
+        self.report.t_solve = time.perf_counter() - t0
+        self.report.residual = relative_residual(self.a, x, bb)
+        return x
+
+    def solve_transpose(self, s: np.ndarray) -> np.ndarray:
+        """Solve A^T z = s (host in/out) straight from the pool (U^T forward
+        then L^T backward): the true Hager iteration's transpose solve."""
+        sw = np.asarray(s, np.float64)
+        if self.matched:
+            sw = self._dc * sw[self._cperm]
+        zs = self._frontal.solve_t_device(
+            torch.from_numpy(sw[self.perm]).to(self.device).to(self._dtype))
+        zh = _to_host_f64(zs)
+        z = np.empty_like(zh)
+        z[self.perm] = zh
+        if self.matched:
+            z = self._dr * z
+        return z
+
+    def condest(self, iters: int = 5) -> float:
+        inv_norm = condition_estimate(self.a, self.solve, iters=iters,
+                                      solve_t_fn=self.solve_transpose)
+        self.report.rcond_est = 1.0 / max(_norm1(self.a) * inv_norm, 1e-300)
+        return self.report.rcond_est
+
+
+_SLICE = {"sparse": "scheduled sparse LU (ROADMAP Queue 1, slice 4)"}
 
 
 def _memlike(e: Exception) -> bool:
@@ -309,25 +489,29 @@ def factorize(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
     entry point every command routes through (test_pardiso.c:185-244).
 
     * method="band":  dense band LU after RCM (BandLuFactorization)
-    * method="snlu" / "multifrontal" / "sparse": not ported yet; they raise
-      ``NotImplementedError`` naming the slice that brings them
-    * method="auto":  band when the band fits the memory budget. When band
-      refuses for lack of memory this raises ``MemoryError`` naming each
-      method's refusal; there is no retry on the CPU and no quiet change of
-      method.
+    * method="snlu" / "multifrontal":  supernodal multifrontal LU
+      (SupernodalLuFactorization)
+    * method="sparse": the scheduled sparse LU is not ported yet; it raises
+      ``NotImplementedError`` naming the slice that brings it
+    * method="auto":  band when the band fits the memory budget, else
+      multifrontal. When both refuse for lack of memory this raises
+      ``MemoryError`` naming each method's refusal; there is no retry on the
+      CPU and no quiet change of method.
 
-    ``matching``: "auto" is computed as respatpu does (on when the pattern
-    is structurally unsymmetric, < 90 % mirrored positions). The band class
-    takes no matching, so an explicit ``matching=True`` lands in
-    ``report.notes`` as ``matching=unavailable``. The chosen method lands
-    there as ``method=...`` so sweep rows are auditable. ``device`` (in
-    ``kw``) defaults to "cuda".
+    ``matching``: True/False forces GESP weighted matching + Ruiz scaling on
+    the methods that support it; "auto" is computed as respatpu does (on
+    when the pattern is structurally unsymmetric, < 90 % mirrored positions:
+    the circuit class). The band class takes no matching, so an explicit
+    ``matching=True`` lands in its ``report.notes`` as
+    ``matching=unavailable``. The chosen method lands there as ``method=...``
+    so sweep rows are auditable. ``device`` (in ``kw``) defaults to "cuda";
+    of the other keywords each class takes the ones it knows.
     """
     if matching == "auto":
         matching = a.nrows == a.ncols and structural_symmetry(a) < 0.9
     if method in _SLICE:
         raise NotImplementedError(f"method={method!r} is not ported yet: {_SLICE[method]}")
-    if method not in ("band", "auto"):
+    if method not in ("band", "snlu", "multifrontal", "auto"):
         raise ValueError(f"unknown method {method!r}")
 
     def _mk(cls, tag):
@@ -346,13 +530,18 @@ def factorize(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
 
     if method == "band":
         return _mk(BandLuFactorization, "band")
-    try:
-        return _mk(BandLuFactorization, "band")
-    except Exception as e:
-        if not _memlike(e):
-            raise
-        raise MemoryError(f"every direct method refused: band: {e}; "
-                          "snlu: not ported; sparse: not ported") from e
+    if method in ("snlu", "multifrontal"):
+        return _mk(SupernodalLuFactorization, "snlu")
+    errs = []
+    for cls, tag in ((BandLuFactorization, "band"), (SupernodalLuFactorization, "snlu")):
+        try:
+            return _mk(cls, tag)
+        except Exception as e:
+            if not _memlike(e):
+                raise
+            errs.append(f"{tag}: {e}")
+    raise MemoryError("every direct method refused: " + "; ".join(errs)
+                      + "; sparse: not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -366,51 +555,49 @@ def _gmres_ir(a: CSRMatrix, b: np.ndarray, fac, x0: np.ndarray,
     plain IR stalls (cond(A) * u_factor >~ 1), right-preconditioned GMRES
     on the fp32 factorization still contracts — cond(A M^-1) ~ 1 +
     cond(A) * u_factor — and fp64 outer residuals drive the composite to
-    reference accuracy.  Arnoldi runs on the host in fp64 (small m), the
-    preconditioner applies are the device factor solves."""
-    bb = np.asarray(b, np.float64)
-    nb = np.linalg.norm(bb)
+    reference accuracy. Everything of size n lives on the factor's device
+    in fp64: the products with A are the CSR SpMV kernel, the preconditioner
+    applies are the factor solves, the Arnoldi basis is orthogonalised there
+    by modified Gram-Schmidt. One host sync an inner iteration (the
+    breakdown test); the small least-squares problem is solved on the host."""
+    dev = fac.device
+    a64 = to_device(a, "fp64", dev)
+    bb = torch.from_numpy(np.asarray(b, np.float64)).to(dev)
+    nb = float(torch.linalg.vector_norm(bb))
     nb = nb if nb > 0 else 1.0
-    rows = np.repeat(np.arange(a.nrows), a.row_lengths())
-
-    def amul(v):
-        out = np.zeros(a.nrows)
-        np.add.at(out, rows, a.data * v[a.indices])
-        return out
-
-    x = np.asarray(x0, np.float64).copy()
+    x = torch.from_numpy(np.array(x0, dtype=np.float64)).to(dev)
     total_inner = 0
     for _ in range(max_outer):
-        r = bb - amul(x)
-        beta = np.linalg.norm(r)
+        r = bb - spmv(a64, x)
+        beta = float(torch.linalg.vector_norm(r))
         if beta / nb <= tol:
             break
-        V = np.zeros((m + 1, a.nrows))
-        Z = np.zeros((m, a.nrows))
-        H = np.zeros((m + 1, m))
+        V = torch.zeros((m + 1, a.nrows), dtype=torch.float64, device=dev)
+        Z = torch.zeros((m, a.nrows), dtype=torch.float64, device=dev)
+        H = torch.zeros((m + 1, m), dtype=torch.float64, device=dev)
         V[0] = r / beta
         k = m
         for j in range(m):
-            Z[j] = fac.solve(V[j])
-            w = amul(Z[j])
+            Z[j] = fac.solve_original_device(V[j])
+            w = spmv(a64, Z[j])
             for i in range(j + 1):          # MGS in fp64
-                H[i, j] = w @ V[i]
+                H[i, j] = torch.dot(w, V[i])
                 w -= H[i, j] * V[i]
-            H[j + 1, j] = np.linalg.norm(w)
+            H[j + 1, j] = torch.linalg.vector_norm(w)
             total_inner += 1
-            if H[j + 1, j] < 1e-300:
+            if float(H[j + 1, j]) < 1e-300:
                 k = j + 1
                 break
             V[j + 1] = w / H[j + 1, j]
         e1 = np.zeros(k + 1)
         e1[0] = beta
-        y, *_ = np.linalg.lstsq(H[:k + 1, :k], e1, rcond=None)
-        x = x + Z[:k].T @ y
-    return x, total_inner
+        y, *_ = np.linalg.lstsq(H[:k + 1, :k].cpu().numpy(), e1, rcond=None)
+        x = x + Z[:k].T @ torch.from_numpy(y).to(dev)
+    return _to_host_f64(x), total_inner
 
 
 def solve_refined(a: CSRMatrix, b: np.ndarray,
-                  fac: Optional[BandLuFactorization] = None,
+                  fac=None,
                   policy: Union[str, Policy] = "fp32",
                   tol: float = 1e-12, max_iters: int = 40,
                   device: Union[str, torch.device] = "cuda",
@@ -421,16 +608,16 @@ def solve_refined(a: CSRMatrix, b: np.ndarray,
     residual in fp64 on the CSR SpMV kernel, the correction solve in the
     factorization's precision, one host sync an iteration (the residual
     norm). Achieves reference-fp64 residuals from an fp32/bf16
-    factorization (the study's headline result). A solve that stalls
-    escalates to GMRES-IR. ``device`` is used only when ``fac`` is None.
+    factorization (the study's headline result). A band factorization is
+    refined in its permuted system; a multifrontal one, matched or not, in
+    the original system, its scaling and permutations unwound on the device
+    inside the correction solve. A solve that stalls escalates to GMRES-IR.
+    ``device`` is used only when ``fac`` is None.
     ``report.policy`` is ``"<policy>+ir_fp64"``; respatpu, whose fp64 is a
     pair of fp32 words, writes ``+ir_df64``.
     """
     if fac is None:
         fac = BandLuFactorization(a, policy=policy, device=device)
-    if getattr(fac, "matched", False):
-        raise NotImplementedError("refinement of a matched factorization is not "
-                                  "ported yet (ROADMAP Queue 1, slice 3)")
     report = SolveReport(policy=f"{fac.policy.name}+ir_fp64",
                          t_analyze=fac.report.t_analyze,
                          t_factorize=fac.report.t_factorize,
@@ -438,9 +625,17 @@ def solve_refined(a: CSRMatrix, b: np.ndarray,
                          notes=fac.report.notes)
     t0 = time.perf_counter()
     dev = fac.device
-    acc = fac.policy.accum_dtype
-    bp = np.asarray(b, np.float64)[fac.perm]
-    a64 = to_device(fac._ap, "fp64", dev)
+    bb = np.asarray(b, np.float64)
+    if isinstance(fac, BandLuFactorization):
+        acc = fac.policy.accum_dtype
+        perm, a_res = fac.perm, fac._ap
+
+        def correct(r):
+            return fac.solve_device(r.to(acc)).double()
+    else:
+        perm, a_res, correct = None, a, fac.solve_original_device
+    bp = bb if perm is None else bb[perm]
+    a64 = to_device(a_res, "fp64", dev)
     b64 = torch.from_numpy(bp).to(dev)
     x = torch.zeros(a.nrows, dtype=torch.float64, device=dev)
     nb = float(np.linalg.norm(bp))
@@ -454,13 +649,15 @@ def solve_refined(a: CSRMatrix, b: np.ndarray,
             break
         if len(res_hist) > 3 and rnorm > 0.9 * res_hist[-2]:
             break  # stagnated
-        x += fac.solve_device(r.to(acc)).double()
-    xh = _to_host_f64(x)
-    out = np.empty_like(xh)
-    out[fac.perm] = xh
+        x += correct(r)
+    out = _to_host_f64(x)
+    if perm is not None:
+        xh = out
+        out = np.empty_like(xh)
+        out[perm] = xh
     report.t_solve = time.perf_counter() - t0
     report.iterations = len(res_hist)
-    report.residual = relative_residual(a, out, np.asarray(b, np.float64))
+    report.residual = relative_residual(a, out, bb)
     report.converged = report.residual < max(tol * 100, 1e-10)
     if not report.converged:
         out, report = _refine_gmres_fallback(a, b, fac, out, tol, report, t0)

@@ -81,7 +81,8 @@ def test_ordering_dispatch():
     a = csr_from_respatpu(MATRICES["laplacian_2d"]())
     np.testing.assert_array_equal(analysis.ordering(a, "natural"), np.arange(a.nrows))
     np.testing.assert_array_equal(analysis.ordering(a, "rcm"), analysis.rcm_ordering(a))
-    with pytest.raises(NotImplementedError, match="multifrontal"):
-        analysis.ordering(a, "amd")
+    for method in ("amd", "mindeg", "nd", "fillauto"):  # the fill-reducing orderings
+        assert sorted(analysis.ordering(a, method).tolist()) == list(range(a.nrows))
+    np.testing.assert_array_equal(analysis.ordering(a, "amd"), analysis.ordering(a, "mindeg"))
     with pytest.raises(ValueError):
         analysis.ordering(a, "nope")

@@ -1,5 +1,5 @@
-"""The hand-written kernels (CSR SpMV, block LU, band sweep) against their
-plain versions on a CUDA card.
+"""The hand-written kernels (CSR SpMV, block LU, band sweep, extend-add,
+frontal sweep, row reduction) against their plain versions on a CUDA card.
 
 Marked ``cuda``: without a card each test skips with a reason. On a machine
 with one, run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -13,7 +13,9 @@ import torch
 
 from respatpu_torch.bench import synth
 from respatpu_torch.formats import COOMatrix, coo_to_csr
+from respatpu_torch import solve
 from respatpu_torch.kernels import bandlu as B
+from respatpu_torch.kernels import snlu, snlu_device as F
 from respatpu_torch.kernels import spmv as K
 
 pytestmark = pytest.mark.cuda
@@ -203,5 +205,137 @@ def test_tf32_is_refused(card):
     try:
         with pytest.raises(RuntimeError, match="allow_tf32"):
             B.band_lu(B.csr_to_device_band(a, "fp32", card, p=16))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# the frontal kernels
+# ---------------------------------------------------------------------------
+
+FRONT_INST = {"f32": (torch.float32, False), "f32_ftz": (torch.float32, True),
+              "f64": (torch.float64, False)}
+FRONT_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+# (fronts, wp, rp, parents): one front; hundreds of children of two parents;
+# roots without update rows; wp = 24; the widest a sweep block solves; wider
+FRONT_SHAPES = [(1, 8, 8, 1), (700, 8, 16, 2), (3, 24, 0, 0), (6, 24, 32, 4),
+                (5, 128, 48, 3), (2, 192, 96, 1)]
+
+
+def _front_group(shape, dtype, card):
+    g = synth.frontal_group(*shape, seed=sum(shape))
+    t = {k: torch.from_numpy(v).to(card) for k, v in g.items() if isinstance(v, np.ndarray)}
+    t["pool"], t["y"] = t["pool"].to(dtype), t["y"].to(dtype)
+    return t
+
+
+def _held(got, ref, dtype):
+    return float((got - ref).abs().max()) <= FRONT_TOL[dtype] * max(float(ref.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("inst", list(FRONT_INST))
+def test_frontal_kernels_match_plain(card, inst):
+    """Extend-add bit for bit (the same additions in the same order), sweeps
+    and reduction within tolerance, every one twice, bitwise equal, each
+    wrapper counting its launches; over all the shapes."""
+    for shape in FRONT_SHAPES:
+        _check_frontal_kernels(card, shape, inst)
+
+
+def _check_frontal_kernels(card, shape, inst):
+    dtype, flush = FRONT_INST[inst]
+    nf, wp, rp, npar = shape
+    t = _front_group(shape, dtype, card)
+    grp = (0, nf, wp, rp)
+    before = dict(F.LAUNCHES)
+    if npar:
+        idx = (t["lp"], t["poff"], t["pmp"], t["seg_ptr"])
+        out = [t["pool"].clone() for _ in range(3)]
+        F.extend_add(out[0], *grp, *idx, flush)
+        F.extend_add(out[1], *grp, *idx, flush)
+        F.extend_add_plain(out[2], *grp, *idx, flush)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], out[1]) and torch.equal(out[0], out[2])
+        assert F.LAUNCHES[f"respa_extend_add_{inst}"] == before[f"respa_extend_add_{inst}"] + 2
+    for fwd in (True, False):
+        name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
+        ys = [t["y"].clone() for _ in range(3)]
+        u0 = F.front_sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush)
+        u1 = F.front_sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush)
+        u2 = F.front_sweep_plain(t["pool"], ys[2], *grp, t["piv"], t["rsx"], fwd, flush)
+        torch.cuda.synchronize()
+        assert torch.equal(ys[0], ys[1]) and _held(ys[0], ys[2], dtype)
+        assert float(ys[0][-1]) == 0.0
+        assert F.LAUNCHES[name] == before[name] + 2
+        if fwd and rp:
+            assert torch.equal(u0, u1) and _held(u0, u2, dtype)
+            red = (t["red_rows"], t["red_ptr"], t["red_src"])
+            F.rows_reduce(ys[0], u0, *red, flush)
+            F.rows_reduce(ys[1], u0, *red, flush)
+            F.rows_reduce_plain(ys[2], u0, *red, flush)
+            torch.cuda.synchronize()
+            assert torch.equal(ys[0], ys[1]) and _held(ys[0], ys[2], dtype)
+
+
+@pytest.mark.parametrize("kind", ["fem", "circuit"])
+def test_frontal_factor_and_solve_on_the_card(card, kind):
+    """The factorization on the card against the plain one on the CPU, twice
+    bit for bit, and the solve against the plain solve from the same pool;
+    every instance."""
+    a = (synth.mesh_fem_3d(3000, seed=5) if kind == "fem"
+         else synth.circuit_like(2500, 5, seed=4, diag="dominant"))
+    plan = F.build_frontal_plan(snlu.analyze_supernodes(a))
+    for dtype, flush in FRONT_INST.values():
+        _check_factor_and_solve(card, a, plan, dtype, flush)
+
+
+def _check_factor_and_solve(card, a, plan, dtype, flush):
+    on_card, nbad = F.frontal_factor_pool(plan, dtype, card, flush=flush)
+    again, _ = F.frontal_factor_pool(plan, dtype, card, flush=flush)
+    plain, nplain = F.frontal_factor_pool(plan, dtype, "cpu", flush=flush)
+    assert torch.equal(on_card, again) and nbad == nplain
+    assert _held(on_card.cpu(), plain, dtype)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(a.nrows)).to(dtype)
+    solver = F.FrontalSolver(plan, on_card, flush)
+    x = solver.solve_device(b.to(card))
+    assert torch.equal(x, solver.solve_device(b.to(card)))
+    ref = F.FrontalSolver(plan, on_card.cpu(), flush).solve_device(b)
+    assert _held(x.cpu(), ref, dtype)
+
+
+def test_multifrontal_slice_on_the_card(card):
+    """factorize -> snlu with matching -> solve_refined on a weak-diagonal
+    circuit, every kernel of the path counted."""
+    a = synth.circuit_like(3000, 5, seed=13)
+    b, _ = solve.make_rhs_for_known_x(a)
+    before = dict(F.LAUNCHES, **B.LAUNCHES, spmv=K.LAUNCHES["fp64"])
+    fac = solve.factorize(a, "fp32", method="auto", max_band_bytes=1 << 20)
+    x, rep = solve.solve_refined(a, b, fac=fac)
+    assert rep.notes.startswith("method=snlu,matching+ruiz") and rep.residual <= 1e-10
+    after = dict(F.LAUNCHES, **B.LAUNCHES, spmv=K.LAUNCHES["fp64"])
+    for name in ("respa_block_lu_f32", "respa_extend_add_f32", "respa_front_sweep_fwd_f32",
+                 "respa_front_sweep_bwd_f32", "respa_rows_reduce_f32", "spmv"):
+        assert after[name] > before[name], name
+    assert 0 < fac.condest() <= 1
+
+
+def test_frontal_wrappers_reject_bad_input_and_tf32(card):
+    t = _front_group((6, 24, 32, 4), torch.float32, card)
+    with pytest.raises(ValueError):  # y on another device
+        F.front_sweep(t["pool"], t["y"].cpu(), 0, 6, 24, 32, t["piv"], t["rsx"], True)
+    with pytest.raises(TypeError):  # no bf16 pool
+        F.front_sweep(t["pool"].bfloat16(), t["y"].bfloat16(), 0, 6, 24, 32, t["piv"], t["rsx"],
+                      True)
+    with pytest.raises(TypeError):
+        F.rows_reduce(t["y"].double(), torch.zeros(6, 32, dtype=torch.float64, device=card),
+                      t["red_rows"], t["red_ptr"], t["red_src"], flush=True)
+    before = dict(F.LAUNCHES)
+    cpu = {k: v.cpu() for k, v in t.items()}
+    F.front_sweep(cpu["pool"], cpu["y"], 0, 6, 24, 32, cpu["piv"], cpu["rsx"], True)
+    assert F.LAUNCHES == before  # a CPU tensor runs the plain version: no launch
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            solve.factorize(synth.laplacian_2d(8, 8), method="snlu")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,6 +1,7 @@
 """The direct-solve slice end to end on the CPU: ``factorize`` ->
 ``BandLuFactorization`` -> ``solve_refined`` of the port against respatpu's
-on the same matrices, the auto chain's refusals, the sweep and the CLI."""
+on the same matrices, the auto chain's refusals, the sweep and the CLI. The
+chain's second method has its own file, tests/test_torch_snlu.py."""
 import csv
 
 import numpy as np
@@ -108,22 +109,28 @@ def test_band_memory_guard():
         solve.factorize_band(csr_from_respatpu(a), order="amd", device="cpu")
 
 
-def test_factorize_auto_chain():
+def test_factorize_auto_chain(monkeypatch):
     a = csr_from_respatpu(laplacian_2d(10, 9))
     fac = solve.factorize(a, "fp32", method="auto", device="cpu")
     assert isinstance(fac, solve.BandLuFactorization) and fac.report.notes == "method=band"
     assert solve.factorize(a, method="band", device="cpu").report.notes == "method=band"
     forced = solve.factorize(a, method="auto", matching=True, device="cpu")
     assert forced.report.notes == "method=band,matching=unavailable"
+    # the multifrontal analysis goes through the native host library again
+    monkeypatch.setattr(analysis, "_USE_NATIVE", True)
     with pytest.raises(MemoryError) as err:
         solve.factorize(csr_from_respatpu(_scrambled()), method="auto", order="natural",
-                        max_band_bytes=1 << 20, device="cpu")
+                        max_band_bytes=1 << 20, max_pool_bytes=1 << 10, device="cpu")
     text = str(err.value)
     assert text.startswith("every direct method refused: band: band storage would need")
-    assert text.endswith("snlu: not ported; sparse: not ported")
-    for method in ("snlu", "multifrontal", "sparse"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solve.factorize(a, method=method, device="cpu")
+    assert "; snlu: front pool would need" in text
+    assert text.endswith("; sparse: not ported")
+    for method in ("snlu", "multifrontal"):
+        served = solve.factorize(a, method=method, device="cpu")
+        assert isinstance(served, solve.SupernodalLuFactorization)
+        assert served.report.notes == "method=snlu,apply=frontal_fp32"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        solve.factorize(a, method="sparse", device="cpu")
     with pytest.raises(ValueError):
         solve.factorize(a, method="cholesky", device="cpu")
     # an error that is not about memory passes through the chain unchanged
@@ -139,19 +146,25 @@ def test_memlike_errors_become_the_refusal(exc, monkeypatch):
     def boom(self, *args, **kw):
         raise exc
     monkeypatch.setattr(solve.BandLuFactorization, "__init__", boom)
+    monkeypatch.setattr(solve.SupernodalLuFactorization, "__init__", boom)
     a = csr_from_respatpu(laplacian_2d(4, 4))
-    with pytest.raises(MemoryError, match="every direct method refused: band: "):
+    with pytest.raises(MemoryError, match="every direct method refused: band: .*; snlu: "):
         solve.factorize(a, method="auto", device="cpu")
     with pytest.raises(type(exc)):
         solve.factorize(a, method="band", device="cpu")
 
 
-def test_matched_factorization_is_refused():
+def test_matched_factorization_is_refused(monkeypatch):
+    """Until the multifrontal slice a matched factorization was refused by
+    ``solve_refined``; now it is refined in the original system, with the
+    matching's scaling and column permutation unwound in the correction."""
+    monkeypatch.setattr(analysis, "_USE_NATIVE", True)
     a = csr_from_respatpu(laplacian_2d(5, 5))
-    fac = solve.factorize_band(a, device="cpu")
-    fac.matched = True
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        solve.solve_refined(a, np.ones(25), fac=fac)
+    b, _ = solve.make_rhs_for_known_x(a)
+    fac = solve.factorize(a, method="snlu", matching=True, device="cpu")
+    assert fac.matched
+    _, rep = solve.solve_refined(a, b, fac=fac)
+    assert rep.converged and rep.residual <= 1e-10 and "matching+ruiz" in rep.notes
 
 
 def test_stalled_refinement_escalates_to_gmres_ir():
@@ -247,7 +260,7 @@ def test_cli_lu_refuses_without_a_card_and_unported_methods(mtx, monkeypatch):
     with pytest.raises(SystemExit, match="--device cpu"):
         cli.main(["lu", mtx])
     with pytest.raises(NotImplementedError):
-        cli.main(["lu", mtx, "--device", "cpu", "--method", "snlu"])
+        cli.main(["lu", mtx, "--device", "cpu", "--method", "sparse"])
 
 
 def _sweep_lu_header():
@@ -259,8 +272,9 @@ def _sweep_lu_header():
     raise AssertionError("no header in respatpu.bench.runner.sweep_lu")
 
 
-def test_sweep_lu_rows_and_header(tmp_path):
+def test_sweep_lu_rows_and_header(tmp_path, monkeypatch):
     assert _respatpu_header()  # the helper this file borrows reads respatpu's source
+    monkeypatch.setattr(analysis, "_USE_NATIVE", True)  # the circuit row's analysis
     path = str(tmp_path / "lu.csv")
     rows = runner.sweep_lu(["2cubes_sphere", "dc1"], csv_path=path, max_synth_nnz=30_000,
                            max_band_bytes=64 << 20, verbose=False, device="cpu")
@@ -268,12 +282,13 @@ def test_sweep_lu_rows_and_header(tmp_path):
         table = list(csv.reader(f))
     assert table[0] == runner.LU_HEADER == _sweep_lu_header()
     assert [r[1] for r in table[1:]] == ["2cubes_sphere", "dc1"]
-    ok, refused = rows
+    ok, circuit = rows
     assert ok["status"] == "ok" and ok["method"] == "method=band" and ok["policy"] == "fp32+ir_fp64"
     assert float(ok["rel_residual"]) < 1e-10 and float(ok["t_factor_warm_s"]) > 0
-    assert refused["status"] == "infeasible" and refused["method"].startswith(
-        "every direct method refused: band:")
-    assert refused["rel_residual"] == "nan" and refused["policy"] == "fp32"
+    # the circuit row, whose band does not fit, is served by the multifrontal LU
+    assert circuit["status"] == "ok" and circuit["policy"] == "fp32+ir_fp64"
+    assert circuit["method"].startswith("method=snlu,matching+ruiz")
+    assert float(circuit["rel_residual"]) < 1e-10
 
 
 def test_cli_sweep_lu(capsys):
