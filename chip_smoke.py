@@ -51,15 +51,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    host-oracle residual <= 1e-10; 2cubes_sphere with ``method="snlu"`` in
    fp32 with refinement and in fp64 without; fp32_ftz on the grid Laplacian;
    offshore through ``auto``; with the launch counts of the block-LU,
-   extend-add, sweep, reduction and fp64 SpMV kernels, twice-factored pools
-   compared bit for bit, and the frontal kernels timed at the full-width
-   group shapes beside bound, library and plain;
+   extend-add, sweep, reduction and fp64 SpMV kernels and twice-factored pools
+   compared bit for bit; then, beside the path, every group of the dc1 fp32,
+   2cubes_sphere fp64 and Laplacian fp32_ftz plans through each frontal
+   kernel and its plain version on the same inputs (the factored pool bit
+   for bit with the plain extend-add in the kernel's place; a solve walked
+   group by group), and the frontal kernels timed at the full-width group
+   shapes beside bound, library and plain;
 9. result: a JSON line of the kernels, then the device line last.
 """
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -80,11 +83,11 @@ from respatpu_torch.kernels import _build  # noqa: E402
 from respatpu_torch.kernels import bandlu as B  # noqa: E402
 from respatpu_torch.kernels import snlu_device as F  # noqa: E402
 from respatpu_torch.kernels import spmv as K  # noqa: E402
-from respatpu_torch.precision import get_policy  # noqa: E402
+from respatpu_torch.precision import ftz, get_policy  # noqa: E402
 from respatpu_torch.solve import WARMUP  # noqa: E402
-from respatpu_torch.timing import (OpTiming, ProfilerUnavailable, check_plausible,  # noqa: E402
-                                   device_bandwidth, device_events, kernel_times,
-                                   spmv_csr_sol_bytes, time_op)
+from respatpu_torch.timing import (OpTiming, ProfilerUnavailable, card_line,  # noqa: E402
+                                   check_plausible, device_bandwidth, device_events,
+                                   kernel_times, spmv_csr_sol_bytes, time_op)
 
 MAIN = ("2cubes_sphere", "dc1", "offshore")
 LOW = ("fp32", "fp32_ftz", "bf16")
@@ -120,15 +123,11 @@ FRONTAL_REPLACES = {"extend_add": "respatpu/kernels/snlu_device.py:373",
                     "front_sweep_bwd": "respatpu/kernels/snlu_device.py:490",
                     "rows_reduce": "respatpu/kernels/snlu_device.py:486"}
 FRONT_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+# where a front amplifies rounding past FRONT_TOL: the kernel's distance from
+# the fp64 result of the same inputs, in units of the plain version's
+AMPLIFIED = 4.0
 FRONT_INST = ((torch.float32, False, "f32"), (torch.float32, True, "f32_ftz"),
               (torch.float64, False, "f64"))
-
-
-def card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def x_for(dev, x64: np.ndarray) -> torch.Tensor:
@@ -377,9 +376,10 @@ def check_band_sweep(errs):
                   f"bitwise twice", flush=True)
 
 
-def events_ms(fn, reps):
-    """Median milliseconds of ``fn`` by CUDA events, after one warm call."""
-    return time_op(fn, "cuda", warmup=1, reps=reps).median * 1e3
+def events_ms(fn, reps, setup=None):
+    """Median milliseconds of ``fn`` by CUDA events, after one warm call;
+    ``setup`` runs before each call, outside its window."""
+    return time_op(fn, "cuda", warmup=1, reps=reps, setup=setup).median * 1e3
 
 
 def profiler_ms(fn, name_part, reps):
@@ -668,14 +668,150 @@ def check_frontal_kernels(errs):
                   f"(tol {tol:.0e}), all bitwise twice", flush=True)
 
 
+def hold_frontal_full(name_limit, name, fac, errs, full):
+    """Every group of ``fac``'s plan, at the shapes and on the data the main
+    path gave the kernels, against the plain versions on the same inputs.
+
+    The factorization is run again with ``extend_add_plain`` in the kernel's
+    place and its pool must equal ``fac``'s bit for bit (same operations in
+    the same order). Then one solve is walked group by group: each sweep and
+    each reduction runs on the state the kernels before it left and on a
+    clone of that state through the plain version. What they wrote must agree
+    within ``FRONT_TOL`` of the largest entry written, with nothing else in
+    y touched. A front whose triangle or panel amplifies rounding past that
+    (a circuit's factor can be that ill-conditioned) is settled by a third
+    run: the plain version in fp64 on the same inputs, which the kernel's
+    result must come as close to as ``AMPLIFIED`` times the plain fp32
+    version's distance. Raises at the end, with every kernel that failed."""
+    plan, pool, flush = fac._plan, fac._frontal.pool, fac._frontal.flush
+    tol = FRONT_TOL[pool.dtype]
+    inst = F._INST[pool.dtype, flush]
+    dgs = plan.on_device(pool.device)
+    names = {"add": f"respa_extend_add_{inst}", True: f"respa_front_sweep_fwd_{inst}",
+             False: f"respa_front_sweep_bwd_{inst}",
+             "red": "respa_rows_reduce_f64" if pool.dtype == torch.float64
+             else "respa_rows_reduce_f32"}
+    worst, amplified, failed = {}, {}, []
+
+    def dist(got, ref):
+        d = float((got.double() - ref.double()).abs().max())
+        return d if np.isfinite(d) else float("inf")
+
+    def held(kname, got, ref, written, g, in64=None):
+        """``got`` against ``ref`` everywhere, on the scale of what was
+        written; ``in64()`` gives the fp64 result where that is not enough."""
+        if ref.numel() == 0:
+            return
+        where = f"B={g.nfronts} wp={g.wp} rp={g.rp} level={g.level}"
+        err = dist(got, ref)
+        rel = err / max(float(written.abs().max()), 1e-300)
+        if rel <= tol:
+            if rel >= worst.get(kname, (-1.0,))[0]:
+                worst[kname] = (rel, err, where)
+            return
+        if in64 is None or pool.dtype == torch.float64:
+            failed.append(f"{kname}: rel_err {rel:.3e} (abs {err:.3e}) > {tol:.0e} at {where}")
+            return
+        r64 = in64()
+        ek, ep = dist(got, r64), dist(ref, r64)
+        if ek / max(ep, 1e-300) >= amplified.get(kname, (-1.0,))[0]:
+            amplified[kname] = (ek / max(ep, 1e-300), rel, err, ek, ep, where)
+        if not ek <= AMPLIFIED * ep:
+            failed.append(f"{kname}: rel_err {rel:.3e} against plain at {where}, and {ek:.3e} "
+                          f"from the fp64 result where plain is {ep:.3e} away")
+
+    t0 = time.perf_counter()
+    ref = F.assemble_pool(plan, pool.dtype, pool.device, fac._pivot_eps, flush)
+    for g, d in zip(plan.groups, dgs):
+        grp = (g.g0, g.nfronts, g.wp, g.rp)
+        F.factor_group(ref, *grp, fac._pivot_eps, flush)
+        F.extend_add_plain(ref, *grp, d["lp"], d["poff"], d["pmp"], d["seg_ptr"], flush)
+    add_err = dist(ref, pool)
+    if not torch.equal(ref, pool):
+        failed.append(f"{names['add']}: the pool factored with the plain extend-add differs "
+                      f"(max abs {add_err:.3e})")
+    del ref
+    t_add = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    y = torch.randn(plan.part.n + 1, dtype=pool.dtype, device=pool.device,
+                    generator=torch.Generator(device=pool.device).manual_seed(7))
+    y[-1] = 0
+    idx = range(len(plan.groups))
+    for fwd in (True, False):
+        for gi in (idx if fwd else reversed(idx)):
+            g, d = plan.groups[gi], dgs[gi]
+            grp = (g.g0, g.nfronts, g.wp, g.rp)
+            y_in = y.clone()
+            yp = y.clone()
+            upd = F.front_sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush)
+            updp = F.front_sweep_plain(pool, yp, *grp, d["piv"], d["rsx"], fwd, flush)
+            run64 = {}
+
+            def in64(key, g=g, d=d, y_in=y_in, fwd=fwd, run64=run64):
+                if not run64:  # the same inputs through the plain version in fp64
+                    fronts = pool[g.g0:g.g0 + g.nfronts * g.mp * g.mp].double()
+                    run64["y"] = y_in.double()
+                    run64["upd"] = F.front_sweep_plain(fronts, run64["y"], 0, g.nfronts, g.wp,
+                                                       g.rp, d["piv"], d["rsx"], fwd, False)
+                return run64[key]
+
+            held(names[fwd], y, yp, yp[d["piv"].long().reshape(-1)], g, lambda: in64("y"))
+            if fwd and g.rp:
+                held(names[fwd], upd, updp, updp, g, lambda: in64("upd"))
+                yp = y.clone()
+                red = (d["red_rows"], d["red_ptr"], d["red_src"])
+                F.rows_reduce(y, upd, *red, flush)
+                F.rows_reduce_plain(yp, upd, *red, flush)
+                held(names["red"], y, yp, yp[d["red_rows"].long()], g)
+    if float(y[-1]) != 0.0 or not bool(torch.isfinite(y).all()):
+        failed.append(f"{name}: the walked solve left y[n] != 0 or a non-finite entry")
+    t_solve = time.perf_counter() - t0
+
+    print(f"[kernel] {name_limit} | {name} at full width, {names['add']}: pool == the pool "
+          f"factored with the plain extend-add, bit for bit over {len(plan.groups)} groups: "
+          f"{add_err == 0.0}", flush=True)
+    errs[names["add"]] = max(errs.get(names["add"], 0.0), add_err)
+    full.setdefault(names["add"], {"max_rel_err_full": 0.0, "max_abs_err_full": add_err,
+                                   "worst_group": f"all {len(plan.groups)} groups",
+                                   "held_on": name})
+    for kname, (rel, err, where) in worst.items():
+        errs[kname] = max(errs.get(kname, 0.0), err)
+        if rel >= full.get(kname, {}).get("max_rel_err_full", -1.0):  # a kernel two rows share
+            full[kname] = {"max_rel_err_full": rel, "max_abs_err_full": err,
+                           "worst_group": where, "held_on": name}
+        print(f"[kernel] {name_limit} | {name} at full width, {kname}: rel_err {rel:.3e} (abs "
+              f"{err:.3e}, tol {tol:.0e}), worst at {where}", flush=True)
+    for kname, (ratio, rel, err, ek, ep, where) in amplified.items():
+        errs[kname] = max(errs.get(kname, 0.0), err)
+        full.setdefault(kname, {})["amplified"] = {
+            "rel_err_vs_plain": rel, "abs_err_vs_plain": err, "kernel_from_fp64": ek, "plain_from_fp64": ep,
+            "worst_group": where, "held_on": name}
+        print(f"[kernel] {name_limit} | {name} at full width, {kname}: past {tol:.0e} of plain on "
+              f"ill-conditioned fronts, worst at {where}: rel_err {rel:.3e} against plain; from "
+              f"the fp64 result of the same inputs the kernel is {ek:.3e} away, plain {ep:.3e} "
+              f"(ratio {ratio:.2f}, at most {AMPLIFIED:.0f})", flush=True)
+    print(f"[kernel] {name}: all {len(plan.groups)} groups held against the plain versions in "
+          f"{t_add:.1f} s (factorization) + {t_solve:.1f} s (solve walked group by group)",
+          flush=True)
+    if failed:
+        raise AssertionError(f"{name} at full width: " + "; ".join(failed))
+
+
 def time_frontal(name_limit, fac, times):
     """The frontal kernels of ``fac``'s instance at two group shapes of its
     plan: the group with the most fronts among those with parents, and the
-    widest front. By events (a cold L2; the sweeps' windows include the copy
-    that resets y, and for a front wider than 128 the library's triangular
-    solve beside the kernel), by the profiler (the kernel alone), beside the
-    byte bound, the plain version and, for the extend-add, ``index_add_`` on
-    materialised indices."""
+    widest front. ``ms`` is the wrapper's window by events with a cold L2 (y
+    is reset before each window, outside it), ``profiler_ms`` the kernel alone
+    from a trace. For a front wider than ``MAX_TRI`` the wrapper is the
+    library's triangular solve and the kernel's panel product: there ``ms``
+    is the kernel's launch alone, held to the bytes of the panel it reads,
+    and the whole wrapper and the library's part are given beside it; where
+    such a front has no update rows the forward wrapper launches nothing and
+    no forward time is taken. The bound is the bytes the function needs (the
+    triangle, not the square it lies in) at 3.35 TB/s; beside it the plain
+    version and, for the extend-add, ``index_add_`` on materialised
+    indices."""
     plan, pool, flush = fac._plan, fac._frontal.pool, fac._frontal.flush
     inst = F._INST[pool.dtype, flush]
     item = pool.element_size()
@@ -687,21 +823,34 @@ def time_frontal(name_limit, fac, times):
     y0[-1] = 0
     y = y0.clone()
 
-    def record(name, tag, shape, fn, plain_fn, lib_fn, kernel_name, nbytes, reps=10):
+    def reset():
+        y.copy_(y0)
+
+    def record(name, tag, shape, fn, plain_fn, lib_fn, kernel_name, nbytes, setup=None,
+               extra=None, reps=10):
+        setup = setup or (lambda: None)
         torch.cuda.synchronize()
+        setup()
         t0 = time.perf_counter()
         plain_fn()
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        t = {"ms": events_ms(fn, reps), "plain_ms": plain_ms,
+
+        def traced():
+            setup()
+            fn()
+
+        t = {"ms": events_ms(fn, reps, setup), "plain_ms": plain_ms,
              "library_ms": events_ms(lib_fn, reps) if lib_fn else None,
-             "profiler_ms": profiler_ms(fn, kernel_name, 5),
-             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "shape": shape}
+             "profiler_ms": profiler_ms(traced, kernel_name, 5),
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "shape": shape,
+             **(extra or {})}
+        more = "".join(f"; {k.replace('_', ' ')} {v:.4f} ms" for k, v in (extra or {}).items())
         print(f"[time] {name_limit} | {name} {tag} {shape}: {fmt_ms(t['ms'])} by events, "
               f"{fmt_ms(t['profiler_ms'])} the kernel alone by the profiler; bound "
               f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} bytes at 3.35 TB/s); library "
               f"{fmt_ms(t['library_ms']).replace('not measured', 'none')}; plain "
-              f"{t['plain_ms']:.2f} ms (one run, synchronised host clock)", flush=True)
+              f"{t['plain_ms']:.2f} ms (one run, synchronised host clock){more}", flush=True)
         if tag == "populous":
             times.setdefault(name, t)
         elif name in times:
@@ -712,6 +861,7 @@ def time_frontal(name_limit, fac, times):
         grp = (g.g0, g.nfronts, g.wp, g.rp)
         shape = f"B={g.nfronts} wp={g.wp} rp={g.rp} level={g.level}"
         nf, wp, rp, mp = g.nfronts, g.wp, g.rp, g.mp
+        split = wp > F.MAX_TRI
         if g.seg_ptr.size > 1 and rp:
             # materialised indices: what index_add_ needs, and the distinct
             # parent entries for the bound
@@ -732,15 +882,59 @@ def time_frontal(name_limit, fac, times):
                    lambda: F.extend_add_plain(scratch, *grp, *idx, flush),
                    lambda: scratch.index_add_(0, dst, src), "extend_add_kernel", nbytes)
             del scratch, dst, src
-        fwd_bytes = nf * (wp * mp * item + 2 * wp * item + rp * item + wp * 4)
-        bwd_bytes = nf * (wp * mp * item + (2 * wp + rp) * item + (wp + rp) * 4)
-        for fwd, nbytes in ((True, fwd_bytes), (False, bwd_bytes)):
+        tri = wp * (wp + 1) // 2
+        for fwd in (True, False):
+            name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
+            kernel_name = "front_fwd_kernel" if fwd else "front_bwd_kernel"
+            # the function: the triangle and the panel once, y[piv] read and
+            # written, y[rsx] read (backward) or upd written (forward), indices
+            need = nf * ((tri + rp * wp + 2 * wp + rp) * item + (wp if fwd else wp + rp) * 4)
+
             def sweep(fn=F.front_sweep, fwd=fwd):
-                y.copy_(y0)
                 return fn(pool, y, *grp, d["piv"], d["rsx"], fwd, flush)
-            record(f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}", tag, shape, sweep,
-                   lambda: sweep(F.front_sweep_plain), None,
-                   "front_fwd_kernel" if fwd else "front_bwd_kernel", nbytes)
+
+            if not split:
+                record(name, tag, shape, sweep, lambda: sweep(F.front_sweep_plain), None,
+                       kernel_name, need, setup=reset)
+                continue
+            if fwd and rp == 0:
+                print(f"[time] {name} {tag} {shape}: no update rows, the forward wrapper "
+                      f"launches no kernel (the triangle is the library's): no time taken",
+                      flush=True)
+                continue
+            # the kernel's part of a wide front: the rp x wp (forward) or
+            # wp x rp (backward) panel, z or the right-hand side, y's entries
+            f3 = pool[g.g0:g.g0 + nf * mp * mp].view(nf, mp, mp)
+            pv = d["piv"].long()
+            reset()
+            if fwd:
+                def library_part():
+                    z = ftz(torch.linalg.solve_triangular(
+                        f3[:, :wp, :wp], ftz(y[pv], flush)[..., None], upper=False,
+                        unitriangular=True), flush)
+                    y[pv.reshape(-1)] = z.reshape(-1)
+                    return z[..., 0].contiguous()
+                zbuf = library_part()
+                upd = torch.empty((nf, rp), dtype=pool.dtype, device=pool.device)
+                panel = nf * ((rp * wp + wp + rp) * item)
+            else:
+                zbuf = torch.empty((nf, wp), dtype=pool.dtype, device=pool.device)
+                upd = None
+
+                def library_part():
+                    z = ftz(torch.linalg.solve_triangular(f3[:, :wp, :wp], zbuf[..., None],
+                                                              upper=True), flush)
+                    y[pv.reshape(-1)] = z.reshape(-1)
+                panel = nf * ((rp * wp + 2 * wp + rp) * item + (wp + rp) * 4)
+            extra = {"wrapper_ms": events_ms(sweep, 10, reset),
+                     "library_triangle_ms": events_ms(library_part, 10, reset),
+                     "function_bound_ms": need / HBM_BYTES_PER_S * 1e3}
+            reset()
+            record(name, tag, shape + ", the kernel's launch alone (triangle by the library)",
+                   lambda: F.launch_sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush, zbuf,
+                                          upd),
+                   lambda: (reset(), sweep(F.front_sweep_plain)), None, kernel_name, panel,
+                   extra=extra)
         if rp and not flush:
             upd = F.front_sweep(pool, y0.clone(), *grp, d["piv"], d["rsx"], True, flush)
             red = (d["red_rows"], d["red_ptr"], d["red_src"])
@@ -824,7 +1018,7 @@ def frontal_row(name_limit, name, a, policy, method, refine, inst, want_matching
     return fac, x, rep
 
 
-def multifrontal_path(name_limit, mats, times):
+def multifrontal_path(name_limit, mats, errs, full, times):
     """Phase 8; returns the launch counts of the frontal, block-LU and fp64
     SpMV kernels on the multifrontal path."""
     reset_counts()
@@ -868,7 +1062,8 @@ def multifrontal_path(name_limit, mats, times):
     print(f"[frontal] launches of the whole multifrontal path {launches}", flush=True)
 
     # beside the path, not counted: one unrefined solve, the condition
-    # estimate, a solve by the plain versions, and the kernels' times
+    # estimate, every group of three plans through the kernels and their
+    # plain versions, and the kernels' times
     b, _ = slv.make_rhs_for_known_x(a)
     t0 = time.perf_counter()
     fac.solve(b)
@@ -884,6 +1079,9 @@ def multifrontal_path(name_limit, mats, times):
     print(f"[frontal] {name_limit} | dc1 one fp32 solve without refinement {t_one * 1e3:.1f} ms, "
           f"residual {r_one:.3e}, bitwise equal twice; condest (Hager, transpose "
           f"solves from the pool): rcond {rcond:.3e}", flush=True)
+    for name, f in (("dc1 fp32", fac), ("2cubes_sphere fp64", fac64),
+                    ("laplacian_2d(300, 300) fp32_ftz", fac_z)):
+        hold_frontal_full(name_limit, name, f, errs, full)
     time_frontal(name_limit, fac, times)
     del fac
     time_frontal(name_limit, fac64, times)
@@ -896,7 +1094,7 @@ def main():
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    name_limit = card()
+    name_limit = card_line()
     print(name_limit, flush=True)
     if torch.backends.cuda.matmul.allow_tf32 is not False:
         raise AssertionError("TF32 matmul is on; the port expects full fp32")
@@ -1011,11 +1209,11 @@ def main():
             raise AssertionError(f"{name} was not launched on the direct path")
 
     # 7. frontal kernels vs plain
-    front_errs, front_times = {}, {}
+    front_errs, front_full, front_times = {}, {}, {}
     check_frontal_kernels(front_errs)
 
     # 8. multifrontal path at full width
-    front_launches = multifrontal_path(name_limit, mats, front_times)
+    front_launches = multifrontal_path(name_limit, mats, front_errs, front_full, front_times)
     for name in (*F.LAUNCHES, "respa_block_lu_f32", "respa_block_lu_f32_ftz",
                  "respa_block_lu_f64", "spmv_fp64"):
         if front_launches[name] < 1:
@@ -1043,7 +1241,7 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": FRONTAL_SOURCE,
                         "replaces": FRONTAL_REPLACES[kernel_kind(name)],
                         "launches": front_launches[name], "max_abs_err": front_errs[name],
-                        **front_times[name]})
+                        **front_full.get(name, {}), **front_times[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,6 @@ Needs a CUDA card. A first, short run on the card for a new build of
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 
 import numpy as np
@@ -22,15 +21,8 @@ import torch
 from ..kernels import _build
 from ..kernels import bandlu as B
 from ..precision import get_policy
-from ..timing import device_events
+from ..timing import busy_by_name, card_line, device_events
 from .synth import laplacian_2d, random_banded
-
-
-def _card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _events(fn, reps=20):
@@ -66,7 +58,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("band_probe needs a CUDA card")
-    card = _card()
+    card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
     _build.load()
@@ -173,16 +165,11 @@ def main(argv=None):
         factor()
         plain_wall = wall[0]
         events = device_events(factor)
-        by_name = {}
-        for name, t in events:
-            key = name.split("<")[0].split("(")[0][-48:]
-            n, tot = by_name.get(key, (0, 0.0))
-            by_name[key] = (n + 1, tot + t)
         busy = sum(t for _, t in events)
         print(f"[factor] {card} | {policy} nb={args.nb} m={args.m}: wall {plain_wall * 1e3:.1f} ms "
               f"({wall[0] * 1e3:.1f} ms under the profiler), device busy {busy * 1e3:.1f} ms in "
               f"{len(events)} records", flush=True)
-        for key, (n, tot) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        for key, n, tot in busy_by_name(events):
             print(f"[factor]   {key}: {n} x {tot / n * 1e6:.1f} us = {tot * 1e3:.2f} ms", flush=True)
         del band
 

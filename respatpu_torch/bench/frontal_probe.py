@@ -12,7 +12,6 @@ Needs a CUDA card; ``chip_smoke.py`` holds the checks.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 
 import numpy as np
@@ -20,15 +19,8 @@ import torch
 
 from .. import solve as slv
 from ..kernels import _build
-from ..timing import device_events
+from ..timing import busy_by_name, card_line, device_events
 from . import corpus
-
-
-def _card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _profile(tag, card, fn):
@@ -45,15 +37,10 @@ def _profile(tag, card, fn):
     timed()
     bare = wall[0]
     events = device_events(timed)
-    by_name = {}
-    for name, t in events:
-        key = name.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0][-48:]
-        n, tot = by_name.get(key, (0, 0.0))
-        by_name[key] = (n + 1, tot + t)
     busy = sum(t for _, t in events)
     print(f"[{tag}] {card} | wall {bare * 1e3:.1f} ms ({wall[0] * 1e3:.1f} ms under the "
           f"profiler), device busy {busy * 1e3:.1f} ms in {len(events)} records", flush=True)
-    for key, (n, tot) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+    for key, n, tot in busy_by_name(events):
         print(f"[{tag}]   {key}: {n} x {tot / n * 1e6:.1f} us = {tot * 1e3:.2f} ms", flush=True)
 
 
@@ -65,7 +52,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frontal_probe needs a CUDA card")
-    card = _card()
+    card = card_line()
     print(card, flush=True)
     _build.load()
     for name in args.matrices:

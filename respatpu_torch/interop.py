@@ -12,12 +12,12 @@ import torch
 from .formats import CSRMatrix
 from .kernels.bandlu import DeviceBand
 from .kernels.snlu import SupernodePartition
-from .kernels.snlu_device import FrontalPlan, build_frontal_plan, values_from_pool
+from .kernels.snlu_device import FrontalPlan, build_frontal_plan
 from .precision import get_policy
 
 __all__ = ["csr_from_respatpu", "df_to_numpy", "band_from_respatpu",
            "band_to_numpy", "partition_from_respatpu", "plan_from_respatpu",
-           "pool_from_respatpu", "pool_to_numpy"]
+           "pool_from_respatpu"]
 
 
 def csr_from_respatpu(obj) -> CSRMatrix:
@@ -94,15 +94,12 @@ def pool_from_respatpu(plan, pool_np, device: Union[str, torch.device] = "cpu",
                        dtype: torch.dtype = torch.float32):
     """``(port plan, port pool)`` from respatpu's ``FrontalPlan`` and its pool
     (assembled or factored) as a numpy array: every front moved from
-    respatpu's layout (supernode order) to the port's (group by group)."""
+    respatpu's layout (supernode order) to the port's (group by group).
+    ``snlu_device.values_from_pool`` brings a port pool back into
+    ``part.filled.data`` layout, which is what respatpu's function of that
+    name gives for its own pool."""
     tplan = plan_from_respatpu(plan)
     src, dst = _front_gather(np.asarray(plan.off, np.int64), tplan.off, tplan.wp + tplan.rp)
     out = np.zeros(tplan.pool_size, dtype=np.float64)
     out[dst] = np.asarray(pool_np, np.float64)[src]
     return tplan, torch.from_numpy(out).to(dtype).to(torch.device(device))
-
-
-def pool_to_numpy(plan: FrontalPlan, pool: torch.Tensor) -> np.ndarray:
-    """A port pool's entries in ``plan.part.filled.data`` layout (float64),
-    which is what respatpu's ``values_from_pool`` gives for its own pool."""
-    return values_from_pool(plan, pool)

@@ -60,7 +60,7 @@ __all__ = ["FrontalPlan", "build_frontal_plan", "frontal_factor_pool",
            "assemble_pool", "default_pivot_eps", "extend_add",
            "extend_add_plain", "front_sweep", "front_sweep_plain",
            "front_sweep_t_plain", "rows_reduce", "rows_reduce_plain",
-           "LAUNCHES", "MAX_TRI"]
+           "launch_sweep", "LAUNCHES", "MAX_TRI"]
 
 MAX_TRI = 128  # widest pivot block the sweep kernel solves itself (kMaxTri of csrc/frontal.cu)
 
@@ -481,13 +481,9 @@ def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, 
         return front_sweep_plain(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush)
     if pool.device.type != "cuda":
         raise ValueError(f"no frontal sweep for device {pool.device}")
-    inst = _instance(pool, flush)
-    lib = _library()
-    stream = torch.cuda.current_stream(pool.device).cuda_stream
     split = wp > MAX_TRI
     f = _fronts(pool, g0, nf, wp + rp)
     if forward:
-        name = f"respa_front_sweep_fwd_{inst}"
         upd = torch.empty((nf, rp), dtype=pool.dtype, device=pool.device)
         zbuf = upd  # not read unless split
         if split:
@@ -499,25 +495,42 @@ def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, 
             if rp == 0:
                 return upd
             zbuf = z[..., 0].contiguous()
-        tiles = -(-rp // 4) if split else 1  # 128 threads: 4 rows of 32 lanes a pass
-        rc = getattr(lib, name)(pool.device.index, pool.data_ptr(), g0, nf, wp, rp,
-                                piv.data_ptr(), y.data_ptr(), n, zbuf.data_ptr(),
-                                upd.data_ptr(), int(split), tiles, stream)
-        _launched(name, rc)
+        launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, True, flush, zbuf, upd)
         return upd
-    name = f"respa_front_sweep_bwd_{inst}"
     zbuf = torch.empty((nf, wp) if split else (1,), dtype=pool.dtype, device=pool.device)
-    tiles = min(-(-wp // 4), 4096) if split else 1
-    rc = getattr(lib, name)(pool.device.index, pool.data_ptr(), g0, nf, wp, rp,
-                            piv.data_ptr(), rsx.data_ptr(), y.data_ptr(), n,
-                            zbuf.data_ptr(), int(split), tiles, stream)
-    _launched(name, rc)
+    launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, False, flush, zbuf)
     if split:
         # a front this wide is never padding: its diagonal is taken as it is
         z = ftz(torch.linalg.solve_triangular(f[:, :wp, :wp], zbuf[..., None],
                                               upper=True), flush)
         _put(y, piv.long(), z[..., 0])
     return None
+
+
+def launch_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
+                 piv: torch.Tensor, rsx: torch.Tensor, forward: bool, flush: bool,
+                 zbuf: torch.Tensor, upd: Optional[torch.Tensor] = None) -> None:
+    """One launch of the sweep kernel on the current stream and nothing
+    beside it: the part of :func:`front_sweep` that is the kernel, for
+    checked inputs on a card (timing code reads the kernel's own window
+    through it). ``zbuf`` [B, wp] serves fronts wider than ``MAX_TRI``:
+    forward the kernel reads the solved z from it, backward it writes the
+    right-hand side of the triangle there. ``upd`` [B, rp] is the forward
+    sweep's output."""
+    n = y.numel() - 1
+    split = wp > MAX_TRI
+    stream = torch.cuda.current_stream(pool.device).cuda_stream
+    name = f"respa_front_sweep_{'fwd' if forward else 'bwd'}_{_instance(pool, flush)}"
+    fn = getattr(_library(), name)
+    if forward:
+        tiles = -(-rp // 4) if split else 1  # 128 threads: 4 rows of 32 lanes a pass
+        rc = fn(pool.device.index, pool.data_ptr(), g0, nf, wp, rp, piv.data_ptr(),
+                y.data_ptr(), n, zbuf.data_ptr(), upd.data_ptr(), int(split), tiles, stream)
+    else:
+        tiles = min(-(-wp // 4), 4096) if split else 1
+        rc = fn(pool.device.index, pool.data_ptr(), g0, nf, wp, rp, piv.data_ptr(),
+                rsx.data_ptr(), y.data_ptr(), n, zbuf.data_ptr(), int(split), tiles, stream)
+    _launched(name, rc)
 
 
 def rows_reduce_plain(y: torch.Tensor, upd: torch.Tensor, red_rows: torch.Tensor,

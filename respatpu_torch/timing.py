@@ -17,14 +17,15 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
+import subprocess
 import time
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 __all__ = ["OpTiming", "time_op", "stream_bandwidth", "device_bandwidth", "device_events",
            "kernel_times", "ProfilerUnavailable", "check_plausible",
-           "spmv_csr_sol_bytes", "ImplausibleTiming"]
+           "spmv_csr_sol_bytes", "ImplausibleTiming", "card_line", "busy_by_name"]
 
 _FLUSH_BYTES = 256 << 20  # >= 5x the H100's 50 MB L2
 _STREAM_BYTES = {"cuda": 1 << 30, "cpu": 1 << 26}
@@ -55,11 +56,27 @@ class OpTiming:
         return statistics.pstdev(self.times)
 
 
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: a card
+    set below its maximum runs slower under load, so the line goes beside
+    every time that is kept."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
 def time_op(fn: Callable[[], object], device: Union[str, torch.device],
-            warmup: int = 3, reps: int = 10) -> OpTiming:
-    """Seconds per call of ``fn`` on ``device``, one sample per repetition."""
+            warmup: int = 3, reps: int = 10,
+            setup: Optional[Callable[[], object]] = None) -> OpTiming:
+    """Seconds per call of ``fn`` on ``device``, one sample per repetition.
+    ``setup`` runs before every call of ``fn``, outside its window and before
+    the L2 is flushed (it restores what an in-place ``fn`` overwrites)."""
     device = torch.device(device)
+    setup = setup or (lambda: None)
     for _ in range(warmup):
+        setup()
         fn()
     times = []
     if device.type == "cuda":
@@ -67,6 +84,7 @@ def time_op(fn: Callable[[], object], device: Union[str, torch.device],
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         for i in range(reps):
+            setup()
             scratch.fill_(float(i))  # evicts the op's operands from L2
             start.record()
             fn()
@@ -76,6 +94,7 @@ def time_op(fn: Callable[[], object], device: Union[str, torch.device],
         del scratch
     else:
         for _ in range(reps):
+            setup()
             t0 = time.perf_counter()
             fn()
             times.append(time.perf_counter() - t0)
@@ -123,6 +142,20 @@ def device_events(fn: Callable[[], object],
     raise ProfilerUnavailable(f"torch.profiler gave no complete trace in {attempts} runs; the "
                               f"last one held {len(out)} device records of {len(seen)} names: "
                               f"{[n[:60] for n in seen[:6]]}")
+
+
+def busy_by_name(events: Sequence[Tuple[str, float]],
+                 top: int = 12) -> List[Tuple[str, int, float]]:
+    """The records of :func:`device_events` summed by kernel name (template
+    arguments, parameters and anonymous namespaces cut off, the last 48
+    characters kept): the ``top`` busiest as ``(name, records, seconds)``."""
+    by_name = {}
+    for name, t in events:
+        key = name.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0][-48:]
+        n, tot = by_name.get(key, (0, 0.0))
+        by_name[key] = (n + 1, tot + t)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return [(key, n, tot) for key, (n, tot) in rows]
 
 
 def kernel_times(fns: Sequence[Callable[[], object]], name_part: str,

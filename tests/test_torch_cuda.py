@@ -277,6 +277,29 @@ def _check_frontal_kernels(card, shape, inst):
             assert torch.equal(ys[0], ys[1]) and _held(ys[0], ys[2], dtype)
 
 
+def test_launch_sweep_is_the_kernels_part_of_a_wide_front(card):
+    """A front wider than ``MAX_TRI``: the library's triangle and then
+    ``launch_sweep`` give what ``front_sweep`` gives, bit for bit, and the
+    launch alone counts once and leaves y as it was."""
+    nf, wp, rp = 2, 192, 96
+    t = _front_group((nf, wp, rp, 1), torch.float32, card)
+    grp = (0, nf, wp, rp)
+    y, ref = t["y"].clone(), t["y"].clone()
+    want = F.front_sweep(t["pool"], ref, *grp, t["piv"], t["rsx"], True)
+    f = t["pool"][:nf * (wp + rp) ** 2].view(nf, wp + rp, wp + rp)
+    pv = t["piv"].long()
+    z = torch.linalg.solve_triangular(f[:, :wp, :wp], y[pv][..., None], upper=False,
+                                      unitriangular=True)
+    y[pv.reshape(-1)] = z.reshape(-1)
+    kept, upd = y.clone(), torch.empty((nf, rp), device=card)
+    before = F.LAUNCHES["respa_front_sweep_fwd_f32"]
+    F.launch_sweep(t["pool"], y, *grp, t["piv"], t["rsx"], True, False, z[..., 0].contiguous(),
+                   upd)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES["respa_front_sweep_fwd_f32"] == before + 1
+    assert torch.equal(upd, want) and torch.equal(y, kept) and torch.equal(y, ref)
+
+
 @pytest.mark.parametrize("kind", ["fem", "circuit"])
 def test_frontal_factor_and_solve_on_the_card(card, kind):
     """The factorization on the card against the plain one on the CPU, twice

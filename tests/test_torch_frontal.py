@@ -15,7 +15,7 @@ from respatpu.bench.synth import circuit_like, laplacian_2d, mesh_fem_3d
 from respatpu.kernels import snlu_device as jdev
 
 from respatpu_torch.bench.synth import frontal_group
-from respatpu_torch.interop import csr_from_respatpu, pool_from_respatpu, pool_to_numpy
+from respatpu_torch.interop import csr_from_respatpu, pool_from_respatpu
 from respatpu_torch.kernels import bandlu, snlu, snlu_device as dev
 from respatpu_torch.precision import FP32_MIN_NORMAL
 
@@ -315,7 +315,7 @@ def test_fp32_pool_matches_respatpus_values_from_pool():
     tplan, tpool = pool_from_respatpu(jplan, assembled)
     np.testing.assert_array_equal(tpool, dev.assemble_pool(plan, torch.float32, "cpu", eps))
     tpool, tbad = dev.frontal_factor_pool(tplan, torch.float32, "cpu", pool=tpool)
-    tvals = pool_to_numpy(tplan, tpool)
+    tvals = dev.values_from_pool(tplan, tpool)
     assert tbad == jbad == 0
     assert np.abs(tvals - jvals).max() <= 2e-5 * np.abs(jvals).max()
     # and the factored pool carried over is solved alike by both packages

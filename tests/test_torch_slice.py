@@ -5,6 +5,8 @@ import ast
 import csv
 import inspect
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -100,6 +102,29 @@ def test_timing_gate_raises_on_too_fast():
         check_plausible(OpTiming([1e-6, 1e-9]), nbytes, 3e12)
     t = check_plausible(OpTiming([1e-6, 2e-6]), nbytes, 3e12)
     assert t.floor_s == pytest.approx(nbytes / (1.05 * 3e12)) and t.median == 1.5e-6
+
+
+def test_time_op_runs_setup_before_every_call_outside_its_window():
+    """An in-place op is timed on restored inputs: ``setup`` comes before
+    each call of the op, the warm ones included, and is not part of a sample."""
+    log = []
+    t = timing.time_op(lambda: log.append("op"), "cpu", warmup=2, reps=3,
+                       setup=lambda: (log.append("setup"), time.sleep(0.02)))
+    assert log == ["setup", "op"] * 5
+    assert len(t.times) == 3 and max(t.times) < 0.02
+    assert len(timing.time_op(lambda: None, "cpu", warmup=0, reps=2).times) == 2
+
+
+def test_busy_by_name_sums_records_by_kernel():
+    events = [("void (anonymous namespace)::front_fwd_kernel<float, false>(float const*)", 2e-6),
+              ("Memcpy DtoD (Device -> Device)", 5e-6),
+              ("void (anonymous namespace)::front_fwd_kernel<double, false>(double const*)", 4e-6),
+              ("ampere_sgemm_128x64_nn", 1e-6)]
+    rows = timing.busy_by_name(events)
+    assert [(k, n) for k, n, _ in rows] == [("void front_fwd_kernel", 2), ("Memcpy DtoD ", 1),
+                                            ("ampere_sgemm_128x64_nn", 1)]
+    assert rows[0][2] == pytest.approx(6e-6)
+    assert len(timing.busy_by_name(events, top=1)) == 1
 
 
 def test_spmv_timed_probes_bandwidth_once_per_device(monkeypatch):
