@@ -41,10 +41,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bound, library and plain;
 7. frontal kernels vs plain: extend-add, the forward and backward frontal
    sweep and the row reduction against their plain versions on synthetic
-   groups (one front; a parent with hundreds of children in one group; roots
-   with no update rows; pivot widths 8, 24, 128 and 192, the last past what
-   a sweep block solves itself; fp32, fp32_ftz with subnormal inputs, fp64),
-   each twice, bitwise equal;
+   groups in each of the sweep's regimes (one front; a parent with hundreds
+   of children in one group; 2,000 fronts of pivot width 8 and 32; roots
+   with no update rows; widths 24 and 128; a 6,144-row panel over many
+   blocks; widths 192 to 2,048 with 0 to 384 update rows; fp32, fp32_ftz
+   with subnormal inputs, fp64), each twice, bitwise equal, y's spare slot
+   untouched; the extend-add and the reduction bit for bit with plain;
 8. multifrontal path at full width: the dc1 stand-in at catalogue size
    through ``factorize(a, "fp32", method="auto")`` (band refuses, the
    multifrontal LU serves with GESP matching) and ``solve_refined`` to a
@@ -57,7 +59,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel and its plain version on the same inputs (the factored pool bit
    for bit with the plain extend-add in the kernel's place; a solve walked
    group by group), and the frontal kernels timed at the full-width group
-   shapes beside bound, library and plain;
+   shapes (the most populous group, the tallest panel, the widest front)
+   beside bound, library (the library route for a sweep) and plain;
 9. result: a JSON line of the kernels, then the device line last.
 """
 import dataclasses
@@ -128,6 +131,10 @@ FRONT_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 AMPLIFIED = 4.0
 FRONT_INST = ((torch.float32, False, "f32"), (torch.float32, True, "f32_ftz"),
               (torch.float64, False, "f64"))
+# the sweep's __global__ functions by (regime, forward), as the profiler names them
+SWEEP_KERNELS = {("warp", True): "front_fwd_warp", ("warp", False): "front_bwd_warp",
+                 ("block", True): "front_fwd_block", ("block", False): "front_bwd_block",
+                 ("wide", True): "front_wide_kernel", ("wide", False): "front_wide_kernel"}
 
 
 def x_for(dev, x64: np.ndarray) -> torch.Tensor:
@@ -598,74 +605,97 @@ def no_subnormals(*tensors):
 def check_frontal_kernels(errs):
     """Extend-add, both frontal sweeps and the row reduction against their
     plain versions on synthetic groups; see the docstring."""
+    # (name, fronts, wp, rp, parents): the sweep's warp regime (up to 2,000
+    # fronts of wp 8 and 32), its block regime (wp 24-128, a 6,144-row panel
+    # over 96 tiles), its wide regime (wp 192-2,048, rp 0-384, 1-3 fronts)
     shapes = [("one_front", 1, 8, 8, 1), ("many_children", 700, 8, 16, 2),
+              ("warp_wp8", 2000, 8, 16, 40), ("warp_wp32", 2000, 32, 32, 40),
               ("roots_rp0", 3, 24, 0, 0), ("wp24", 6, 24, 32, 4), ("wp128", 5, 128, 48, 3),
-              ("wp192_split", 2, 192, 96, 1)]
-    for dtype, flush, inst in FRONT_INST:
-        tol = FRONT_TOL[dtype]
+              ("tall_wp64", 1, 64, 6144, 1), ("wide192", 2, 192, 96, 1),
+              ("wide200", 3, 200, 64, 2), ("wide1000", 2, 1000, 384, 1),
+              ("wide2048", 1, 2048, 256, 1), ("wide2048_rp0", 1, 2048, 0, 0)]
+    for cname, nf, wp, rp, npar in shapes:
+        host = frontal_group(nf, wp, rp, npar, seed=nf + wp)
+        regime, tiles = F.sweep_regime(nf, wp, rp)
+        for dtype, flush, inst in FRONT_INST:
+            t = group_on_card(host, dtype)
+            worst = check_frontal_group(errs, t, cname, nf, wp, rp, npar, dtype, flush, inst)
+            print(f"[kernel] frontal {cname:14s} {inst:8s} B={nf} wp={wp} rp={rp} parents={npar} "
+                  f"sweep regime {regime} x{tiles}: extend-add and reduction == plain bitwise, "
+                  f"sweeps rel_err={worst:.3e} (tol {FRONT_TOL[dtype]:.0e}), all bitwise twice, "
+                  f"y[n] untouched", flush=True)
+            del t
 
-        def held(name, got, ref, again):
-            scale = max(float(ref.abs().max()), 1e-300)
-            err = float((got - ref).abs().max())
-            if not (np.isfinite(err) and err / scale <= tol and torch.equal(got, again)):
-                raise AssertionError(f"{name} {cname}: rel_err {err / scale:.3e} (tol {tol:.0e}) "
-                                     f"or not bitwise repeatable")
-            errs[name] = max(errs.get(name, 0.0), err)
-            return err / scale
 
-        for cname, nf, wp, rp, npar in shapes:
-            t = group_on_card(frontal_group(nf, wp, rp, npar, seed=nf + wp), dtype)
-            kids = nf * (wp + rp) ** 2
-            if flush:  # subnormal entries in the fronts and the right-hand side, and
-                # zeroed parents, so that the extend-add's sums are subnormal too
-                t["pool"][:kids][wp * (wp + rp) + wp::97] = 1e-40
-                t["pool"][:kids][3::101] = -1e-40
-                t["pool"][kids:] = 0
-                d = torch.arange(wp)
-                t["pool"][:kids].view(nf, wp + rp, wp + rp)[:, d, d] = 2.5  # keep the pivots
-                t["y"][:-1:5] = 1e-40
-            rows = t["piv"][t["piv"] < t["y"].numel() - 1].long()
-            idx = (t["lp"], t["poff"], t["pmp"], t["seg_ptr"])
-            grp = (0, nf, wp, rp)
-            worst = 0.0
-            if npar:
-                name = f"respa_extend_add_{inst}"
-                out = [t["pool"].clone() for _ in range(3)]
-                F.extend_add(out[0], *grp, *idx, flush)
-                F.extend_add(out[1], *grp, *idx, flush)
-                F.extend_add_plain(out[2], *grp, *idx, flush)
-                torch.cuda.synchronize()
-                worst = max(worst, held(name, out[0], out[2], out[1]))
-                if not torch.equal(out[0], out[2]):  # same operations in the same order
-                    raise AssertionError(f"{name} {cname}: kernel != plain bit for bit")
-                if flush and not no_subnormals(out[0][kids:]):
-                    raise AssertionError(f"{name} {cname}: a subnormal sum was not flushed")
-            for fwd in (True, False):
-                name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
-                ys = [t["y"].clone() for _ in range(3)]
-                u0 = F.front_sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush)
-                u1 = F.front_sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush)
-                u2 = F.front_sweep_plain(t["pool"], ys[2], *grp, t["piv"], t["rsx"], fwd, flush)
-                torch.cuda.synchronize()
-                worst = max(worst, held(name, ys[0], ys[2], ys[1]))
-                if float(ys[0][-1]) != 0.0:
-                    raise AssertionError(f"{name} {cname}: the padding's slot of y was written")
-                if fwd and rp:
-                    worst = max(worst, held(name, u0, u2, u1))
-                    name = ("respa_rows_reduce_f64" if dtype == torch.float64
-                            else "respa_rows_reduce_f32")
-                    red = (t["red_rows"], t["red_ptr"], t["red_src"])
-                    F.rows_reduce(ys[0], u0, *red, flush)
-                    F.rows_reduce(ys[1], u0, *red, flush)
-                    F.rows_reduce_plain(ys[2], u0, *red, flush)
-                    torch.cuda.synchronize()
-                    worst = max(worst, held(name, ys[0], ys[2], ys[1]))
-                written = torch.cat([rows, t["red_rows"].long()]) if fwd and rp else rows
-                if flush and not no_subnormals(ys[0][written], *([u0] if fwd and rp else [])):
-                    raise AssertionError(f"{name} {cname}: a subnormal result was not flushed")
-            print(f"[kernel] frontal {cname:14s} {inst:8s} B={nf} wp={wp} rp={rp} parents={npar}: "
-                  f"extend-add == plain bitwise, sweeps and reduction rel_err={worst:.3e} "
-                  f"(tol {tol:.0e}), all bitwise twice", flush=True)
+def check_frontal_group(errs, t, cname, nf, wp, rp, npar, dtype, flush, inst):
+    """One synthetic group through every frontal kernel of one instance;
+    returns the sweeps' worst error relative to plain."""
+    tol = FRONT_TOL[dtype]
+
+    def held(name, got, ref, again):
+        scale = max(float(ref.abs().max()), 1e-300)
+        err = float((got - ref).abs().max())
+        if not (np.isfinite(err) and err / scale <= tol and torch.equal(got, again)):
+            raise AssertionError(f"{name} {cname}: rel_err {err / scale:.3e} (tol {tol:.0e}) "
+                                 f"or not bitwise repeatable")
+        errs[name] = max(errs.get(name, 0.0), err)
+        return err / scale
+
+    kids = nf * (wp + rp) ** 2
+    if flush:  # subnormal entries in the fronts and the right-hand side, and
+        # zeroed parents, so that the extend-add's sums are subnormal too
+        t["pool"][:kids][wp * (wp + rp) + wp::97] = 1e-40
+        t["pool"][:kids][3::101] = -1e-40
+        t["pool"][kids:] = 0
+        d = torch.arange(wp)
+        t["pool"][:kids].view(nf, wp + rp, wp + rp)[:, d, d] = 2.5  # keep the pivots
+        t["y"][:-1:5] = 1e-40
+    rows = t["piv"][t["piv"] < t["y"].numel() - 1].long()
+    idx = (t["lp"], t["poff"], t["pmp"], t["seg_ptr"])
+    grp = (0, nf, wp, rp)
+    worst = 0.0
+    if npar:
+        name = f"respa_extend_add_{inst}"
+        out = [t["pool"].clone() for _ in range(3)]
+        F.extend_add(out[0], *grp, *idx, flush)
+        F.extend_add(out[1], *grp, *idx, flush)
+        F.extend_add_plain(out[2], *grp, *idx, flush)
+        torch.cuda.synchronize()
+        held(name, out[0], out[2], out[1])
+        if not torch.equal(out[0], out[2]):  # same operations in the same order
+            raise AssertionError(f"{name} {cname}: kernel != plain bit for bit")
+        if flush and not no_subnormals(out[0][kids:]):
+            raise AssertionError(f"{name} {cname}: a subnormal sum was not flushed")
+        del out
+    for fwd in (True, False):
+        name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
+        ys = [t["y"].clone() for _ in range(3)]
+        u0 = F.front_sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush)
+        u1 = F.front_sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush)
+        u2 = F.front_sweep_plain(t["pool"], ys[2], *grp, t["piv"], t["rsx"], fwd, flush)
+        torch.cuda.synchronize()
+        worst = max(worst, held(name, ys[0], ys[2], ys[1]))
+        if float(ys[0][-1]) != 0.0:
+            raise AssertionError(f"{name} {cname}: the padding's slot of y was written")
+        if fwd and rp:
+            worst = max(worst, held(name, u0, u2, u1))
+            name = ("respa_rows_reduce_f64" if dtype == torch.float64
+                    else "respa_rows_reduce_f32")
+            red = (t["red_rows"], t["red_ptr"], t["red_src"])
+            same = ys[0].clone()
+            F.rows_reduce(ys[0], u0, *red, flush)
+            F.rows_reduce(ys[1], u0, *red, flush)
+            F.rows_reduce_plain(same, u0, *red, flush)
+            torch.cuda.synchronize()
+            if not (torch.equal(ys[0], ys[1]) and torch.equal(ys[0], same)):
+                raise AssertionError(f"{name} {cname}: kernel != plain bit for bit, or twice")
+            errs.setdefault(name, 0.0)
+            if float(ys[0][-1]) != 0.0:
+                raise AssertionError(f"{name} {cname}: the padding's slot of y was written")
+        written = torch.cat([rows, t["red_rows"].long()]) if fwd and rp else rows
+        if flush and not no_subnormals(ys[0][written], *([u0] if fwd and rp else [])):
+            raise AssertionError(f"{name} {cname}: a subnormal result was not flushed")
+    return worst
 
 
 def hold_frontal_full(name_limit, name, fac, errs, full):
@@ -764,6 +794,9 @@ def hold_frontal_full(name_limit, name, fac, errs, full):
                 F.rows_reduce(y, upd, *red, flush)
                 F.rows_reduce_plain(yp, upd, *red, flush)
                 held(names["red"], y, yp, yp[d["red_rows"].long()], g)
+                if not torch.equal(y, yp):  # it sums in its plain version's order
+                    failed.append(f"{names['red']}: != plain bit for bit at B={g.nfronts} "
+                                  f"wp={g.wp} rp={g.rp} level={g.level}")
     if float(y[-1]) != 0.0 or not bool(torch.isfinite(y).all()):
         failed.append(f"{name}: the walked solve left y[n] != 0 or a non-finite entry")
     t_solve = time.perf_counter() - t0
@@ -799,26 +832,28 @@ def hold_frontal_full(name_limit, name, fac, errs, full):
 
 
 def time_frontal(name_limit, fac, times):
-    """The frontal kernels of ``fac``'s instance at two group shapes of its
-    plan: the group with the most fronts among those with parents, and the
-    widest front. ``ms`` is the wrapper's window by events with a cold L2 (y
-    is reset before each window, outside it), ``profiler_ms`` the kernel alone
-    from a trace. For a front wider than ``MAX_TRI`` the wrapper is the
-    library's triangular solve and the kernel's panel product: there ``ms``
-    is the kernel's launch alone, held to the bytes of the panel it reads,
-    and the whole wrapper and the library's part are given beside it; where
-    such a front has no update rows the forward wrapper launches nothing and
-    no forward time is taken. The bound is the bytes the function needs (the
-    triangle, not the square it lies in) at 3.35 TB/s; beside it the plain
-    version and, for the extend-add, ``index_add_`` on materialised
-    indices."""
+    """The frontal kernels of ``fac``'s instance at three group shapes of its
+    plan: the group with the most fronts among those with parents
+    (populous), the one with the most update rows among those a warp or a
+    thread block solves (tallest), and the widest front. ``ms`` is the
+    wrapper's window by events with a cold L2 (y is reset before each window,
+    outside it), ``profiler_ms`` the kernel alone from a trace. The bound is
+    the bytes the function needs (a sweep: the triangle, not the square it
+    lies in, the panel, y's entries, the indices) at 3.35 TB/s. Beside it
+    the plain version; for the extend-add and the reduction the one PyTorch
+    call with the same function (``index_add_`` on materialised indices, on
+    ``rsx``); for a sweep the library route (``solve_triangular`` on the
+    triangle read in place, the panel by ``matmul``)."""
     plan, pool, flush = fac._plan, fac._frontal.pool, fac._frontal.flush
     inst = F._INST[pool.dtype, flush]
     item = pool.element_size()
     dgs = plan.on_device(pool.device)
-    with_parents = [i for i, g in enumerate(plan.groups) if g.seg_ptr.size > 1]
-    picks = {"populous": max(with_parents, key=lambda i: plan.groups[i].nfronts),
-             "widest": max(range(len(plan.groups)), key=lambda i: plan.groups[i].wp)}
+    groups = plan.groups
+    with_parents = [i for i, g in enumerate(groups) if g.seg_ptr.size > 1]
+    narrow = [i for i, g in enumerate(groups) if g.wp <= F.MAX_TRI]
+    picks = {"populous": max(with_parents, key=lambda i: groups[i].nfronts),
+             "tallest": max(narrow, key=lambda i: (groups[i].rp, groups[i].nfronts)),
+             "widest": max(range(len(groups)), key=lambda i: groups[i].wp)}
     y0 = torch.randn(plan.part.n + 1, dtype=pool.dtype, device=pool.device)
     y0[-1] = 0
     y = y0.clone()
@@ -841,11 +876,11 @@ def time_frontal(name_limit, fac, times):
             fn()
 
         t = {"ms": events_ms(fn, reps, setup), "plain_ms": plain_ms,
-             "library_ms": events_ms(lib_fn, reps) if lib_fn else None,
+             "library_ms": events_ms(lib_fn, reps, setup) if lib_fn else None,
              "profiler_ms": profiler_ms(traced, kernel_name, 5),
-             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "shape": shape,
-             **(extra or {})}
-        more = "".join(f"; {k.replace('_', ' ')} {v:.4f} ms" for k, v in (extra or {}).items())
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "shape": shape}
+        t.update({k: f() for k, f in (extra or {}).items()})
+        more = "".join(f"; {k.replace('_', ' ')} {t[k]:.4f} ms" for k in (extra or {}))
         print(f"[time] {name_limit} | {name} {tag} {shape}: {fmt_ms(t['ms'])} by events, "
               f"{fmt_ms(t['profiler_ms'])} the kernel alone by the profiler; bound "
               f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} bytes at 3.35 TB/s); library "
@@ -854,14 +889,13 @@ def time_frontal(name_limit, fac, times):
         if tag == "populous":
             times.setdefault(name, t)
         elif name in times:
-            times[name].setdefault("widest", t)
+            times[name].setdefault(tag, t)
 
     for tag, gi in picks.items():
-        g, d = plan.groups[gi], dgs[gi]
+        g, d = groups[gi], dgs[gi]
         grp = (g.g0, g.nfronts, g.wp, g.rp)
         shape = f"B={g.nfronts} wp={g.wp} rp={g.rp} level={g.level}"
         nf, wp, rp, mp = g.nfronts, g.wp, g.rp, g.mp
-        split = wp > F.MAX_TRI
         if g.seg_ptr.size > 1 and rp:
             # materialised indices: what index_add_ needs, and the distinct
             # parent entries for the bound
@@ -883,9 +917,11 @@ def time_frontal(name_limit, fac, times):
                    lambda: scratch.index_add_(0, dst, src), "extend_add_kernel", nbytes)
             del scratch, dst, src
         tri = wp * (wp + 1) // 2
+        f3 = pool[g.g0:g.g0 + nf * mp * mp].view(nf, mp, mp)
+        pv, rs = d["piv"].long(), d["rsx"].long()
         for fwd in (True, False):
             name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
-            kernel_name = "front_fwd_kernel" if fwd else "front_bwd_kernel"
+            kernel_name = SWEEP_KERNELS[g.regime, fwd]
             # the function: the triangle and the panel once, y[piv] read and
             # written, y[rsx] read (backward) or upd written (forward), indices
             need = nf * ((tri + rp * wp + 2 * wp + rp) * item + (wp if fwd else wp + rp) * 4)
@@ -893,48 +929,25 @@ def time_frontal(name_limit, fac, times):
             def sweep(fn=F.front_sweep, fwd=fwd):
                 return fn(pool, y, *grp, d["piv"], d["rsx"], fwd, flush)
 
-            if not split:
-                record(name, tag, shape, sweep, lambda: sweep(F.front_sweep_plain), None,
-                       kernel_name, need, setup=reset)
-                continue
-            if fwd and rp == 0:
-                print(f"[time] {name} {tag} {shape}: no update rows, the forward wrapper "
-                      f"launches no kernel (the triangle is the library's): no time taken",
-                      flush=True)
-                continue
-            # the kernel's part of a wide front: the rp x wp (forward) or
-            # wp x rp (backward) panel, z or the right-hand side, y's entries
-            f3 = pool[g.g0:g.g0 + nf * mp * mp].view(nf, mp, mp)
-            pv = d["piv"].long()
-            reset()
-            if fwd:
-                def library_part():
+            def library_route(fwd=fwd):
+                """The same function by the library: the triangle in place."""
+                if fwd:
                     z = ftz(torch.linalg.solve_triangular(
                         f3[:, :wp, :wp], ftz(y[pv], flush)[..., None], upper=False,
                         unitriangular=True), flush)
                     y[pv.reshape(-1)] = z.reshape(-1)
-                    return z[..., 0].contiguous()
-                zbuf = library_part()
-                upd = torch.empty((nf, rp), dtype=pool.dtype, device=pool.device)
-                panel = nf * ((rp * wp + wp + rp) * item)
-            else:
-                zbuf = torch.empty((nf, wp), dtype=pool.dtype, device=pool.device)
-                upd = None
+                    return ftz(-(f3[:, wp:, :wp] @ z), flush)
+                rhs = ftz(y[pv], flush)[..., None]
+                if rp:
+                    rhs = ftz(rhs - ftz(f3[:, :wp, wp:] @ ftz(y[rs], flush)[..., None], flush),
+                              flush)
+                z = ftz(torch.linalg.solve_triangular(f3[:, :wp, :wp], rhs, upper=True), flush)
+                y[pv.reshape(-1)] = z.reshape(-1)
+                return None
 
-                def library_part():
-                    z = ftz(torch.linalg.solve_triangular(f3[:, :wp, :wp], zbuf[..., None],
-                                                              upper=True), flush)
-                    y[pv.reshape(-1)] = z.reshape(-1)
-                panel = nf * ((rp * wp + 2 * wp + rp) * item + (wp + rp) * 4)
-            extra = {"wrapper_ms": events_ms(sweep, 10, reset),
-                     "library_triangle_ms": events_ms(library_part, 10, reset),
-                     "function_bound_ms": need / HBM_BYTES_PER_S * 1e3}
-            reset()
-            record(name, tag, shape + ", the kernel's launch alone (triangle by the library)",
-                   lambda: F.launch_sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush, zbuf,
-                                          upd),
-                   lambda: (reset(), sweep(F.front_sweep_plain)), None, kernel_name, panel,
-                   extra=extra)
+            record(name, tag, f"{shape}, {g.regime} regime x{g.tiles}", sweep,
+                   lambda: sweep(F.front_sweep_plain), None, kernel_name, need, setup=reset,
+                   extra={"library_route_ms": lambda: events_ms(library_route, 10, reset)})
         if rp and not flush:
             upd = F.front_sweep(pool, y0.clone(), *grp, d["piv"], d["rsx"], True, flush)
             red = (d["red_rows"], d["red_ptr"], d["red_src"])
@@ -942,10 +955,11 @@ def time_frontal(name_limit, fac, times):
             nbytes = nnz * (item + 4) + (nd + 1) * 8 + nd * 4 + 2 * nd * item
             record("respa_rows_reduce_f64" if item == 8 else "respa_rows_reduce_f32", tag,
                    f"{shape}, {nd} rows from {nnz} sources, longest "
-                   f"{int(np.diff(g.red_ptr).max())}",
+                   f"{int(np.diff(g.red_ptr).max())}, rows a bin {g.red_bins.tolist()}",
                    lambda: F.rows_reduce(y, upd, *red, flush),
-                   lambda: F.rows_reduce_plain(y, upd, *red, flush), None,
-                   "rows_reduce_kernel", nbytes)
+                   lambda: F.rows_reduce_plain(y, upd, *red, flush),
+                   lambda: y.index_add_(0, rs.reshape(-1), upd.reshape(-1)),
+                   "rows_reduce_kernel", nbytes, setup=reset)
 
 
 def frontal_counts(fac):
@@ -954,10 +968,7 @@ def frontal_counts(fac):
     groups = fac._plan.groups
     return (sum(-(-g.wp // B.MAX_P) for g in groups),
             sum(g.seg_ptr.size > 1 and g.rp > 0 for g in groups),
-            # a front wider than a sweep block solves and without update rows
-            # leaves the forward kernel nothing to do
-            sum(g.wp <= F.MAX_TRI or g.rp > 0 for g in groups),
-            len(groups), sum(g.rp > 0 for g in groups))
+            len(groups), len(groups), sum(g.rp > 0 for g in groups))
 
 
 def frontal_row(name_limit, name, a, policy, method, refine, inst, want_matching=None):

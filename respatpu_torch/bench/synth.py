@@ -356,8 +356,8 @@ def frontal_group(nf: int, wp: int, rp: int, nparents: int, seed: int = 0) -> di
     else:
         seg_ptr = np.zeros(1, np.int32)
     from ..kernels.snlu_device import reduction_csr
-    red_rows, red_ptr, red_src = reduction_csr(rsx, n)
+    red_rows, red_ptr, red_src, red_bins = reduction_csr(rsx, n)
     y = np.r_[rng.standard_normal(n), 0.0]
     return dict(pool=pool, g0=0, nf=nf, wp=wp, rp=rp, n=n, y=y, piv=piv, rsx=rsx, lp=lp,
                 poff=poff, pmp=pmp, seg_ptr=seg_ptr, red_rows=red_rows, red_ptr=red_ptr,
-                red_src=red_src)
+                red_src=red_src, red_bins=red_bins)

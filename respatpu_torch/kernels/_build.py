@@ -78,15 +78,12 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
         # device, pool, g0, nfronts, wp, rp, lp, poff, pmp, seg_ptr, nseg, tiles, stream
         fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr]
         fn.restype = ctypes.c_int
-    for name in _FRONT_FWD:
+    for name in (*_FRONT_FWD, *_FRONT_BWD):
         fn = getattr(lib, name)
-        # device, pool, g0, nfronts, wp, rp, piv, y, n, zbuf, upd, split, tiles, stream
-        fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, i32, ptr, ptr, i32, i32, ptr]
-        fn.restype = ctypes.c_int
-    for name in _FRONT_BWD:
-        fn = getattr(lib, name)
-        # device, pool, g0, nfronts, wp, rp, piv, rsx, y, n, zbuf, split, tiles, stream
-        fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i32, ptr, i32, i32, ptr]
+        # device, pool, g0, nfronts, wp, rp, piv, rsx, y, n, out, regime, tiles, ctl, mail,
+        # tag, stream
+        fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i32, ptr, i32, i32, ptr, ptr,
+                       ctypes.c_uint, ptr]
         fn.restype = ctypes.c_int
     for name in _ROWS_REDUCE:
         fn = getattr(lib, name)

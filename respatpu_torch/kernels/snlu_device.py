@@ -33,10 +33,13 @@ take the data-dependent steps:
 
 * ``extend_add``: each front's Schur corner into its parent front, the
   parent's children in plan order, no atomics;
-* ``front_sweep``: one group's forward or backward substitution, one thread
-  block a front;
+* ``front_sweep``: one group's forward or backward substitution in one launch,
+  by a regime picked from the group's shape at plan time (``sweep_regime``):
+  a warp a front for pivot blocks up to 32, a thread block a front (its panel
+  over several blocks where it has many update rows) up to ``MAX_TRI``, and
+  for wider fronts a blocked substitution that reads the triangle in place;
 * ``rows_reduce``: the forward sweep's updates summed into y per destination
-  row in plan order, no atomics.
+  row in plan order, no atomics, the rows binned by their number of sources.
 
 Each has its plain PyTorch version beside it (``extend_add_plain``,
 ``front_sweep_plain``, ``rows_reduce_plain``). A wrapper launches its kernel
@@ -60,9 +63,16 @@ __all__ = ["FrontalPlan", "build_frontal_plan", "frontal_factor_pool",
            "assemble_pool", "default_pivot_eps", "extend_add",
            "extend_add_plain", "front_sweep", "front_sweep_plain",
            "front_sweep_t_plain", "rows_reduce", "rows_reduce_plain",
-           "launch_sweep", "LAUNCHES", "MAX_TRI"]
+           "launch_sweep", "sweep_regime", "warp_deal", "LAUNCHES", "MAX_TRI", "RED_BINS"]
 
-MAX_TRI = 128  # widest pivot block the sweep kernel solves itself (kMaxTri of csrc/frontal.cu)
+MAX_TRI = 128  # widest pivot block a thread block solves (kMaxTri of csrc/frontal.cu)
+WARP_TRI = 32  # widest pivot block a warp solves in registers (kWarpTri)
+TILE_ROWS = 64  # fewest update rows a tile of a block-regime front takes
+FILL_BLOCKS = 264  # thread blocks that fill the card twice over (132 SMs)
+# rows_reduce's bins: rows of at most 8 sources (a lane each), at most 64 (8
+# lanes each), more (a warp each): kThreadRow, kGroupRow, kGroupLanes
+RED_BINS = ((8, 1), (64, 8), (None, 32))
+_REGIMES = {"warp": 0, "block": 1, "wide": 2}
 
 _INST = {(torch.float32, False): "f32", (torch.float32, True): "f32_ftz",
          (torch.float64, False): "f64"}
@@ -118,6 +128,9 @@ class _Group:
     red_rows: np.ndarray  # int32[nd] update rows this group touches, ascending
     red_ptr: np.ndarray  # int64[nd + 1] CSR over red_src
     red_src: np.ndarray  # int32[sum r] flat index into upd[B, rp], plan order within a row
+    red_bins: np.ndarray  # int64[len(RED_BINS)] rows in each bin of RED_BINS
+    regime: str  # the sweep kernel's regime for this shape (sweep_regime)
+    tiles: int  # thread blocks a front in the block regime, else 1
 
     @property
     def mp(self) -> int:
@@ -170,21 +183,58 @@ def _native_ok() -> bool:
     return native.available()
 
 
+def warp_deal(nd: int) -> np.ndarray:
+    """Where the reduction kernel's layout puts the k-th of ``nd`` rows: the
+    rows are dealt to warps of 32 consecutive positions one at a time, warp
+    after warp (k-th row to warp k mod W, W = ceil(nd / 32), the last warp
+    short), so that a warp holds at most a share of the long rows."""
+    w = max(-(-nd // 32), 1)
+    pos = (np.arange(32, dtype=np.int64)[:, None] + 32 * np.arange(w, dtype=np.int64)[None, :])
+    pos = pos.ravel()
+    return pos[pos < nd]
+
+
 def reduction_csr(rsx: np.ndarray, n: int):
     """The forward sweep's gather for one group: from ``rsx`` int32[B, rp]
-    (entries >= n are padding) the destination rows it touches, ascending
+    (entries >= n are padding) the destination rows it touches
     (``red_rows`` int32[nd]), and for each the flat positions in ``upd``
     [B, rp] that feed it, in plan order (``red_ptr`` int64[nd + 1] over
-    ``red_src`` int32)."""
+    ``red_src`` int32). The rows are cut into the bins of ``RED_BINS`` by
+    their number of sources (``red_bins`` int64: the rows in each) and laid
+    out by :func:`warp_deal` in the order longest bin first, ascending within
+    a bin: a warp of the kernel takes its 32 rows with few long ones."""
     flat = rsx.ravel()
     src = np.flatnonzero(flat < n)
     dest = flat[src]
     by_row = np.argsort(dest, kind="stable")
-    dest = dest[by_row]
+    dest, src = dest[by_row], src[by_row]
     first = (np.flatnonzero(np.r_[True, dest[1:] != dest[:-1]]) if dest.size
              else np.empty(0, np.int64))
-    return (dest[first].astype(np.int32), np.r_[first, dest.size].astype(np.int64),
-            src[by_row].astype(np.int32))
+    count = np.diff(np.r_[first, dest.size])
+    limits = np.asarray([most for most, _ in RED_BINS[:-1]])
+    bin_of = np.searchsorted(limits, count, side="left")
+    order = np.empty(first.size, np.int64)
+    order[warp_deal(first.size)] = np.argsort(-bin_of, kind="stable")
+    count = count[order]
+    ptr = np.r_[0, np.cumsum(count)].astype(np.int64)
+    take = np.repeat(first[order] - ptr[:-1], count) + np.arange(dest.size)
+    return (dest[first[order]].astype(np.int32), ptr, src[take].astype(np.int32),
+            np.bincount(bin_of, minlength=len(RED_BINS)).astype(np.int64))
+
+
+def sweep_regime(nf: int, wp: int, rp: int) -> Tuple[str, int]:
+    """The sweep kernel's regime for a group of ``nf`` fronts of ``wp`` +
+    ``rp``, and its tiles: ``wide`` past ``MAX_TRI`` pivots; else the panel
+    of a front with many update rows is cut into tiles of at least
+    ``TILE_ROWS`` rows, as many as fill the card with the group's fronts;
+    ``warp`` for an untiled front of at most ``WARP_TRI`` pivots, ``block``
+    otherwise."""
+    if wp > MAX_TRI:
+        return "wide", 1
+    tiles = max(1, min(rp // TILE_ROWS, -(-FILL_BLOCKS // nf), 65535))
+    if tiles == 1 and wp <= WARP_TRI:
+        return "warp", 1
+    return "block", tiles
 
 
 def build_frontal_plan(part: SupernodePartition, itemsize: int = 4,
@@ -301,11 +351,13 @@ def build_frontal_plan(part: SupernodePartition, itemsize: int = 4,
         cut = nroot + np.flatnonzero(np.r_[True, par[nroot + 1:] != par[nroot:-1]]) \
             if nroot < nf else np.empty(0, np.int64)
         seg_ptr = np.r_[cut, nf].astype(np.int32) if cut.size else np.zeros(1, np.int32)
-        red_rows, red_ptr, red_src = reduction_csr(rsx, n)
+        red_rows, red_ptr, red_src, red_bins = reduction_csr(rsx, n)
+        regime, tiles = sweep_regime(nf, gwp, grp_)
         groups.append(_Group(
             level=int(level[sel[0]]), wp=gwp, rp=grp_, snodes=sel, g0=int(off[sel[0]]),
             piv=piv, rsx=rsx, lp=lp, poff=poff, pmp=pmp, seg_ptr=seg_ptr,
-            red_rows=red_rows, red_ptr=red_ptr, red_src=red_src))
+            red_rows=red_rows, red_ptr=red_ptr, red_src=red_src, red_bins=red_bins,
+            regime=regime, tiles=tiles))
 
     return FrontalPlan(part=part, pool_size=pool_size, off=off, wp=wp, rp=rp,
                        asm_dst=asm_dst, asm_nz=np.flatnonzero(f.data), ones_dst=ones_dst,
@@ -466,12 +518,10 @@ def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, 
     in place in ``y`` [n + 1]; see :func:`front_sweep_plain`.
 
     On a CUDA device this is one launch of the sweep kernel on the current
-    stream, one thread block a front; it raises if the inputs do not fit the
-    kernel or the launch fails. Fronts wider than ``MAX_TRI`` pivots leave
-    their triangle to ``torch.linalg.solve_triangular`` (read in place, its
-    diagonal as it is) and the kernel takes the panel product (forward:
-    ``upd`` from the solved z; backward: the right-hand side). On the CPU it
-    runs the plain version."""
+    stream, in the regime :func:`sweep_regime` picks for the group's shape
+    (every width, the triangle read in place); it raises if the inputs do not
+    fit the kernel or the launch fails. On the CPU it runs the plain
+    version."""
     n = y.numel() - 1
     _check_group(pool, g0, nf, wp, rp, piv=(piv, (nf, wp), torch.int32),
                  rsx=(rsx, (nf, rp), torch.int32))
@@ -481,30 +531,32 @@ def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, 
         return front_sweep_plain(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush)
     if pool.device.type != "cuda":
         raise ValueError(f"no frontal sweep for device {pool.device}")
-    split = wp > MAX_TRI
-    f = _fronts(pool, g0, nf, wp + rp)
+    _, tiles = sweep_regime(nf, wp, rp)
     if forward:
-        upd = torch.empty((nf, rp), dtype=pool.dtype, device=pool.device)
-        zbuf = upd  # not read unless split
-        if split:
-            pv = piv.long()
-            z = ftz(torch.linalg.solve_triangular(
-                f[:, :wp, :wp], ftz(y[pv], flush)[..., None], upper=False,
-                unitriangular=True), flush)
-            _put(y, pv, z[..., 0])
-            if rp == 0:
-                return upd
-            zbuf = z[..., 0].contiguous()
-        launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, True, flush, zbuf, upd)
-        return upd
-    zbuf = torch.empty((nf, wp) if split else (1,), dtype=pool.dtype, device=pool.device)
-    launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, False, flush, zbuf)
-    if split:
-        # a front this wide is never padding: its diagonal is taken as it is
-        z = ftz(torch.linalg.solve_triangular(f[:, :wp, :wp], zbuf[..., None],
-                                              upper=True), flush)
-        _put(y, piv.long(), z[..., 0])
-    return None
+        out = torch.empty((nf, rp), dtype=pool.dtype, device=pool.device)
+    else:  # the partials of a tiled front's panel
+        out = torch.empty((nf, tiles, wp) if tiles > 1 else (1,), dtype=pool.dtype,
+                          device=pool.device)
+    launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush, out)
+    return out if forward else None
+
+
+# Per device: the sweep kernel's tickets (int32, zero between launches) and the
+# wide regime's mailbox (uint32 pairs, zeroed when allocated; a launch's tag is
+# new, so a word an earlier launch left never matches), and the last tag.
+_CONTROL: Dict[torch.device, list] = {}
+
+
+def _control(device: torch.device, nf: int, mail_words: int):
+    """(tickets, mailbox, tag) for one sweep launch on ``device``."""
+    c = _CONTROL.get(device)
+    if c is None or c[0].numel() < max(nf, 2) or c[1].numel() < mail_words or c[2] >= 2**32 - 1:
+        old = (0, 0) if c is None else (c[0].numel(), c[1].numel())
+        c = [torch.zeros(max(nf, 2, old[0]), dtype=torch.int32, device=device),
+             torch.zeros(max(mail_words, old[1], 2), dtype=torch.int32, device=device), 0]
+        _CONTROL[device] = c
+    c[2] += 1
+    return c[0], c[1], c[2]
 
 
 def launch_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
@@ -512,24 +564,21 @@ def launch_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int,
                  zbuf: torch.Tensor, upd: Optional[torch.Tensor] = None) -> None:
     """One launch of the sweep kernel on the current stream and nothing
     beside it: the part of :func:`front_sweep` that is the kernel, for
-    checked inputs on a card (timing code reads the kernel's own window
-    through it). ``zbuf`` [B, wp] serves fronts wider than ``MAX_TRI``:
-    forward the kernel reads the solved z from it, backward it writes the
-    right-hand side of the triangle there. ``upd`` [B, rp] is the forward
-    sweep's output."""
+    checked inputs on a card. ``zbuf`` is the output :func:`front_sweep`
+    allocates: forward ``upd`` [B, rp]; backward the scratch [B, tiles, wp]
+    in which the tiles of a block-regime front leave their panel's partials
+    (any tensor of the pool's type where the group is not tiled). ``upd``, if
+    given, is the forward output instead."""
     n = y.numel() - 1
-    split = wp > MAX_TRI
-    stream = torch.cuda.current_stream(pool.device).cuda_stream
+    regime, tiles = sweep_regime(nf, wp, rp)
+    out = upd if forward and upd is not None else zbuf
+    ctl, mail, tag = _control(pool.device, nf, nf * wp * pool.element_size() // 2
+                              if regime == "wide" else 0)
     name = f"respa_front_sweep_{'fwd' if forward else 'bwd'}_{_instance(pool, flush)}"
-    fn = getattr(_library(), name)
-    if forward:
-        tiles = -(-rp // 4) if split else 1  # 128 threads: 4 rows of 32 lanes a pass
-        rc = fn(pool.device.index, pool.data_ptr(), g0, nf, wp, rp, piv.data_ptr(),
-                y.data_ptr(), n, zbuf.data_ptr(), upd.data_ptr(), int(split), tiles, stream)
-    else:
-        tiles = min(-(-wp // 4), 4096) if split else 1
-        rc = fn(pool.device.index, pool.data_ptr(), g0, nf, wp, rp, piv.data_ptr(),
-                rsx.data_ptr(), y.data_ptr(), n, zbuf.data_ptr(), int(split), tiles, stream)
+    rc = getattr(_library(), name)(
+        pool.device.index, pool.data_ptr(), g0, nf, wp, rp, piv.data_ptr(), rsx.data_ptr(),
+        y.data_ptr(), n, out.data_ptr(), _REGIMES[regime], tiles, ctl.data_ptr(),
+        mail.data_ptr(), tag, torch.cuda.current_stream(pool.device).cuda_stream)
     _launched(name, rc)
 
 
@@ -537,15 +586,40 @@ def rows_reduce_plain(y: torch.Tensor, upd: torch.Tensor, red_rows: torch.Tensor
                       red_ptr: torch.Tensor, red_src: torch.Tensor,
                       flush: bool = False) -> None:
     """The row-reduction kernel's function in plain torch ops, on any device:
-    ``y[red_rows[k]] += sum(upd.flat[red_src[red_ptr[k] : red_ptr[k+1]]])``."""
+    ``y[red_rows[k]] += sum(upd.flat[red_src[red_ptr[k] : red_ptr[k+1]]])``,
+    in the kernel's order: a row of the bin ``(most, lanes)`` of
+    ``RED_BINS`` its length falls in is summed by ``lanes`` partial sums,
+    partial l taking sources l, l + lanes, ... in plan order, and then a
+    halving tree over the partials; under ``flush`` every partial sum is
+    flushed."""
     nd = red_rows.numel()
     if nd == 0:
         return
-    seg = torch.repeat_interleave(torch.arange(nd, device=y.device), red_ptr[1:] - red_ptr[:-1])
+    start = red_ptr[:-1]
+    lens = red_ptr[1:] - start
+    vals = upd.reshape(-1)[red_src.long()]
     sums = torch.zeros(nd, dtype=y.dtype, device=y.device)
-    sums.index_add_(0, seg, upd.reshape(-1)[red_src.long()])
+    lo = 0
+    for most, lanes in RED_BINS:
+        sel = torch.nonzero((lens > lo) & (lens <= most if most else True))[:, 0]
+        lo = most
+        if sel.numel() == 0:
+            continue
+        s0, ln = start[sel][:, None], lens[sel][:, None]
+        lane = torch.arange(lanes, device=y.device)[None, :]
+        part = torch.zeros((sel.numel(), lanes), dtype=y.dtype, device=y.device)
+        for j in range(-(-int(ln.max()) // lanes)):
+            k = j * lanes + lane
+            ok = k < ln
+            part = torch.where(ok, ftz(part + vals[(s0 + k).clamp(max=vals.numel() - 1)], flush),
+                               part)
+        off = lanes // 2
+        while off:
+            part[:, :off] = ftz(part[:, :off] + part[:, off:2 * off], flush)
+            off //= 2
+        sums[sel] = part[:, 0]
     rows = red_rows.long()
-    y[rows] = ftz(y[rows] + ftz(sums, flush), flush)
+    y[rows] = ftz(y[rows] + sums, flush)
 
 
 def rows_reduce(y: torch.Tensor, upd: torch.Tensor, red_rows: torch.Tensor,
@@ -554,8 +628,9 @@ def rows_reduce(y: torch.Tensor, upd: torch.Tensor, red_rows: torch.Tensor,
     per destination row; see :func:`rows_reduce_plain`.
 
     On a CUDA device this is one launch of the reduction kernel on the
-    current stream, a warp a destination row, the sources of a row in a
-    fixed order (no atomics); it raises if the inputs do not fit the kernel
+    current stream, a warp 32 destination rows (a lane, a group of 8 lanes or
+    the warp a row, by its bin), the sources of a row in a fixed order (no
+    atomics); it raises if the inputs do not fit the kernel
     or the launch fails. On the CPU it runs the plain version."""
     nd = int(red_rows.numel())
     for name, t, dtype in (("red_rows", red_rows, torch.int32), ("red_ptr", red_ptr, torch.int64),
@@ -722,8 +797,8 @@ class FrontalSolver:
     factorization: a chunked triangular solve over the factor's CSR would
     pad every slot to the widest factor row, which a circuit's hub-coupled
     rows make hopeless; here wide rows are just rows of a dense front. Per
-    (level, bucket) group one sweep launch, and forward one reduction launch:
-    ``launches_per_solve`` counts them."""
+    (level, bucket) group one sweep launch each way, and forward one
+    reduction launch: ``launches_per_solve`` counts them."""
 
     def __init__(self, plan: FrontalPlan, pool: torch.Tensor, flush: bool = False):
         self.plan = plan
@@ -735,10 +810,9 @@ class FrontalSolver:
     @property
     def launches_per_solve(self) -> int:
         """Kernel launches of one ``solve_device`` on a card: a forward and a
-        backward sweep a group (no forward one for a front wider than
-        ``MAX_TRI`` without update rows: its triangle is the library's), and
-        a reduction for each group with update rows."""
-        return sum(1 + (g.wp <= MAX_TRI or g.rp > 0) + (g.rp > 0) for g in self.plan.groups)
+        backward sweep a group, and a reduction for each group with update
+        rows."""
+        return sum(2 + (g.rp > 0) for g in self.plan.groups)
 
     def _start(self, b: torch.Tensor) -> torch.Tensor:
         if b.shape != (self.n,) or b.device != self.pool.device:

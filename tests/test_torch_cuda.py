@@ -216,10 +216,12 @@ def test_tf32_is_refused(card):
 FRONT_INST = {"f32": (torch.float32, False), "f32_ftz": (torch.float32, True),
               "f64": (torch.float64, False)}
 FRONT_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
-# (fronts, wp, rp, parents): one front; hundreds of children of two parents;
-# roots without update rows; wp = 24; the widest a sweep block solves; wider
+# (fronts, wp, rp, parents): one front; hundreds of children of two parents
+# (warp regime); roots without update rows; wp = 24; the widest a thread block
+# solves; a panel over 10 tiles; wide fronts, without update rows too
 FRONT_SHAPES = [(1, 8, 8, 1), (700, 8, 16, 2), (3, 24, 0, 0), (6, 24, 32, 4),
-                (5, 128, 48, 3), (2, 192, 96, 1)]
+                (5, 128, 48, 3), (2, 48, 640, 1), (2, 192, 96, 1), (1, 200, 0, 0),
+                (3, 300, 70, 2)]
 
 
 def _front_group(shape, dtype, card):
@@ -270,34 +272,47 @@ def _check_frontal_kernels(card, shape, inst):
         if fwd and rp:
             assert torch.equal(u0, u1) and _held(u0, u2, dtype)
             red = (t["red_rows"], t["red_ptr"], t["red_src"])
+            same = ys[0].clone()  # the reduction sums in its plain version's order
             F.rows_reduce(ys[0], u0, *red, flush)
             F.rows_reduce(ys[1], u0, *red, flush)
             F.rows_reduce_plain(ys[2], u0, *red, flush)
+            F.rows_reduce_plain(same, u0, *red, flush)
             torch.cuda.synchronize()
             assert torch.equal(ys[0], ys[1]) and _held(ys[0], ys[2], dtype)
+            assert torch.equal(ys[0], same)
 
 
 def test_launch_sweep_is_the_kernels_part_of_a_wide_front(card):
-    """A front wider than ``MAX_TRI``: the library's triangle and then
-    ``launch_sweep`` give what ``front_sweep`` gives, bit for bit, and the
-    launch alone counts once and leaves y as it was."""
+    """A front wider than ``MAX_TRI``: ``launch_sweep`` into the output
+    ``front_sweep`` allocates gives what ``front_sweep`` gives, bit for bit,
+    and counts once; a second launch draws the tickets the first left reset."""
     nf, wp, rp = 2, 192, 96
     t = _front_group((nf, wp, rp, 1), torch.float32, card)
     grp = (0, nf, wp, rp)
     y, ref = t["y"].clone(), t["y"].clone()
     want = F.front_sweep(t["pool"], ref, *grp, t["piv"], t["rsx"], True)
-    f = t["pool"][:nf * (wp + rp) ** 2].view(nf, wp + rp, wp + rp)
-    pv = t["piv"].long()
-    z = torch.linalg.solve_triangular(f[:, :wp, :wp], y[pv][..., None], upper=False,
-                                      unitriangular=True)
-    y[pv.reshape(-1)] = z.reshape(-1)
-    kept, upd = y.clone(), torch.empty((nf, rp), device=card)
+    upd = torch.empty((nf, rp), device=card)
     before = F.LAUNCHES["respa_front_sweep_fwd_f32"]
-    F.launch_sweep(t["pool"], y, *grp, t["piv"], t["rsx"], True, False, z[..., 0].contiguous(),
-                   upd)
+    F.launch_sweep(t["pool"], y, *grp, t["piv"], t["rsx"], True, False, upd)
     torch.cuda.synchronize()
     assert F.LAUNCHES["respa_front_sweep_fwd_f32"] == before + 1
-    assert torch.equal(upd, want) and torch.equal(y, kept) and torch.equal(y, ref)
+    assert torch.equal(upd, want) and torch.equal(y, ref)
+
+
+def test_a_wide_front_sweep_calls_no_library_triangle(card, monkeypatch):
+    """On the card every width is the kernel's: ``front_sweep`` on wide
+    groups, with and without update rows, never reaches
+    ``torch.linalg.solve_triangular``."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.linalg.solve_triangular called on the card")
+
+    groups = [_front_group(shape, torch.float32, card) for shape in ((2, 300, 70, 1),
+                                                                   (1, 200, 0, 0))]
+    monkeypatch.setattr(torch.linalg, "solve_triangular", refuse)
+    for t, (nf, wp, rp) in zip(groups, ((2, 300, 70), (1, 200, 0))):
+        for fwd in (True, False):
+            F.front_sweep(t["pool"], t["y"], 0, nf, wp, rp, t["piv"], t["rsx"], fwd)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kind", ["fem", "circuit"])

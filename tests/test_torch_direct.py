@@ -154,7 +154,7 @@ def test_memlike_errors_become_the_refusal(exc, monkeypatch):
         solve.factorize(a, method="band", device="cpu")
 
 
-def test_matched_factorization_is_refused(monkeypatch):
+def test_matched_factorization_is_refined(monkeypatch):
     """Until the multifrontal slice a matched factorization was refused by
     ``solve_refined``; now it is refined in the original system, with the
     matching's scaling and column permutation unwound in the correction."""

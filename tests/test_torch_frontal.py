@@ -139,6 +139,99 @@ def test_a_zero_pivot_diagonal_is_read_as_one():
     np.testing.assert_array_equal(y, t["y"])
 
 
+def test_sweep_regime_and_tiles_follow_the_group_shape():
+    """The sweep kernel's regime, fixed at plan time from a group's shape: a
+    warp a front up to 32 pivots with one tile, a thread block up to
+    ``MAX_TRI`` with a many-row panel cut into tiles of at least
+    ``TILE_ROWS`` rows (no more than fill the card with the group's fronts),
+    the wide kernel past ``MAX_TRI``; every group of a plan carries it."""
+    cases = {(10681, 8, 16): ("warp", 1), (1000, 8, 384): ("warp", 1), (6, 24, 32): ("warp", 1),
+             (2, 64, 6144): ("block", 96), (1, 8, 6144): ("block", 96), (40, 64, 700): ("block", 7),
+             (5, 128, 48): ("block", 1), (3, 24, 0): ("warp", 1), (1, 20480, 384): ("wide", 1),
+             (3, 6144, 0): ("wide", 1), (2, 129, 8): ("wide", 1)}
+    for shape, want in cases.items():
+        assert dev.sweep_regime(*shape) == want, shape
+    for make in MATRICES.values():
+        plan = dev.build_frontal_plan(snlu.analyze_supernodes(csr_from_respatpu(make())))
+        for g in plan.groups:
+            assert (g.regime, g.tiles) == dev.sweep_regime(g.nfronts, g.wp, g.rp)
+            assert (g.regime == "wide") == (g.wp > dev.MAX_TRI)
+            assert g.regime != "warp" or (g.wp <= 32 and g.tiles == 1)
+            assert g.tiles == 1 or g.rp >= g.tiles * dev.TILE_ROWS
+
+
+def test_reduction_bins_cover_every_row_once_in_plan_order():
+    """The reduction's rows, cut at plan time by their number of sources:
+    every destination row once; dealt to the kernel's warps (``warp_deal``)
+    longest bin first and ascending within a bin, so that the long rows are
+    spread one a warp; each row's sources in plan order. The plain version
+    sums a row of the first bin one source after the other, as the kernel's
+    lane does, bit for bit; the longer ones within fp32 rounding."""
+    rng = np.random.default_rng(5)
+    nf, rp, n = 60, 40, 500
+    # a few hub rows that many fronts update, and many rows that one or two do
+    rsx = np.where(rng.random((nf, rp)) < 0.2, rng.integers(0, 4, (nf, rp)),
+                   rng.integers(4, n, (nf, rp)))
+    rsx[:, -5:] = n  # padding
+    rows, ptr, src, bins = dev.reduction_csr(rsx.astype(np.int32), n)
+    flat = rsx.ravel()
+    np.testing.assert_array_equal(np.sort(rows), np.unique(flat[flat < n]))
+    lens = np.diff(ptr)
+    limits = [most for most, _ in dev.RED_BINS[:-1]]
+    bin_of = np.searchsorted(limits, lens)
+    np.testing.assert_array_equal(np.bincount(bin_of, minlength=3), bins)
+    assert (bins > 0).all()
+    deal = dev.warp_deal(rows.size)
+    np.testing.assert_array_equal(np.sort(deal), np.arange(rows.size))
+    key = np.lexsort((rows[deal], -bin_of[deal]))
+    np.testing.assert_array_equal(key, np.arange(rows.size))
+    assert bin_of[::32].tolist()[:bins[2]] == [2] * bins[2]  # a long row leads each warp
+    for k, row in enumerate(rows):
+        s = src[ptr[k]:ptr[k + 1]]
+        assert (flat[s] == row).all() and (np.diff(s) > 0).all()
+    upd = rng.standard_normal((nf, rp)).astype(np.float32)
+    y = torch.zeros(n + 1)
+    dev.rows_reduce_plain(y, torch.from_numpy(upd), *(torch.from_numpy(a) for a in (rows, ptr, src)))
+    u = upd.ravel()
+    for k in range(rows.size):
+        terms = u[src[ptr[k]:ptr[k + 1]]]
+        if bin_of[k] == 0:
+            want = np.float32(0)
+            for v in terms:
+                want = np.float32(want + v)
+            assert y[rows[k]].item() == want
+        else:
+            assert abs(y[rows[k]].item() - terms.astype(np.float64).sum()) <= \
+                1e-5 * np.abs(terms).sum()
+
+
+def test_a_zero_diagonal_of_a_wide_front_is_read_as_one_as_respatpu_does():
+    """One zero-diagonal rule at every width: a zero on the diagonal of a
+    front wider than ``MAX_TRI`` is read as 1 by the backward sweep, as
+    respatpu's ``_bwd_group`` reads it (CPU JAX, the same fp32 inputs)."""
+    nf, wp, rp = 1, 192, 16
+    mp = wp + rp
+    g = frontal_group(nf, wp, rp, 1, seed=11)
+    pool = g["pool"].astype(np.float32)
+    pool[37 * mp + 37] = 0.0
+    y0 = g["y"].astype(np.float32)
+    y = torch.from_numpy(y0.copy())
+    dev.front_sweep(torch.from_numpy(pool), y, 0, nf, wp, rp, torch.from_numpy(g["piv"]),
+                    torch.from_numpy(g["rsx"]), False)
+    ref = np.asarray(jdev._bwd_group(jnp.asarray(y0), jnp.asarray(pool), jnp.zeros(1, jnp.int32),
+                                     jnp.asarray(g["piv"]), jnp.asarray(g["rsx"]), wp=wp, mp=mp))
+    n = g["n"]
+    assert np.isfinite(ref).all() and np.abs(y.numpy()[:n] - ref[:n]).max() <= \
+        2e-5 * np.abs(ref[:n]).max()
+    u = pool[:mp * mp].reshape(mp, mp).astype(np.float64)
+    np.fill_diagonal(u[:wp, :wp], np.where(np.diag(u[:wp, :wp]) == 0, 1.0, np.diag(u[:wp, :wp])))
+    pv, rs = g["piv"][0], g["rsx"][0]
+    yy = g["y"].astype(np.float32).astype(np.float64)
+    z = np.linalg.solve(np.triu(u[:wp, :wp]), yy[pv] - u[:wp, wp:] @ yy[rs])
+    live = pv < n
+    assert np.abs(y.numpy()[pv[live]] - z[live]).max() <= 2e-5 * np.abs(z).max()
+
+
 # ---------------------------------------------------------------------------
 # against respatpu's jitted group functions (CPU JAX), two group shapes
 # ---------------------------------------------------------------------------
@@ -335,7 +428,7 @@ def test_factorization_and_solves_repeat_bit_for_bit(factored):
     b = torch.from_numpy(np.random.default_rng(3).standard_normal(a.nrows)).float()
     assert torch.equal(solver.solve_device(b), solver.solve_device(b))
     assert torch.equal(solver.solve_t_device(b), solver.solve_t_device(b))
-    assert solver.launches_per_solve >= 2 * len(plan.groups)
+    assert solver.launches_per_solve == sum(2 + (g.rp > 0) for g in plan.groups)
     assert set(dev.LAUNCHES.values()) == {0} and set(bandlu.LAUNCHES.values()) == {0}
 
 

@@ -234,7 +234,8 @@ def _schur_dst(gj, row, r, pool_size):
 def test_frontal_plan_layout(analysed, name):
     """What the device code relies on: groups are contiguous in the pool in
     plan order, members sorted by parent with the roots first, one segment a
-    parent, and the reduction lists every update row once, in plan order."""
+    parent, and the reduction lists every update row once, in its bin, in plan
+    order."""
     _, pt = analysed[name]
     plan = snlu_device.build_frontal_plan(pt)
     n, at = pt.n, 0
@@ -258,13 +259,17 @@ def test_frontal_plan_layout(analysed, name):
         else:
             assert g.seg_ptr.tolist() == [0]
         flat = g.rsx.ravel()
-        assert (np.diff(g.red_rows) > 0).all() and g.red_ptr[-1] == (flat < n).sum()
+        assert np.unique(g.red_rows).size == g.red_rows.size
+        dealt = g.red_rows[snlu_device.warp_deal(g.red_rows.size)]  # ascending within a bin
+        assert sum((np.diff(dealt) < 0).tolist()) <= len(snlu_device.RED_BINS) - 1
+        assert g.red_bins.sum() == g.red_rows.size and g.red_ptr[-1] == (flat < n).sum()
         for k, row in enumerate(g.red_rows):
             src = g.red_src[g.red_ptr[k]:g.red_ptr[k + 1]]
             assert (flat[src] == row).all() and (np.diff(src) > 0).all()
         for arr, dt in ((g.piv, np.int32), (g.rsx, np.int32), (g.lp, np.int32),
                         (g.poff, np.int64), (g.pmp, np.int32), (g.seg_ptr, np.int32),
-                        (g.red_rows, np.int32), (g.red_ptr, np.int64), (g.red_src, np.int32)):
+                        (g.red_rows, np.int32), (g.red_ptr, np.int64), (g.red_src, np.int32),
+                        (g.red_bins, np.int64)):
             assert arr.dtype == dt and arr.flags.c_contiguous
     assert at == plan.pool_size
     assert [g.level for g in plan.groups] == sorted(g.level for g in plan.groups)
