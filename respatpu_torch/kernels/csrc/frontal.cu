@@ -67,7 +67,7 @@
 //     loads the two blocks beside it into shared memory, and streams its
 //     rows against every earlier z block as it arrives (backward first U12
 //     y[rsx]), one warp taking each z block from a mailbox. When the z block
-//     just before its own arrives, one warp takes two 64 x 64 products in
+//     just before its own arrives, the block takes two 64 x 64 products in
 //     shared memory (that block, then the inverse) and publishes its z block:
 //     a link of the chain is one mailbox trip and those two products. A
 //     forward panel task streams all z blocks and writes its rows of upd.
@@ -536,13 +536,28 @@ __device__ __forceinline__ Acc dot4(const M* m, const Z* x, int xs, int k0, int 
     return fz<FTZ>(fz<FTZ>(p0 + p1) + fz<FTZ>(p2 + p3));
 }
 
+// m[16q .. 16q + 16) . x[16q .. 16q + 16) in two partials, then summed over the four
+// threads q of a row (adjacent lanes) by a butterfly that gives all four the same bits.
+template <bool FTZ, typename Acc, typename M, typename Z>
+__device__ __forceinline__ Acc quarter_dot(const M* m, const Z* x, int q) {
+    Acc p0 = Acc(0), p1 = Acc(0);
+#pragma unroll
+    for (int k = 16 * q; k < 16 * q + 16; k += 2) {
+        p0 = muladd<FTZ>(Acc(m[k]), Acc(x[k]), p0);
+        p1 = muladd<FTZ>(Acc(m[k + 1]), Acc(x[k + 1]), p1);
+    }
+    Acc s = fz<FTZ>(p0 + p1);
+    s = fz<FTZ>(s + __shfl_xor_sync(kFull, s, 1));
+    return fz<FTZ>(s + __shfl_xor_sync(kFull, s, 2));
+}
+
 // One task of a wide front: rows r0 .. r0 + nrows - 1 of front b. A triangle
 // task (row block `blk`) solves its 64 unknowns; a forward panel task forms
 // its 64 rows of upd. ctl[0] is the ticket, ctl[1] counts finished blocks.
 // Before any wait a triangle task inverts its diagonal block (a thread a
 // column, in Acc) and loads the two blocks beside it, so that once the z block
-// solved just before its own arrives, one warp takes it through two 64 x 64
-// products in shared memory and publishes.
+// solved just before its own arrives, the block takes it through two 64 x 64
+// products in shared memory, four threads a row, and publishes.
 template <typename A, bool FTZ, bool FWD>
 __global__ void __launch_bounds__(kWideThreads)
 front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
@@ -682,35 +697,32 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
 
     if (panel) {
         if (t < nrows) upd[static_cast<int64_t>(b) * rp + (r0 - wp) + t] = fz<FTZ>(A(-acc[t]));
-    } else if (warp == 0) {
-        // lane i finishes rows i and i + 32: the two blocks beside the diagonal as
-        // their z arrive, then z = X rhs
-        Acc v0 = lane < nrows ? fz<FTZ>(Acc(yp[lane]) - acc[lane]) : Acc(0);
-        Acc v1 = lane + 32 < nrows ? fz<FTZ>(Acc(yp[lane + 32]) - acc[lane + 32]) : Acc(0);
+    } else {
+        // the whole block finishes the rows, four threads a row on 16 columns each: the two
+        // blocks beside the diagonal as their z arrive (warp 0 takes them from the mailbox),
+        // then z = X rhs; the four partials are summed in a fixed butterfly
+        const int r = t >> 2, q = t & 3;
+        Acc v = r < nrows ? fz<FTZ>(Acc(yp[r]) - acc[r]) : Acc(0);
         for (int near = 2; near >= 1; --near) {
             if (!(near == 2 ? has2 : has1)) continue;
-            A z[2];
-            mail_recv_pair(mb, (near == 2 ? n2 : n1) * kWideRows + lane, wp, tag, false, z);
-            zn[lane] = z[0];
-            zn[lane + 32] = z[1];
-            __syncwarp();
-            const A* M = near == 2 ? S2 : S1;
-            v0 = fz<FTZ>(v0 - dot4<FTZ, Acc>(M + lane * kWidePad, zn, 1, 0, kWideRows));
-            v1 = fz<FTZ>(v1 - dot4<FTZ, Acc>(M + (lane + 32) * kWidePad, zn, 1, 0, kWideRows));
-            __syncwarp();
-        }
-        rhs[lane] = v0;
-        rhs[lane + 32] = v1;
-        __syncwarp();
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int i = lane + 32 * h;
-            const A v = A(dot4<FTZ, Acc>(X + i * kWidePad, rhs, 1, 0, kWideRows));
-            if (i < nrows) {
-                mail_send(mb, r0 + i, v, tag);
-                const int row = piv[static_cast<int64_t>(b) * wp + r0 + i];
-                if (row < n) y[row] = v;
+            if (warp == 0) {
+                A z[2];
+                mail_recv_pair(mb, (near == 2 ? n2 : n1) * kWideRows + lane, wp, tag, false, z);
+                zn[lane] = z[0];
+                zn[lane + 32] = z[1];
             }
+            __syncthreads();
+            const A* M = near == 2 ? S2 : S1;
+            v = fz<FTZ>(v - quarter_dot<FTZ, Acc>(M + r * kWidePad, zn, q));
+            __syncthreads();  // zn is read before the next block overwrites it
+        }
+        if (q == 0) rhs[r] = v;
+        __syncthreads();
+        const A zr = A(quarter_dot<FTZ, Acc>(X + r * kWidePad, rhs, q));
+        if (q == 0 && r < nrows) {
+            mail_send(mb, r0 + r, zr, tag);
+            const int row = piv[static_cast<int64_t>(b) * wp + r0 + r];
+            if (row < n) y[row] = zr;
         }
     }
     // every block has drawn its ticket once the last one finishes: reset both
