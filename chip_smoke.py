@@ -60,8 +60,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    for bit with the plain extend-add in the kernel's place; a solve walked
    group by group), and the frontal kernels timed at the full-width group
    shapes (the most populous group, the tallest panel, the widest front)
-   beside bound, library (the library route for a sweep) and plain;
-9. result: a JSON line of the kernels, then the device line last.
+   beside bound, library (the library route for a sweep) and plain; and two
+   solves of dc1's plan on two streams at once against the sequential ones;
+9. ILU(0) path: the Chow-Patel sweep kernel and the one-launch triangular
+   solve against their plain versions, each twice and bit for bit in every
+   instance, on synthetic shapes (empty rows, a 50,000-entry hub row, a
+   bidiagonal chain of 100,000 levels, one level of 100,000 rows; lower and
+   upper, unit and zero diagonal; subnormal inputs under fp32_ftz; y[n]
+   untouched; two solves on two streams at once); then ``runner.sweep_ilu0``
+   on the 2cubes_sphere stand-in at catalogue size in fp32 with the default 8
+   sweeps (reported), then with 30 in fp32 (Jacobi applies) and fp64 (exact
+   applies), both refined to a host-oracle residual of 1e-10,
+   the dc1 stand-in in fp32 (``stagnated`` is an outcome, not a failure),
+   and CG and BiCGSTAB with ILU(0) on a 300 x 300 grid Laplacian (BiCGSTAB
+   with the exact applies under fp32, fp32_ftz and bf16 too), with the launch
+   counts of both kernels and the SpMV kernel; then, beside the path, both
+   kernels bit for bit with plain at the path's shapes (one sweep of
+   2cubes_sphere's factorization, its L and U solves) and timed there beside
+   bound, library (``torch.triangular_solve`` on a sparse CSR tensor) and
+   plain, one Jacobi and one exact apply whole, and one GMRES solve under the
+   profiler;
+10. result: a JSON line of the kernels, then the device line last.
 """
 import dataclasses
 import json
@@ -83,14 +102,17 @@ from respatpu_torch.bench.synth import (frontal_group, laplacian_2d, mesh_fem_3d
 from respatpu_torch.formats import COOMatrix, CSRMatrix, coo_to_csr  # noqa: E402
 from respatpu_torch.io import native  # noqa: E402
 from respatpu_torch.kernels import _build  # noqa: E402
+from respatpu_torch import analysis  # noqa: E402
 from respatpu_torch.kernels import bandlu as B  # noqa: E402
+from respatpu_torch.kernels import ilu0 as I  # noqa: E402
+from respatpu_torch.kernels import sptrsv as S  # noqa: E402
 from respatpu_torch.kernels import snlu_device as F  # noqa: E402
 from respatpu_torch.kernels import spmv as K  # noqa: E402
 from respatpu_torch.precision import ftz, get_policy  # noqa: E402
 from respatpu_torch.solve import WARMUP  # noqa: E402
-from respatpu_torch.timing import (OpTiming, ProfilerUnavailable, card_line,  # noqa: E402
-                                   check_plausible, device_bandwidth, device_events,
-                                   kernel_times, spmv_csr_sol_bytes, time_op)
+from respatpu_torch.timing import (OpTiming, ProfilerUnavailable, busy_by_name,  # noqa: E402
+                                   card_line, check_plausible, device_bandwidth,
+                                   device_events, kernel_times, spmv_csr_sol_bytes, time_op)
 
 MAIN = ("2cubes_sphere", "dc1", "offshore")
 LOW = ("fp32", "fp32_ftz", "bf16")
@@ -131,6 +153,17 @@ FRONT_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 AMPLIFIED = 4.0
 FRONT_INST = ((torch.float32, False, "f32"), (torch.float32, True, "f32_ftz"),
               (torch.float64, False, "f64"))
+# The ILU(0) path's kernels and what each instance replaces: the Chow-Patel
+# sweep (csrc/ilu0.cu) and the triangular solve (csrc/sptrsv.cu), whose
+# single-word instances replace respatpu's blocklet solve and fp64 its
+# double-float one. Both hold their plain versions bit for bit.
+ILU_SOURCE = "respatpu_torch/kernels/csrc/ilu0.cu"
+TRI_SOURCE = "respatpu_torch/kernels/csrc/sptrsv.cu"
+ILU_POLICIES = {"f32": "fp32", "f32_ftz": "fp32_ftz", "bf16": "bf16", "f64": "fp64"}
+ILU_REPLACES = {i: "respatpu/kernels/ilu0.py:123" if i == "f64" else "respatpu/kernels/ilu0.py:91"
+                for i in ILU_POLICIES}
+TRI_REPLACES = {i: "respatpu/kernels/sptrsv.py:280" if i == "f64"
+                else "respatpu/kernels/sptrsv.py:315" for i in ILU_POLICIES}
 # the sweep's __global__ functions by (regime, forward), as the profiler names them
 SWEEP_KERNELS = {("warp", True): "front_fwd_warp", ("warp", False): "front_bwd_warp",
                  ("block", True): "front_fwd_block", ("block", False): "front_bwd_block",
@@ -263,10 +296,34 @@ def timed_in_turns(dev, x):
             raise AssertionError("the library's product disagrees with the kernel")
         fns["library"] = lambda: a_csr @ x
         order[2:2] = ["library", "library"]
+    elif dev.policy.name == "bf16":
+        bf16_library(dev, x)
     out = {name: [] for name in fns}
     for name in order:
         out[name] += time_op(fns[name], "cuda", warmup=2, reps=10).times
     return out, {name: float(np.median(t)) for name, t in out.items()}
+
+
+def bf16_library(dev, x):
+    """Whether PyTorch's sparse CSR product takes bf16 values times the fp32
+    x (the kernel's function); if not, why, and the time of bf16 values
+    times x rounded to bf16 (another function: printed, not used as the
+    library's time)."""
+    a_csr = torch.sparse_csr_tensor(dev.indptr.to(torch.int32), dev.indices, dev.vals,
+                                    size=dev.shape)
+    try:
+        a_csr @ x
+    except RuntimeError as e:
+        why = str(e).splitlines()[0][:120]
+    else:
+        raise AssertionError("bf16 CSR @ fp32 x ran: time it as the library call")
+    try:
+        ms = events_ms(lambda: a_csr @ x.bfloat16(), 10)
+        other = f"bf16 values @ bf16 x runs in {ms:.4f} ms (x and y rounded to bf16)"
+    except RuntimeError as e:
+        other = f"bf16 @ bf16 refused too: {str(e).splitlines()[0][:120]}"
+    print(f"[time] bf16 library: none, torch refuses bf16 CSR @ fp32 x ({why}); {other}",
+          flush=True)
 
 
 def profile_sweep_row(name_limit):
@@ -487,7 +544,7 @@ def factor_bound(band, acc):
 
 
 def reset_counts():
-    for counts in (B.LAUNCHES, K.LAUNCHES, F.LAUNCHES):
+    for counts in (B.LAUNCHES, K.LAUNCHES, F.LAUNCHES, I.LAUNCHES, S.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1029,6 +1086,43 @@ def frontal_row(name_limit, name, a, policy, method, refine, inst, want_matching
     return fac, x, rep
 
 
+def on_two_streams(first, second):
+    """Run ``first`` and ``second`` on two new streams at once; their results."""
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    out = []
+    for stream, fn in zip(streams, (first, second)):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            out.append(fn())
+    torch.cuda.synchronize()
+    return out
+
+
+def two_streams_frontal(name_limit, fac, bd):
+    """Two solves of dc1's plan on two streams at once equal the sequential
+    ones bit for bit: every solve zeroes its own control words (P3). And what
+    that zeroing costs beside one solve's busy time."""
+    solver = fac._frontal
+    b1 = bd.to(solver.pool.dtype)
+    b2 = b1.flip(0).contiguous()
+    x1, x2 = solver.solve_device(b1), solver.solve_device(b2)
+    got = on_two_streams(lambda: solver.solve_device(b1), lambda: solver.solve_device(b2))
+    if not (torch.equal(got[0], x1) and torch.equal(got[1], x2)):
+        raise AssertionError("dc1: solves on two streams differ from the sequential ones")
+    words = 2 * solver._ctl_off[-1]
+    zero_ms = events_ms(lambda: torch.zeros(words, dtype=torch.int32, device="cuda"), 10)
+    try:
+        busy = sum(t for _, t in device_events(lambda: solver.solve_device(b1))) * 1e3
+    except ProfilerUnavailable as e:
+        print(f"[frontal] one solve's busy time not measured ({e})", flush=True)
+        busy = None
+    share = "not measured" if busy is None else f"{100 * zero_ms / busy:.2f}% of"
+    print(f"[frontal] {name_limit} | dc1: two solves on two streams at once == the sequential "
+          f"solves bit for bit; the solve's control words ({words} int32, zeroed once a solve) "
+          f"take {zero_ms:.4f} ms by events, {share} one solve's busy time "
+          f"{fmt_ms(busy)}", flush=True)
+
+
 def multifrontal_path(name_limit, mats, errs, full, times):
     """Phase 8; returns the launch counts of the frontal, block-LU and fp64
     SpMV kernels on the multifrontal path."""
@@ -1084,6 +1178,7 @@ def multifrontal_path(name_limit, mats, errs, full, times):
     again = fac.solve_original_device(bd)
     if not torch.equal(x1, again):
         raise AssertionError("dc1: two solves differ bit for bit")
+    two_streams_frontal(name_limit, fac, bd)
     rcond = fac.condest()
     if not (np.isfinite(rcond) and 0 < rcond <= 1):
         raise AssertionError(f"condest {rcond}")
@@ -1099,6 +1194,394 @@ def multifrontal_path(name_limit, mats, errs, full, times):
     del fac64
     time_frontal(name_limit, fac_z, times)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 9. the ILU(0) path: K6 (csrc/ilu0.cu) and K7 (csrc/sptrsv.cu)
+# ---------------------------------------------------------------------------
+
+
+def ilu_synthetic(n=100_000, hub=50_000, seed=21):
+    """A square matrix with every 7th row empty (no entry at all, no
+    diagonal), about 5 entries a row on both sides of a dominant diagonal,
+    and one hub row of ``hub`` entries."""
+    rng = np.random.default_rng(seed)
+    rows = np.r_[np.repeat(np.arange(n), 4), np.full(hub, n // 2), np.arange(n)]
+    cols = np.r_[np.clip(np.repeat(np.arange(n), 4) + rng.integers(-300, 301, 4 * n), 0, n - 1),
+                 rng.choice(n, hub, replace=False), np.arange(n)]
+    vals = rng.uniform(-1.0, 1.0, rows.size)
+    vals[rows == cols] = 8.0
+    keep = rows % 7 != 3
+    a = coo_to_csr(COOMatrix((n, n), rows[keep].astype(np.int32), cols[keep].astype(np.int32),
+                             vals[keep]))
+    a.data[a.indices == np.repeat(np.arange(n), a.row_lengths())] += np.abs(a.data).max()
+    return a
+
+
+def tri_synthetic(kind, n=100_000, hub=50_000, seed=22):
+    """Lower triangles: random (rows with no off-diagonal entry, a hub row of
+    ``hub`` entries, a zero diagonal entry); a bidiagonal chain of n levels;
+    one level of n rows."""
+    rng = np.random.default_rng(seed)
+    if kind == "chain":
+        rows, cols = np.r_[np.arange(n), np.arange(1, n)], np.r_[np.arange(n), np.arange(n - 1)]
+    elif kind == "one_level":
+        rows, cols = np.arange(n), np.arange(n)
+    else:
+        r = np.repeat(np.arange(n), 3)
+        c = np.maximum(r - rng.integers(1, 2000, r.size), 0)
+        rows = np.r_[r, np.full(hub, n - 1), np.arange(n)]
+        cols = np.r_[c, rng.choice(n - 1, hub, replace=False), np.arange(n)]
+        keep = ((rows % 7 != 3) | (rows == cols)) & ((rows > cols) | (rows == cols))
+        rows, cols = rows[keep], cols[keep]
+    vals = rng.uniform(0.5, 1.5, rows.size) * rng.choice((-1.0, 1.0), rows.size)
+    vals[rows == cols] = 4.0
+    t = coo_to_csr(COOMatrix((n, n), rows.astype(np.int32), cols.astype(np.int32), vals))
+    if kind == "random":
+        t.data[t.indptr[5]:t.indptr[6]][t.indices[t.indptr[5]:t.indptr[6]] == 5] = 0.0
+    return t
+
+
+def check_ilu_synthetic(errs):
+    """K6 against ``ilu0_sweep_plain`` on the synthetic matrix, every
+    instance, twice, bit for bit, the slot past the output untouched, with
+    the pivot fix and the residual; under fp32_ftz with subnormal old values
+    too, and a subnormal partial flushed to 0."""
+    a = ilu_synthetic()
+    sched = analysis.chow_patel_schedule(a)
+    s = I.ilu_schedule_to_device(sched, "cuda")
+    rng = np.random.default_rng(23)
+    for inst, policy in ILU_POLICIES.items():
+        p = get_policy(policy)
+        av = p.cast_host(a.data).cuda()
+        old = p.cast_host(a.data * rng.uniform(0.9, 1.1, a.nnz)).cuda()
+        if p.flush_to_zero:  # subnormal values off the diagonal, read by the products
+            idx = torch.arange(0, a.nnz, 11, device="cuda")
+            old[idx[s.kind[idx] != I.DIAG]] = 1e-40
+        eps = 1e-3 * float(np.abs(a.data).max())
+        outs = []
+        for _ in range(2):
+            out = torch.full((a.nnz + 1,), 7.0, dtype=p.dtype, device="cuda")
+            _, res = I.ilu0_sweep(s, av, old, eps, True, p.flush_to_zero, True, out=out)
+            outs.append((out, res))
+        want, wres = I.ilu0_sweep_plain(s, av, old, eps, True, p.flush_to_zero, True)
+        torch.cuda.synchronize()
+        for out, res in outs:
+            same = torch.equal(out[:-1], want) and torch.equal(res, wres)
+            if not (same and float(out[-1]) == 7.0):
+                raise AssertionError(f"K6 {inst}: kernel != plain on the synthetic matrix")
+        errs[f"respa_ilu0_sweep_{inst}"] = 0.0
+    # u11 = 0 - l10 u01 = -1e-39: kept by fp32, flushed by fp32_ftz
+    a2 = CSRMatrix((2, 2), np.array([0, 2, 4]), np.array([0, 1, 0, 1], np.int32),
+                   np.array([1.0, 1e-20, 1e-19, 0.0]))
+    s2 = I.ilu_schedule_to_device(analysis.chow_patel_schedule(a2), "cuda")
+    v2 = torch.tensor([1.0, 1e-20, 1e-19, 0.0], device="cuda")
+    u32 = float(I.ilu0_sweep(s2, v2, v2, 1e-30, False, False)[0][3])
+    uftz = float(I.ilu0_sweep(s2, v2, v2, 1e-30, False, True)[0][3])
+    if not (0 < -u32 < 1.2e-38 and uftz == 0.0):
+        raise AssertionError(f"K6: subnormal partial {u32} (fp32), {uftz} (fp32_ftz)")
+    print(f"[kernel] K6 ilu0_sweep on n={a.nrows} nnz={a.nnz} (every 7th row empty, a hub row "
+          f"of 50,000 entries; t_max {sched.t_max}, {sched.npairs} pairs): every instance twice, "
+          f"== plain bit for bit with the pivot fix and the residual, out[nnz] untouched; "
+          f"fp32_ftz with subnormal values; a subnormal partial flushed", flush=True)
+
+
+def check_tri_synthetic(errs):
+    """K7 against ``tri_solve_plain`` (run on the host copy of the same
+    inputs) on the synthetic triangles, lower and upper, with and without a
+    unit diagonal on the random one, every instance, twice, bit for bit,
+    y[n] untouched; two streams at once; a subnormal partial flushed."""
+    b64 = np.random.default_rng(24).standard_normal(100_000)
+    b64[::13] = 1e-40  # subnormal right-hand side entries (flushed under fp32_ftz)
+    for kind in ("random", "chain", "one_level"):
+        low = tri_synthetic(kind)
+        t0 = time.perf_counter()
+        for lower in (True, False):
+            tri = low if lower else low.transpose()
+            for unit in ((False, True) if kind == "random" else (False,)):
+                for inst, policy in ILU_POLICIES.items():
+                    d = S.tri_to_device(tri, lower, unit, policy, device="cuda")
+                    dh = S.tri_to_device(tri, lower, unit, policy, device="cpu")
+                    b = torch.from_numpy(b64).to(d.policy.accum_dtype)
+                    bc = b.cuda()
+                    ys = []
+                    for _ in range(2):
+                        y = torch.full((tri.nrows + 1,), 7.0, dtype=b.dtype, device="cuda")
+                        S.tri_solve(d, bc, out=y)
+                        ys.append(y.cpu())
+                    want = S.tri_solve_plain(dh, b)
+                    for y in ys:
+                        if not (torch.equal(y[:-1], want) and float(y[-1]) == 7.0):
+                            raise AssertionError(f"K7 {kind} lower={lower} unit={unit} {inst}: "
+                                                 "kernel != plain")
+                    errs[f"respa_tri_solve_{'lower' if lower else 'upper'}_{inst}"] = 0.0
+        print(f"[kernel] K7 tri_solve {kind:9s} n={low.nrows} strict entries "
+              f"{low.nnz - low.nrows} levels {int(analysis.level_schedule(low).max()) + 1}: "
+              f"lower and upper{', unit and not' if kind == 'random' else ''}, every instance "
+              f"twice, == plain bit for bit, y[n] untouched ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    d = S.tri_to_device(tri_synthetic("random"), True, False, "fp32", device="cuda")
+    b = torch.from_numpy(b64).float().cuda()
+    b2 = b.flip(0).contiguous()
+    y1, y2 = S.tri_solve(d, b), S.tri_solve(d, b2)
+    got = on_two_streams(lambda: S.tri_solve(d, b), lambda: S.tri_solve(d, b2))
+    if not (torch.equal(got[0], y1) and torch.equal(got[1], y2)):
+        raise AssertionError("K7: solves on two streams differ from the sequential ones")
+    l2 = CSRMatrix((2, 2), np.array([0, 1, 3]), np.array([0, 0, 1], np.int32),
+                   np.array([1.0, 1e-20, 1.0]))
+    y32, yftz = (float(S.tri_solve(S.tri_to_device(l2, policy=p, device="cuda"),
+                                   torch.tensor([1e-19, 0.0], device="cuda"))[1])
+                 for p in ("fp32", "fp32_ftz"))
+    if not (0 < -y32 < 1.2e-38 and yftz == 0.0):
+        raise AssertionError(f"K7: subnormal partial {y32} (fp32), {yftz} (fp32_ftz)")
+    print("[kernel] K7: two solves on two streams at once == sequential bit for bit; a "
+          "subnormal partial kept by fp32, flushed by fp32_ftz", flush=True)
+
+
+def ilu_counts():
+    return dict(I.LAUNCHES, **S.LAUNCHES, spmv_fp32=K.LAUNCHES["fp32"],
+                spmv_fp32_ftz=K.LAUNCHES["fp32_ftz"], spmv_bf16=K.LAUNCHES["bf16"],
+                spmv_fp64=K.LAUNCHES["fp64"])
+
+
+def ilu_row(name_limit, name, policy, sweeps, must_converge):
+    """One ``sweep_ilu0`` row; its launches."""
+    before = ilu_counts()
+    t0 = time.perf_counter()
+    row = runner.sweep_ilu0([name], policy=policy, sweeps=sweeps, device="cuda",
+                            verbose=False)[0]
+    wall = time.perf_counter() - t0
+    now = ilu_counts()
+    got = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    if row["status"] not in ("ok", "stagnated") or (must_converge and row["status"] != "ok"):
+        raise AssertionError(f"{name} {policy}: {row}")
+    if must_converge and not float(row["krylov_residual"]) <= 1e-10:
+        raise AssertionError(f"{name} {policy}: residual {row['krylov_residual']}")
+    print(f"[ilu] {name_limit} | {name} n={row['n']} nnz={row['nnz']} {policy}, {sweeps} "
+          f"sweeps: [{row['cp_residual']}] pivots perturbed {row['pivots_perturbed']}; analyze "
+          f"{float(row['t_analyze_s']) * 1e3:.1f} ms, factor {float(row['t_factor_s']) * 1e3:.1f} "
+          f"ms, one apply {float(row['t_apply_s']) * 1e3:.3f} ms, GMRES(40) with host "
+          f"refinement {float(row['t_krylov_s']) * 1e3:.1f} ms in {row['krylov_iters']} "
+          f"iterations to {row['krylov_residual']} (host oracle): {row['status']} (host clock, "
+          f"each phase ended by a device synchronize; row {wall:.2f} s)", flush=True)
+    print(f"[ilu] launches of this row {got}", flush=True)
+    return row
+
+
+def ilu_path(name_limit, mats):
+    """Phase 9: the ILU(0) path; returns its launch counts."""
+    reset_counts()
+    # respatpu's default of 8 sweeps, from A's own values as the first iterate,
+    # leaves the FEM stand-in's factor in its transient (both packages, bit for
+    # bit); by 30 sweeps the iteration has converged
+    ilu_row(name_limit, "2cubes_sphere", "fp32", 8, False)
+    ilu_row(name_limit, "2cubes_sphere", "fp32", 30, True)
+    ilu_row(name_limit, "2cubes_sphere", "fp64", 30, True)
+    ilu_row(name_limit, "dc1", "fp32", 8, False)
+    lap = laplacian_2d(300, 300)
+    b, _ = slv.make_rhs_for_known_x(lap)
+    # CG and BiCGSTAB in fp32; BiCGSTAB with the exact applies under every
+    # single-word policy, so that each instance runs on the path
+    for solver, policy, mode, tol in (("cg", "fp32", "auto", 1e-6),
+                                      ("bicgstab", "fp32", "auto", 1e-6),
+                                      ("bicgstab", "fp32", "scheduled", 1e-6),
+                                      ("bicgstab", "fp32_ftz", "scheduled", 1e-6),
+                                      ("bicgstab", "bf16", "scheduled", 1e-2)):
+        pre = slv.Ilu0Preconditioner(lap, policy, apply_mode=mode, device="cuda")
+        x, rep = getattr(slv, solver)(lap, b, precond=pre, policy=policy, tol=tol)
+        if not (rep.converged and np.isfinite(x).all() and x.shape == (lap.nrows,)):
+            raise AssertionError(f"laplacian {solver} {policy} {mode}: {rep}")
+        print(f"[ilu] {name_limit} | laplacian_2d(300, 300) {solver} {policy} apply={mode}: "
+              f"{rep.iterations} iterations in {rep.t_solve * 1e3:.1f} ms, residual "
+              f"{rep.residual:.3e} (host oracle; tol {tol:.0e}, gate tol*100)", flush=True)
+    launches = ilu_counts()
+    print(f"[ilu] launches of the whole ILU path {launches}", flush=True)
+    return launches
+
+
+def ilu_bytes(s, itemsize):
+    """Bytes one sweep must move: a, old and out once each, the offsets, the
+    pairs, the kinds and the diagonal positions."""
+    return s.nnz * (3 * itemsize + 8 + 1 + 4) + 8 + 8 * s.pairs_a.numel()
+
+
+def tri_bytes(d):
+    """Bytes one solve must move: the strict triangle, dinv, b and y once
+    each, and the ready flags written."""
+    st = d.strict
+    return ((d.n + 1) * 8 + st.nnz * (4 + st.vals.element_size())
+            + d.n * (d.dinv.element_size() + 2 * torch.finfo(d.policy.accum_dtype).bits // 8)
+            + (d.n + 1) * 4)
+
+
+def schedule_sizes(name_limit, name, a):
+    """The Chow-Patel pair lists of a matrix: t_max, pairs, and the bytes of
+    the lists on the card ragged (as the port keeps them) and padded to t_max
+    (as respatpu does)."""
+    t0 = time.perf_counter()
+    sched = analysis.chow_patel_schedule(a)
+    lay = sched.layout_bytes()
+    print(f"[ilu] {name} n={a.nrows} nnz={a.nnz}: Chow-Patel t_max {sched.t_max}, "
+          f"{sched.npairs} pairs; pair lists on the card {lay['ragged']} bytes ragged, "
+          f"{lay['padded']} padded to t_max (host {time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def hold_and_time_ilu(name_limit, a, errs, times):
+    """Beside the path, not counted: K6 and K7 against their plain versions
+    at the main path's shapes (one sweep of 2cubes_sphere's factorization in
+    every instance; the L and U solves of its fp64 factor, and in every
+    instance on the same triangles), bit for bit, each timed beside its
+    bound, the library and plain; one Jacobi and one exact apply whole."""
+    pre64 = slv.Ilu0Preconditioner(a, "fp64", sweeps=30, device="cuda")
+    pre32 = slv.Ilu0Preconditioner(a, "fp32", sweeps=30, device="cuda")
+    sched = pre64.schedule
+    s = I.ilu_schedule_to_device(sched, "cuda")
+    lev = {t.lower: int(analysis.level_schedule(
+        CSRMatrix((t.n, t.n), t.strict.indptr.cpu().numpy(), t.strict.indices.cpu().numpy(),
+                  np.zeros(t.strict.nnz)), upper=not t.lower).max()) + 1
+        for t in (pre64._l, pre64._u)}
+    lay = sched.layout_bytes()
+    print(f"[ilu] {name_limit} | 2cubes_sphere n={a.nrows} nnz={a.nnz}: Chow-Patel t_max "
+          f"{sched.t_max}, {sched.npairs} pairs; pair lists on the card {lay['ragged']} bytes "
+          f"ragged, {lay['padded']} padded to t_max; levels of L {lev[True]}, of U "
+          f"{lev[False]}", flush=True)
+    eps = 1e-4 * float(np.abs(a.data).max())
+    for inst, policy in ILU_POLICIES.items():
+        p = get_policy(policy)
+        av = p.cast_host(a.data).cuda()
+        out, _ = I.ilu0_sweep(s, av, av, eps, True, p.flush_to_zero)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = I.ilu0_sweep_plain(s, av, av, eps, True, p.flush_to_zero)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(out, want):
+            raise AssertionError(f"K6 {inst}: kernel != plain on 2cubes_sphere")
+        name = f"respa_ilu0_sweep_{inst}"
+        nbytes = ilu_bytes(s, p.dtype.itemsize)
+        ops = 2 * sched.npairs + a.nnz
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / FLOPS_PER_S[p.accum_dtype]) * 1e3
+        t = {"ms": events_ms(lambda: I.ilu0_sweep(s, av, av, eps, True, p.flush_to_zero), 10),
+             "profiler_ms": profiler_ms(lambda: I.ilu0_sweep(s, av, av, eps, True,
+                                                             p.flush_to_zero),
+                                        "ilu0_sweep_kernel", 10),
+             "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+             "library": "none: no PyTorch call computes a Chow-Patel sweep",
+             "shape": f"2cubes_sphere nnz={a.nnz} pairs={sched.npairs}"}
+        times[name] = t
+        errs[name] = 0.0
+        print(f"[time] {name_limit} | K6 {inst} one sweep of 2cubes_sphere: events "
+              f"{fmt_ms(t['ms'])}, profiler {fmt_ms(t['profiler_ms'])}; bound {bound:.4f} ms "
+              f"({nbytes} bytes at 3.35 TB/s); library none; plain {plain:.2f} ms; == plain "
+              f"bit for bit", flush=True)
+    b = torch.from_numpy(np.random.default_rng(25).standard_normal(a.nrows)).cuda()
+    for tri64 in (pre64._l, pre64._u):
+        lower = tri64.lower
+        host = CSRMatrix((a.nrows, a.nrows), tri64.strict.indptr.cpu().numpy(),
+                         tri64.strict.indices.cpu().numpy(),
+                         tri64.strict.vals.cpu().double().numpy())
+        dinv64 = tri64.dinv.cpu().double().numpy()
+        full = _with_diagonal(host, 1.0 / dinv64)
+        for inst, policy in ILU_POLICIES.items():
+            d = tri64 if policy == "fp64" else S.tri_to_device(full, lower, lower, policy,
+                                                               device="cuda")
+            bb = b.to(d.policy.accum_dtype)
+            y = S.tri_solve(d, bb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = S.tri_solve_plain(d, bb)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(y, want):
+                raise AssertionError(f"K7 {inst} lower={lower}: kernel != plain on 2cubes_sphere")
+            name = f"respa_tri_solve_{'lower' if lower else 'upper'}_{inst}"
+            nbytes = tri_bytes(d)
+            ops = 2 * d.strict.nnz + 2 * d.n
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / FLOPS_PER_S[d.policy.accum_dtype]) * 1e3
+            lib_ms, lib = None, "none: PyTorch has no sparse triangular solve that flushes " \
+                                "subnormals or takes bf16 values"
+            if policy in ("fp32", "fp64"):
+                lib_ms, lib = library_tri(full, lower, d.policy, bb, y)
+            t = {"ms": events_ms(lambda: S.tri_solve(d, bb), 10),
+                 "profiler_ms": profiler_ms(lambda: S.tri_solve(d, bb), "tri_solve_kernel", 10),
+                 "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+                 "library": lib, "shape": f"2cubes_sphere {'L' if lower else 'U'} n={d.n} "
+                                          f"strict={d.strict.nnz} levels={lev[lower]}"}
+            times[name] = t
+            errs[name] = 0.0
+            print(f"[time] {name_limit} | K7 {inst} {'L' if lower else 'U'} solve of "
+                  f"2cubes_sphere ({lev[lower]} levels): events {fmt_ms(t['ms'])}, profiler "
+                  f"{fmt_ms(t['profiler_ms'])}; bound {bound:.4f} ms ({nbytes} bytes at 3.35 "
+                  f"TB/s); library {fmt_ms(lib_ms) if lib_ms else lib}; plain {plain:.2f} ms; "
+                  f"== plain bit for bit", flush=True)
+    t0 = time.perf_counter()
+    isai = slv.Ilu0Preconditioner(a, "fp32", sweeps=30, apply_mode="isai", device="cuda")
+    print(f"[ilu] {name_limit} | 2cubes_sphere ISAI of both triangles built on the host in "
+          f"{isai.report.t_analyze:.2f} s (preconditioner {time.perf_counter() - t0:.2f} s)",
+          flush=True)
+    for what, pre, bb in (("Jacobi (6 sweeps a triangle, fp32)", pre32, b.float()),
+                          ("ISAI (one SpMV a triangle, fp32)", isai, b.float()),
+                          ("exact (K7, fp64)", pre64, b)):
+        ms = events_ms(lambda: pre.apply(bb), 10)
+        print(f"[time] {name_limit} | one {what} apply of 2cubes_sphere's ILU(0), whole: "
+              f"{ms:.4f} ms by events", flush=True)
+    krylov_profile(name_limit, a, pre32)
+
+
+def _with_diagonal(strict, diag):
+    n = strict.nrows
+    rows = np.r_[np.repeat(np.arange(n), strict.row_lengths()), np.arange(n)]
+    cols = np.r_[strict.indices, np.arange(n)]
+    return coo_to_csr(COOMatrix((n, n), rows.astype(np.int32), cols.astype(np.int32),
+                                np.r_[strict.data, diag]))
+
+
+def library_tri(full, lower, policy, b, y):
+    """ms of ``torch.triangular_solve`` with the triangle as a sparse CSR
+    tensor (cuSPARSE; timed here, never called by the package), or None and
+    why it did not run."""
+    a_csr = torch.sparse_csr_tensor(torch.from_numpy(full.indptr).cuda(),
+                                    torch.from_numpy(full.indices.astype(np.int64)).cuda(),
+                                    torch.from_numpy(full.data).to(policy.dtype).cuda(),
+                                    size=full.shape)
+    unit = bool(lower)  # L is unit lower; U has its diagonal
+    try:
+        got = torch.triangular_solve(b[:, None], a_csr, upper=not lower,
+                                     unitriangular=unit).solution[:, 0]
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f"refused by the installed torch: {str(e)[:120]}"
+    err = rel_err(got, y)
+    if not err <= (1e-10 if policy.dtype == torch.float64 else 1e-3):
+        return None, f"disagrees with the kernel (rel_err {err:.3e})"
+    return events_ms(lambda: torch.triangular_solve(b[:, None], a_csr, upper=not lower,
+                                                    unitriangular=unit), 10), \
+        f"torch.triangular_solve on a sparse CSR tensor (rel_err {err:.2e} to the kernel)"
+
+
+def krylov_profile(name_limit, a, pre):
+    """One GMRES(40) solve of 2cubes_sphere with the fp32 ILU(0) under the
+    profiler: wall against busy, and the busiest kernels."""
+    b, _ = slv.make_rhs_for_known_x(a)
+    wall = [0.0]
+
+    def run():
+        t0 = time.perf_counter()
+        slv.gmres(a, b, precond=pre, tol=1e-7)
+        wall[0] = time.perf_counter() - t0
+
+    try:
+        events = device_events(run)
+    except ProfilerUnavailable as e:
+        print(f"[profile] GMRES not profiled ({e})", flush=True)
+        return
+    busy = sum(t for _, t in events)
+    print(f"[profile] {name_limit} | 2cubes_sphere GMRES(40) fp32, ILU(0) Jacobi applies, tol "
+          f"1e-7: wall {wall[0] * 1e3:.1f} ms, device busy {busy * 1e3:.2f} ms "
+          f"({100 * busy / wall[0]:.1f}%) in {len(events)} records", flush=True)
+    for key, n, tot in busy_by_name(events, top=8):
+        print(f"[profile]   {key}: {n} records, {tot * 1e3:.3f} ms", flush=True)
+
 
 
 def main():
@@ -1230,7 +1713,18 @@ def main():
         if front_launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the multifrontal path")
 
-    # 9. result
+    # 9. the ILU(0) path
+    ilu_errs, ilu_times = {}, {}
+    check_ilu_synthetic(ilu_errs)
+    check_tri_synthetic(ilu_errs)
+    ilu_launches = ilu_path(name_limit, mats)
+    for name in (*I.LAUNCHES, *S.LAUNCHES, "spmv_fp32", "spmv_fp32_ftz", "spmv_bf16"):
+        if ilu_launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the ILU path")
+    schedule_sizes(name_limit, "dc1", mats["dc1"])
+    hold_and_time_ilu(name_limit, mats["2cubes_sphere"], ilu_errs, ilu_times)
+
+    # 10. result
     kernels = []
     for p in TOL:
         kernels.append({"name": f"respa_spmv_csr_{INST[p]}", "route": "cuda", "source": SOURCE,
@@ -1238,6 +1732,7 @@ def main():
                         "max_abs_err": errs[p], **times[MAIN[0], p], "bound_by": "bytes",
                         "shape": MAIN[0],
                         "by_matrix": {m: times[m, p] for m in MAIN},
+                        "launches_ilu_path": ilu_launches[f"spmv_{p}"],
                         **({"launches_direct_path": spmv_direct,
                             "launches_frontal_path": front_launches["spmv_fp64"]}
                            if p == "fp64" else {})})
@@ -1253,6 +1748,14 @@ def main():
                         "replaces": FRONTAL_REPLACES[kernel_kind(name)],
                         "launches": front_launches[name], "max_abs_err": front_errs[name],
                         **front_full.get(name, {}), **front_times[name]})
+    for name in (*I.LAUNCHES, *S.LAUNCHES):
+        inst = "f32_ftz" if name.endswith("_ftz") else name.rsplit("_", 1)[-1]
+        sweep = name in I.LAUNCHES
+        kernels.append({"name": name, "route": "cuda",
+                        "source": ILU_SOURCE if sweep else TRI_SOURCE,
+                        "replaces": (ILU_REPLACES if sweep else TRI_REPLACES)[inst],
+                        "launches": ilu_launches[name], "max_abs_err": ilu_errs[name],
+                        **ilu_times[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

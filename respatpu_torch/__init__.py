@@ -10,8 +10,11 @@ SpMV kernel in fp32, fp32+FTZ, bf16-value and fp64 instances, the
 cross-precision error, timed sweeps), and the direct-solve path (RCM
 ordering, blocked band LU with two hand-written CUDA kernels for its
 dependent chains, ``factorize(method="auto")``, mixed-precision iterative
-refinement with fp64 residuals and the GMRES-IR fallback). See ROADMAP.md
-for the order of the rest.
+refinement with fp64 residuals and the GMRES-IR fallback), the multifrontal
+LU with GESP matching, and the ILU(0) path (Chow-Patel sweeps and one-launch
+triangular solves, two hand-written CUDA kernels, with the Jacobi and ISAI
+applies and the CG, GMRES and BiCGSTAB solvers). See ROADMAP.md for the
+order of the rest.
 """
 from . import formats, precision
 from .formats import COOMatrix, CSRMatrix, coo_to_csr

@@ -2,15 +2,21 @@
 loops in the port's native host library): orderings (reverse Cuthill-McKee
 for the band; approximate minimum degree and nested dissection for the
 multifrontal LU), symmetric permutation, the structural-symmetry measure,
-symbolic fill, and the GESP weighted matching with its scaling.
+symbolic fill, the GESP weighted matching with its scaling, and the ILU(0)
+path's schedules: the level of every row of a triangular solve and the
+Chow-Patel pair lists.
 
-Own copies of what the direct-solve path needs from ``respatpu/analysis.py``;
-the same input gives the same arrays. The ILU schedules come with the
-solvers that use them.
+Own copies of what the direct-solve and ILU paths need from
+``respatpu/analysis.py``; the same input gives the same arrays, except that
+the pair lists are kept ragged (an offset an entry) rather than padded to the
+longest list. The chunked triangular-solve layout (``build_tri_chunks``) is a
+layout for a chip without gathers and is not ported: the card's triangular
+solve reads the CSR as it is.
 """
 from __future__ import annotations
 
 from collections import deque
+from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
@@ -20,7 +26,8 @@ from .formats import COOMatrix, CSRMatrix, coo_to_csr
 __all__ = ["rcm_ordering", "mindeg_ordering", "nd_ordering", "fill_ordering",
            "ordering", "permute_csr", "structural_symmetry",
            "symmetrized_adjacency", "symbolic_fill_lu",
-           "weighted_matching_scaling", "apply_matching_scaling"]
+           "weighted_matching_scaling", "apply_matching_scaling",
+           "level_schedule", "IluSchedule", "chow_patel_schedule"]
 
 _USE_NATIVE = True  # False: always the Python breadth-first search
 
@@ -383,3 +390,128 @@ def apply_matching_scaling(a: CSRMatrix, cperm: np.ndarray, dr: np.ndarray,
     order = np.lexsort((newcol, rows))
     return CSRMatrix(a.shape, a.indptr.astype(np.int64),
                      newcol[order].astype(np.int32), vals[order])
+
+
+# ---------------------------------------------------------------------------
+# ILU(0) schedules
+# ---------------------------------------------------------------------------
+
+
+def level_schedule(l_csr: CSRMatrix, upper: bool = False) -> np.ndarray:
+    """Level (wavefront) of each row for triangular solve dependency DAG.
+
+    Row i of a lower-triangular solve depends on rows j<i present in row i's
+    pattern; level[i] = 1 + max(level[deps]), level 0 for independent rows.
+    For ``upper=True`` the same is computed on the reversed system.
+
+    Equivalent of the level-set construction inside ``csrsv2_analysis``
+    (GPU/ilu0.cu:228-252).
+    """
+    n = l_csr.nrows
+    indptr, indices = l_csr.indptr, l_csr.indices
+    if _native_ok():
+        from .io import native
+        return native.level_schedule(n, indptr, indices, lower=not upper)
+    level = np.zeros(n, dtype=np.int32)
+    rows = range(n) if not upper else range(n - 1, -1, -1)
+    for i in rows:
+        s, e = indptr[i], indptr[i + 1]
+        cols = indices[s:e]
+        deps = cols[cols < i] if not upper else cols[cols > i]
+        if deps.size:
+            level[i] = level[deps].max() + 1
+    return level
+
+
+@dataclass
+class IluSchedule:
+    """Schedule for fixed-point ILU(0) sweeps (Chow & Patel 2015).
+
+    For each stored entry p=(i,j) of A, ``pairs_a[ptr[p]:ptr[p+1]]`` and
+    ``pairs_b[ptr[p]:ptr[p+1]]`` list the nnz positions of l_ik and u_kj for
+    every k < min(i, j) present in both patterns, k ascending. One sweep
+    updates all entries from the previous values:
+
+        s   = a_ij - sum_t val[pairs_a] * val[pairs_b]
+        val[p] = s / val[diag_of_col_j]   if i > j   (L entry)
+        val[p] = s                        otherwise  (U entry, diag included)
+
+    The fixed point of this iteration is exactly ILU(0). respatpu pads every
+    entry's list to ``t_max``; here the lists are ragged, so a hub row costs
+    only its own pairs.
+    """
+
+    nnz: int
+    t_max: int
+    ptr: np.ndarray  # int64[nnz+1]: entry p's pairs are ptr[p] .. ptr[p+1]-1
+    pairs_a: np.ndarray  # int64[npairs] (positions of l_ik)
+    pairs_b: np.ndarray  # int64[npairs] (positions of u_kj)
+    is_lower: np.ndarray  # bool[nnz]
+    diag_pos_col: np.ndarray  # int64[nnz]: nnz position of u_jj for this entry's column
+    diag_pos: np.ndarray  # int64[n]: position of each row's diagonal entry
+    zero_diag: np.ndarray  # bool[n]: structurally missing diagonal (breakdown)
+
+    @property
+    def npairs(self) -> int:
+        return int(self.ptr[-1])
+
+    def layout_bytes(self, index_bytes: int = 4) -> dict:
+        """Bytes of the pair lists on the device, ragged (as here) and padded
+        to ``t_max`` (as respatpu stores them), with ``index_bytes``-wide
+        positions and an int64 offset an entry."""
+        return {"ragged": 2 * self.npairs * index_bytes + 8 * (self.nnz + 1),
+                "padded": 2 * self.nnz * self.t_max * index_bytes}
+
+
+def chow_patel_schedule(a: CSRMatrix) -> IluSchedule:
+    """Build intersection lists for Chow-Patel ILU(0) sweeps (host)."""
+    n = a.nrows
+    indptr, indices = a.indptr, a.indices
+    nnz = a.nnz
+    rows = np.repeat(np.arange(n, dtype=np.int64), a.row_lengths())
+    cols = indices.astype(np.int64)
+
+    diag_pos = np.full(n, -1, dtype=np.int64)
+    dmask = rows == cols
+    diag_pos[rows[dmask]] = np.flatnonzero(dmask)
+    zero_diag = diag_pos < 0
+
+    # column-wise structure: positions sorted by (col, row)
+    col_order = np.lexsort((rows, cols))
+    col_start = np.searchsorted(cols[col_order], np.arange(n + 1))
+
+    if _native_ok():
+        from .io import native
+        ptr, pa, pb, t_max = native.cp_schedule(n, indptr, indices, col_start,
+                                                rows[col_order], col_order)
+    else:
+        lists_a: List[np.ndarray] = []
+        lists_b: List[np.ndarray] = []
+        for p in range(nnz):
+            i, j = rows[p], cols[p]
+            kmax = min(i, j)
+            s, e = indptr[i], indptr[i + 1]
+            row_cols = cols[s:e]
+            lsel = row_cols < kmax
+            pos_row = np.arange(s, e, dtype=np.int64)[lsel]
+            cs, ce = col_start[j], col_start[j + 1]
+            col_rows = rows[col_order[cs:ce]]
+            usel = col_rows < kmax
+            pos_col = col_order[cs:ce][usel]
+            _, ia, ib = np.intersect1d(row_cols[lsel], col_rows[usel], assume_unique=True,
+                                       return_indices=True)
+            lists_a.append(pos_row[ia])
+            lists_b.append(pos_col[ib])
+        counts = np.array([x.size for x in lists_a], dtype=np.int64)
+        ptr = np.zeros(nnz + 1, dtype=np.int64)
+        np.cumsum(counts, out=ptr[1:])
+        pa = np.concatenate(lists_a) if nnz else np.zeros(0, np.int64)
+        pb = np.concatenate(lists_b) if nnz else np.zeros(0, np.int64)
+        t_max = int(counts.max()) if nnz else 0
+
+    return IluSchedule(
+        nnz=nnz, t_max=max(int(t_max), 1), ptr=ptr, pairs_a=pa.astype(np.int64),
+        pairs_b=pb.astype(np.int64), is_lower=(rows > cols),
+        diag_pos_col=diag_pos[np.clip(cols, 0, n - 1)],
+        diag_pos=diag_pos, zero_diag=zero_diag,
+    )

@@ -2,14 +2,15 @@
 
   python -m respatpu_torch spmv  <matrix.mtx|corpus-name> [--policy fp32] [--csv out.csv]
   python -m respatpu_torch lu    <matrix.mtx|corpus-name> [--method auto|band] [--no-refine]
-  python -m respatpu_torch sweep spmv|lu [--group moderate|big|all]
+  python -m respatpu_torch ilu0  <matrix.mtx|corpus-name> [--policy fp32] [--sweeps 8]
+  python -m respatpu_torch sweep spmv|lu|ilu0 [--group moderate|big|all]
 
 All run on ``--device cuda`` (the default), through the hand-written
 kernels; without a card they refuse to run unless ``--device cpu`` is given,
 which runs the kernels' plain PyTorch versions on the host. The high
 precision is fp64; ``--policy`` picks the low one (fp32 | fp32_ftz | bf16).
-respatpu's other subcommands (ilu0, sweep ilu0|ilu0dist, fetch, study,
-scaling) are not ported yet.
+respatpu's other subcommands (sweep ilu0dist, fetch, study, scaling) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-_NOT_PORTED = ("ilu0", "fetch", "study", "scaling")
+_NOT_PORTED = ("fetch", "study", "scaling")
 
 
 def _load(spec: str):
@@ -80,8 +81,19 @@ def cmd_lu(args):
           f"{' (synthetic)' if synth else ''}")
 
 
+def cmd_ilu0(args):
+    from . import solve as slv
+    device = _device(args.device)
+    a, synth, name = _load(args.matrix)
+    pre = slv.Ilu0Preconditioner(a, policy=args.policy, sweeps=args.sweeps, device=device)
+    r = pre.report
+    print(f"{name}{' (synthetic)' if synth else ''}: "
+          f"analyze={r.t_analyze:.3f}s factor={r.t_factorize:.3f}s "
+          f"pivots_perturbed={r.n_pivot_perturbed} {r.notes} device={device}")
+
+
 def cmd_sweep(args):
-    if args.kind not in ("spmv", "lu"):
+    if args.kind not in ("spmv", "lu", "ilu0"):
         raise SystemExit(f"sweep {args.kind} is not ported to respatpu_torch yet")
     from .bench import corpus, runner
     device = _device(args.device)
@@ -90,6 +102,10 @@ def cmd_sweep(args):
     kw = {}
     if args.max_synth_nnz is not None:
         kw["max_synth_nnz"] = args.max_synth_nnz
+    if args.kind == "ilu0":
+        runner.sweep_ilu0([e.name for e in entries], csv_path=args.csv, policy=args.policy,
+                          sweeps=args.sweeps, device=device, **kw)
+        return
     if args.kind == "lu":
         runner.sweep_lu([e.name for e in entries], csv_path=args.csv,
                         policy=args.policy, method=args.method,
@@ -138,12 +154,19 @@ def main(argv=None):
     direct(sp)
     sp.set_defaults(fn=cmd_lu)
 
+    sp = sub.add_parser("ilu0", help="ILU(0) factorization (Chow-Patel sweeps)")
+    sp.add_argument("matrix")
+    sp.add_argument("--sweeps", type=int, default=8)
+    common(sp)
+    sp.set_defaults(fn=cmd_ilu0)
+
     sp = sub.add_parser("sweep", help="corpus sweep")
     sp.add_argument("kind", choices=["spmv", "ilu0", "lu", "ilu0dist"])
     sp.add_argument("--group", default="moderate",
                     choices=["moderate", "big", "all"])
     sp.add_argument("--max-synth-nnz", type=int, default=None,
                     help="cap synthetic stand-in size (default: per-sweep)")
+    sp.add_argument("--sweeps", type=int, default=8, help="ILU(0) sweeps (sweep ilu0)")
     common(sp)
     direct(sp)
     sp.set_defaults(fn=cmd_sweep)

@@ -13,7 +13,7 @@ from typing import Tuple
 import numpy as np
 
 __all__ = ["COOMatrix", "CSRMatrix", "coo_to_csr", "csr_to_coo",
-           "csr_transpose"]
+           "csr_transpose", "split_triangular"]
 
 
 @dataclass
@@ -119,3 +119,32 @@ def csr_transpose(a: CSRMatrix) -> CSRMatrix:
     coo = csr_to_coo(a)
     return coo_to_csr(COOMatrix(shape=(n, m), row=coo.col, col=coo.row, val=coo.val),
                       sum_duplicates=False)
+
+
+def split_triangular(a: CSRMatrix, unit_diag_lower: bool = True):
+    """Split square CSR A into (L, D, U): strict lower CSR, diagonal vector, upper CSR.
+
+    Used by the ILU(0) apply paths (GPU/ilu0.cu:122-141 descriptor equivalent).
+    ``U`` includes the diagonal; ``L`` is strict lower (unit diagonal implied
+    when ``unit_diag_lower``).
+    """
+    m, n = a.shape
+    assert m == n, "triangular split requires square matrix"
+    rows = np.repeat(np.arange(m, dtype=np.int32), a.row_lengths())
+    lower = a.indices < rows
+    upper = a.indices > rows
+    diag_mask = a.indices == rows
+    d = np.zeros(m, dtype=a.data.dtype)
+    d[rows[diag_mask]] = a.data[diag_mask]
+
+    def _sub(mask, include_diag=False):
+        sel = mask | (diag_mask if include_diag else np.zeros_like(mask))
+        counts = np.bincount(rows[sel], minlength=m)
+        indptr = np.zeros(m + 1, dtype=np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        return CSRMatrix(shape=(m, n), indptr=indptr,
+                         indices=a.indices[sel].copy(), data=a.data[sel].copy())
+
+    L = _sub(lower)
+    U = _sub(upper, include_diag=True)
+    return L, d, U

@@ -9,15 +9,17 @@ from typing import Union
 import numpy as np
 import torch
 
+from .analysis import IluSchedule
 from .formats import CSRMatrix
 from .kernels.bandlu import DeviceBand
 from .kernels.snlu import SupernodePartition
 from .kernels.snlu_device import FrontalPlan, build_frontal_plan
+from .kernels.sptrsv import DeviceTri, tri_to_device
 from .precision import get_policy
 
 __all__ = ["csr_from_respatpu", "df_to_numpy", "band_from_respatpu",
            "band_to_numpy", "partition_from_respatpu", "plan_from_respatpu",
-           "pool_from_respatpu"]
+           "pool_from_respatpu", "ilu_schedule_from_respatpu", "tri_from_respatpu"]
 
 
 def csr_from_respatpu(obj) -> CSRMatrix:
@@ -103,3 +105,30 @@ def pool_from_respatpu(plan, pool_np, device: Union[str, torch.device] = "cpu",
     out = np.zeros(tplan.pool_size, dtype=np.float64)
     out[dst] = np.asarray(pool_np, np.float64)[src]
     return tplan, torch.from_numpy(out).to(dtype).to(torch.device(device))
+
+
+def ilu_schedule_from_respatpu(sched) -> IluSchedule:
+    """The port's Chow-Patel schedule from respatpu's ``IluSchedule`` (pair
+    lists padded to ``t_max`` with -1): the same pairs in the same order,
+    kept ragged."""
+    pa = np.asarray(sched.pairs_a, np.int64)
+    pb = np.asarray(sched.pairs_b, np.int64)
+    live = pa >= 0
+    ptr = np.zeros(int(sched.nnz) + 1, dtype=np.int64)
+    np.cumsum(live.sum(axis=1), out=ptr[1:])
+    return IluSchedule(nnz=int(sched.nnz), t_max=int(sched.t_max), ptr=ptr,
+                       pairs_a=pa[live], pairs_b=pb[live],
+                       is_lower=np.asarray(sched.is_lower, bool),
+                       diag_pos_col=np.asarray(sched.diag_pos_col, np.int64),
+                       diag_pos=np.asarray(sched.diag_pos, np.int64),
+                       zero_diag=np.asarray(sched.zero_diag, bool))
+
+
+def tri_from_respatpu(t_csr, values=None, lower: bool = True, unit_diag: bool = False,
+                      policy="fp32", device: Union[str, torch.device] = "cpu") -> DeviceTri:
+    """The port's exact-solve factor from a triangle of respatpu's (anything
+    shaped like its ``CSRMatrix``) and, optionally, factor values on its
+    pattern (numpy; respatpu's ILU(0) values, double-float pairs summed with
+    :func:`df_to_numpy`), so that both packages solve with the same factor."""
+    return tri_to_device(csr_from_respatpu(t_csr), lower=lower, unit_diag=unit_diag,
+                         policy=policy, values=values, device=device)

@@ -5,15 +5,17 @@ what the multifrontal analysis needs: the symmetric symbolic fill
 (``io/csrc/symbolic_fill.cpp``), the weighted-matching assignment
 (``io/csrc/sparse_assignment.cpp``), the fill-reducing orderings
 (``io/csrc/fill_order.cpp``: approximate minimum degree, nested dissection)
-and the front pool's assembly map (``io/csrc/frontal_assembly.cpp``).
+and the front pool's assembly map (``io/csrc/frontal_assembly.cpp``); and the
+ILU(0) path's schedules (``io/csrc/ilu_schedule.cpp``: the level of every row
+of a triangular solve, the Chow-Patel pair lists).
 
 The sources are the port's own. They are compiled at first use with the host C++
 compiler into the checkout's ``build/`` directory
 (``respatpu_torch._buildlib``) and loaded from there. When no C++ compiler
 is present the callers fall back to the numpy parser, the Python
 breadth-first search, the row-merge symbolic fill, scipy's matching, a
-naive minimum degree and array operations for the assembly map (host work;
-nothing on the device depends on it).
+naive minimum degree, array operations for the assembly map and Python loops
+for the ILU schedules (host work; nothing on the device depends on it).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SOURCE = os.path.join(_CSRC, "mtx_parse.cpp")
 _SOURCES = (_SOURCE, *(os.path.join(_CSRC, f) for f in (
     "rcm_order.cpp", "symbolic_fill.cpp", "sparse_assignment.cpp", "fill_order.cpp",
-    "frontal_assembly.cpp")))
+    "frontal_assembly.cpp", "ilu_schedule.cpp")))
 _CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lib = None
@@ -93,6 +95,14 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.frontal_asm_dst.argtypes = [ctypes.c_int64, ctypes.c_int64, _i64p, _i32p,
                                         _i64p, _i64p, _i64p, _i64p, _i64p, _i64p, _i64p]
         lib.frontal_asm_dst.restype = ctypes.c_int
+        lib.level_schedule.argtypes = [ctypes.c_int64, _i64p, _i32p, ctypes.c_int32, _i32p]
+        lib.level_schedule.restype = ctypes.c_int
+        lib.cp_schedule_count.argtypes = [ctypes.c_int64, _i64p, _i32p, _i64p, _i32p, _i32p,
+                                          ctypes.c_int32]
+        lib.cp_schedule_count.restype = ctypes.c_int64
+        lib.cp_schedule_fill.argtypes = [ctypes.c_int64, _i64p, _i32p, _i64p, _i32p, _i64p,
+                                         _i64p, _i64p, _i64p, ctypes.c_int32]
+        lib.cp_schedule_fill.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -249,3 +259,51 @@ def frontal_asm_dst(n: int, indptr: np.ndarray, indices: np.ndarray, snode_ptr: 
         raise AssertionError("filled pattern is not structurally symmetric: an entry "
                              "falls outside its front's row structure")
     return out
+
+
+def level_schedule(n: int, indptr: np.ndarray, indices: np.ndarray, lower: bool) -> np.ndarray:
+    """Level of every row of a triangular solve (int32[n]); see
+    ``analysis.level_schedule``."""
+    lib = _load()
+    indptr, indices = _pattern(n, indptr, indices, "level_schedule")
+    out = np.zeros(n, dtype=np.int32)
+    lib.level_schedule(n, indptr.ctypes.data_as(_i64p), indices.ctypes.data_as(_i32p),
+                       1 if lower else 0, out.ctypes.data_as(_i32p))
+    return out
+
+
+def cp_schedule(n: int, indptr: np.ndarray, indices: np.ndarray, col_ptr: np.ndarray,
+                col_rows: np.ndarray, col_pos: np.ndarray, nthreads: int = 0,
+                max_pair_bytes: int = 8 << 30):
+    """Chow-Patel pair lists, ragged: ``(ptr int64[nnz+1], pairs_a, pairs_b
+    int64[ptr[-1]], t_max)``, entry p's pairs at ``ptr[p] : ptr[p+1]`` in the
+    order k ascending. The CSC arrays give each column's rows ascending
+    (``col_ptr``, ``col_rows``) and their positions in the CSR (``col_pos``).
+
+    Raises MemoryError, before allocating, when the lists would exceed
+    ``max_pair_bytes``."""
+    lib = _load()
+    indptr, indices = _pattern(n, indptr, indices, "cp_schedule")
+    col_ptr = np.ascontiguousarray(col_ptr, np.int64)
+    col_rows = np.ascontiguousarray(col_rows, np.int32)
+    col_pos = np.ascontiguousarray(col_pos, np.int64)
+    nnz = int(indptr[-1])
+    tcount = np.zeros(nnz, dtype=np.int32)
+    t_max = lib.cp_schedule_count(n, indptr.ctypes.data_as(_i64p),
+                                  indices.ctypes.data_as(_i32p), col_ptr.ctypes.data_as(_i64p),
+                                  col_rows.ctypes.data_as(_i32p), tcount.ctypes.data_as(_i32p),
+                                  nthreads)
+    ptr = np.zeros(nnz + 1, dtype=np.int64)
+    np.cumsum(tcount, out=ptr[1:])
+    need = 2 * int(ptr[-1]) * 8
+    if need > max_pair_bytes:
+        raise MemoryError(f"schedule pair lists would need {need / 2**30:.1f} GiB "
+                          f"(nnz={nnz}, {int(ptr[-1])} pairs, t_max={int(t_max)})")
+    pairs_a = np.empty(int(ptr[-1]), dtype=np.int64)
+    pairs_b = np.empty(int(ptr[-1]), dtype=np.int64)
+    lib.cp_schedule_fill(n, indptr.ctypes.data_as(_i64p), indices.ctypes.data_as(_i32p),
+                         col_ptr.ctypes.data_as(_i64p), col_rows.ctypes.data_as(_i32p),
+                         col_pos.ctypes.data_as(_i64p), ptr.ctypes.data_as(_i64p),
+                         pairs_a.ctypes.data_as(_i64p), pairs_b.ctypes.data_as(_i64p),
+                         nthreads)
+    return ptr, pairs_a, pairs_b, int(t_max)

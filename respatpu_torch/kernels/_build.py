@@ -16,7 +16,7 @@ from typing import Sequence
 from .._buildlib import CompileError, build_shared
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("spmv_csr.cu", "band_lu.cu", "frontal.cu")
+SOURCES = ("spmv_csr.cu", "band_lu.cu", "frontal.cu", "ilu0.cu", "sptrsv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 _ENTRIES = ("respa_spmv_csr_f32", "respa_spmv_csr_f32_ftz",
@@ -29,6 +29,10 @@ _EXTEND_ADD = tuple(f"respa_extend_add_{i}" for i in _INSTANCES)
 _FRONT_FWD = tuple(f"respa_front_sweep_fwd_{i}" for i in _INSTANCES)
 _FRONT_BWD = tuple(f"respa_front_sweep_bwd_{i}" for i in _INSTANCES)
 _ROWS_REDUCE = ("respa_rows_reduce_f32", "respa_rows_reduce_f64")
+_ILU_INSTANCES = ("f32", "f32_ftz", "bf16", "f64")
+_ILU0_SWEEP = tuple(f"respa_ilu0_sweep_{i}" for i in _ILU_INSTANCES)
+_TRI_SOLVE = tuple(f"respa_tri_solve_{d}_{i}" for d in ("lower", "upper")
+                   for i in _ILU_INSTANCES)
 
 _lib = None
 _lock = threading.Lock()
@@ -81,14 +85,25 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     for name in (*_FRONT_FWD, *_FRONT_BWD):
         fn = getattr(lib, name)
         # device, pool, g0, nfronts, wp, rp, piv, rsx, y, n, out, regime, tiles, ctl, mail,
-        # tag, stream
+        # stream
         fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i32, ptr, i32, i32, ptr, ptr,
-                       ctypes.c_uint, ptr]
+                       ptr]
         fn.restype = ctypes.c_int
     for name in _ROWS_REDUCE:
         fn = getattr(lib, name)
         # device, y, upd, rows, ptr, src, nd, flush, stream
         fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
+        fn.restype = ctypes.c_int
+    for name in _ILU0_SWEEP:
+        fn = getattr(lib, name)
+        # device, nnz, a, old, out, ptr, pairs_a, pairs_b, kind, diag_col, eps, fix, resid,
+        # stream
+        fn.argtypes = [i32, i64, *[ptr] * 8, ctypes.c_double, i32, ptr, ptr]
+        fn.restype = ctypes.c_int
+    for name in _TRI_SOLVE:
+        fn = getattr(lib, name)
+        # device, n, indptr, indices, vals, dinv, b, y, flags, stream
+        fn.argtypes = [i32, i32, *[ptr] * 8]
         fn.restype = ctypes.c_int
     for name in ("respa_spmv_csr_cap", "respa_spmv_csr_max_rows", "respa_band_max_p",
                  "respa_front_max_tri"):

@@ -458,30 +458,36 @@ def band_solve_transpose(lu: DeviceBand, s: torch.Tensor) -> torch.Tensor:
     """Solve A^T z = s from the same factors: A^T = U^T L^T, forward with the
     lower triangular U^T, backward with the unit upper L^T, both read
     straight from the band (right-looking: each solved block updates the
-    blocks it reaches through one contiguous panel). Torch ops on any
-    device; a diagnostic (the Hager condition estimate), not the hot path."""
+    blocks it reaches through one contiguous panel). Under fp32_ftz s, every
+    block's update and every solved block is flushed to zero, as the forward
+    sweeps flush each partial sum. Torch ops on any device; a diagnostic (the
+    Hager condition estimate), not the hot path."""
     _check_band(lu)
     p, ml, mu, nb = lu.p, lu.ml, lu.mu, lu.nb
     acc = lu.policy.accum_dtype
+    fl = lu.policy.flush_to_zero
     if s.shape != (lu.n,) or s.device != lu.device:
         raise ValueError(f"s must be ({lu.n},) on {lu.device}")
     v = torch.zeros((nb * p, 1), dtype=acc, device=lu.device)
-    v[:lu.n, 0] = s.to(acc)
+    v[:lu.n, 0] = ftz(s.to(acc), fl)
     for r in range(nb):  # U^T z = s
         row = lu.data[r]
         d = row[:, ml * p:(ml + 1) * p].to(acc)
-        zr = torch.linalg.solve_triangular(d.mT, v[r * p:(r + 1) * p], upper=False)
+        zr = ftz(torch.linalg.solve_triangular(d.mT, v[r * p:(r + 1) * p], upper=False), fl)
         v[r * p:(r + 1) * p] = zr
         k = min(mu, nb - 1 - r)
         if k:
-            v[(r + 1) * p:(r + 1 + k) * p] -= row[:, (ml + 1) * p:(ml + 1 + k) * p].to(acc).mT @ zr
+            blk = v[(r + 1) * p:(r + 1 + k) * p]
+            blk.copy_(ftz(blk - ftz(row[:, (ml + 1) * p:(ml + 1 + k) * p].to(acc).mT @ zr, fl),
+                          fl))
     for r in range(nb - 1, -1, -1):  # L^T x = z
         row = lu.data[r]
         d = row[:, ml * p:(ml + 1) * p].to(acc)
-        xr = torch.linalg.solve_triangular(d.mT, v[r * p:(r + 1) * p], upper=True,
-                                           unitriangular=True)
+        xr = ftz(torch.linalg.solve_triangular(d.mT, v[r * p:(r + 1) * p], upper=True,
+                                               unitriangular=True), fl)
         v[r * p:(r + 1) * p] = xr
         k = min(ml, r)
         if k:
-            v[(r - k) * p:r * p] -= row[:, (ml - k) * p:ml * p].to(acc).mT @ xr
+            blk = v[(r - k) * p:r * p]
+            blk.copy_(ftz(blk - ftz(row[:, (ml - k) * p:ml * p].to(acc).mT @ xr, fl), fl))
     return v[:lu.n, 0]

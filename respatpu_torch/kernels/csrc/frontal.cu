@@ -72,10 +72,11 @@
 //     a link of the chain is one mailbox trip and those two products. A
 //     forward panel task streams all z blocks and writes its rows of upd.
 //     The mailbox is the band sweep's (band_lu.cu): each 32-bit word of z
-//     with the launch's tag in one 8-byte store, so a reader needs no fence
-//     and a word an earlier launch left never matches; the wrapper keeps it
-//     zeroed at allocation and hands out a new tag a launch. The last block
-//     to finish puts the ticket back to 0. The fp32 instance sums in fp64
+//     with the tag kTag in one 8-byte store, so a reader needs no fence; the
+//     wrapper hands every launch a mailbox and tickets freshly zeroed on the
+//     launch's stream, so no word of another launch or another stream is
+//     ever seen (a replayed CUDA graph replays its zeroing too). The fp32
+//     instance sums in fp64
 //     (the long sums of a circuit's ill-conditioned wide fronts, summed in
 //     fp32 in another order than the library's, came out up to 10x further
 //     from the exact result than the library's) and rounds each z to fp32 as
@@ -329,7 +330,6 @@ front_fwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
         // a tile draws its ticket once it has read y[piv]: the last to draw writes y[piv]
         if (t == 0) {
             last = atomicAdd(ticket + b, 1) == tiles - 1;
-            if (last) ticket[b] = 0;
         }
         __syncthreads();
     }
@@ -403,7 +403,6 @@ front_bwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
         __syncthreads();
         if (t == 0) {
             last = atomicAdd(ticket + b, 1) == tiles - 1;
-            if (last) ticket[b] = 0;
         }
         __syncthreads();
         if (!last) return;
@@ -439,12 +438,13 @@ front_bwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
 // frontal sweeps: the wide regime, blocked substitution by ticketed tasks
 // ---------------------------------------------------------------------------
 
-// The mailbox: every 32-bit word of a solved value travels with the launch's
-// tag in one 8-byte store, which the card performs as a whole, so a reader
+// The mailbox: every 32-bit word of a solved value travels with the tag kTag
+// (a zeroed word carries 0) in one 8-byte store, which the card performs as a whole, so a reader
 // that sees the tag has the word. A double is two such pairs. A reader that
 // is not next in the chain sleeps between polls; one that spins for seconds
 // traps instead of hanging.
 constexpr unsigned kSpinLimit = 1u << 26;
+constexpr unsigned kTag = 1;
 
 __device__ __forceinline__ void mail_put(unsigned* slot, unsigned word, unsigned tag) {
     asm volatile("st.volatile.global.v2.u32 [%0], {%1, %2};" ::"l"(slot), "r"(word), "r"(tag)
@@ -553,7 +553,7 @@ __device__ __forceinline__ Acc quarter_dot(const M* m, const Z* x, int q) {
 
 // One task of a wide front: rows r0 .. r0 + nrows - 1 of front b. A triangle
 // task (row block `blk`) solves its 64 unknowns; a forward panel task forms
-// its 64 rows of upd. ctl[0] is the ticket, ctl[1] counts finished blocks.
+// its 64 rows of upd. ctl[0] is the ticket.
 // Before any wait a triangle task inverts its diagonal block (a thread a
 // column, in Acc) and loads the two blocks beside it, so that once the z block
 // solved just before its own arrives, the block takes it through two 64 x 64
@@ -578,7 +578,6 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
     __shared__ int task;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     const int nrb = (wp + kWideRows - 1) / kWideRows;
-    const int per_front = FWD ? nrb + (rp + kWideRows - 1) / kWideRows : nrb;
     if (t == 0) task = atomicAdd(ctl, 1);
     __syncthreads();
     const int b = task % nf, step = task / nf;
@@ -725,11 +724,6 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
             if (row < n) y[row] = zr;
         }
     }
-    // every block has drawn its ticket once the last one finishes: reset both
-    if (t == 0 && atomicAdd(ctl + 1, 1) == nf * per_front - 1) {
-        ctl[0] = 0;
-        ctl[1] = 0;
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -815,7 +809,7 @@ constexpr size_t wide_smem_bytes() {
 
 template <typename A, bool FTZ>
 int sweep_fwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, const int32_t* piv,
-              A* y, int n, A* upd, int regime, int tiles, int* ctl, unsigned* mail, unsigned tag,
+              A* y, int n, A* upd, int regime, int tiles, int* ctl, unsigned* mail,
               cudaStream_t stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -843,7 +837,7 @@ int sweep_fwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
         if (tasks >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
         front_wide_kernel<A, FTZ, true><<<static_cast<unsigned>(tasks), kWideThreads, smem,
                                           stream>>>(pool, g0, nf, wp, rp, piv, nullptr, y, n,
-                                                    upd, ctl, mail, tag);
+                                                    upd, ctl, mail, kTag);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -851,7 +845,7 @@ int sweep_fwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
 template <typename A, bool FTZ>
 int sweep_bwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, const int32_t* piv,
               const int32_t* rsx, A* y, int n, A* part, int regime, int tiles, int* ctl,
-              unsigned* mail, unsigned tag, cudaStream_t stream) {
+              unsigned* mail, cudaStream_t stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (bad_group(nf, wp, rp) || tiles < 1 || tiles > 65535 ||
@@ -877,7 +871,7 @@ int sweep_bwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
         if (tasks >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
         front_wide_kernel<A, FTZ, false><<<static_cast<unsigned>(tasks), kWideThreads, smem,
                                            stream>>>(pool, g0, nf, wp, rp, piv, rsx, y, n,
-                                                     nullptr, ctl, mail, tag);
+                                                     nullptr, ctl, mail, kTag);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -900,9 +894,9 @@ int sweep_bwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
 // wp <= respa_front_max_tri(), `tiles` blocks a front over its update rows)
 // or 2 (wide: any wp, tiles 1). `out` is forward upd A[B, rp], backward the
 // partials A[B, tiles, wp] of a tiled block group (not read otherwise).
-// `ctl` int32[max(B, 2)] zeroed, which every launch leaves zeroed; `mail`
-// uint32[B * wp * sizeof(A) / 2], zeroed when allocated, and `tag` != 0 new to
-// every launch that shares the mailbox (wide regime only).
+// `ctl` int32[B] (the block regime's tickets; the wide regime's one ticket)
+// and `mail` uint32[B * wp * sizeof(A) / 2] (wide regime only) zeroed for this
+// launch and for no other: a launch leaves them used.
 //
 // respa_rows_reduce_*: y[rows[r]] += sum of upd[src[ptr[r] : ptr[r+1]]], r < nd.
 extern "C" {
@@ -933,23 +927,23 @@ RESPA_EXTEND_ADD(respa_extend_add_f64, double, false)
     int respa_front_sweep_fwd_##SUFFIX(int device, const void* pool, int64_t g0, int nfronts, \
                                        int wp, int rp, const void* piv, const void* rsx,      \
                                        void* y, int n, void* out, int regime, int tiles,      \
-                                       void* ctl, void* mail, unsigned tag, void* stream) {   \
+                                       void* ctl, void* mail, void* stream) {                 \
         (void)rsx;                                                                            \
         return sweep_fwd<A, FTZ>(device, static_cast<const A*>(pool), g0, nfronts, wp, rp,    \
                                  static_cast<const int32_t*>(piv), static_cast<A*>(y), n,     \
                                  static_cast<A*>(out), regime, tiles, static_cast<int*>(ctl), \
-                                 static_cast<unsigned*>(mail), tag,                           \
+                                 static_cast<unsigned*>(mail),                                \
                                  static_cast<cudaStream_t>(stream));                          \
     }                                                                                         \
     int respa_front_sweep_bwd_##SUFFIX(int device, const void* pool, int64_t g0, int nfronts, \
                                        int wp, int rp, const void* piv, const void* rsx,      \
                                        void* y, int n, void* out, int regime, int tiles,      \
-                                       void* ctl, void* mail, unsigned tag, void* stream) {   \
+                                       void* ctl, void* mail, void* stream) {                 \
         return sweep_bwd<A, FTZ>(device, static_cast<const A*>(pool), g0, nfronts, wp, rp,    \
                                  static_cast<const int32_t*>(piv),                            \
                                  static_cast<const int32_t*>(rsx), static_cast<A*>(y), n,     \
                                  static_cast<A*>(out), regime, tiles, static_cast<int*>(ctl), \
-                                 static_cast<unsigned*>(mail), tag,                           \
+                                 static_cast<unsigned*>(mail),                                \
                                  static_cast<cudaStream_t>(stream));                          \
     }
 

@@ -63,7 +63,8 @@ __all__ = ["FrontalPlan", "build_frontal_plan", "frontal_factor_pool",
            "assemble_pool", "default_pivot_eps", "extend_add",
            "extend_add_plain", "front_sweep", "front_sweep_plain",
            "front_sweep_t_plain", "rows_reduce", "rows_reduce_plain",
-           "launch_sweep", "sweep_regime", "warp_deal", "LAUNCHES", "MAX_TRI", "RED_BINS"]
+           "launch_sweep", "control_words", "sweep_regime", "warp_deal", "LAUNCHES", "MAX_TRI",
+           "RED_BINS"]
 
 MAX_TRI = 128  # widest pivot block a thread block solves (kMaxTri of csrc/frontal.cu)
 WARP_TRI = 32  # widest pivot block a warp solves in registers (kWarpTri)
@@ -513,7 +514,8 @@ def front_sweep_plain(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp:
 
 def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
                 piv: torch.Tensor, rsx: torch.Tensor, forward: bool,
-                flush: bool = False) -> Optional[torch.Tensor]:
+                flush: bool = False,
+                control: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
     """One group's forward or backward substitution from the factored pool,
     in place in ``y`` [n + 1]; see :func:`front_sweep_plain`.
 
@@ -521,7 +523,7 @@ def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, 
     stream, in the regime :func:`sweep_regime` picks for the group's shape
     (every width, the triangle read in place); it raises if the inputs do not
     fit the kernel or the launch fails. On the CPU it runs the plain
-    version."""
+    version. ``control`` is as for :func:`launch_sweep`."""
     n = y.numel() - 1
     _check_group(pool, g0, nf, wp, rp, piv=(piv, (nf, wp), torch.int32),
                  rsx=(rsx, (nf, rp), torch.int32))
@@ -537,48 +539,52 @@ def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, 
     else:  # the partials of a tiled front's panel
         out = torch.empty((nf, tiles, wp) if tiles > 1 else (1,), dtype=pool.dtype,
                           device=pool.device)
-    launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush, out)
+    launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush, out, control=control)
     return out if forward else None
 
 
-# Per device: the sweep kernel's tickets (int32, zero between launches) and the
-# wide regime's mailbox (uint32 pairs, zeroed when allocated; a launch's tag is
-# new, so a word an earlier launch left never matches), and the last tag.
-_CONTROL: Dict[torch.device, list] = {}
-
-
-def _control(device: torch.device, nf: int, mail_words: int):
-    """(tickets, mailbox, tag) for one sweep launch on ``device``."""
-    c = _CONTROL.get(device)
-    if c is None or c[0].numel() < max(nf, 2) or c[1].numel() < mail_words or c[2] >= 2**32 - 1:
-        old = (0, 0) if c is None else (c[0].numel(), c[1].numel())
-        c = [torch.zeros(max(nf, 2, old[0]), dtype=torch.int32, device=device),
-             torch.zeros(max(mail_words, old[1], 2), dtype=torch.int32, device=device), 0]
-        _CONTROL[device] = c
-    c[2] += 1
-    return c[0], c[1], c[2]
+def control_words(nf: int, wp: int, rp: int, itemsize: int) -> int:
+    """int32 words of control one sweep launch of a group takes: a ticket a
+    front (even, so that the wide regime's mailbox behind them is 8-byte
+    aligned) and, in the wide regime, a (word, tag) pair for every 32-bit word
+    of z."""
+    regime, _ = sweep_regime(nf, wp, rp)
+    tickets = nf + (nf & 1)
+    return tickets + (nf * wp * itemsize // 2 if regime == "wide" else 0)
 
 
 def launch_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
                  piv: torch.Tensor, rsx: torch.Tensor, forward: bool, flush: bool,
-                 zbuf: torch.Tensor, upd: Optional[torch.Tensor] = None) -> None:
+                 zbuf: torch.Tensor, upd: Optional[torch.Tensor] = None,
+                 control: Optional[torch.Tensor] = None) -> None:
     """One launch of the sweep kernel on the current stream and nothing
     beside it: the part of :func:`front_sweep` that is the kernel, for
     checked inputs on a card. ``zbuf`` is the output :func:`front_sweep`
     allocates: forward ``upd`` [B, rp]; backward the scratch [B, tiles, wp]
     in which the tiles of a block-regime front leave their panel's partials
     (any tensor of the pool's type where the group is not tiled). ``upd``, if
-    given, is the forward output instead."""
+    given, is the forward output instead.
+
+    ``control`` is the launch's tickets and mailbox: int32 zeros of at least
+    :func:`control_words`, for this launch alone, ordered on the current
+    stream. By default they are allocated here, zeroed on the current stream;
+    a caller that makes many launches passes slices of one zeroed buffer."""
     n = y.numel() - 1
     regime, tiles = sweep_regime(nf, wp, rp)
     out = upd if forward and upd is not None else zbuf
-    ctl, mail, tag = _control(pool.device, nf, nf * wp * pool.element_size() // 2
-                              if regime == "wide" else 0)
+    words = control_words(nf, wp, rp, pool.element_size())
+    if control is None:
+        control = torch.zeros(words, dtype=torch.int32, device=pool.device)
+    elif (control.dtype != torch.int32 or control.device != pool.device
+          or control.numel() < words or not control.is_contiguous()):
+        raise ValueError(f"control must be {words} contiguous int32 words on {pool.device}")
+    tickets = nf + (nf & 1)
     name = f"respa_front_sweep_{'fwd' if forward else 'bwd'}_{_instance(pool, flush)}"
     rc = getattr(_library(), name)(
         pool.device.index, pool.data_ptr(), g0, nf, wp, rp, piv.data_ptr(), rsx.data_ptr(),
-        y.data_ptr(), n, out.data_ptr(), _REGIMES[regime], tiles, ctl.data_ptr(),
-        mail.data_ptr(), tag, torch.cuda.current_stream(pool.device).cuda_stream)
+        y.data_ptr(), n, out.data_ptr(), _REGIMES[regime], tiles, control.data_ptr(),
+        control[tickets:].data_ptr() if regime == "wide" else control.data_ptr(),
+        torch.cuda.current_stream(pool.device).cuda_stream)
     _launched(name, rc)
 
 
@@ -656,23 +662,27 @@ def rows_reduce(y: torch.Tensor, upd: torch.Tensor, red_rows: torch.Tensor,
 
 def front_sweep_t_plain(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int,
                         rp: int, piv: torch.Tensor, rsx: torch.Tensor,
-                        forward: bool) -> Optional[torch.Tensor]:
+                        forward: bool, flush: bool = False) -> Optional[torch.Tensor]:
     """One group's substitution for the transposed system, in torch ops on
     any device (the Hager condition estimate's solves; no kernel yet).
     Forward, U^T z = s (U^T is lower, non-unit): ``z = U11^-T y[piv]``,
     ``y[piv] = z``, returns ``upd = -U12^T z`` for :func:`rows_reduce`.
     Backward, L^T w = z (unit upper): ``y[piv] = L11^-T (y[piv] - L21^T
-    y[rsx])``."""
+    y[rsx])``. Under ``flush`` y, every product's sum and every result is
+    flushed to zero, as :func:`front_sweep_plain` does."""
     f = _fronts(pool, g0, nf, wp + rp)
     pv = piv.long()
-    yp = y[pv][..., None]
+    yp = ftz(y[pv], flush)[..., None]
     if forward:
-        z = torch.linalg.solve_triangular(_unit_diag(f[:, :wp, :wp]).mT, yp, upper=False)
+        z = ftz(torch.linalg.solve_triangular(_unit_diag(f[:, :wp, :wp]).mT, yp, upper=False),
+                flush)
         _put(y, pv, z[..., 0])
-        return -(f[:, :wp, wp:].mT @ z)[..., 0]
+        return ftz(-(f[:, :wp, wp:].mT @ z)[..., 0], flush)
     if rp:
-        yp = yp - f[:, wp:, :wp].mT @ y[rsx.long()][..., None]
-    z = torch.linalg.solve_triangular(f[:, :wp, :wp].mT, yp, upper=True, unitriangular=True)
+        yp = ftz(yp - ftz(f[:, wp:, :wp].mT @ ftz(y[rsx.long()], flush)[..., None], flush),
+                 flush)
+    z = ftz(torch.linalg.solve_triangular(f[:, :wp, :wp].mT, yp, upper=True,
+                                          unitriangular=True), flush)
     _put(y, pv, z[..., 0])
     return None
 
@@ -806,6 +816,11 @@ class FrontalSolver:
         self.flush = bool(flush)
         self.n = plan.part.n
         self._dev = plan.on_device(pool.device)
+        # each sweep launch of a solve takes its own run of one buffer of
+        # control words, zeroed once a solve on the solve's stream
+        words = [control_words(g.nfronts, g.wp, g.rp, pool.element_size())
+                 for g in plan.groups]
+        self._ctl_off = np.concatenate([[0], np.cumsum(words)]).tolist()
 
     @property
     def launches_per_solve(self) -> int:
@@ -821,28 +836,47 @@ class FrontalSolver:
         y[:self.n] = b.to(self.pool.dtype)
         return y
 
-    def _run(self, y: torch.Tensor, sweep, forward: bool, flush: bool) -> None:
+    def _run(self, y: torch.Tensor, sweep, forward: bool) -> None:
         idx = range(len(self.plan.groups))
         for gi in (idx if forward else reversed(idx)):
             g, dg = self.plan.groups[gi], self._dev[gi]
-            upd = sweep(self.pool, y, g.g0, g.nfronts, g.wp, g.rp, dg["piv"], dg["rsx"], forward)
+            upd = sweep(gi, y, g.g0, g.nfronts, g.wp, g.rp, dg["piv"], dg["rsx"], forward)
             if forward and g.rp:
-                rows_reduce(y, upd, dg["red_rows"], dg["red_ptr"], dg["red_src"], flush)
+                rows_reduce(y, upd, dg["red_rows"], dg["red_ptr"], dg["red_src"], self.flush)
 
     def solve_device(self, bp: torch.Tensor) -> torch.Tensor:
-        """Solve L U x = bp in permuted coordinates; x in the pool's type."""
+        """Solve L U x = bp in permuted coordinates; x in the pool's type.
+
+        On a card every sweep launch takes fresh control words: one buffer
+        for the whole solve, zeroed on the current stream, forward and
+        backward each in their own half, every group in its own run. Solves
+        on two streams, or a replayed CUDA graph of one, share no ticket and
+        no mailbox word."""
         y = self._start(bp)
+        ctl = None
+        if self.pool.device.type == "cuda":
+            ctl = torch.zeros(2 * self._ctl_off[-1], dtype=torch.int32, device=self.pool.device)
 
-        def sweep(*args):
-            return front_sweep(*args, self.flush)
+        def sweep(gi, *args):
+            forward = args[-1]
+            control = None
+            if ctl is not None:
+                base = 0 if forward else self._ctl_off[-1]
+                control = ctl[base + self._ctl_off[gi]:base + self._ctl_off[gi + 1]]
+            return front_sweep(self.pool, *args, self.flush, control=control)
 
-        self._run(y, sweep, True, self.flush)
-        self._run(y, sweep, False, self.flush)
+        self._run(y, sweep, True)
+        self._run(y, sweep, False)
         return y[:self.n]
 
     def solve_t_device(self, sp: torch.Tensor) -> torch.Tensor:
-        """Solve (L U)^T w = sp in permuted coordinates: U^T then L^T."""
+        """Solve (L U)^T w = sp in permuted coordinates: U^T then L^T, under
+        the factorization's flush-to-zero."""
         y = self._start(sp)
-        self._run(y, front_sweep_t_plain, True, False)
-        self._run(y, front_sweep_t_plain, False, False)
+
+        def sweep(gi, *args):
+            return front_sweep_t_plain(self.pool, *args, self.flush)
+
+        self._run(y, sweep, True)
+        self._run(y, sweep, False)
         return y[:self.n]

@@ -12,12 +12,15 @@ The counterpart of ``respatpu/solve.py``:
 * ``factorize``            — the method chain: band, then multifrontal
 * ``solve_refined``        — factor in fp32/bf16, residual in fp64: the
                              study's headline pipeline
+* ``Ilu0Preconditioner``   — GPU/ilu0.cu: ILU(0) by Chow-Patel sweeps and its
+                             triangular applies (exact, Jacobi sweeps or ISAI)
+* ``cg``, ``gmres``, ``bicgstab`` — preconditioned Krylov solvers, their
+                             vectors on the device
 * residual / error verification — the reference's three idioms.
 
 Phase timing (analyze / factorize / solve) mirrors PARDISO phases 11/22/33
 (test_pardiso.c:185-244); each phase ends after a device synchronize. The
-scheduled sparse LU, the ILU(0) preconditioner and the Krylov loops are
-ported in later slices.
+scheduled sparse LU is ported in a later slice.
 """
 from __future__ import annotations
 
@@ -31,10 +34,12 @@ import torch
 
 from .analysis import (apply_matching_scaling, permute_csr, rcm_ordering,
                        structural_symmetry, weighted_matching_scaling)
-from .formats import CSRMatrix
+from .formats import COOMatrix, CSRMatrix, coo_to_csr, split_triangular
 from .kernels import bandlu, snlu_device
+from .kernels.ilu0 import ilu0_factor
 from .kernels.snlu import analyze_supernodes
 from .kernels.spmv import spmv, to_device
+from .kernels.sptrsv import isai_tri, jacobi_tri, sptrsv, tri_to_device
 from .precision import Policy, get_policy
 from .timing import (OpTiming, check_plausible, device_bandwidth,
                      spmv_csr_sol_bytes, time_op)
@@ -43,7 +48,8 @@ __all__ = ["SolveReport", "spmv_timed", "condition_estimate",
            "BandLuFactorization", "factorize_band",
            "SupernodalLuFactorization", "factorize",
            "solve_refined", "relative_residual", "inf_norm_error",
-           "make_rhs_for_known_x"]
+           "make_rhs_for_known_x", "Ilu0Preconditioner", "ilu0", "cg", "gmres",
+           "bicgstab"]
 
 WARMUP = 3  # untimed SpMVs before the timed repetitions
 
@@ -470,7 +476,7 @@ class SupernodalLuFactorization:
         return self.report.rcond_est
 
 
-_SLICE = {"sparse": "scheduled sparse LU (ROADMAP Queue 1, slice 4)"}
+_SLICE = {"sparse": "scheduled sparse LU (ROADMAP Queue 1, slice 6)"}
 
 
 def _memlike(e: Exception) -> bool:
@@ -674,3 +680,290 @@ def _refine_gmres_fallback(a, b, fac, x, tol, report, t0):
     report.notes = ((report.notes + "," if report.notes else "")
                     + f"gmres_ir={inner}it")
     return x2, report
+
+
+# ---------------------------------------------------------------------------
+# ILU(0) preconditioner
+# ---------------------------------------------------------------------------
+
+
+class Ilu0Preconditioner:
+    """ILU(0) factors + triangular applies on the device (GPU/ilu0.cu flow,
+    with the L-then-U intent of its descriptors -- not its L^T bug, SURVEY
+    §3.4).
+
+    ``method``: "chow_patel" (fixed-point sweeps, ``kernels.ilu0``); the
+    exact "scheduled" ILU(0) rests on the scheduled sparse LU, which is not
+    ported yet, and raises ``NotImplementedError`` naming its slice.
+
+    ``apply_mode``: "scheduled" (the exact one-launch triangular solves),
+    "jacobi" (``apply_sweeps`` fixed-point sweeps on the CSR SpMV kernel, an
+    approximate inverse), "isai" (one SpMV with each triangle's incomplete
+    sparse approximate inverse) or "auto" = jacobi for single-word
+    policies, scheduled for fp64 (the reference-accuracy path stays exact).
+    Everything of size n stays on ``device``; the factor values come to the
+    host once, to split them into L and U."""
+
+    def __init__(self, a: CSRMatrix, policy: Union[str, Policy] = "fp32",
+                 sweeps: int = 8, method: str = "chow_patel",
+                 apply_mode: str = "auto", apply_sweeps: int = 6,
+                 device: Union[str, torch.device] = "cuda"):
+        policy = get_policy(policy)
+        self.policy = policy
+        self.device = torch.device(device)
+        self.report = SolveReport(policy=policy.name)
+        if method in ("scheduled", "sparse"):
+            raise NotImplementedError(f"method={method!r} is not ported yet: {_SLICE['sparse']}")
+        if method != "chow_patel":
+            raise ValueError(f"unknown method {method!r}")
+        if apply_mode not in ("auto", "scheduled", "jacobi", "isai"):
+            raise ValueError(f"unknown apply_mode {apply_mode!r}")
+        t0 = time.perf_counter()
+        res, self.schedule = ilu0_factor(a, policy=policy, sweeps=sweeps, device=self.device)
+        self.report.notes = f"cp_residual={res.residual:.2e}"
+        vals = _to_host_f64(res.values)
+        self.report.t_factorize = time.perf_counter() - t0
+        self.report.n_pivot_perturbed = res.n_pivot_perturbed
+        self.report.factor_bytes = vals.size * res.values.element_size()
+
+        t0 = time.perf_counter()
+        n = a.nrows
+        L, d, U = split_triangular(CSRMatrix(a.shape, a.indptr, a.indices, vals))
+        dn = np.arange(n, dtype=np.int32)
+        lcoo = L.tocoo()
+        lfull = coo_to_csr(COOMatrix((n, n), np.concatenate([lcoo.row, dn]),
+                                     np.concatenate([lcoo.col, dn]),
+                                     np.concatenate([lcoo.val, np.ones(n)])))
+        if apply_mode == "auto":
+            apply_mode = "scheduled" if policy.dtype == torch.float64 else "jacobi"
+        self.apply_mode = apply_mode
+        if apply_mode == "isai":
+            self._l = isai_tri(lfull, lower=True, unit_diag=True, policy=policy,
+                               device=self.device)
+            self._u = isai_tri(U, lower=False, policy=policy, device=self.device)
+            self.report.notes += ",apply=isai"
+        elif apply_mode == "jacobi":
+            self._l = jacobi_tri(lfull, lower=True, unit_diag=True, sweeps=apply_sweeps,
+                                 policy=policy, device=self.device)
+            self._u = jacobi_tri(U, lower=False, sweeps=apply_sweeps, policy=policy,
+                                 device=self.device)
+            self.report.notes += f",apply=jacobi{apply_sweeps}"
+        else:
+            self._l = tri_to_device(lfull, lower=True, unit_diag=True, policy=policy,
+                                    device=self.device)
+            self._u = tri_to_device(U, lower=False, policy=policy, device=self.device)
+        _sync(self.device)
+        self.report.t_analyze = time.perf_counter() - t0
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        """M^-1 r = U^-1 (L^-1 r), in the policy's accumulator type."""
+        return sptrsv(self._u, sptrsv(self._l, r))
+
+
+def ilu0(a: CSRMatrix, policy: Union[str, Policy] = "fp32", sweeps: int = 8,
+         device: Union[str, torch.device] = "cuda") -> Ilu0Preconditioner:
+    return Ilu0Preconditioner(a, policy=policy, sweeps=sweeps, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Krylov solvers (preconditioned)
+# ---------------------------------------------------------------------------
+# Each loop keeps its vectors on the device and makes the host wait once per
+# convergence test: once an iteration for CG and BiCGSTAB, once a restart
+# cycle for GMRES. That is where respatpu's lax.while_loop tests its
+# condition, so both take the same number of iterations.
+
+
+def _krylov_dtype(policy: Policy) -> torch.dtype:
+    """Krylov vector dtype under the policy (dots always accumulate fp32)."""
+    return torch.bfloat16 if policy.dtype == torch.bfloat16 else torch.float32
+
+
+def _hdot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.dot(u.float(), v.float())
+
+
+def _krylov_device(precond, device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    return precond.device if precond is not None else torch.device("cuda")
+
+
+def cg(a: CSRMatrix, b: np.ndarray, precond: Optional[Ilu0Preconditioner] = None,
+       policy: Union[str, Policy] = "fp32", tol: float = 1e-8, max_iters: int = 500,
+       device: Union[str, torch.device, None] = None) -> Tuple[np.ndarray, SolveReport]:
+    """Preconditioned conjugate gradient (SPD matrices).
+
+    The vector dtype honors the policy (bf16 runs bf16 vectors with fp32 dot
+    accumulation); under fp64 the products are fp64 SpMVs rounded to fp32.
+    ``device`` defaults to the preconditioner's (else "cuda")."""
+    policy = get_policy(policy)
+    report = SolveReport(policy=policy.name)
+    t0 = time.perf_counter()
+    device = _krylov_device(precond, device)
+    dev = to_device(a, policy, device)
+    dt = _krylov_dtype(policy)
+
+    def mv(v):
+        return spmv(dev, v.to(policy.accum_dtype)).to(dt)
+
+    def pc(v):
+        return v if precond is None else precond.apply(v.float()).to(dt)
+
+    bj = torch.from_numpy(np.asarray(b, np.float64)).to(dt).to(device)
+    nb2 = _hdot(bj, bj)
+    nb2 = torch.where(nb2 > 0, nb2, torch.ones_like(nb2))
+    tol2 = torch.tensor(tol, dtype=torch.float32, device=device) ** 2 * nb2
+    x = torch.zeros_like(bj)
+    r = bj
+    z = pc(bj)
+    p = z
+    rz = _hdot(bj, z)
+    rn2 = _hdot(bj, bj)
+    it = 0
+    while it < max_iters and bool(rn2 > tol2):
+        ap = mv(p)
+        alpha = (rz / _hdot(p, ap)).to(dt)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = pc(r)
+        rz_new = _hdot(r, z)
+        p = z + (rz_new / rz).to(dt) * p
+        rz, it, rn2 = rz_new, it + 1, _hdot(r, r)
+    xh = _to_host_f64(x)
+    report.t_solve = time.perf_counter() - t0
+    report.iterations = it
+    report.residual = relative_residual(a, xh, np.asarray(b, np.float64))
+    report.converged = report.residual < tol * 100
+    return xh, report
+
+
+def gmres(a: CSRMatrix, b: np.ndarray, precond: Optional[Ilu0Preconditioner] = None,
+          policy: Union[str, Policy] = "fp32", tol: float = 1e-8, restart: int = 40,
+          max_restarts: int = 20,
+          device: Union[str, torch.device, None] = None) -> Tuple[np.ndarray, SolveReport]:
+    """Restarted GMRES(m) with right preconditioning (general matrices).
+
+    fp32 vectors and products (the fp32 SpMV under fp64 too). Each cycle runs
+    a classical Gram-Schmidt Arnoldi with one reorthogonalization (CGS2; its
+    products with the basis are dense fp32 products with TF32 off) and
+    solves the small (m+1, m) Hessenberg least-squares problem on the device
+    by QR, with respatpu's 1e-20 guard on R's diagonal; the host waits once
+    a cycle, for the residual norm."""
+    policy = get_policy(policy)
+    report = SolveReport(policy=policy.name)
+    t0 = time.perf_counter()
+    device = _krylov_device(precond, device)
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on; GMRES's basis "
+                           "products need full fp32")
+    dev = to_device(a, "fp32" if policy.dtype == torch.float64 else policy, device)
+    n, m = a.nrows, restart
+
+    def mv(v):
+        return spmv(dev, v)
+
+    def pc(v):
+        return v if precond is None else precond.apply(v).float()
+
+    bj = torch.from_numpy(np.asarray(b, np.float64)).float().to(device)
+    nb = torch.linalg.vector_norm(bj)
+    nb = torch.where(nb > 0, nb, torch.ones_like(nb))
+    x = torch.zeros_like(bj)
+    it = 0
+    relres = torch.linalg.vector_norm(bj) / nb
+    while it < m * max_restarts and bool(relres > tol):
+        r = bj - mv(x)
+        beta = torch.linalg.vector_norm(r)
+        V = torch.zeros((m + 1, n), dtype=torch.float32, device=device)
+        Z = torch.zeros((m, n), dtype=torch.float32, device=device)
+        H = torch.zeros((m + 1, m), dtype=torch.float32, device=device)
+        V[0] = r / beta.clamp(min=1e-30)
+        for j in range(m):
+            z = pc(V[j])
+            Z[j] = z
+            w = mv(z)
+            h = V @ w  # CGS projections (rows > j are zero)
+            w = w - V.T @ h
+            h2 = V @ w  # one reorthogonalization pass (CGS2)
+            w = w - V.T @ h2
+            hn = torch.linalg.vector_norm(w)
+            V[j + 1] = w / hn.clamp(min=1e-30)
+            H[:, j] = h + h2
+            H[j + 1, j] += hn
+        # least squares min ||H y - beta e1||; breakdown columns (hn ~ 0) make
+        # H rank-deficient: R's diagonal is kept off zero, and the y entries
+        # it touches multiply near-zero basis vectors
+        e1 = torch.zeros(m + 1, dtype=torch.float32, device=device)
+        e1[0] = beta
+        q, r_ = torch.linalg.qr(H)
+        diag = r_.diagonal()
+        r_.diagonal().copy_(torch.where(diag.abs() < 1e-20, torch.full_like(diag, 1e-20), diag))
+        y = torch.linalg.solve_triangular(r_, (q.T @ e1)[:, None], upper=True)[:, 0]
+        x = x + Z.T @ y
+        it += m
+        relres = torch.linalg.vector_norm(bj - mv(x)) / nb
+    xh = _to_host_f64(x)
+    report.t_solve = time.perf_counter() - t0
+    report.iterations = it
+    report.residual = relative_residual(a, xh, np.asarray(b, np.float64))
+    report.converged = bool(relres <= tol) or report.residual < tol * 100
+    return xh, report
+
+
+def bicgstab(a: CSRMatrix, b: np.ndarray, precond: Optional[Ilu0Preconditioner] = None,
+             policy: Union[str, Policy] = "fp32", tol: float = 1e-8, max_iters: int = 500,
+             device: Union[str, torch.device, None] = None) -> Tuple[np.ndarray, SolveReport]:
+    """Preconditioned BiCGSTAB (general matrices); vector dtype as for
+    :func:`cg`, the fp32 SpMV under fp64."""
+    policy = get_policy(policy)
+    report = SolveReport(policy=policy.name)
+    t0 = time.perf_counter()
+    device = _krylov_device(precond, device)
+    dev = to_device(a, "fp32" if policy.dtype == torch.float64 else policy, device)
+    dt = _krylov_dtype(policy)
+
+    def mv(v):
+        return spmv(dev, v.float()).to(dt)
+
+    def pc(v):
+        return v if precond is None else precond.apply(v).to(dt)
+
+    bj = torch.from_numpy(np.asarray(b, np.float64)).to(dt).to(device)
+    nb2 = _hdot(bj, bj)
+    nb2 = torch.where(nb2 > 0, nb2, torch.ones_like(nb2))
+    tol2 = torch.tensor(tol, dtype=torch.float32, device=device) ** 2 * nb2
+    one = torch.ones((), dtype=torch.float32, device=device)
+    x, r = torch.zeros_like(bj), bj
+    p, v = torch.zeros_like(bj), torch.zeros_like(bj)
+    rho = alpha = omega = one
+    rn2 = _hdot(bj, bj)
+    it = 0
+    while it < max_iters and bool(rn2 > tol2):
+        rho_new = _hdot(bj, r)  # rhat = b (initial residual for x0=0)
+        beta = (rho_new / rho) * (alpha / omega)
+        p = r + beta.to(dt) * (p - omega.to(dt) * v)
+        ph = pc(p)
+        v = mv(ph)
+        alpha = rho_new / _hdot(bj, v)
+        s = r - alpha.to(dt) * v
+        x = x + alpha.to(dt) * ph
+        sn2 = _hdot(s, s)
+        sh = pc(s)
+        t = mv(sh)
+        omega = _hdot(t, s) / _hdot(t, t)
+        x2 = x + omega.to(dt) * sh
+        r2 = s - omega.to(dt) * t
+        # half-step early exit: if s already converged keep (x, s)
+        done = sn2 <= tol2
+        x = torch.where(done, x, x2)
+        r = torch.where(done, s, r2)
+        rn2 = torch.where(done, sn2, _hdot(r2, r2))
+        rho, it = rho_new, it + 1
+    xh = _to_host_f64(x)
+    rel2 = float(rn2 / nb2)
+    report.t_solve = time.perf_counter() - t0
+    report.iterations = it
+    report.residual = relative_residual(a, xh, np.asarray(b, np.float64))
+    report.converged = rel2 < (tol * 10) ** 2 or report.residual < tol * 100
+    return xh, report

@@ -14,6 +14,7 @@ from respatpu.precision import df_from_f64, df_to_f64
 from respatpu_torch.interop import (band_from_respatpu, band_to_numpy, csr_from_respatpu,
                                     df_to_numpy)
 from respatpu_torch.kernels import bandlu
+from respatpu_torch.precision import FP32_MIN_NORMAL
 
 PACK = {"random_banded": lambda: random_banded(100, 6, 4, seed=1),
         "laplacian_2d": lambda: laplacian_2d(16, 12),
@@ -253,6 +254,17 @@ def test_band_solve_transpose(policy):
     ref = np.linalg.solve(a.toarray().T, s)
     tol = {"fp64": 1e-10, "bf16": 5e-2}.get(policy, 1e-3)  # the stored factor's precision
     np.testing.assert_allclose(z.double().numpy(), ref, rtol=tol, atol=tol * np.abs(ref).max())
+    if policy in ("fp32", "fp32_ftz"):
+        # a planted subnormal partial: z0 = s0 / u00 lands at a quarter of the
+        # smallest normal; fp32_ftz flushes it (and so all of z), fp32 keeps it
+        u00 = abs(float(lu.data[0, 0, lu.ml * lu.p]))
+        sp = torch.zeros(130, dtype=torch.float32)
+        sp[0] = FP32_MIN_NORMAL / 4 * u00
+        z0 = bandlu.band_solve_transpose(lu, sp)
+        if policy == "fp32":
+            assert 0 < abs(float(z0[0])) < FP32_MIN_NORMAL
+        else:
+            assert not z0.any()
 
 
 def test_fp32_ftz_flushes_band_and_rhs():

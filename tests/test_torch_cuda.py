@@ -1,5 +1,6 @@
 """The hand-written kernels (CSR SpMV, block LU, band sweep, extend-add,
-frontal sweep, row reduction) against their plain versions on a CUDA card.
+frontal sweep, row reduction, ILU(0) sweep, triangular solve) against their
+plain versions on a CUDA card.
 
 Marked ``cuda``: without a card each test skips with a reason. On a machine
 with one, run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -13,8 +14,11 @@ import torch
 
 from respatpu_torch.bench import synth
 from respatpu_torch.formats import COOMatrix, coo_to_csr
-from respatpu_torch import solve
+from respatpu_torch import analysis, solve
 from respatpu_torch.kernels import bandlu as B
+from respatpu_torch.kernels import ilu0 as I
+from respatpu_torch.kernels import sptrsv as S
+from respatpu_torch.precision import get_policy
 from respatpu_torch.kernels import snlu, snlu_device as F
 from respatpu_torch.kernels import spmv as K
 
@@ -235,13 +239,13 @@ def _held(got, ref, dtype):
     return float((got - ref).abs().max()) <= FRONT_TOL[dtype] * max(float(ref.abs().max()), 1.0)
 
 
-@pytest.mark.parametrize("inst", list(FRONT_INST))
-def test_frontal_kernels_match_plain(card, inst):
+def test_frontal_kernels_match_plain(card):
     """Extend-add bit for bit (the same additions in the same order), sweeps
     and reduction within tolerance, every one twice, bitwise equal, each
-    wrapper counting its launches; over all the shapes."""
-    for shape in FRONT_SHAPES:
-        _check_frontal_kernels(card, shape, inst)
+    wrapper counting its launches; over all the shapes, in every instance."""
+    for inst in FRONT_INST:
+        for shape in FRONT_SHAPES:
+            _check_frontal_kernels(card, shape, inst)
 
 
 def _check_frontal_kernels(card, shape, inst):
@@ -285,7 +289,7 @@ def _check_frontal_kernels(card, shape, inst):
 def test_launch_sweep_is_the_kernels_part_of_a_wide_front(card):
     """A front wider than ``MAX_TRI``: ``launch_sweep`` into the output
     ``front_sweep`` allocates gives what ``front_sweep`` gives, bit for bit,
-    and counts once; a second launch draws the tickets the first left reset."""
+    and counts once; each launch draws tickets zeroed for it alone."""
     nf, wp, rp = 2, 192, 96
     t = _front_group((nf, wp, rp, 1), torch.float32, card)
     grp = (0, nf, wp, rp)
@@ -339,6 +343,24 @@ def _check_factor_and_solve(card, a, plan, dtype, flush):
     assert torch.equal(x, solver.solve_device(b.to(card)))
     ref = F.FrontalSolver(plan, on_card.cpu(), flush).solve_device(b)
     assert _held(x.cpu(), ref, dtype)
+    # two solves on two streams at once equal the sequential ones bit for
+    # bit: each solve's tickets and mailboxes are its own (P3)
+    b2 = b.flip(0).to(card)
+    x2 = solver.solve_device(b2)
+    got = _on_two_streams(lambda: solver.solve_device(b.to(card)), lambda: solver.solve_device(b2))
+    assert torch.equal(got[0], x) and torch.equal(got[1], x2)
+
+
+def _on_two_streams(first, second):
+    """Run ``first`` and ``second`` on two new streams at once; their results."""
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    out = []
+    for stream, fn in zip(streams, (first, second)):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            out.append(fn())
+    torch.cuda.synchronize()
+    return out
 
 
 def test_multifrontal_slice_on_the_card(card):
@@ -377,3 +399,93 @@ def test_frontal_wrappers_reject_bad_input_and_tf32(card):
             solve.factorize(synth.laplacian_2d(8, 8), method="snlu")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+ILU_INST = {"f32": "fp32", "f32_ftz": "fp32_ftz", "bf16": "bf16", "f64": "fp64"}
+
+
+def _triangle(kind, n=3000, seed=0):
+    """Lower triangles: random with rows that hold no off-diagonal entry, a
+    600-entry hub row (last) and a zero diagonal entry (row 5); a chain of n
+    levels; one level."""
+    rng = np.random.default_rng(seed)
+    if kind == "chain":
+        rows = np.r_[np.arange(n), np.arange(1, n)]
+        cols = np.r_[np.arange(n), np.arange(n - 1)]
+    elif kind == "one_level":
+        rows, cols = np.arange(n), np.arange(n)
+    else:
+        r, c = rng.integers(0, n, 6 * n), rng.integers(0, n, 6 * n)
+        rows = np.r_[np.maximum(r, c), np.full(600, n - 1), np.arange(n)]
+        cols = np.r_[np.minimum(r, c), rng.choice(n - 1, 600, replace=False), np.arange(n)]
+        keep = (rows % 7 != 3) | (rows == cols)
+        rows, cols = rows[keep], cols[keep]
+    vals = rng.uniform(0.5, 1.5, rows.size) * rng.choice((-1.0, 1.0), rows.size)
+    vals[rows == cols] += 3.0
+    t = coo_to_csr(COOMatrix((n, n), rows.astype(np.int32), cols.astype(np.int32), vals))
+    t.data[t.indptr[5]:t.indptr[6]][t.indices[t.indptr[5]:t.indptr[6]] == 5] = 0.0
+    return t
+
+
+def _upper(t):
+    return t.transpose()
+
+
+def test_ilu_kernels_match_plain(card):
+    """K6 (one ILU(0) sweep) and K7 (the one-launch triangular solve) bit
+    for bit with their plain versions in every instance, twice, each counting
+    its launches, the slot past the output untouched; K7 on two streams at
+    once equal to the sequential solves; subnormals flushed under fp32_ftz."""
+    a = synth.circuit_like(4000, 5, seed=2, diag="dominant")
+    sched = I.ilu_schedule_to_device(analysis.chow_patel_schedule(a), card)
+    for inst, policy in ILU_INST.items():
+        p = get_policy(policy)
+        av = p.cast_host(a.data).to(card)
+        old = (av.to(torch.float64) * 1.01).to(p.dtype)
+        name = f"respa_ilu0_sweep_{inst}"
+        before = I.LAUNCHES[name]
+        outs = []
+        for _ in range(2):
+            out = torch.full((a.nnz + 1,), 7.0, dtype=p.dtype, device=card)
+            _, res = I.ilu0_sweep(sched, av, old, 0.5, True, p.flush_to_zero, True, out=out)
+            outs.append((out, res))
+        want, wres = I.ilu0_sweep_plain(sched, av, old, 0.5, True, p.flush_to_zero, True)
+        torch.cuda.synchronize()
+        assert I.LAUNCHES[name] == before + 2
+        for out, res in outs:
+            assert torch.equal(out[:-1], want) and float(out[-1]) == 7.0, inst
+            assert torch.equal(res, wres), inst
+    b64 = np.random.default_rng(1).standard_normal(3000)
+    for kind in ("random", "chain", "one_level"):
+        t = _triangle(kind)
+        for lower in (True, False):
+            tri = t if lower else _upper(t)
+            for unit in (False, True):
+                for inst, policy in ILU_INST.items():
+                    d = S.tri_to_device(tri, lower, unit, policy, device=card)
+                    b = torch.from_numpy(b64).to(d.policy.accum_dtype).to(card)
+                    name = f"respa_tri_solve_{'lower' if lower else 'upper'}_{inst}"
+                    before = S.LAUNCHES[name]
+                    ys = []
+                    for _ in range(2):
+                        y = torch.full((3001,), 7.0, dtype=b.dtype, device=card)
+                        S.tri_solve(d, b, out=y)
+                        ys.append(y)
+                    want = S.tri_solve_plain(d, b)
+                    torch.cuda.synchronize()
+                    assert S.LAUNCHES[name] == before + 2
+                    for y in ys:
+                        assert torch.equal(y[:-1], want) and float(y[-1]) == 7.0, (kind, inst)
+    d = S.tri_to_device(_triangle("random"), True, False, "fp32", device=card)
+    b = torch.from_numpy(b64).float().to(card)
+    b2 = b.flip(0).contiguous()
+    y1, y2 = S.tri_solve(d, b), S.tri_solve(d, b2)
+    got = _on_two_streams(lambda: S.tri_solve(d, b), lambda: S.tri_solve(d, b2))
+    assert torch.equal(got[0], y1) and torch.equal(got[1], y2)
+    # a subnormal partial: y1 = 0 - n10 y0 = -1e-39 under fp32, 0 under fp32_ftz
+    l2 = coo_to_csr(COOMatrix((2, 2), np.array([0, 1, 1], np.int32), np.array([0, 0, 1], np.int32),
+                              np.array([1.0, 1e-20, 1.0])))
+    for policy, nonzero in (("fp32", True), ("fp32_ftz", False)):
+        y = S.tri_solve(S.tri_to_device(l2, policy=policy, device=card),
+                        torch.tensor([1e-19, 0.0], device=card))
+        assert (float(y[1]) != 0.0) == nonzero

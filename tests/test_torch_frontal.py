@@ -126,6 +126,20 @@ def test_transposed_sweeps_are_the_dense_loop(shape, forward):
                                 ref[pv] - f[wp:, :wp].T @ ref[rs])
         ref[pv[pv < n]] = z[pv < n]
     _close(y, ref, torch.float64)
+    # a subnormal partial under fp32_ftz comes out as 0; under fp32 it stays.
+    # Forward it is z0 = s0 / u00 at the first pivot; backward the planted
+    # entry itself, which L^T's unit diagonal passes through
+    g32, t32 = _group(shape, torch.float32)
+    row0 = int(g32["piv"][0, 0])
+    d0 = abs(float(_front(g32, 0)[0, 0])) if forward else 1.0
+    got = {}
+    for flush in (False, True):
+        y = torch.zeros_like(t32["y"])
+        y[row0] = FP32_MIN_NORMAL / 4 * d0
+        dev.front_sweep_t_plain(t32["pool"], y, 0, nf, wp, rp, t32["piv"], t32["rsx"],
+                                forward, flush)
+        got[flush] = float(y[row0])
+    assert 0 < abs(got[False]) < FP32_MIN_NORMAL and got[True] == 0.0
 
 
 def test_a_zero_pivot_diagonal_is_read_as_one():

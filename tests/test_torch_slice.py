@@ -84,13 +84,13 @@ def test_sweep_spmv_rows_and_header(tmp_path):
 def test_cli_device_rules(mtx, capsys, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
-        for cmd in ("spmv", "lu"):
+        for cmd in ("spmv", "lu", "ilu0"):
             with pytest.raises(SystemExit, match="--device cpu"):
                 cli.main([cmd, mtx])  # the default device is cuda
     cli.main(["sweep", "spmv", "--group", "moderate", "--max-synth-nnz", "2000",
               "--device", "cpu", "--reps", "1"])
     assert capsys.readouterr().out.count("[spmv]") == 21
-    for argv in (["ilu0", mtx], ["sweep", "ilu0", "--device", "cpu"]):
+    for argv in (["fetch", "moderate"], ["sweep", "ilu0dist", "--device", "cpu"]):
         with pytest.raises(SystemExit, match="not ported"):
             cli.main(argv)
 

@@ -146,7 +146,7 @@ def test_auto_falls_through_from_band_to_snlu(systems):
     assert "; snlu: front pool would need" in text and text.endswith("; sparse: not ported")
     with pytest.raises(MemoryError, match="front pool would need"):
         solve.factorize(a, method="snlu", max_pool_bytes=1 << 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         solve.factorize(a, method="sparse", device="cpu")
     with pytest.raises(ValueError, match="square"):
         from respatpu_torch.formats import COOMatrix, coo_to_csr
