@@ -727,8 +727,10 @@ def check_frontal_group(errs, t, cname, nf, wp, rp, npar, dtype, flush, inst):
     for fwd in (True, False):
         name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
         ys = [t["y"].clone() for _ in range(3)]
-        u0 = F.front_sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush)
-        u1 = F.front_sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush)
+        u0 = F.front_sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush,
+                           control=F.control_zeros(t["pool"], nf, wp, rp))
+        u1 = F.front_sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush,
+                           control=F.control_zeros(t["pool"], nf, wp, rp))
         u2 = F.front_sweep_plain(t["pool"], ys[2], *grp, t["piv"], t["rsx"], fwd, flush)
         torch.cuda.synchronize()
         worst = max(worst, held(name, ys[0], ys[2], ys[1]))
@@ -831,7 +833,8 @@ def hold_frontal_full(name_limit, name, fac, errs, full):
             grp = (g.g0, g.nfronts, g.wp, g.rp)
             y_in = y.clone()
             yp = y.clone()
-            upd = F.front_sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush)
+            upd = F.front_sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush,
+                                control=F.control_zeros(pool, *grp[1:]))
             updp = F.front_sweep_plain(pool, yp, *grp, d["piv"], d["rsx"], fwd, flush)
             run64 = {}
 
@@ -983,8 +986,12 @@ def time_frontal(name_limit, fac, times):
             # written, y[rsx] read (backward) or upd written (forward), indices
             need = nf * ((tri + rp * wp + 2 * wp + rp) * item + (wp if fwd else wp + rp) * 4)
 
-            def sweep(fn=F.front_sweep, fwd=fwd):
-                return fn(pool, y, *grp, d["piv"], d["rsx"], fwd, flush)
+            def sweep(fwd=fwd):
+                return F.front_sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush,
+                                     control=F.control_zeros(pool, *grp[1:]))
+
+            def plain(fwd=fwd):
+                return F.front_sweep_plain(pool, y, *grp, d["piv"], d["rsx"], fwd, flush)
 
             def library_route(fwd=fwd):
                 """The same function by the library: the triangle in place."""
@@ -1003,10 +1010,11 @@ def time_frontal(name_limit, fac, times):
                 return None
 
             record(name, tag, f"{shape}, {g.regime} regime x{g.tiles}", sweep,
-                   lambda: sweep(F.front_sweep_plain), None, kernel_name, need, setup=reset,
+                   plain, None, kernel_name, need, setup=reset,
                    extra={"library_route_ms": lambda: events_ms(library_route, 10, reset)})
         if rp and not flush:
-            upd = F.front_sweep(pool, y0.clone(), *grp, d["piv"], d["rsx"], True, flush)
+            upd = F.front_sweep(pool, y0.clone(), *grp, d["piv"], d["rsx"], True, flush,
+                                control=F.control_zeros(pool, *grp[1:]))
             red = (d["red_rows"], d["red_ptr"], d["red_src"])
             nnz, nd = g.red_src.size, g.red_rows.size
             nbytes = nnz * (item + 4) + (nd + 1) * 8 + nd * 4 + 2 * nd * item
@@ -1376,6 +1384,7 @@ def ilu_path(name_limit, mats):
     # bit); by 30 sweeps the iteration has converged
     ilu_row(name_limit, "2cubes_sphere", "fp32", 8, False)
     ilu_row(name_limit, "2cubes_sphere", "fp32", 30, True)
+    ilu_row(name_limit, "2cubes_sphere", "fp64", 8, False)
     ilu_row(name_limit, "2cubes_sphere", "fp64", 30, True)
     ilu_row(name_limit, "dc1", "fp32", 8, False)
     lap = laplacian_2d(300, 300)
@@ -1449,10 +1458,13 @@ def hold_and_time_ilu(name_limit, a, errs, times):
     for inst, policy in ILU_POLICIES.items():
         p = get_policy(policy)
         av = p.cast_host(a.data).cuda()
-        out, _ = I.ilu0_sweep(s, av, av, eps, True, p.flush_to_zero)
+        # the factorization's second sweep: A's values, and the first sweep's
+        # result as the iterate, a tensor of its own as on the path
+        old, _ = I.ilu0_sweep(s, av, av.clone(), eps, True, p.flush_to_zero)
+        out, _ = I.ilu0_sweep(s, av, old, eps, True, p.flush_to_zero)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want, _ = I.ilu0_sweep_plain(s, av, av, eps, True, p.flush_to_zero)
+        want, _ = I.ilu0_sweep_plain(s, av, old, eps, True, p.flush_to_zero)
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t0) * 1e3
         if not torch.equal(out, want):
@@ -1461,8 +1473,8 @@ def hold_and_time_ilu(name_limit, a, errs, times):
         nbytes = ilu_bytes(s, p.dtype.itemsize)
         ops = 2 * sched.npairs + a.nnz
         bound = max(nbytes / HBM_BYTES_PER_S, ops / FLOPS_PER_S[p.accum_dtype]) * 1e3
-        t = {"ms": events_ms(lambda: I.ilu0_sweep(s, av, av, eps, True, p.flush_to_zero), 10),
-             "profiler_ms": profiler_ms(lambda: I.ilu0_sweep(s, av, av, eps, True,
+        t = {"ms": events_ms(lambda: I.ilu0_sweep(s, av, old, eps, True, p.flush_to_zero), 10),
+             "profiler_ms": profiler_ms(lambda: I.ilu0_sweep(s, av, old, eps, True,
                                                              p.flush_to_zero),
                                         "ilu0_sweep_kernel", 10),
              "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
@@ -1522,9 +1534,17 @@ def hold_and_time_ilu(name_limit, a, errs, times):
     for what, pre, bb in (("Jacobi (6 sweeps a triangle, fp32)", pre32, b.float()),
                           ("ISAI (one SpMV a triangle, fp32)", isai, b.float()),
                           ("exact (K7, fp64)", pre64, b)):
-        ms = events_ms(lambda: pre.apply(bb), 10)
+        windows = [events_ms(lambda: pre.apply(bb), 10) for _ in range(5)]
+        busy = "not measured"
+        try:  # the card's own time for the same work, launches and host left out
+            ev = device_events(lambda: [pre.apply(bb) for _ in range(10)])
+            busy = f"{sum(t for _, t in ev) * 1e3 / 10:.4f} ms in {len(ev) / 10:.0f} records"
+        except ProfilerUnavailable as e:
+            busy += f" ({e})"
         print(f"[time] {name_limit} | one {what} apply of 2cubes_sphere's ILU(0), whole: "
-              f"{ms:.4f} ms by events", flush=True)
+              f"{float(np.median(windows)):.4f} ms by events (median of 5 windows, each the "
+              f"median of 10: {', '.join(f'{w:.4f}' for w in windows)}); device busy an apply "
+              f"{busy}", flush=True)
     krylov_profile(name_limit, a, pre32)
 
 

@@ -63,8 +63,8 @@ __all__ = ["FrontalPlan", "build_frontal_plan", "frontal_factor_pool",
            "assemble_pool", "default_pivot_eps", "extend_add",
            "extend_add_plain", "front_sweep", "front_sweep_plain",
            "front_sweep_t_plain", "rows_reduce", "rows_reduce_plain",
-           "launch_sweep", "control_words", "sweep_regime", "warp_deal", "LAUNCHES", "MAX_TRI",
-           "RED_BINS"]
+           "launch_sweep", "control_words", "control_zeros", "sweep_regime", "warp_deal",
+           "LAUNCHES", "MAX_TRI", "RED_BINS"]
 
 MAX_TRI = 128  # widest pivot block a thread block solves (kMaxTri of csrc/frontal.cu)
 WARP_TRI = 32  # widest pivot block a warp solves in registers (kWarpTri)
@@ -513,22 +513,26 @@ def front_sweep_plain(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp:
 
 
 def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
-                piv: torch.Tensor, rsx: torch.Tensor, forward: bool,
-                flush: bool = False,
-                control: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+                piv: torch.Tensor, rsx: torch.Tensor, forward: bool, flush: bool = False, *,
+                control: torch.Tensor) -> Optional[torch.Tensor]:
     """One group's forward or backward substitution from the factored pool,
-    in place in ``y`` [n + 1]; see :func:`front_sweep_plain`.
+    in place in ``y`` [n + 1]; see :func:`front_sweep_plain`. ``control`` is
+    as for :func:`launch_sweep` (the plain version has no use for it, but it
+    is checked on every device alike).
 
     On a CUDA device this is one launch of the sweep kernel on the current
     stream, in the regime :func:`sweep_regime` picks for the group's shape
     (every width, the triangle read in place); it raises if the inputs do not
     fit the kernel or the launch fails. On the CPU it runs the plain
-    version. ``control`` is as for :func:`launch_sweep`."""
-    n = y.numel() - 1
+    version."""
     _check_group(pool, g0, nf, wp, rp, piv=(piv, (nf, wp), torch.int32),
                  rsx=(rsx, (nf, rp), torch.int32))
     if y.dim() != 1 or y.dtype != pool.dtype or y.device != pool.device or not y.is_contiguous():
         raise ValueError(f"y must be a contiguous {pool.dtype} vector on {pool.device}")
+    words = control_words(nf, wp, rp, pool.element_size())
+    if (control.dtype != torch.int32 or control.device != pool.device
+            or control.numel() < words or not control.is_contiguous()):
+        raise ValueError(f"control must be {words} contiguous int32 words on {pool.device}")
     if pool.device.type == "cpu":
         return front_sweep_plain(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush)
     if pool.device.type != "cuda":
@@ -539,7 +543,7 @@ def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, 
     else:  # the partials of a tiled front's panel
         out = torch.empty((nf, tiles, wp) if tiles > 1 else (1,), dtype=pool.dtype,
                           device=pool.device)
-    launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush, out, control=control)
+    launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush, out, control)
     return out if forward else None
 
 
@@ -553,10 +557,18 @@ def control_words(nf: int, wp: int, rp: int, itemsize: int) -> int:
     return tickets + (nf * wp * itemsize // 2 if regime == "wide" else 0)
 
 
+def control_zeros(pool: torch.Tensor, nf: int, wp: int, rp: int) -> torch.Tensor:
+    """Fresh control words for one sweep launch of a group: int32 zeros of
+    :func:`control_words`, on the pool's device, zeroed on the current
+    stream."""
+    return torch.zeros(control_words(nf, wp, rp, pool.element_size()), dtype=torch.int32,
+                       device=pool.device)
+
+
 def launch_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
                  piv: torch.Tensor, rsx: torch.Tensor, forward: bool, flush: bool,
-                 zbuf: torch.Tensor, upd: Optional[torch.Tensor] = None,
-                 control: Optional[torch.Tensor] = None) -> None:
+                 zbuf: torch.Tensor, control: torch.Tensor,
+                 upd: Optional[torch.Tensor] = None) -> None:
     """One launch of the sweep kernel on the current stream and nothing
     beside it: the part of :func:`front_sweep` that is the kernel, for
     checked inputs on a card. ``zbuf`` is the output :func:`front_sweep`
@@ -566,18 +578,11 @@ def launch_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int,
     given, is the forward output instead.
 
     ``control`` is the launch's tickets and mailbox: int32 zeros of at least
-    :func:`control_words`, for this launch alone, ordered on the current
-    stream. By default they are allocated here, zeroed on the current stream;
-    a caller that makes many launches passes slices of one zeroed buffer."""
+    :func:`control_words`, for this launch alone, zeroed on the current
+    stream (a solve hands each launch its run of one zeroed buffer)."""
     n = y.numel() - 1
     regime, tiles = sweep_regime(nf, wp, rp)
     out = upd if forward and upd is not None else zbuf
-    words = control_words(nf, wp, rp, pool.element_size())
-    if control is None:
-        control = torch.zeros(words, dtype=torch.int32, device=pool.device)
-    elif (control.dtype != torch.int32 or control.device != pool.device
-          or control.numel() < words or not control.is_contiguous()):
-        raise ValueError(f"control must be {words} contiguous int32 words on {pool.device}")
     tickets = nf + (nf & 1)
     name = f"respa_front_sweep_{'fwd' if forward else 'bwd'}_{_instance(pool, flush)}"
     rc = getattr(_library(), name)(
@@ -853,16 +858,11 @@ class FrontalSolver:
         on two streams, or a replayed CUDA graph of one, share no ticket and
         no mailbox word."""
         y = self._start(bp)
-        ctl = None
-        if self.pool.device.type == "cuda":
-            ctl = torch.zeros(2 * self._ctl_off[-1], dtype=torch.int32, device=self.pool.device)
+        ctl = torch.zeros(2 * self._ctl_off[-1], dtype=torch.int32, device=self.pool.device)
 
         def sweep(gi, *args):
-            forward = args[-1]
-            control = None
-            if ctl is not None:
-                base = 0 if forward else self._ctl_off[-1]
-                control = ctl[base + self._ctl_off[gi]:base + self._ctl_off[gi + 1]]
+            base = 0 if args[-1] else self._ctl_off[-1]
+            control = ctl[base + self._ctl_off[gi]:base + self._ctl_off[gi + 1]]
             return front_sweep(self.pool, *args, self.flush, control=control)
 
         self._run(y, sweep, True)

@@ -266,8 +266,10 @@ def _check_frontal_kernels(card, shape, inst):
     for fwd in (True, False):
         name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
         ys = [t["y"].clone() for _ in range(3)]
-        u0 = F.front_sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush)
-        u1 = F.front_sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush)
+        u0 = F.front_sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush,
+                           control=F.control_zeros(t["pool"], *grp[1:]))
+        u1 = F.front_sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush,
+                           control=F.control_zeros(t["pool"], *grp[1:]))
         u2 = F.front_sweep_plain(t["pool"], ys[2], *grp, t["piv"], t["rsx"], fwd, flush)
         torch.cuda.synchronize()
         assert torch.equal(ys[0], ys[1]) and _held(ys[0], ys[2], dtype)
@@ -294,10 +296,12 @@ def test_launch_sweep_is_the_kernels_part_of_a_wide_front(card):
     t = _front_group((nf, wp, rp, 1), torch.float32, card)
     grp = (0, nf, wp, rp)
     y, ref = t["y"].clone(), t["y"].clone()
-    want = F.front_sweep(t["pool"], ref, *grp, t["piv"], t["rsx"], True)
+    want = F.front_sweep(t["pool"], ref, *grp, t["piv"], t["rsx"], True,
+                         control=F.control_zeros(t["pool"], nf, wp, rp))
     upd = torch.empty((nf, rp), device=card)
     before = F.LAUNCHES["respa_front_sweep_fwd_f32"]
-    F.launch_sweep(t["pool"], y, *grp, t["piv"], t["rsx"], True, False, upd)
+    F.launch_sweep(t["pool"], y, *grp, t["piv"], t["rsx"], True, False, upd,
+                   F.control_zeros(t["pool"], nf, wp, rp))
     torch.cuda.synchronize()
     assert F.LAUNCHES["respa_front_sweep_fwd_f32"] == before + 1
     assert torch.equal(upd, want) and torch.equal(y, ref)
@@ -315,7 +319,8 @@ def test_a_wide_front_sweep_calls_no_library_triangle(card, monkeypatch):
     monkeypatch.setattr(torch.linalg, "solve_triangular", refuse)
     for t, (nf, wp, rp) in zip(groups, ((2, 300, 70), (1, 200, 0))):
         for fwd in (True, False):
-            F.front_sweep(t["pool"], t["y"], 0, nf, wp, rp, t["piv"], t["rsx"], fwd)
+            F.front_sweep(t["pool"], t["y"], 0, nf, wp, rp, t["piv"], t["rsx"], fwd,
+                          control=F.control_zeros(t["pool"], nf, wp, rp))
     torch.cuda.synchronize()
 
 
@@ -382,16 +387,18 @@ def test_multifrontal_slice_on_the_card(card):
 def test_frontal_wrappers_reject_bad_input_and_tf32(card):
     t = _front_group((6, 24, 32, 4), torch.float32, card)
     with pytest.raises(ValueError):  # y on another device
-        F.front_sweep(t["pool"], t["y"].cpu(), 0, 6, 24, 32, t["piv"], t["rsx"], True)
+        F.front_sweep(t["pool"], t["y"].cpu(), 0, 6, 24, 32, t["piv"], t["rsx"], True,
+                      control=F.control_zeros(t["pool"], 6, 24, 32))
     with pytest.raises(TypeError):  # no bf16 pool
         F.front_sweep(t["pool"].bfloat16(), t["y"].bfloat16(), 0, 6, 24, 32, t["piv"], t["rsx"],
-                      True)
+                      True, control=F.control_zeros(t["pool"].bfloat16(), 6, 24, 32))
     with pytest.raises(TypeError):
         F.rows_reduce(t["y"].double(), torch.zeros(6, 32, dtype=torch.float64, device=card),
                       t["red_rows"], t["red_ptr"], t["red_src"], flush=True)
     before = dict(F.LAUNCHES)
     cpu = {k: v.cpu() for k, v in t.items()}
-    F.front_sweep(cpu["pool"], cpu["y"], 0, 6, 24, 32, cpu["piv"], cpu["rsx"], True)
+    F.front_sweep(cpu["pool"], cpu["y"], 0, 6, 24, 32, cpu["piv"], cpu["rsx"], True,
+                  control=F.control_zeros(cpu["pool"], 6, 24, 32))
     assert F.LAUNCHES == before  # a CPU tensor runs the plain version: no launch
     torch.backends.cuda.matmul.allow_tf32 = True
     try:

@@ -72,7 +72,8 @@ def test_forward_sweep_and_reduction_are_the_dense_loop(shape, dtype):
     nf, wp, rp = shape[:3]
     n = g["n"]
     y = t["y"].clone()
-    upd = dev.front_sweep(t["pool"], y, 0, nf, wp, rp, t["piv"], t["rsx"], True)
+    upd = dev.front_sweep(t["pool"], y, 0, nf, wp, rp, t["piv"], t["rsx"], True,
+                          control=dev.control_zeros(t["pool"], nf, wp, rp))
     assert upd.shape == (nf, rp)
     dev.rows_reduce(y, upd, t["red_rows"], t["red_ptr"], t["red_src"])
     ref = g["y"].copy()
@@ -93,7 +94,8 @@ def test_backward_sweep_is_the_dense_loop(shape, dtype):
     nf, wp, rp = shape[:3]
     n = g["n"]
     y = t["y"].clone()
-    assert dev.front_sweep(t["pool"], y, 0, nf, wp, rp, t["piv"], t["rsx"], False) is None
+    assert dev.front_sweep(t["pool"], y, 0, nf, wp, rp, t["piv"], t["rsx"], False,
+                           control=dev.control_zeros(t["pool"], nf, wp, rp)) is None
     ref = g["y"].copy()
     for b in range(nf):
         f = _front(g, b)
@@ -149,7 +151,8 @@ def test_a_zero_pivot_diagonal_is_read_as_one():
     pool = t["pool"].clone()
     pool[:2 * 16 * 16] = 0
     y = t["y"].clone()
-    dev.front_sweep(pool, y, 0, 2, 8, 8, t["piv"], t["rsx"], False)
+    dev.front_sweep(pool, y, 0, 2, 8, 8, t["piv"], t["rsx"], False,
+                    control=dev.control_zeros(pool, 2, 8, 8))
     np.testing.assert_array_equal(y, t["y"])
 
 
@@ -230,8 +233,9 @@ def test_a_zero_diagonal_of_a_wide_front_is_read_as_one_as_respatpu_does():
     pool[37 * mp + 37] = 0.0
     y0 = g["y"].astype(np.float32)
     y = torch.from_numpy(y0.copy())
-    dev.front_sweep(torch.from_numpy(pool), y, 0, nf, wp, rp, torch.from_numpy(g["piv"]),
-                    torch.from_numpy(g["rsx"]), False)
+    tp = torch.from_numpy(pool)
+    dev.front_sweep(tp, y, 0, nf, wp, rp, torch.from_numpy(g["piv"]), torch.from_numpy(g["rsx"]),
+                    False, control=dev.control_zeros(tp, nf, wp, rp))
     ref = np.asarray(jdev._bwd_group(jnp.asarray(y0), jnp.asarray(pool), jnp.zeros(1, jnp.int32),
                                      jnp.asarray(g["piv"]), jnp.asarray(g["rsx"]), wp=wp, mp=mp))
     n = g["n"]
@@ -300,8 +304,9 @@ def test_group_sweeps_match_respatpus(jax_group, forward):
     nf, wp, rp = j["shape"][:3]
     t = {k: torch.from_numpy(v) for k, v in j["g"].items() if isinstance(v, np.ndarray)}
     y = torch.from_numpy(j["y0"].copy())
-    upd = dev.front_sweep(torch.from_numpy(j["pool"]), y, 0, nf, wp, rp, t["piv"], t["rsx"],
-                          forward)
+    pool = torch.from_numpy(j["pool"])
+    upd = dev.front_sweep(pool, y, 0, nf, wp, rp, t["piv"], t["rsx"], forward,
+                          control=dev.control_zeros(pool, nf, wp, rp))
     if forward:
         dev.rows_reduce(y, upd, t["red_rows"], t["red_ptr"], t["red_src"])
     ref = j["yf"] if forward else j["yb"]
@@ -496,8 +501,11 @@ def test_flush_to_zero_in_the_plain_versions():
     y[-1] = 0
     for forward in (True, False):
         yk, yf = y.clone(), y.clone()
-        uk = dev.front_sweep(t["pool"], yk, 0, nf, wp, rp, t["piv"], t["rsx"], forward, False)
-        uf = dev.front_sweep(t["pool"], yf, 0, nf, wp, rp, t["piv"], t["rsx"], forward, True)
+        ctl = dev.control_zeros(t["pool"], nf, wp, rp)
+        uk = dev.front_sweep(t["pool"], yk, 0, nf, wp, rp, t["piv"], t["rsx"], forward, False,
+                             control=ctl)
+        uf = dev.front_sweep(t["pool"], yf, 0, nf, wp, rp, t["piv"], t["rsx"], forward, True,
+                             control=ctl)
         rows = t["piv"][t["piv"] < g["n"]].long()
         assert _subnormal(yk[rows]) and not yf[rows].any()
         if forward:
@@ -519,7 +527,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(what):
             dev.extend_add(t["pool"].view(1, -1), 0, nf, wp, rp, *idx)
     elif what == "group_outside_pool":
         with pytest.raises(ValueError, match="does not lie"):
-            dev.front_sweep(t["pool"], y, t["pool"].numel(), nf, wp, rp, t["piv"], t["rsx"], True)
+            dev.front_sweep(t["pool"], y, t["pool"].numel(), nf, wp, rp, t["piv"], t["rsx"], True,
+                            control=dev.control_zeros(t["pool"], nf, wp, rp))
     elif what == "lp_dtype":
         idx[0] = idx[0].long()
         with pytest.raises(ValueError, match="lp must be"):
@@ -527,10 +536,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(what):
     elif what == "piv_shape":
         with pytest.raises(ValueError, match="piv must be"):
             dev.front_sweep(t["pool"], y, 0, nf, wp, rp, t["piv"][:, :-1].contiguous(),
-                            t["rsx"], False)
+                            t["rsx"], False, control=dev.control_zeros(t["pool"], nf, wp, rp))
     elif what == "y_dtype":
         with pytest.raises(ValueError, match="y must be"):
-            dev.front_sweep(t["pool"], y.double(), 0, nf, wp, rp, t["piv"], t["rsx"], True)
+            dev.front_sweep(t["pool"], y.double(), 0, nf, wp, rp, t["piv"], t["rsx"], True,
+                            control=dev.control_zeros(t["pool"], nf, wp, rp))
     elif what == "red_ptr_length":
         upd = torch.zeros(nf, rp)
         with pytest.raises(ValueError, match="one entry more"):
