@@ -62,12 +62,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shapes (the most populous group, the tallest panel, the widest front)
    beside bound, library (the library route for a sweep) and plain; and two
    solves of dc1's plan on two streams at once against the sequential ones;
-9. ILU(0) path: the Chow-Patel sweep kernel and the one-launch triangular
-   solve against their plain versions, each twice and bit for bit in every
-   instance, on synthetic shapes (empty rows, a 50,000-entry hub row, a
-   bidiagonal chain of 100,000 levels, one level of 100,000 rows; lower and
-   upper, unit and zero diagonal; subnormal inputs under fp32_ftz; y[n]
-   untouched; two solves on two streams at once); then ``runner.sweep_ilu0``
+9. ILU(0) path: the link probe (the card's one-way hand-over through L2,
+   which times a triangle's levels gives its chain bound); the Chow-Patel
+   sweep kernel and the one-launch triangular solve against their plain
+   versions, each twice and bit for bit in every instance, on synthetic
+   shapes (empty rows, a 50,000-entry hub row, a bidiagonal chain of 100,000
+   levels, one level of 100,000 rows; lower and upper, unit and zero
+   diagonal; subnormal inputs under fp32_ftz; y[n] untouched; the chain
+   and the one level timed beside their chain bound (the hand-overs their
+   schedule makes, times the link probe), and beside the solve's other way
+   to wait, on ready values (checked too); the chain's schedule timed on the
+   host; two solves on two streams at once); then ``runner.sweep_ilu0``
    on the 2cubes_sphere stand-in at catalogue size in fp32 with the default 8
    sweeps (reported), then with 30 in fp32 (Jacobi applies) and fp64 (exact
    applies), both refined to a host-oracle residual of 1e-10,
@@ -77,17 +82,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    counts of both kernels and the SpMV kernel; then, beside the path, both
    kernels bit for bit with plain at the path's shapes (one sweep of
    2cubes_sphere's factorization, its L and U solves) and timed there beside
-   bound, library (``torch.triangular_solve`` on a sparse CSR tensor) and
-   plain, one Jacobi and one exact apply whole, and one GMRES solve under the
-   profiler;
+   bound (bytes, and for K7 the chain bound too), library
+   (``torch.triangular_solve`` on a sparse CSR tensor) and plain; K7 beside
+   its other way to wait, with L's and U's schedule timed on the host; one
+   Jacobi and one exact apply whole, and one GMRES solve under the profiler;
 10. result: a JSON line of the kernels, then the device line last.
+
+Two measurements run alone, each in processes of its own:
+``python3 chip_smoke.py --ilu-times`` takes phase 9's timings at the path's
+shapes, with K6 beside its other designs (``bench/csrc/ilu0_designs.cu``:
+evict-first or plain loads, the first version, warp-cooperative gathers;
+each == plain bit for bit) in 3 rounds (:func:`time_ilu_alone`);
+``python3 chip_smoke.py --ilu-rows TREE ...`` runs only the 2cubes_sphere
+``sweep_ilu0`` rows at 30 sweeps of each tree in turn
+(:func:`ilu_rows_in_turns`), to compare two commits on one card in one call.
 """
+import ctypes
 import dataclasses
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -95,6 +113,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from respatpu_torch import io as rio  # noqa: E402
+from respatpu_torch._buildlib import build_shared  # noqa: E402
 from respatpu_torch.bench import corpus, runner  # noqa: E402
 from respatpu_torch import solve as slv  # noqa: E402
 from respatpu_torch.bench.synth import (frontal_group, laplacian_2d, mesh_fem_3d,  # noqa: E402
@@ -164,6 +183,10 @@ ILU_REPLACES = {i: "respatpu/kernels/ilu0.py:123" if i == "f64" else "respatpu/k
                 for i in ILU_POLICIES}
 TRI_REPLACES = {i: "respatpu/kernels/sptrsv.py:280" if i == "f64"
                 else "respatpu/kernels/sptrsv.py:315" for i in ILU_POLICIES}
+# K6's other designs, timed beside it in rounds (bench/csrc/ilu0_designs.cu)
+ILU_DESIGNS_SOURCE = "respatpu_torch/bench/csrc/ilu0_designs.cu"
+ILU_DESIGNS = ("body, evict-first", "body, plain loads", "first version",
+               "warp-cooperative, 32 pairs a step", "warp-cooperative, 64 pairs a step")
 # the sweep's __global__ functions by (regime, forward), as the profiler names them
 SWEEP_KERNELS = {("warp", True): "front_fwd_warp", ("warp", False): "front_bwd_warp",
                  ("block", True): "front_fwd_block", ("block", False): "front_bwd_block",
@@ -446,9 +469,9 @@ def events_ms(fn, reps, setup=None):
     return time_op(fn, "cuda", warmup=1, reps=reps, setup=setup).median * 1e3
 
 
-def profiler_ms(fn, name_part, reps):
+def profiler_ms(fn, name_part, reps, flush="write"):
     try:
-        return float(np.median(kernel_times([fn], name_part, reps=reps)[0])) * 1e3
+        return float(np.median(kernel_times([fn], name_part, reps=reps, flush=flush)[0])) * 1e3
     except ProfilerUnavailable as e:
         print(f"[time] {name_part}: profiler time not measured ({e})", flush=True)
         return None
@@ -1294,18 +1317,32 @@ def check_ilu_synthetic(errs):
           f"fp32_ftz with subnormal values; a subnormal partial flushed", flush=True)
 
 
-def check_tri_synthetic(errs):
+def turned(t):
+    """A lower triangle turned by 180 degrees: an upper one with the same
+    rows (its hub row kept)."""
+    n = t.nrows
+    coo = t.tocoo()
+    return coo_to_csr(COOMatrix((n, n), (n - 1 - coo.row).astype(np.int32),
+                                (n - 1 - coo.col).astype(np.int32), coo.val))
+
+
+def check_tri_synthetic(name_limit, errs, latency):
     """K7 against ``tri_solve_plain`` (run on the host copy of the same
     inputs) on the synthetic triangles, lower and upper, with and without a
     unit diagonal on the random one, every instance, twice, bit for bit,
-    y[n] untouched; two streams at once; a subnormal partial flushed."""
+    y[n] untouched; the chain and the one level timed in fp64 and fp32
+    beside their chain bound, and waiting on ready values instead (checked
+    and timed); the chain's schedule timed on the host; two streams at once;
+    a subnormal partial flushed."""
     b64 = np.random.default_rng(24).standard_normal(100_000)
     b64[::13] = 1e-40  # subnormal right-hand side entries (flushed under fp32_ftz)
     for kind in ("random", "chain", "one_level"):
         low = tri_synthetic(kind)
+        if kind == "chain":
+            schedule_time(name_limit, "the 100,000-level chain", low, True)
         t0 = time.perf_counter()
         for lower in (True, False):
-            tri = low if lower else low.transpose()
+            tri = low if lower else turned(low)
             for unit in ((False, True) if kind == "random" else (False,)):
                 for inst, policy in ILU_POLICIES.items():
                     d = S.tri_to_device(tri, lower, unit, policy, device="cuda")
@@ -1323,11 +1360,24 @@ def check_tri_synthetic(errs):
                             raise AssertionError(f"K7 {kind} lower={lower} unit={unit} {inst}: "
                                                  "kernel != plain")
                     errs[f"respa_tri_solve_{'lower' if lower else 'upper'}_{inst}"] = 0.0
+                    if kind != "random" and lower and policy in ("fp32", "fp64"):
+                        if not torch.equal(S._tri_solve_flags(d, bc).cpu(), want):
+                            raise AssertionError(f"K7 {kind} {inst} waiting on ready values: "
+                                                 "kernel != plain")
+                        ms = events_ms(lambda: S.tri_solve(d, bc), 5)
+                        flags = events_ms(lambda: S._tri_solve_flags(d, bc), 5)
+                        links, runs, in_runs = chain_links(d)
+                        print(f"[time] K7 {policy} {kind} n={d.n} levels {d.levels} tasks "
+                              f"{d.tasks.shape[0]} ({runs} runs holding {in_runs} levels): "
+                              f"level counters {fmt_ms(ms)} ({ms * 1e3 / d.levels:.3f} us a "
+                              f"level), ready values {fmt_ms(flags)} (== plain) by events; "
+                              f"chain bound {links * latency * 1e3:.4f} ms ({links} hand-overs "
+                              f"x {latency * 1e6:.4f} us)", flush=True)
         print(f"[kernel] K7 tri_solve {kind:9s} n={low.nrows} strict entries "
               f"{low.nnz - low.nrows} levels {int(analysis.level_schedule(low).max()) + 1}: "
               f"lower and upper{', unit and not' if kind == 'random' else ''}, every instance "
-              f"twice, == plain bit for bit, y[n] untouched ({time.perf_counter() - t0:.1f} s)",
-              flush=True)
+              f"twice, == plain bit for bit, y[n] untouched "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
     d = S.tri_to_device(tri_synthetic("random"), True, False, "fp32", device="cuda")
     b = torch.from_numpy(b64).float().cuda()
     b2 = b.flip(0).contiguous()
@@ -1344,6 +1394,17 @@ def check_tri_synthetic(errs):
         raise AssertionError(f"K7: subnormal partial {y32} (fp32), {yftz} (fp32_ftz)")
     print("[kernel] K7: two solves on two streams at once == sequential bit for bit; a "
           "subnormal partial kept by fp32, flushed by fp32_ftz", flush=True)
+
+
+def link_probe(name_limit):
+    """The card's one-way hand-over through L2 (``sptrsv.link_latency``),
+    the median of 5 probes of 20,000 round trips each."""
+    runs = [S.link_latency("cuda") for _ in range(5)]
+    lat = float(np.median([r[0] for r in runs]))
+    print(f"[time] {name_limit} | link probe: one-way hand-over through L2 {lat * 1e6:.4f} us "
+          f"(median of 5: {', '.join(f'{r[0] * 1e6:.4f}' for r in runs)}; SMs "
+          f"{sorted({(r[1], r[2]) for r in runs})})", flush=True)
+    return lat
 
 
 def ilu_counts():
@@ -1374,6 +1435,45 @@ def ilu_row(name_limit, name, policy, sweeps, must_converge):
           f"each phase ended by a device synchronize; row {wall:.2f} s)", flush=True)
     print(f"[ilu] launches of this row {got}", flush=True)
     return row
+
+
+def ilu_rows_in_turns(trees):
+    """``python3 chip_smoke.py --ilu-rows TREE ...``: the sweep_ilu0 rows of
+    2cubes_sphere at 30 sweeps (fp64 with exact applies, fp32 with Jacobi
+    applies), run by each tree's own ``ilu_row`` in a process of its own, in
+    the order given (e.g. parent, this tree, this tree, parent), each after
+    that tree's kernels and host library are built and one preconditioner
+    of each policy has been made (first launches and first allocations out
+    of the rows), so that two commits are compared on one card in one
+    call."""
+    code = ("import chip_smoke as c, torch; name = c.card_line(); c._build.load(); "
+            "c.check_parser(); a = c.corpus.load_matrix('2cubes_sphere')[0]; "
+            "[c.slv.Ilu0Preconditioner(a, p, sweeps=1, device='cuda') for p in ('fp64', 'fp32')]; "
+            "torch.cuda.synchronize(); "
+            "[c.ilu_row(name, '2cubes_sphere', p, 30, True) for p in ('fp64', 'fp32')]")
+    for tree in trees:
+        print(f"[rows] {os.path.abspath(tree)}", flush=True)
+        subprocess.run([sys.executable, "-c", code], cwd=tree, check=True, timeout=900)
+
+
+def time_ilu_alone(name_limit):
+    """``python3 chip_smoke.py --ilu-times``: phase 9's measurements at the
+    path's shapes alone, in a fresh process (the profiler drops records after
+    the many traces of a whole run): the kernels and K6's other designs
+    built in parallel, the link probe, then :func:`hold_and_time_ilu` with
+    the designs; the times as one JSON line."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        designs = pool.submit(build_ilu_designs)
+        _build.load()
+        designs = designs.result()
+    print(f"[build] kernels and K6's designs in {time.perf_counter() - t0:.1f} s", flush=True)
+    check_parser()
+    latency = link_probe(name_limit)
+    times = {}
+    hold_and_time_ilu(name_limit, corpus.load_matrix("2cubes_sphere")[0], {}, times, latency,
+                      designs)
+    print(json.dumps(times))
 
 
 def ilu_path(name_limit, mats):
@@ -1415,12 +1515,39 @@ def ilu_bytes(s, itemsize):
 
 
 def tri_bytes(d):
-    """Bytes one solve must move: the strict triangle, dinv, b and y once
-    each, and the ready flags written."""
-    st = d.strict
-    return ((d.n + 1) * 8 + st.nnz * (4 + st.vals.element_size())
-            + d.n * (d.dinv.element_size() + 2 * torch.finfo(d.policy.accum_dtype).bits // 8)
-            + (d.n + 1) * 4)
+    """Bytes one solve must move: the strict triangle (offsets, columns,
+    values), dinv and b read once each, y written once."""
+    return ((d.n + 1) * 8 + d.nnz * (4 + d.vals.element_size())
+            + d.n * (d.dinv.element_size() + 2 * torch.finfo(d.policy.accum_dtype).bits // 8))
+
+
+def chain_links(d):
+    """The hand-overs on a solve's chain as its schedule makes them: a level
+    outside a run is one stage, a run of thin levels one stage, and every
+    stage but the first waits once. Returns (hand-overs, runs, levels in
+    runs)."""
+    tasks = d.tasks.cpu().numpy()
+    runs = tasks[tasks[:, 3] > tasks[:, 2]]
+    in_runs = int((runs[:, 3] - runs[:, 2] + 1).sum())
+    return max(d.levels - in_runs + len(runs) - 1, 0), len(runs), in_runs
+
+
+def schedule_time(name_limit, what, tri, lower):
+    """Host seconds of K7's schedule of a triangle (``tri_schedule``, made
+    once a factor inside ``tri_to_device``) and of its level sets alone
+    (``level_schedule``), the median of 3."""
+    strict, _ = S._strict_and_diag(tri, lower, False)
+    lev, sch = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        analysis.level_schedule(strict, upper=not lower)
+        t1 = time.perf_counter()
+        S.tri_schedule(strict, lower)
+        lev.append(t1 - t0)
+        sch.append(time.perf_counter() - t1)
+    print(f"[time] {name_limit} | K7 schedule of {what} (n={tri.nrows}, strict entries "
+          f"{strict.nnz}) on the host: tri_schedule {np.median(sch) * 1e3:.1f} ms, of which "
+          f"level_schedule {np.median(lev) * 1e3:.1f} ms (median of 3)", flush=True)
 
 
 def schedule_sizes(name_limit, name, a):
@@ -1435,20 +1562,88 @@ def schedule_sizes(name_limit, name, a):
           f"{lay['padded']} padded to t_max (host {time.perf_counter() - t0:.2f} s)", flush=True)
 
 
-def hold_and_time_ilu(name_limit, a, errs, times):
+def build_ilu_designs():
+    """K6's other designs (``bench/csrc/ilu0_designs.cu``, which includes the
+    package's kernel source) in a library of their own, bound by ctypes."""
+    path = build_shared("librespa_ilu0_designs.so",
+                        [os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      ILU_DESIGNS_SOURCE)],
+                        [_build._nvcc(), *_build.NVCC_FLAGS])
+    lib = ctypes.CDLL(path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # design, inst, device, nnz, a, old, out, ptr, pairs_a, pairs_b, kind, diag_col, eps, fix,
+    # resid, stream
+    lib.respa_ilu0_design_sweep.argtypes = [i32, i32, i32, ctypes.c_int64, *[ptr] * 8,
+                                            ctypes.c_double, i32, ptr, ptr]
+    lib.respa_ilu0_design_sweep.restype = i32
+    return lib
+
+
+def design_sweep(lib, design, inst, s, av, old, eps, resid=None):
+    """One sweep (with the pivot fix) by one of ``ILU_DESIGNS``; not counted."""
+    out = torch.empty_like(av)
+    rc = lib.respa_ilu0_design_sweep(
+        design, list(ILU_POLICIES).index(inst), s.device.index, s.nnz, av.data_ptr(),
+        old.data_ptr(), out.data_ptr(), s.ptr.data_ptr(), s.pairs_a.data_ptr(),
+        s.pairs_b.data_ptr(), s.kind.data_ptr(), s.diag_pos_col.data_ptr(), float(eps), 1,
+        None if resid is None else resid.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K6 design {design} {inst}: cudaError {rc}")
+    return out
+
+
+def compare_ilu_designs(name_limit, lib, inst, s, av, old, eps, want, wres):
+    """K6's designs at the path's input, each == plain bit for bit (with the
+    residual too), then timed by the profiler in 3 rounds (the order turned
+    each round; a trace of the designs without the residual, then one with
+    it, 5 sweeps a design, so that no trace holds many records): {design:
+    {"profiler_ms": [a round's median], "residual_profiler_ms": [...]}}; a
+    round the profiler could not trace is left out and said so."""
+    acc = I._acc(av.dtype)
+    for d, label in enumerate(ILU_DESIGNS):
+        r = torch.zeros(1, dtype=acc, device="cuda")
+        if not (torch.equal(design_sweep(lib, d, inst, s, av, old, eps), want)
+                and torch.equal(design_sweep(lib, d, inst, s, av, old, eps, r), want)
+                and torch.equal(r, wres)):
+            raise AssertionError(f"K6 {inst} {label}: != plain on 2cubes_sphere")
+    resid = torch.zeros(1, dtype=acc, device="cuda")
+    fns = [lambda d=d, r=r: design_sweep(lib, d, inst, s, av, old, eps, r)
+           for r in (None, resid) for d in range(len(ILU_DESIGNS))]
+    nd = len(ILU_DESIGNS)
+    got = {i: [] for i in range(len(fns))}
+    for k in range(3):
+        for group in (range(nd), range(nd, 2 * nd)):
+            order = list(group)[::1 if k % 2 == 0 else -1]
+            try:
+                ts = kernel_times([fns[i] for i in order], "sweep_kernel", reps=5)
+            except ProfilerUnavailable as e:
+                print(f"[time] K6 {inst} designs, round {k + 1}: not measured ({e})", flush=True)
+                continue
+            for i, t in zip(order, ts):
+                got[i].append(float(np.median(t)) * 1e3)
+    out = {label: {"profiler_ms": got[d], "residual_profiler_ms": got[nd + d]}
+           for d, label in enumerate(ILU_DESIGNS)}
+    for label, t in out.items():
+        print(f"[time] {name_limit} | K6 {inst} design '{label}': profiler "
+              f"{', '.join(f'{x:.4f}' for x in t['profiler_ms'])} ms (rounds); with the "
+              f"residual {', '.join(f'{x:.4f}' for x in t['residual_profiler_ms'])} ms; == "
+              f"plain bit for bit", flush=True)
+    return out
+
+
+def hold_and_time_ilu(name_limit, a, errs, times, latency, designs):
     """Beside the path, not counted: K6 and K7 against their plain versions
     at the main path's shapes (one sweep of 2cubes_sphere's factorization in
     every instance; the L and U solves of its fp64 factor, and in every
     instance on the same triangles), bit for bit, each timed beside its
-    bound, the library and plain; one Jacobi and one exact apply whole."""
+    bound, the library and plain, and K6 beside its other designs if
+    ``designs`` (the library of :func:`build_ilu_designs`) is given; one
+    Jacobi and one exact apply whole."""
     pre64 = slv.Ilu0Preconditioner(a, "fp64", sweeps=30, device="cuda")
     pre32 = slv.Ilu0Preconditioner(a, "fp32", sweeps=30, device="cuda")
     sched = pre64.schedule
     s = I.ilu_schedule_to_device(sched, "cuda")
-    lev = {t.lower: int(analysis.level_schedule(
-        CSRMatrix((t.n, t.n), t.strict.indptr.cpu().numpy(), t.strict.indices.cpu().numpy(),
-                  np.zeros(t.strict.nnz)), upper=not t.lower).max()) + 1
-        for t in (pre64._l, pre64._u)}
+    lev = {t.lower: t.levels for t in (pre64._l, pre64._u)}
     lay = sched.layout_bytes()
     print(f"[ilu] {name_limit} | 2cubes_sphere n={a.nrows} nnz={a.nnz}: Chow-Patel t_max "
           f"{sched.t_max}, {sched.npairs} pairs; pair lists on the card {lay['ragged']} bytes "
@@ -1469,6 +1664,7 @@ def hold_and_time_ilu(name_limit, a, errs, times):
         plain = (time.perf_counter() - t0) * 1e3
         if not torch.equal(out, want):
             raise AssertionError(f"K6 {inst}: kernel != plain on 2cubes_sphere")
+        _, wres = I.ilu0_sweep_plain(s, av, old, eps, True, p.flush_to_zero, True)
         name = f"respa_ilu0_sweep_{inst}"
         nbytes = ilu_bytes(s, p.dtype.itemsize)
         ops = 2 * sched.npairs + a.nnz
@@ -1477,55 +1673,82 @@ def hold_and_time_ilu(name_limit, a, errs, times):
              "profiler_ms": profiler_ms(lambda: I.ilu0_sweep(s, av, old, eps, True,
                                                              p.flush_to_zero),
                                         "ilu0_sweep_kernel", 10),
+             "profiler_read_flush_ms": profiler_ms(
+                 lambda: I.ilu0_sweep(s, av, old, eps, True, p.flush_to_zero),
+                 "ilu0_sweep_kernel", 10, flush="read"),
              "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
              "library": "none: no PyTorch call computes a Chow-Patel sweep",
-             "shape": f"2cubes_sphere nnz={a.nnz} pairs={sched.npairs}"}
+             "shape": f"2cubes_sphere nnz={a.nnz} pairs={sched.npairs}",
+             }
+        if designs is not None:
+            t["designs"] = compare_ilu_designs(name_limit, designs, inst, s, av, old, eps, want,
+                                               wres)
         times[name] = t
         errs[name] = 0.0
         print(f"[time] {name_limit} | K6 {inst} one sweep of 2cubes_sphere: events "
-              f"{fmt_ms(t['ms'])}, profiler {fmt_ms(t['profiler_ms'])}; bound {bound:.4f} ms "
-              f"({nbytes} bytes at 3.35 TB/s); library none; plain {plain:.2f} ms; == plain "
-              f"bit for bit", flush=True)
+              f"{fmt_ms(t['ms'])}, profiler {fmt_ms(t['profiler_ms'])} (after a read flush "
+              f"{fmt_ms(t['profiler_read_flush_ms'])}, no dirty lines to write back); bound "
+              f"{bound:.4f} ms ({nbytes} bytes at 3.35 TB/s); library none; plain "
+              f"{plain:.2f} ms; == plain bit for bit", flush=True)
     b = torch.from_numpy(np.random.default_rng(25).standard_normal(a.nrows)).cuda()
     for tri64 in (pre64._l, pre64._u):
         lower = tri64.lower
-        host = CSRMatrix((a.nrows, a.nrows), tri64.strict.indptr.cpu().numpy(),
-                         tri64.strict.indices.cpu().numpy(),
-                         tri64.strict.vals.cpu().double().numpy())
-        dinv64 = tri64.dinv.cpu().double().numpy()
-        full = _with_diagonal(host, 1.0 / dinv64)
+        full = _with_diagonal(tri64.strict_csr(), 1.0 / tri64.dinv.cpu().double().numpy())
+        schedule_time(name_limit, f"2cubes_sphere's {'L' if lower else 'U'}", full, lower)
+        links, runs, in_runs = chain_links(tri64)
+        print(f"[ilu] {name_limit} | 2cubes_sphere's {'L' if lower else 'U'}: {lev[lower]} "
+              f"levels, {tri64.tasks.shape[0]} tasks, of which {runs} runs of thin levels "
+              f"holding {in_runs} levels: {links} hand-overs on the chain", flush=True)
         for inst, policy in ILU_POLICIES.items():
             d = tri64 if policy == "fp64" else S.tri_to_device(full, lower, lower, policy,
                                                                device="cuda")
             bb = b.to(d.policy.accum_dtype)
-            y = S.tri_solve(d, bb)
+            ys = [S.tri_solve(d, bb) for _ in range(2)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             want = S.tri_solve_plain(d, bb)
             torch.cuda.synchronize()
             plain = (time.perf_counter() - t0) * 1e3
-            if not torch.equal(y, want):
+            if not all(torch.equal(y, want) for y in ys):
                 raise AssertionError(f"K7 {inst} lower={lower}: kernel != plain on 2cubes_sphere")
+            y = ys[0]
+            if not torch.equal(S._tri_solve_flags(d, bb), want):
+                raise AssertionError(f"K7 {inst} lower={lower} waiting on ready values: kernel "
+                                     "!= plain on 2cubes_sphere")
             name = f"respa_tri_solve_{'lower' if lower else 'upper'}_{inst}"
             nbytes = tri_bytes(d)
-            ops = 2 * d.strict.nnz + 2 * d.n
+            ops = 2 * d.nnz + 2 * d.n
             bound = max(nbytes / HBM_BYTES_PER_S, ops / FLOPS_PER_S[d.policy.accum_dtype]) * 1e3
             lib_ms, lib = None, "none: PyTorch has no sparse triangular solve that flushes " \
                                 "subnormals or takes bf16 values"
             if policy in ("fp32", "fp64"):
                 lib_ms, lib = library_tri(full, lower, d.policy, bb, y)
+            chain = links * latency * 1e3
             t = {"ms": events_ms(lambda: S.tri_solve(d, bb), 10),
                  "profiler_ms": profiler_ms(lambda: S.tri_solve(d, bb), "tri_solve_kernel", 10),
                  "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
                  "library": lib, "shape": f"2cubes_sphere {'L' if lower else 'U'} n={d.n} "
-                                          f"strict={d.strict.nnz} levels={lev[lower]}"}
+                                          f"strict={d.nnz} levels={lev[lower]}",
+                 "chain_bound": {"bound_ms": chain, "bound_by": "chain", "levels": lev[lower],
+                                 "runs": runs, "levels_in_runs": in_runs, "hand_overs": links,
+                                 "link_us": latency * 1e6},
+                 "signal": "level",
+                 "other_signal": {
+                     "signal": "flags",
+                     "ms": events_ms(lambda: S._tri_solve_flags(d, bb), 10),
+                     "profiler_ms": profiler_ms(lambda: S._tri_solve_flags(d, bb),
+                                                "tri_solve_kernel", 10)}}
             times[name] = t
             errs[name] = 0.0
             print(f"[time] {name_limit} | K7 {inst} {'L' if lower else 'U'} solve of "
-                  f"2cubes_sphere ({lev[lower]} levels): events {fmt_ms(t['ms'])}, profiler "
-                  f"{fmt_ms(t['profiler_ms'])}; bound {bound:.4f} ms ({nbytes} bytes at 3.35 "
-                  f"TB/s); library {fmt_ms(lib_ms) if lib_ms else lib}; plain {plain:.2f} ms; "
-                  f"== plain bit for bit", flush=True)
+                  f"2cubes_sphere ({lev[lower]} levels), waiting on level counters: events "
+                  f"{fmt_ms(t['ms'])}, profiler {fmt_ms(t['profiler_ms'])}; on ready values: "
+                  f"events {fmt_ms(t['other_signal']['ms'])}, profiler "
+                  f"{fmt_ms(t['other_signal']['profiler_ms'])}; chain bound {chain:.4f} ms "
+                  f"({links} hand-overs x {latency * 1e6:.4f} us); byte bound {bound:.4f} ms "
+                  f"({nbytes} bytes at 3.35 TB/s); library "
+                  f"{fmt_ms(lib_ms) if lib_ms else lib}; plain {plain:.2f} ms; == plain bit for "
+                  f"bit both ways", flush=True)
     t0 = time.perf_counter()
     isai = slv.Ilu0Preconditioner(a, "fp32", sweeps=30, apply_mode="isai", device="cuda")
     print(f"[ilu] {name_limit} | 2cubes_sphere ISAI of both triangles built on the host in "
@@ -1616,6 +1839,13 @@ def main():
     print(f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} torch={torch.__version__} "
           f"cuda={torch.version.cuda}", flush=True)
+
+    if sys.argv[1:2] == ["--ilu-rows"]:
+        ilu_rows_in_turns(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--ilu-times"]:
+        time_ilu_alone(name_limit)
+        return
 
     # 2. build
     t0 = time.perf_counter()
@@ -1736,13 +1966,14 @@ def main():
     # 9. the ILU(0) path
     ilu_errs, ilu_times = {}, {}
     check_ilu_synthetic(ilu_errs)
-    check_tri_synthetic(ilu_errs)
+    latency = link_probe(name_limit)
+    check_tri_synthetic(name_limit, ilu_errs, latency)
     ilu_launches = ilu_path(name_limit, mats)
     for name in (*I.LAUNCHES, *S.LAUNCHES, "spmv_fp32", "spmv_fp32_ftz", "spmv_bf16"):
         if ilu_launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the ILU path")
     schedule_sizes(name_limit, "dc1", mats["dc1"])
-    hold_and_time_ilu(name_limit, mats["2cubes_sphere"], ilu_errs, ilu_times)
+    hold_and_time_ilu(name_limit, mats["2cubes_sphere"], ilu_errs, ilu_times, latency, None)
 
     # 10. result
     kernels = []

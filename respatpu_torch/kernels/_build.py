@@ -102,9 +102,15 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in _TRI_SOLVE:
         fn = getattr(lib, name)
-        # device, n, indptr, indices, vals, dinv, b, y, flags, stream
-        fn.argtypes = [i32, i32, *[ptr] * 8]
+        # device, ntasks, warps, tasks, level_ptr, perm, ptr, cols, vals, dinv, b, y, yp, ctl,
+        # nctl, mode, stream
+        fn.argtypes = [i32, i32, i32, *[ptr] * 11, i32, i32, ptr]
         fn.restype = ctypes.c_int
+    lib.respa_tri_solve_limit.argtypes = [i32]
+    lib.respa_tri_solve_limit.restype = ctypes.c_int
+    # device, rounds, flag, out, stream
+    lib.respa_link_probe.argtypes = [i32, i32, ptr, ptr, ptr]
+    lib.respa_link_probe.restype = ctypes.c_int
     for name in ("respa_spmv_csr_cap", "respa_spmv_csr_max_rows", "respa_band_max_p",
                  "respa_front_max_tri"):
         getattr(lib, name).argtypes = []

@@ -11,8 +11,9 @@ The counterpart of ``respatpu/kernels/ilu0.py``; it replaces
 over the pair lists of :func:`respatpu_torch.analysis.chow_patel_schedule`.
 The fixed point is exactly ILU(0). One sweep is one launch of a hand-written
 CUDA kernel (``csrc/ilu0.cu``, K6): a thread an entry, its pairs in list
-order, the new values into a second buffer, the pivot fix of the diagonal
-fused in, and an optional largest change folded in by an atomic max. Its
+order, the read-once streams evict-first for the single-word instances, the
+new values into a second buffer, the pivot fix of the diagonal fused in, and
+an optional largest change folded in by an atomic max a warp. Its
 plain PyTorch version, :func:`ilu0_sweep_plain`, sums in the same order, so
 the two agree bit for bit. :func:`ilu0_sweep` launches the kernel for CUDA
 tensors and runs the plain version for CPU tensors; nothing else chooses.

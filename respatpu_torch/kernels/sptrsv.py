@@ -5,15 +5,22 @@ The counterpart of ``respatpu/kernels/sptrsv.py``; it replaces
 ``cusparseXcsrsv2_solve`` (GPU/ilu0.cu:284-310).
 
 * The exact solve, ``y = T^-1 b``, is one launch of a hand-written CUDA
-  kernel (``csrc/sptrsv.cu``, K7) with no level loop: warps take rows from an
-  atomic ticket in dependency order and wait on per-row ready flags, which
-  are zeroed for every launch on its stream. It reads the strict triangle as
-  CSR and the reciprocal diagonal ``dinv`` made on the host; respatpu's
+  kernel (``csrc/sptrsv.cu``, K7) with no level loop on the host. Its
+  schedule is made once a factor, at upload (:func:`tri_schedule`): the rows
+  in level order (a *position* a row), the strict triangle stored in that
+  order with its columns as positions, and tasks in level order (up to 32
+  short rows of one level, a lane a row; one long row, a warp over its
+  entries; or a run of thin levels, one warp walking them), which warps take
+  from an atomic ticket, each waiting once on a completion counter of the
+  level before; counters and ticket are zeroed for every launch on its
+  stream. respatpu's
   chunked schedule and 8 x 8 blocklets (``build_tri_chunks``,
   ``_pack_blocklets``) exist for a chip without gathers and are not ported.
-  Its plain PyTorch version, :func:`tri_solve_plain`, goes level by level
-  (one step a level of :func:`respatpu_torch.analysis.level_schedule`) and
-  sums each row in the kernel's order, so the two agree bit for bit.
+  Its plain PyTorch version, :func:`tri_solve_plain`, reads the same
+  schedule and goes level by level, each row summed in the kernel's order,
+  so the two agree bit for bit. :func:`link_latency` measures the card's
+  one-way hand-over through L2, which times the levels gives the solve's
+  chain bound.
 * ``jacobi_tri``: ``sweeps`` rounds of ``y <- dinv (b - N y)`` over the
   strict triangle N, each product with N on the CSR SpMV kernel; exact after
   depth(T) sweeps, and for a fixed count a linear operator (an
@@ -29,7 +36,7 @@ each y_i rounded to bf16 once) and fp64 instances.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,8 +46,9 @@ from ..formats import COOMatrix, CSRMatrix, coo_to_csr
 from ..precision import Policy, ftz, get_policy
 from .spmv import DeviceCsr, spmv, to_device
 
-__all__ = ["DeviceTri", "JacobiTri", "tri_to_device", "tri_solve", "tri_solve_plain",
-           "jacobi_tri", "isai_tri", "sptrsv", "sptrsv_host_reference", "LAUNCHES"]
+__all__ = ["DeviceTri", "JacobiTri", "tri_schedule", "tri_to_device", "tri_solve",
+           "tri_solve_plain", "link_latency", "jacobi_tri", "isai_tri", "sptrsv",
+           "sptrsv_host_reference", "LAUNCHES"]
 
 _INST = {"fp32": "f32", "fp32_ftz": "f32_ftz", "bf16": "bf16", "fp64": "f64"}
 
@@ -48,27 +56,126 @@ _INST = {"fp32": "f32", "fp32_ftz": "f32_ftz", "bf16": "bf16", "fp64": "f64"}
 # launch succeeds and nowhere else.
 LAUNCHES = {f"respa_tri_solve_{d}_{i}": 0 for d in ("lower", "upper") for i in _INST.values()}
 
+# The schedule's sizes, as csrc/sptrsv.cu was built with them (checked at the
+# first launch): a short row holds at most SHORT strict entries; a task takes
+# up to TASK_ROWS short rows of one level; a run of thin levels (at most
+# TASK_ROWS rows each, all short) holds at most RUN_ROWS rows and RUN_ENTRIES
+# entries, staged in shared memory.
+SHORT, RUN_ROWS, RUN_ENTRIES, TASK_ROWS = 16, 128, 512, 32
+
+# K7's other way to wait (mode 1 of csrc/sptrsv.cu, :func:`_tri_solve_flags`):
+# a ready flag a row carried by the value itself, the values starting as a
+# signalling NaN that no result can be.
+_PENDING = {torch.float32: 0x7F800001, torch.float64: 0x7FF0000000000001}
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+# warps taking K7's tasks: LOOKAHEAD levels' worth of them on the average, at
+# least 32 (more warps would only poll)
+LOOKAHEAD = 4
+
+
+@dataclasses.dataclass
+class TriSchedule:
+    """The level-ordered layout of a strict triangle, on the host (see
+    :func:`tri_schedule`)."""
+
+    perm: np.ndarray  # int64[n]: the row at each position
+    level_ptr: np.ndarray  # int64[levels + 1]: each level's first position
+    ptr: np.ndarray  # int64[n + 1]: the rows' entries in position order
+    cols: np.ndarray  # int64[nnz]: their columns, as positions
+    src: np.ndarray  # int64[nnz]: each entry's place in the CSR it came from
+    tasks: np.ndarray  # int32[ntasks, 4]: (q0, q1, v0, v1)
+    warps: int  # warps to take the tasks
+
+
+def tri_schedule(strict: CSRMatrix, lower: bool) -> TriSchedule:
+    """K7's schedule of a strict triangle N (CSR, rows in any order of
+    their dependencies): positions by level (:func:`level_schedule`), short
+    rows (at most SHORT entries) before long ones in a level, rows ascending
+    within each; each row's entries in CSR order; and tasks in level order,
+    ``(q0, q1, v0, v1)`` for the positions ``q0 .. q1 - 1``: ``v1 == v0``, up
+    to TASK_ROWS short rows of level v0; ``v1 == -1``, one long row of level
+    v0; ``v1 > v0``, a run of the consecutive thin levels v0 .. v1; and how
+    many warps take them (LOOKAHEAD levels' worth on the average)."""
+    n = strict.nrows
+    indptr = np.asarray(strict.indptr, np.int64)
+    lens = np.diff(indptr)
+    level = level_schedule(strict, upper=not lower).astype(np.int64) if n else lens
+    nlev = int(level.max()) + 1 if n else 0
+    long = lens > SHORT
+    perm = np.lexsort((long, level))
+    size = np.bincount(level, minlength=nlev)
+    level_ptr = np.zeros(nlev + 1, np.int64)
+    np.cumsum(size, out=level_ptr[1:])
+    pos = np.empty(n, np.int64)
+    pos[perm] = np.arange(n)
+    plens = lens[perm]
+    ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(plens, out=ptr[1:])
+    src = np.repeat(indptr[:-1][perm] - ptr[:-1], plens) + np.arange(ptr[-1])
+    nlong = np.bincount(level[long], minlength=nlev).tolist()
+    ents = np.bincount(level, weights=lens, minlength=nlev).astype(np.int64).tolist()
+    thin = ((size <= TASK_ROWS) & (np.asarray(nlong) == 0)).tolist()
+    size, lp = size.tolist(), level_ptr.tolist()
+    tasks = []
+    v = 0
+    while v < nlev:
+        w, rows, held = v, 0, 0
+        while w < nlev and thin[w] and rows + size[w] <= RUN_ROWS and held + ents[w] <= RUN_ENTRIES:
+            rows, held, w = rows + size[w], held + ents[w], w + 1
+        if w - v >= 2:
+            tasks.append((lp[v], lp[w], v, w - 1))
+            v = w
+            continue
+        q0, q1 = lp[v], lp[v + 1]
+        qs = q1 - nlong[v]
+        tasks += [(q, min(q + TASK_ROWS, qs), v, v) for q in range(q0, qs, TASK_ROWS)]
+        tasks += [(q, q + 1, v, -1) for q in range(qs, q1)]
+        v += 1
+    return TriSchedule(perm=perm, level_ptr=level_ptr, ptr=ptr,
+                       cols=pos[strict.indices[src]], src=src,
+                       tasks=np.asarray(tasks, np.int32).reshape(-1, 4),
+                       warps=max(32, -(-LOOKAHEAD * len(tasks) // max(nlev, 1))))
+
 
 @dataclasses.dataclass
 class DeviceTri:
-    """A triangular factor T = D + N on one device: the strict triangle N as
-    a CSR matrix (the SpMV kernel's upload, which K7 reads too) and the
-    reciprocal diagonal (the policy's value type; ones for a unit diagonal,
-    1 where the diagonal is 0)."""
+    """A triangular factor T = D + N on one device, as K7 and its plain
+    version read it: N in position order (:func:`tri_schedule`) with its
+    tasks, and the reciprocal diagonal by row (the policy's value type; ones
+    for a unit diagonal, 1 where the diagonal is 0)."""
 
     n: int
     lower: bool
-    strict: DeviceCsr
-    dinv: torch.Tensor
-    _levels: Optional[tuple] = dataclasses.field(default=None, repr=False)
-
-    @property
-    def policy(self) -> Policy:
-        return self.strict.policy
+    policy: Policy
+    dinv: torch.Tensor  # V[n], by row
+    perm: torch.Tensor  # int32[n]: the row at each position
+    level_ptr: torch.Tensor  # int32[levels + 1]
+    ptr: torch.Tensor  # int64[n + 1]
+    cols: torch.Tensor  # int32[nnz], positions
+    vals: torch.Tensor  # V[nnz]
+    tasks: torch.Tensor  # int32[ntasks, 4]
+    warps: int  # warps taking the tasks
+    _plain: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
-        return self.strict.device
+        return self.dinv.device
+
+    @property
+    def nnz(self) -> int:
+        return self.cols.numel()
+
+    @property
+    def levels(self) -> int:
+        return self.level_ptr.numel() - 1
+
+    def strict_csr(self) -> CSRMatrix:
+        """N by row on the host, with fp64 values."""
+        perm = self.perm.cpu().numpy().astype(np.int64)
+        rows = np.repeat(perm, np.diff(self.ptr.cpu().numpy()))
+        cols = perm[self.cols.cpu().numpy()]
+        return coo_to_csr(COOMatrix((self.n, self.n), rows.astype(np.int32), cols.astype(np.int32),
+                                    self.vals.cpu().double().numpy()), sum_duplicates=False)
 
 
 def _strict_and_diag(t_csr: CSRMatrix, lower: bool, unit_diag: bool, values=None):
@@ -94,77 +201,60 @@ def tri_to_device(t_csr: CSRMatrix, lower: bool = True, unit_diag: bool = False,
                   policy: Union[str, Policy] = "fp32", values: Optional[np.ndarray] = None,
                   device: Union[str, torch.device] = "cuda") -> DeviceTri:
     """Upload a host triangular CSR for the exact solve: its strict triangle
-    and ``dinv``, the reciprocal of the diagonal formed in fp64 on the host
-    (a zero diagonal read as 1; ones with ``unit_diag``), both under
+    in K7's level order (:func:`tri_schedule`, made here once) and
+    ``dinv``, the reciprocal of the diagonal formed in fp64 on the host (a
+    zero diagonal read as 1; ones with ``unit_diag``), both under
     ``policy``. ``values`` overrides ``t_csr.data`` (same pattern)."""
     policy = get_policy(policy)
+    if t_csr.nrows >= 2 ** 31:
+        raise ValueError("positions are int32: the triangle must have < 2^31 rows")
     strict, diag = _strict_and_diag(t_csr, lower, unit_diag, values)
     dinv = 1.0 / np.where(diag == 0.0, 1.0, diag)
-    dev = to_device(strict, policy, device)
-    return DeviceTri(n=t_csr.nrows, lower=lower, strict=dev,
-                     dinv=policy.cast_host(dinv).to(dev.device))
+    s = tri_schedule(strict, lower)
+    device = torch.device(device)
+
+    def put(v, dtype):
+        return torch.from_numpy(np.ascontiguousarray(v, dtype)).to(device)
+
+    return DeviceTri(n=t_csr.nrows, lower=lower, policy=policy,
+                     dinv=policy.cast_host(dinv).to(device), perm=put(s.perm, np.int32),
+                     level_ptr=put(s.level_ptr, np.int32), ptr=put(s.ptr, np.int64),
+                     cols=put(s.cols, np.int32),
+                     vals=policy.cast_host(strict.data[s.src]).to(device),
+                     tasks=put(s.tasks, np.int32), warps=s.warps)
 
 
-def _levels(t: DeviceTri):
-    """The plain solve's schedule, made once a factor. Rows go by level. A
-    level whose rows hold at most 32 strict entries each (a lane an entry, as
-    the kernel's warp takes them) gets a dense [rows, 32] gather of its
-    entries, the empty lanes pointing at a zero entry; any other level keeps
-    its entries by step (the kernel's lane l takes a row's entries l, l + 32,
-    ...: step = position // 32), each with the slot ``32 * (row's rank in
-    its level) + lane`` of its partial sum. Returns ``(rows, levels, lay,
-    order, slot)``, ``levels`` holding ``(r0, r1, dense, where, most)`` a
-    level: its rows ``rows[r0:r1]``, the most strict entries one of them
-    holds, and its entries: dense, ``lay[where : where + 32 * (r1 - r0)]``;
-    else ``where`` lists the ``(e0, e1)`` runs of ``order`` and ``slot``, one
-    a step."""
-    if t._levels is None:
-        indptr = t.strict.indptr.cpu().numpy()
-        indices = t.strict.indices.cpu().numpy()
-        n = t.n
-        nnz = indices.size
-        level = level_schedule(CSRMatrix((n, n), indptr, indices, np.zeros(nnz)),
-                               upper=not t.lower).astype(np.int64)
-        rows = np.argsort(level, kind="stable")
-        nlev = int(level.max()) + 1 if n else 0
-        level_ptr = np.zeros(nlev + 1, np.int64)
-        np.cumsum(np.bincount(level, minlength=nlev), out=level_ptr[1:])
-        rank = np.empty(n, np.int64)
-        rank[rows] = np.arange(n) - level_ptr[level[rows]]
-        lens = np.diff(indptr)
+def _plain_layout(t: DeviceTri):
+    """The plain solve's gathers, made once a factor: a level's short rows
+    as one dense [rows, most] block of entry indices (``most``: the level's
+    longest short row), its long rows as [rows, steps, 32] (lane l's step k
+    takes entry 32 k + l), the empty places pointing at the zero entry (index
+    nnz, column n). Returns ``(lay, levels)``, ``levels`` holding ``(q0, ns,
+    most, nl, steps, at_short, at_long)`` a level."""
+    if t._plain is None:
+        ptr = t.ptr.cpu().numpy()
+        lp = t.level_ptr.cpu().numpy().astype(np.int64)
+        n, nnz, nlev = t.n, t.nnz, t.levels
+        lens = np.diff(ptr)
+        level = np.repeat(np.arange(nlev), np.diff(lp))
+        short = lens <= SHORT
+        ns = np.bincount(level[short], minlength=nlev)
         most = np.zeros(nlev, np.int64)
-        np.maximum.at(most, level, lens)
-        dense = most <= 32
-        ent_row = np.repeat(np.arange(n, dtype=np.int64), lens)
-        pos = np.arange(nnz, dtype=np.int64) - indptr[ent_row]
-        ent_level = level[ent_row]
-        # dense levels: entry e of row r at lay[base[level] + 32 * rank[r] + lane]
-        size = np.where(dense, 32 * np.diff(level_ptr), 0)
-        base = np.zeros(nlev + 1, np.int64)
-        np.cumsum(size, out=base[1:])
-        lay = np.full(int(base[-1]), nnz, np.int64)  # nnz: the zero entry
-        dn = dense[ent_level]
-        lay[base[ent_level[dn]] + 32 * rank[ent_row[dn]] + pos[dn]] = np.flatnonzero(dn)
-        # the other levels: entries by (level, step), each with its slot
-        sp = np.flatnonzero(~dn)
-        order = sp[np.lexsort((pos[sp], ent_row[sp], pos[sp] // 32, ent_level[sp]))]
-        slot = rank[ent_row[order]] * 32 + pos[order] % 32
-        key = ent_level[order] * (nnz + 1) + pos[order] // 32
-        starts = np.flatnonzero(np.r_[True, np.diff(key) != 0]) if key.size else np.zeros(0, int)
-        ends = np.r_[starts[1:], key.size].astype(np.int64)
-        runs = [[] for _ in range(nlev)]
-        for s0, s1 in zip(starts.tolist(), ends.tolist()):
-            runs[int(ent_level[order[s0]])].append((s0, s1))
-        levels = [(int(level_ptr[v]), int(level_ptr[v + 1]), bool(dense[v]),
-                   int(base[v]) if dense[v] else runs[v], int(most[v]))
-                  for v in range(nlev)]
-        dev = t.device
-
-        def put(v):
-            return torch.from_numpy(np.ascontiguousarray(v, np.int64)).to(dev)
-
-        t._levels = (put(rows), levels, put(lay), put(order), put(slot))
-    return t._levels
+        np.maximum.at(most, level[short], lens[short])
+        steps = np.zeros(nlev, np.int64)
+        np.maximum.at(steps, level[~short], (lens[~short] + 31) // 32)
+        width = np.where(short, most[level], 32 * steps[level])  # a row's places
+        at = np.zeros(n + 1, np.int64)
+        np.cumsum(width, out=at[1:])
+        lay = np.full(int(at[-1]), nnz, np.int64)
+        ent_row = np.repeat(np.arange(n), lens)
+        lay[at[ent_row] + np.arange(nnz) - ptr[ent_row]] = np.arange(nnz)
+        at_short = at[lp[:-1]]
+        levels = list(zip(lp[:-1].tolist(), ns.tolist(), most.tolist(),
+                          (np.diff(lp) - ns).tolist(), steps.tolist(), at_short.tolist(),
+                          (at_short + ns * most).tolist()))
+        t._plain = (torch.from_numpy(lay).to(t.device), levels)
+    return t._plain
 
 
 def _tree(s: torch.Tensor, fl: bool) -> torch.Tensor:
@@ -178,38 +268,102 @@ def _tree(s: torch.Tensor, fl: bool) -> torch.Tensor:
 
 
 def tri_solve_plain(t: DeviceTri, b: torch.Tensor) -> torch.Tensor:
-    """The solve kernel's function in plain torch ops, on any device: level
-    by level, each row's products summed as the kernel's warp sums them (a
-    partial a lane over the entries l, l + 32, ... in order, starting from
-    +0, then a halving tree over the 32 partials), every product and sum
-    rounded on its own and flushed under fp32_ftz, then ``y_i = (b_i - sum)
-    * dinv_i`` (rounded to bf16 once under bf16). A row with one entry sums
-    to its product + 0, which the tree's further + 0 leave as it is."""
+    """The solve kernel's function in plain torch ops, on any device, from
+    the same schedule: level by level, a short row's products summed one
+    after the other in CSR order from +0, a long row's as the kernel's warp
+    sums them (a partial a lane over the entries l, l + 32, ... in order,
+    then a halving tree over the 32 partials), every product and sum rounded
+    on its own and flushed under fp32_ftz, then ``y_i = (b_i - sum) *
+    dinv_i`` (rounded to bf16 once under bf16). An empty place adds +0 (its
+    value 0 times y[n] = 0), which leaves a sum that started from +0 as it
+    is."""
     p = t.policy
     acc, fl = p.accum_dtype, p.flush_to_zero
-    rows, levels, lay, order, slot = _levels(t)
+    lay, levels = _plain_layout(t)
     zero = torch.zeros(1, dtype=acc, device=t.device)
-    vals = torch.cat([t.strict.vals.to(acc), zero])  # entry nnz: the zero entry
-    cols = torch.cat([t.strict.indices.long(), torch.full((1,), t.n, device=t.device)])
-    svals, scols = vals[order], cols[order]
-    dinv = t.dinv.to(acc)
-    bf = ftz(b.to(acc), fl)
-    y = torch.zeros(t.n + 1, dtype=acc, device=t.device)  # y[n] = 0: the zero entry's column
-    for r0, r1, dense, where, most in levels:
-        r = rows[r0:r1]
-        if dense:
-            e = lay[where:where + 32 * (r1 - r0)]
-            part = ftz(ftz(vals[e] * y[cols[e]], fl) + 0.0, fl).view(-1, 32)
-            v = ftz(bf[r] - (part[:, 0] if most == 1 else _tree(part, fl)), fl)
-        else:
-            part = torch.zeros((r1 - r0) * 32, dtype=acc, device=t.device)
-            for e0, e1 in where:
-                sl = slot[e0:e1]
-                part[sl] = ftz(part[sl] + ftz(svals[e0:e1] * y[scols[e0:e1]], fl), fl)
-            v = ftz(bf[r] - _tree(part.view(-1, 32), fl), fl)
-        v = ftz(v * dinv[r], fl)
-        y[r] = v.to(p.dtype).to(acc) if p.dtype == torch.bfloat16 else v
-    return y[:t.n]
+    vl = torch.cat([t.vals.to(acc), zero])[lay]
+    cl = torch.cat([t.cols.long(), torch.full((1,), t.n, device=t.device)])[lay]
+    perm = t.perm.long()
+    bp = ftz(b.to(acc), fl)[perm]
+    dp = t.dinv.to(acc)[perm]
+    yp = torch.zeros(t.n + 1, dtype=acc, device=t.device)  # yp[n] = 0: the zero entry's column
+    for q0, ns, most, nl, steps, at_s, at_l in levels:
+        sums = []
+        if ns:
+            s = torch.zeros(ns, dtype=acc, device=t.device)
+            if most:
+                e = slice(at_s, at_s + ns * most)
+                pr = ftz(vl[e] * yp[cl[e]], fl).view(ns, most)
+                for m in range(most):
+                    s = ftz(s + pr[:, m], fl)
+            sums.append(s)
+        if nl:
+            e = slice(at_l, at_l + nl * steps * 32)
+            pr = ftz(vl[e] * yp[cl[e]], fl).view(nl, steps, 32)
+            part = torch.zeros(nl, 32, dtype=acc, device=t.device)
+            for k in range(steps):
+                part = ftz(part + pr[:, k], fl)
+            sums.append(_tree(part, fl))
+        q = slice(q0, q0 + ns + nl)
+        s = sums[0] if len(sums) == 1 else torch.cat(sums)
+        v = ftz(ftz(bp[q] - s, fl) * dp[q], fl)
+        yp[q] = v.to(p.dtype).to(acc) if p.dtype == torch.bfloat16 else v
+    y = torch.empty(t.n, dtype=acc, device=t.device)
+    y[perm] = yp[:t.n]
+    return y
+
+
+_lib = None
+
+
+def _library():
+    """The built kernel library, once its schedule sizes are known to match
+    ours."""
+    global _lib
+    if _lib is None:
+        from . import _build
+        lib = _build.load()
+        ours = (SHORT, RUN_ROWS, RUN_ENTRIES, TASK_ROWS)
+        sizes = tuple(lib.respa_tri_solve_limit(i) for i in range(len(ours)))
+        if sizes != ours:
+            raise RuntimeError(f"csrc/sptrsv.cu was built with the sizes {sizes}, the schedule "
+                               f"makes {ours}")
+        _lib = lib
+    return _lib
+
+
+def _check(t: DeviceTri, b: torch.Tensor) -> None:
+    acc = t.policy.accum_dtype
+    if b.dtype != acc or b.device != t.device or b.shape != (t.n,) or not b.is_contiguous():
+        raise ValueError(f"b must be contiguous {acc} of shape ({t.n},) on {t.device}")
+    if (t.dinv.dtype != t.policy.dtype or t.dinv.shape != (t.n,)
+            or t.vals.dtype != t.policy.dtype or t.perm.shape != (t.n,)
+            or t.ptr.shape != (t.n + 1,)
+            or any(v.device != t.device for v in (t.perm, t.level_ptr, t.ptr, t.cols, t.vals,
+                                                   t.tasks))):
+        raise ValueError("DeviceTri arrays do not match its policy, size and device")
+
+
+def _launch(t: DeviceTri, b: torch.Tensor, out: torch.Tensor, mode: int) -> None:
+    """One launch of K7 on the current stream, with its control words (and,
+    under mode 1, the pending values) set for it on that stream."""
+    acc = t.policy.accum_dtype
+    if mode == 1:
+        nctl = 1
+        yp = torch.full((t.n,), _PENDING[acc], dtype=_BITS[acc], device=t.device).view(acc)
+    else:
+        nctl = t.levels + 1
+        yp = torch.empty(t.n, dtype=acc, device=t.device)
+    ctl = torch.zeros(nctl, dtype=torch.int32, device=t.device)
+    name = f"respa_tri_solve_{'lower' if t.lower else 'upper'}_{_INST[t.policy.name]}"
+    rc = getattr(_library(), name)(
+        t.device.index, t.tasks.shape[0], t.warps, t.tasks.data_ptr(), t.level_ptr.data_ptr(),
+        t.perm.data_ptr(), t.ptr.data_ptr(), t.cols.data_ptr(), t.vals.data_ptr(),
+        t.dinv.data_ptr(), b.data_ptr(), out.data_ptr(), yp.data_ptr(), ctl.data_ptr(), nctl,
+        mode, torch.cuda.current_stream(t.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
 
 
 def tri_solve(t: DeviceTri, b: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -218,16 +372,11 @@ def tri_solve(t: DeviceTri, b: torch.Tensor, out: Optional[torch.Tensor] = None)
     written); see :func:`tri_solve_plain`.
 
     On a CUDA device this is one launch of the solve kernel on the current
-    stream, with ready flags and ticket zeroed for it on that stream; it
-    raises if the inputs do not fit the kernel or the launch fails. On the
-    CPU it runs the plain version."""
-    p = t.policy
-    acc = p.accum_dtype
-    if b.dtype != acc or b.device != t.device or b.shape != (t.n,) or not b.is_contiguous():
-        raise ValueError(f"b must be contiguous {acc} of shape ({t.n},) on {t.device}")
-    if (t.dinv.dtype != p.dtype or t.dinv.shape != (t.n,) or t.dinv.device != t.device
-            or t.strict.shape != (t.n, t.n)):
-        raise ValueError("DeviceTri arrays do not match its policy, size and device")
+    stream, its tasks waiting on level counters that are zeroed for it, with
+    its ticket, on that stream. It raises if the inputs do not fit the kernel
+    or the launch fails. On the CPU it runs the plain version."""
+    _check(t, b)
+    acc = t.policy.accum_dtype
     if t.device.type == "cpu":
         y = tri_solve_plain(t, b)
         if out is not None:
@@ -241,20 +390,41 @@ def tri_solve(t: DeviceTri, b: torch.Tensor, out: Optional[torch.Tensor] = None)
     elif out.dtype != acc or out.device != t.device or out.dim() != 1 or out.numel() < t.n \
             or not out.is_contiguous():
         raise ValueError(f"out must be a contiguous {acc} vector of at least {t.n} on {t.device}")
-    if t.n == 0:
-        return out
-    flags = torch.zeros(t.n + 1, dtype=torch.int32, device=t.device)
-    from . import _build
-    name = f"respa_tri_solve_{'lower' if t.lower else 'upper'}_{_INST[p.name]}"
-    s = t.strict
-    rc = getattr(_build.load(), name)(
-        t.device.index, t.n, s.indptr.data_ptr(), s.indices.data_ptr(), s.vals.data_ptr(),
-        t.dinv.data_ptr(), b.data_ptr(), out.data_ptr(), flags.data_ptr(),
-        torch.cuda.current_stream(t.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    if t.n:
+        _launch(t, b, out, 0)
     return out
+
+
+def _tri_solve_flags(t: DeviceTri, b: torch.Tensor) -> torch.Tensor:
+    """The same solve on a CUDA device with each row waiting on its columns'
+    ready values instead of a level's counter (mode 1). Measured slower on
+    the card (PERF.md), so the package never calls it; ``chip_smoke.py``
+    times it beside :func:`tri_solve`."""
+    _check(t, b)
+    if t.device.type != "cuda":
+        raise ValueError("the ready-value wait runs on a CUDA device only")
+    out = torch.empty_like(b)
+    if t.n:
+        _launch(t, b, out, 1)
+    return out
+
+
+def link_latency(device: Union[str, torch.device] = "cuda",
+                 rounds: int = 20000) -> Tuple[float, int, int]:
+    """The card's one-way hand-over through L2, in seconds: two single-thread
+    blocks on two SMs bounce a flag ``rounds`` times by release and acquire
+    (``respa_link_probe``), timed by the card's global timer, halved. Also
+    the two SM ids. A measurement: it waits for the card."""
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    if flag.device.type != "cuda":
+        raise ValueError("the link probe runs on a CUDA device only")
+    out = torch.zeros(3, dtype=torch.int64, device=flag.device)
+    rc = _library().respa_link_probe(flag.device.index, rounds, flag.data_ptr(), out.data_ptr(),
+                                     torch.cuda.current_stream(flag.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"respa_link_probe launch failed: cudaError {rc}")
+    ns, sm_a, sm_b = out.tolist()
+    return ns * 1e-9 / (2 * rounds), int(sm_a), int(sm_b)
 
 
 @dataclasses.dataclass

@@ -435,14 +435,20 @@ def _triangle(kind, n=3000, seed=0):
 
 
 def _upper(t):
-    return t.transpose()
+    """The lower triangle turned by 180 degrees: upper, its hub row kept."""
+    n = t.nrows
+    coo = t.tocoo()
+    return coo_to_csr(COOMatrix((n, n), (n - 1 - coo.row).astype(np.int32),
+                                (n - 1 - coo.col).astype(np.int32), coo.val))
 
 
 def test_ilu_kernels_match_plain(card):
     """K6 (one ILU(0) sweep) and K7 (the one-launch triangular solve) bit
     for bit with their plain versions in every instance, twice, each counting
-    its launches, the slot past the output untouched; K7 on two streams at
-    once equal to the sequential solves; subnormals flushed under fp32_ftz."""
+    its launches, the slot past the output untouched (K7 on a hub row, empty
+    rows, a zero diagonal, a chain of runs and one level, lower and upper);
+    K7 on two streams at once equal to the sequential solves; the link probe
+    on two SMs; subnormals flushed under fp32_ftz."""
     a = synth.circuit_like(4000, 5, seed=2, diag="dominant")
     sched = I.ilu_schedule_to_device(analysis.chow_patel_schedule(a), card)
     for inst, policy in ILU_INST.items():
@@ -489,6 +495,9 @@ def test_ilu_kernels_match_plain(card):
     y1, y2 = S.tri_solve(d, b), S.tri_solve(d, b2)
     got = _on_two_streams(lambda: S.tri_solve(d, b), lambda: S.tri_solve(d, b2))
     assert torch.equal(got[0], y1) and torch.equal(got[1], y2)
+    # the link probe: two SMs, a one-way hand-over of 0.05-5 us
+    latency, sm_a, sm_b = S.link_latency(card, rounds=2000)
+    assert sm_a != sm_b and 5e-8 < latency < 5e-6
     # a subnormal partial: y1 = 0 - n10 y0 = -1e-39 under fp32, 0 under fp32_ftz
     l2 = coo_to_csr(COOMatrix((2, 2), np.array([0, 1, 1], np.int32), np.array([0, 0, 1], np.int32),
                               np.array([1.0, 1e-20, 1.0])))

@@ -158,6 +158,34 @@ def test_ilu_modules_match_respatpu():
     for policy, tol in (("df64", 1e-12), ("fp32", 1e-5)):
         y, jy = _solve_both(chain, True, False, b, policy)
         assert _rel(y, jy) <= tol and _rel(y, host) <= tol, policy
+    tasks = tri_from_respatpu(chain).tasks.numpy()  # runs of thin levels, none longer than 128
+    assert (tasks[:, 3] > tasks[:, 2]).all() and (tasks[:, 1] - tasks[:, 0]).max() == 128
+
+    # the kernel's row classes: rows with no strict entry, short rows, rows
+    # longer than a short row (40 entries) and than a warp's step (120), and
+    # a zero diagonal (read as 1 by both packages and here by the oracle)
+    n = 200
+    r, c = rng.integers(0, n, 5 * n), rng.integers(0, n, 5 * n)
+    rows = np.r_[np.maximum(r, c), np.full(40, 150), np.full(120, n - 1), np.arange(n)]
+    cols = np.r_[np.minimum(r, c), rng.choice(150, 40, replace=False),
+                 rng.choice(n - 1, 120, replace=False), np.arange(n)]
+    keep = (rows % 9 != 4) | (rows == cols)
+    rows, cols = rows[keep].astype(np.int32), cols[keep].astype(np.int32)
+    vals = rng.uniform(0.5, 1.5, keep.sum()) * rng.choice((-1.0, 1.0), keep.sum())
+    vals[rows == cols] += 3.0
+    vals[(rows == 7) & (cols == 7)] = 0.0
+    for lower in (True, False):  # the upper triangle: the lower one turned by 180 degrees
+        T = jcoo_to_csr(JCOO((n, n), rows, cols, vals) if lower else
+                        JCOO((n, n), n - 1 - rows, n - 1 - cols, vals))
+        one = csr_from_respatpu(T)
+        one.data[one.data == 0.0] = 1.0
+        d = tri_from_respatpu(T, lower=lower)
+        assert (d.tasks[:, 3] == -1).sum() == 2 and (np.diff(d.ptr.numpy()) == 0).any()
+        for unit in (False, True):
+            host = ttri.sptrsv_host_reference(one, b[:n], lower, unit)
+            for policy, tol in (("df64", 1e-12), ("fp32", 1e-5)):
+                y, jy = _solve_both(T, lower, unit, b[:n], policy)
+                assert _rel(y, jy) <= tol and _rel(y, host) <= tol, (lower, unit, policy)
 
     # a planted zero pivot is perturbed and counted once, as respatpu counts it
     ja = laplacian_2d(5, 5)
