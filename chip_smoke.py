@@ -86,16 +86,53 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``torch.triangular_solve`` on a sparse CSR tensor) and plain; K7 beside
    its other way to wait, with L's and U's schedule timed on the host; one
    Jacobi and one exact apply whole, and one GMRES solve under the profiler;
-10. result: a JSON line of the kernels, then the device line last.
+   the grid Laplacian's products there take the DIA kernel (phase 12);
+10. exact ILU(0) by the scheduled LU (K8, ``kernels/csrc/splu.cu``): the
+   2cubes_sphere ``sweep_ilu0`` rows with ``method="scheduled"`` (fp64 with
+   the exact applies, fp32 with Jacobi applies), each GMRES(40) refined on
+   the host to 1e-10, and BiCGSTAB with exact ILU(0) on the grid Laplacian
+   under fp32_ftz and bf16, with the launch counts; beside the path, the
+   plan's entry levels and tasks with their host time, K8 in every instance
+   bit for bit with its plain version on 2cubes_sphere's ILU(0) and timed
+   beside its byte and chain bounds and its value gathers against the L2
+   read rate (a probe in ``bench/csrc/smoke_probes.cu``), K8 in fp32_ftz
+   and bf16 bit for bit with plain on the grid Laplacian's ILU(0) (the
+   BiCGSTAB rows' shape), and the exact factor against the 30-sweep
+   Chow-Patel one;
+11. the direct scheduled LU at full width: laplacian_2d(300, 300) by
+   ``factorize(method="sparse")`` (313.9 M pairs) in fp32 refined to 1e-10
+   and in fp64, its phase times, fill, pairs, levels, pivots and the ragged
+   against the padded pair lists; ``auto`` reaching its third step on a grid
+   that band and the multifrontal LU are made to refuse; beside the path,
+   ``condest`` once and K8 bit for bit with plain on the filled pattern,
+   timed;
+12. the DIA path: ``sweep_spmv`` on the ecology2 and tmt_unsym stand-ins at
+   catalogue size through ``fmt="auto"`` (DIA, K9 in ``kernels/csrc/dia.cu``)
+   with fp64 and each low precision, past the DIA byte gate, with the launch
+   counts; beside the path, K9 bit for bit with its plain version in every
+   instance on both grids and on ecology2 with 2,000 stragglers (the
+   remainder summed inside K9), timed beside its byte bound, K0 on the same
+   matrix and ``torch.mv`` on a sparse CSR tensor; and on the stragglers
+   case beside the remainder's other design (K0 on the remainder, then K9
+   adding its product: ``bench/csrc/smoke_probes.cu``, built with the
+   kernels), equal bit for bit;
+13. result: a JSON line of the kernels, then the device line last.
 
-Two measurements run alone, each in processes of its own:
+Each phase prints its seconds on a line of its own (``[phase] k took``).
+
+Four measurements run alone, each in processes of its own:
 ``python3 chip_smoke.py --ilu-times`` takes phase 9's timings at the path's
 shapes, with K6 beside its other designs (``bench/csrc/ilu0_designs.cu``:
 evict-first or plain loads, the first version, warp-cooperative gathers;
 each == plain bit for bit) in 3 rounds (:func:`time_ilu_alone`);
+``python3 chip_smoke.py --splu-times`` times K8 at the path's two shapes
+with its plan cut into runs of long entries of several sizes
+(:func:`time_splu_alone`);
 ``python3 chip_smoke.py --ilu-rows TREE ...`` runs only the 2cubes_sphere
 ``sweep_ilu0`` rows at 30 sweeps of each tree in turn
-(:func:`ilu_rows_in_turns`), to compare two commits on one card in one call.
+(:func:`ilu_rows_in_turns`), to compare two commits on one card in one call;
+``python3 chip_smoke.py --upload-times TREE ...`` times each tree's upload of
+the offshore and ecology2 stand-ins the same way (:func:`upload_times_in_turns`).
 """
 import ctypes
 import dataclasses
@@ -123,7 +160,9 @@ from respatpu_torch.io import native  # noqa: E402
 from respatpu_torch.kernels import _build  # noqa: E402
 from respatpu_torch import analysis  # noqa: E402
 from respatpu_torch.kernels import bandlu as B  # noqa: E402
+from respatpu_torch.kernels import dia as DI  # noqa: E402
 from respatpu_torch.kernels import ilu0 as I  # noqa: E402
+from respatpu_torch.kernels import splu as SP  # noqa: E402
 from respatpu_torch.kernels import sptrsv as S  # noqa: E402
 from respatpu_torch.kernels import snlu_device as F  # noqa: E402
 from respatpu_torch.kernels import spmv as K  # noqa: E402
@@ -184,7 +223,16 @@ ILU_REPLACES = {i: "respatpu/kernels/ilu0.py:123" if i == "f64" else "respatpu/k
 TRI_REPLACES = {i: "respatpu/kernels/sptrsv.py:280" if i == "f64"
                 else "respatpu/kernels/sptrsv.py:315" for i in ILU_POLICIES}
 # K6's other designs, timed beside it in rounds (bench/csrc/ilu0_designs.cu)
+SPLU_SOURCE = "respatpu_torch/kernels/csrc/splu.cu"
+DIA_SOURCE = "respatpu_torch/kernels/csrc/dia.cu"
+SPLU_REPLACES = {i: "respatpu/kernels/splu.py:248" if i == "f64" else "respatpu/kernels/splu.py:205"
+                 for i in ILU_POLICIES}
+DIA_REPLACES = {i: "respatpu/kernels/dia.py:137" if i == "f64" else "respatpu/kernels/dia.py:126"
+                for i in ILU_POLICIES}
+GRIDS = ("ecology2", "tmt_unsym")  # the 5-point stencil stand-ins of the moderate group
 ILU_DESIGNS_SOURCE = "respatpu_torch/bench/csrc/ilu0_designs.cu"
+# K9's other remainder design and the L2 read probe (bench/csrc/smoke_probes.cu)
+PROBES_SOURCE = "respatpu_torch/bench/csrc/smoke_probes.cu"
 ILU_DESIGNS = ("body, evict-first", "body, plain loads", "first version",
                "warp-cooperative, 32 pairs a step", "warp-cooperative, 64 pairs a step")
 # the sweep's __global__ functions by (regime, forward), as the profiler names them
@@ -237,7 +285,7 @@ def edge_matrices():
 
 
 def check_kernel(name, a, policy, x64, errs):
-    dev = K.to_device(a, policy, "cuda")
+    dev = K.to_device(a, policy, "cuda", fmt="csr")
     x = x_for(dev, x64)
     y = K.spmv(dev, x)
     torch.cuda.synchronize()
@@ -270,7 +318,7 @@ def check_ftz():
     x64 = rng.integers(-3, 4, a.shape[1]).astype(np.float64)
     x64[::7] = -1e-40
     s = CSRMatrix(a.shape, a.indptr, a.indices, v)
-    dev = K.to_device(s, "fp32_ftz", "cuda")
+    dev = K.to_device(s, "fp32_ftz", "cuda", fmt="csr")
     x = x_for(dev, x64)
     y, plain = K.spmv(dev, x), K.spmv_plain(dev, x)
     if not torch.equal(y, plain):
@@ -278,9 +326,9 @@ def check_ftz():
     # every product here is 1e-20 * 1e-20 (subnormal in fp32): all rows flush
     tiny = CSRMatrix(a.shape, a.indptr, a.indices, np.full(a.nnz, 1e-20))
     xt = np.full(a.shape[1], 1e-20)
-    dt = K.to_device(tiny, "fp32_ftz", "cuda")
+    dt = K.to_device(tiny, "fp32_ftz", "cuda", fmt="csr")
     yt, pt = K.spmv(dt, x_for(dt, xt)), K.spmv_plain(dt, x_for(dt, xt))
-    d32 = K.to_device(tiny, "fp32", "cuda")
+    d32 = K.to_device(tiny, "fp32", "cuda", fmt="csr")
     y32 = K.spmv(d32, x_for(d32, xt))
     if not (torch.equal(yt, pt) and bool((pt == 0).all()) and bool((y32 != 0).any())):
         raise AssertionError("fp32_ftz: subnormal products not flushed to exact zeros")
@@ -567,7 +615,8 @@ def factor_bound(band, acc):
 
 
 def reset_counts():
-    for counts in (B.LAUNCHES, K.LAUNCHES, F.LAUNCHES, I.LAUNCHES, S.LAUNCHES):
+    for counts in (B.LAUNCHES, K.LAUNCHES, F.LAUNCHES, I.LAUNCHES, S.LAUNCHES, SP.LAUNCHES,
+                   DI.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -635,12 +684,13 @@ def direct_path(name_limit, a, times):
               f"{rl.iterations} iterations, residual {rl.residual:.3e} (tol {tol:.0e})", flush=True)
 
     launches, spmv_direct = dict(B.LAUNCHES), K.LAUNCHES["fp64"]
+    dia_direct = dict(DI.LAUNCHES)
     fp64_row = {"respa_block_lu_f64": nb, "respa_band_sweep_fwd_f64": 1,
                 "respa_band_sweep_bwd_f64": 1}
     if any(launches[k] != v for k, v in fp64_row.items()) or min(launches.values()) < 1:
         raise AssertionError(f"direct path launches {launches}")
-    print(f"[direct] launches of the whole direct path {launches}, fp64 SpMV {spmv_direct}",
-          flush=True)
+    print(f"[direct] launches of the whole direct path {launches}, fp64 SpMV {spmv_direct} "
+          f"(CSR kernel), DIA kernel (the Laplacian's residuals) {dia_direct}", flush=True)
 
     # beside the path, not counted: one unrefined solve, the condition
     # estimate, and the kernels' times at the full-width shapes
@@ -1179,7 +1229,7 @@ def multifrontal_path(name_limit, mats, errs, full, times):
     except MemoryError as e:
         text = str(e)
         if not ("band: band storage would need" in text and "snlu: front pool would need" in text
-                and text.endswith("sparse: not ported")):
+                and "; sparse: " in text):
             raise AssertionError(f"offshore: refusal text {text!r}") from e
         print(f"[frontal] offshore refused in {time.perf_counter() - t0:.1f} s: {text}", flush=True)
     else:
@@ -1408,9 +1458,11 @@ def link_probe(name_limit):
 
 
 def ilu_counts():
+    """K6's and K7's launches, and the products': the CSR kernel's by policy
+    (``spmv_*``) and, for the grid Laplacian's products, the DIA kernel's."""
     return dict(I.LAUNCHES, **S.LAUNCHES, spmv_fp32=K.LAUNCHES["fp32"],
                 spmv_fp32_ftz=K.LAUNCHES["fp32_ftz"], spmv_bf16=K.LAUNCHES["bf16"],
-                spmv_fp64=K.LAUNCHES["fp64"])
+                spmv_fp64=K.LAUNCHES["fp64"], **DI.LAUNCHES)
 
 
 def ilu_row(name_limit, name, policy, sweeps, must_converge):
@@ -1454,6 +1506,28 @@ def ilu_rows_in_turns(trees):
     for tree in trees:
         print(f"[rows] {os.path.abspath(tree)}", flush=True)
         subprocess.run([sys.executable, "-c", code], cwd=tree, check=True, timeout=900)
+
+
+def upload_times_in_turns(trees):
+    """``python3 chip_smoke.py --upload-times TREE ...``: one upload of the
+    offshore (CSR) and ecology2 (DIA, where the tree has it) stand-ins by
+    each tree's own ``to_device(a, "fp32", "cuda")`` with its default
+    format, in a process of its own, in the order given (e.g. parent, this
+    tree, this tree, parent): host clock to a device synchronize, after one
+    warm upload, 5 times; one JSON line a tree."""
+    code = ("import json, time, torch; from respatpu_torch.bench import corpus; "
+            "from respatpu_torch.kernels.spmv import to_device; out = {}\n"
+            "for m in ('offshore', 'ecology2'):\n"
+            "    a = corpus.load_matrix(m)[0]; to_device(a, 'fp32', 'cuda'); "
+            "torch.cuda.synchronize(); ts = []\n"
+            "    for _ in range(5):\n"
+            "        t0 = time.perf_counter(); d = to_device(a, 'fp32', 'cuda'); "
+            "torch.cuda.synchronize(); ts.append((time.perf_counter() - t0) * 1e3)\n"
+            "    out[m] = {'format': type(d).__name__, 'nnz': a.nnz, 'ms': ts}\n"
+            "print('[upload] ' + json.dumps(out), flush=True)")
+    for tree in trees:
+        print(f"[upload] {os.path.abspath(tree)}", flush=True)
+        subprocess.run([sys.executable, "-c", code], cwd=tree, check=True, timeout=600)
 
 
 def time_ilu_alone(name_limit):
@@ -1827,6 +1901,526 @@ def krylov_profile(name_limit, a, pre):
 
 
 
+# ---------------------------------------------------------------------------
+# 10-12. the scheduled LU (K8, csrc/splu.cu) and the DIA SpMV (K9, csrc/dia.cu)
+# ---------------------------------------------------------------------------
+
+
+def splu_counts():
+    """The launch counts the scheduled-LU and DIA paths read."""
+    return dict(SP.LAUNCHES, **DI.LAUNCHES, **S.LAUNCHES,
+                **{f"spmv_{p}": n for p, n in K.LAUNCHES.items()})
+
+
+def splu_bytes(d, itemsize):
+    """Bytes one factorization must move through device memory: the pair
+    positions once (two int32 a pair) and each entry's own words (A's value
+    read, its value written, its offset, kind, diagonal position and place in
+    the plan), the tasks and level offsets. The values a pair gathers are
+    the factor's own, written by this launch and read back through L2, which
+    holds them (at most 40 MB on the path, of 50): each is counted once, in
+    its write; the gathers are set against L2 on their own
+    (:func:`splu_gather_bytes`)."""
+    return (d.pairs_a.numel() * 8 + d.nnz * (2 * itemsize + 8 + 1 + 4 + 4) + 8
+            + d.tasks.numel() * 4 + d.level_ptr.numel() * 4)
+
+
+def splu_gather_bytes(d, itemsize):
+    """Bytes of the value gathers through L2: two values a pair."""
+    return d.pairs_a.numel() * 2 * itemsize
+
+
+def l2_read_rate(name_limit, probes, mib=16, rounds=64):
+    """The card's L2 read rate: bytes/s of one probe launch
+    (``respa_l2_read_probe``) that reads a ``mib`` MiB buffer, small enough to
+    stay in L2, ``rounds`` times over through L2 alone, the median of 10 by
+    events, each after the one before (no flush). K8's value gathers are set against it (a
+    gather of a word takes a whole 32-byte sector, so gathers go slower)."""
+    buf = torch.ones((mib << 20) // 4, dtype=torch.float32, device="cuda")
+    out = torch.zeros(1, dtype=torch.float32, device="cuda")
+
+    def probe():
+        rc = probes.respa_l2_read_probe(buf.device.index, buf.data_ptr(), buf.numel() // 4,
+                                        rounds, out.data_ptr(),
+                                        torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"respa_l2_read_probe: cudaError {rc}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    probe()
+    times = []
+    for _ in range(10):  # the buffer stays warm in L2: no flush between launches
+        start.record()
+        probe()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    rate = rounds * (mib << 20) / (ms * 1e-3)
+    print(f"[time] {name_limit} | L2 read probe: {mib} MiB read {rounds} times through L2 in "
+          f"{ms:.4f} ms, {rate / 1e12:.3f} TB/s (median of 10 by events, warm)", flush=True)
+    return rate
+
+
+def hold_splu(what, d, values, eps, insts, errs):
+    """K8 against its plain version on a plan and values (A's values on the
+    pattern, fp64 on the host), twice, bit for bit, in each instance of
+    ``insts``, the slot past the output untouched; returns {instance: (A's
+    values on the card, plain ms)}."""
+    out = {}
+    for inst in insts:
+        p = get_policy(ILU_POLICIES[inst])
+        av = p.cast_host(values).cuda()
+        runs = []
+        for _ in range(2):
+            o = torch.full((d.nnz + 1,), 7.0, dtype=p.dtype, device="cuda")
+            SP.splu_factor(d, av, eps, p.flush_to_zero, out=o)
+            runs.append(o)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = SP.splu_factor_plain(d, av, eps, p.flush_to_zero)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        if not all(torch.equal(o[:-1], want) and float(o[-1]) == 7.0 for o in runs):
+            raise AssertionError(f"K8 {inst} on {what}: kernel != plain")
+        errs[f"respa_splu_factor_{inst}"] = 0.0
+        print(f"[kernel] K8 {inst} {what} nnz={d.nnz} pairs={d.pairs_a.numel()}: == plain bit "
+              f"for bit twice", flush=True)
+        out[inst] = (av, plain)
+    return out
+
+
+def hold_and_time_splu(name_limit, what, d, values, eps, insts, errs, latency, l2, reps=10):
+    """K8 held against its plain version (:func:`hold_splu`) on the path's
+    own plan and values, then timed by events and the profiler beside its
+    byte and chain bounds, its value gathers against the L2 read rate ``l2``
+    (bytes/s, :func:`l2_read_rate`), and the plain version (one run, host
+    clock to a synchronize). Returns {kernel name: times}."""
+    out = {}
+    for inst, (av, plain) in hold_splu(what, d, values, eps, insts, errs).items():
+        p = get_policy(ILU_POLICIES[inst])
+        name = f"respa_splu_factor_{inst}"
+        nbytes = splu_bytes(d, p.dtype.itemsize)
+        gather = splu_gather_bytes(d, p.dtype.itemsize)
+        ops = 2 * d.pairs_a.numel() + 2 * d.nnz
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / FLOPS_PER_S[p.accum_dtype] * 1e3
+        chain = max(d.levels - 1, 0) * latency * 1e3
+        t = {"ms": events_ms(lambda: SP.splu_factor(d, av, eps, p.flush_to_zero), reps),
+             "profiler_ms": profiler_ms(lambda: SP.splu_factor(d, av, eps, p.flush_to_zero),
+                                        "splu_factor_kernel", reps),
+             "plain_ms": plain, "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "library_ms": None,
+             "library": "none: PyTorch has no sparse LU on the card",
+             "shape": f"{what} nnz={d.nnz} pairs={d.pairs_a.numel()} levels={d.levels} "
+                      f"tasks={d.tasks.shape[0]}",
+             "l2_gather_ms": gather / l2 * 1e3, "l2_read_bytes_per_s": l2,
+             "chain_bound": {"bound_ms": chain, "bound_by": "chain", "levels": d.levels,
+                             "hand_overs": max(d.levels - 1, 0), "link_us": latency * 1e6}}
+        out[name] = t
+        print(f"[time] {name_limit} | K8 {inst} {t['shape']}: events {fmt_ms(t['ms'])}, "
+              f"profiler {fmt_ms(t['profiler_ms'])}; byte bound {by_bytes:.4f} ms ({nbytes} "
+              f"bytes at 3.35 TB/s; {ops} operations {by_ops:.4f} ms); value gathers "
+              f"{t['l2_gather_ms']:.4f} ms ({gather} bytes at the L2 read rate {l2 / 1e12:.3f} "
+              f"TB/s); chain bound {chain:.4f} ms ({d.levels - 1} hand-overs x "
+              f"{latency * 1e6:.4f} us); library none; plain {plain:.1f} ms", flush=True)
+    return out
+
+
+def splu_ilu_path(name_limit):
+    """Phase 10: exact ILU(0) by the scheduled LU on the path: the
+    2cubes_sphere ``sweep_ilu0`` rows with ``method="scheduled"`` (fp64 with
+    the exact applies, fp32 with Jacobi applies), each GMRES(40) refined on
+    the host to the oracle's 1e-10, and BiCGSTAB with exact ILU(0) and exact
+    applies on the grid Laplacian under fp32_ftz and bf16; returns the
+    launch counts."""
+    reset_counts()
+    if not native.available():
+        raise AssertionError("the host library (entry levels of the scheduled LU) did not build")
+    for policy in ("fp64", "fp32"):
+        t0 = time.perf_counter()
+        row = runner.sweep_ilu0(["2cubes_sphere"], policy=policy, method="scheduled",
+                                device="cuda", verbose=False)[0]
+        if row["status"] != "ok" or not float(row["krylov_residual"]) <= 1e-10 \
+                or not row["cp_residual"].startswith("exact_scheduled"):
+            raise AssertionError(f"2cubes_sphere {policy} exact ILU(0): {row}")
+        print(f"[splu] {name_limit} | 2cubes_sphere n={row['n']} nnz={row['nnz']} {policy} exact "
+              f"ILU(0) [{row['cp_residual']}] pivots perturbed {row['pivots_perturbed']}; analyze "
+              f"{float(row['t_analyze_s']) * 1e3:.1f} ms, factor (plan on the host and one K8 "
+              f"launch) {float(row['t_factor_s']) * 1e3:.1f} ms, one apply "
+              f"{float(row['t_apply_s']) * 1e3:.3f} ms, GMRES(40) with host refinement "
+              f"{float(row['t_krylov_s']) * 1e3:.1f} ms in {row['krylov_iters']} iterations to "
+              f"{row['krylov_residual']} (host oracle): {row['status']} (host clock, each phase "
+              f"ended by a device synchronize; row {time.perf_counter() - t0:.2f} s)", flush=True)
+    lap = laplacian_2d(300, 300)
+    b, _ = slv.make_rhs_for_known_x(lap)
+    for policy, tol in (("fp32_ftz", 1e-6), ("bf16", 1e-2)):
+        pre = slv.Ilu0Preconditioner(lap, policy, method="scheduled", apply_mode="scheduled",
+                                     device="cuda")
+        x, rep = slv.bicgstab(lap, b, precond=pre, policy=policy, tol=tol)
+        if not (rep.converged and np.isfinite(x).all() and pre.report.notes == "exact_scheduled"):
+            raise AssertionError(f"laplacian bicgstab {policy} exact ILU(0): {rep}")
+        print(f"[splu] {name_limit} | laplacian_2d(300, 300) bicgstab {policy}, exact ILU(0) and "
+              f"exact applies: {rep.iterations} iterations in {rep.t_solve * 1e3:.1f} ms, residual "
+              f"{rep.residual:.3e} (host oracle; tol {tol:.0e}, gate tol*100)", flush=True)
+    launches = splu_counts()
+    print(f"[splu] launches of the exact ILU(0) path {launches}", flush=True)
+    return launches
+
+
+def hold_splu_ilu(name_limit, a, errs, times, latency, l2):
+    """Beside phase 10, not counted: 2cubes_sphere's ILU(0) plan (entry
+    levels and tasks, with their host time), K8 in every instance against
+    its plain version on it and timed; K8 in fp32_ftz and bf16 against its
+    plain version on the grid Laplacian's ILU(0), the BiCGSTAB rows' shape;
+    and the exact factor against the 30-sweep Chow-Patel one."""
+    sched = analysis.chow_patel_schedule(a)
+    t0 = time.perf_counter()
+    lev = SP.entry_levels(sched)
+    t1 = time.perf_counter()
+    plan = SP.build_scheduled_lu(a, sched)
+    t2 = time.perf_counter()
+    d = SP.splu_to_device(plan, "cuda")
+    long = int((np.diff(sched.ptr) > SP.SHORT).sum())
+    print(f"[splu] {name_limit} | 2cubes_sphere ILU(0) plan: nnz {a.nnz}, {sched.npairs} pairs, "
+          f"t_max {sched.t_max}, {plan.nlevels} entry levels (max {int(lev.max())}), "
+          f"{len(plan.tasks)} tasks ({long} long entries), {plan.warps} warps; host: entry "
+          f"levels {(t1 - t0) * 1e3:.1f} ms, whole plan {(t2 - t0) * 1e3:.1f} ms", flush=True)
+    eps = 1e-4 * float(np.abs(a.data).max())
+    times.update(hold_and_time_splu(name_limit, "2cubes_sphere ILU(0)", d, a.data, eps,
+                                    tuple(ILU_POLICIES), errs, latency, l2))
+    # the BiCGSTAB rows' instances at their own shape: the grid Laplacian's ILU(0)
+    lap = laplacian_2d(300, 300)
+    dl = SP.splu_to_device(SP.build_scheduled_lu(lap), "cuda")
+    hold_splu("laplacian_2d(300, 300) ILU(0)", dl, lap.data, 1e-4 * float(np.abs(lap.data).max()),
+              ("f32_ftz", "bf16"), errs)
+    del dl
+    for policy in ("fp64", "fp32"):
+        p = get_policy(policy)
+        e = (1e-13 if policy == "fp64" else 1e-4) * float(np.abs(a.data).max())
+        exact = SP.splu_factor(d, p.cast_host(a.data).cuda(), e).double()
+        cp, _ = I.ilu0_factor(a, sched=sched, policy=policy, sweeps=30, device="cuda")
+        diff = float((cp.values.double() - exact).abs().max() / exact.abs().max())
+        oracle = I.ilu0_host_reference(a) if policy == "fp64" else None
+        extra = ""
+        if oracle is not None:
+            extra = (f"; exact vs the host IKJ oracle "
+                     f"{float(np.abs(exact.cpu().numpy() - oracle).max() / np.abs(oracle).max()):.3e}")
+        print(f"[splu] {name_limit} | 2cubes_sphere {policy}: exact ILU(0) against the 30-sweep "
+              f"Chow-Patel factor, max |diff| / max |exact| = {diff:.3e} (cp_residual "
+              f"{cp.residual:.2e}){extra}", flush=True)
+
+
+def splu_direct_path(name_limit):
+    """Phase 11: the direct scheduled LU at full width: laplacian_2d(300,
+    300) by ``factorize(method="sparse")`` in fp32 refined to the oracle's
+    1e-10 and in fp64 with one solve; then ``auto`` on a grid that band and
+    the multifrontal LU are made to refuse. Returns (launch counts, the fp32
+    factorization, the fp64 one)."""
+    lap = laplacian_2d(300, 300)
+    b, x_true = slv.make_rhs_for_known_x(lap)
+    reset_counts()
+    t0 = time.perf_counter()
+    fac = slv.factorize(lap, "fp32", method="sparse", device="cuda")
+    t_all = time.perf_counter() - t0
+    t_warm = fac.refactorize_timed()
+    x, rep = slv.solve_refined(lap, b, fac=fac)
+    if not (rep.converged and rep.residual <= 1e-10 and rep.notes.startswith("method=sparse")
+            and np.isfinite(x).all()):
+        raise AssertionError(f"laplacian_2d(300, 300) sparse fp32 + IR: {rep}")
+    fac64 = slv.factorize(lap, "fp64", method="sparse", device="cuda")
+    x64 = fac64.solve(b)
+    r64 = fac64.report
+    if not (r64.residual <= 1e-12 and slv.inf_norm_error(x64, x_true) <= 1e-8):
+        raise AssertionError(f"laplacian_2d(300, 300) sparse fp64: {r64}")
+    launches = splu_counts()
+    solves = rep.iterations - 1
+    want = {"respa_splu_factor_f32": 2, "respa_splu_factor_f64": 1,
+            "respa_tri_solve_lower_f32": solves, "respa_tri_solve_upper_f32": solves,
+            "respa_tri_solve_lower_f64": 1, "respa_tri_solve_upper_f64": 1}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"sparse LU launches {launches}, expected {want}")
+    sched = fac.plan.sched
+    lay = sched.layout_bytes()
+    for what, f, r in (("fp32", fac, rep), ("fp64", fac64, r64)):
+        print(f"[splu] {name_limit} | laplacian_2d(300, 300) n={lap.nrows} nnz={lap.nnz} {what} "
+              f"[{f.report.notes}]: fill {f._filled.nnz}, {sched.npairs} pairs, t_max "
+              f"{sched.t_max}, {f.plan.nlevels} entry levels, {len(f.plan.tasks)} tasks; analyze "
+              f"{f.report.t_analyze:.2f} s (ordering, fill, pair lists, plan, upload, the two "
+              f"triangles' schedules), factor {f.report.t_factorize * 1e3:.1f} ms"
+              f"{f', warm {t_warm * 1e3:.1f} ms' if f is fac else ''}, "
+              f"{'refined ' if f is fac else ''}solve {r.t_solve * 1e3:.1f} ms in "
+              f"{r.iterations if f is fac else 1} iterations (host clock, each phase ended by a "
+              f"device synchronize; factorize() as a whole {t_all:.1f} s for fp32); residual "
+              f"{r.residual:.3e} (host oracle), pivots perturbed {f.report.n_pivot_perturbed}, "
+              f"pivot growth {f.report.pivot_growth:.3e}", flush=True)
+    print(f"[splu] laplacian_2d(300, 300) pair lists on the card: {lay['ragged']} bytes ragged "
+          f"(under the 4 GiB guard: {lay['ragged'] <= 4 << 30}), {lay['padded']} bytes padded "
+          f"to t_max as respatpu stores and guards them (D4)", flush=True)
+    print(f"[splu] launches of the direct sparse path {launches}", flush=True)
+    # the chain's third step: band and the multifrontal LU refuse, sparse serves
+    g = laplacian_2d(120, 120)
+    gb, _ = slv.make_rhs_for_known_x(g)
+    fa = slv.factorize(g, "fp32", method="auto", max_band_bytes=1 << 20, max_pool_bytes=1 << 20,
+                       device="cuda")
+    xa, ra = slv.solve_refined(g, gb, fac=fa)
+    if not (ra.notes.startswith("method=sparse") and ra.residual <= 1e-10):
+        raise AssertionError(f"auto's third step: {ra}")
+    print(f"[splu] {name_limit} | laplacian_2d(120, 120) through auto with band and the "
+          f"multifrontal LU refused (forced: band 1 MiB, pool 1 MiB): [{ra.notes}], residual "
+          f"{ra.residual:.3e}", flush=True)
+    return launches, fac, fac64
+
+
+def hold_splu_direct(name_limit, fac, fac64, errs, latency, l2):
+    """Beside phase 11, not counted: the condition estimate once, and K8
+    against its plain version on the Laplacian's filled pattern (fp32 and
+    fp64, the path's instances), timed."""
+    t0 = time.perf_counter()
+    rcond = fac.condest()
+    if not (np.isfinite(rcond) and 0 < rcond <= 1):
+        raise AssertionError(f"condest {rcond}")
+    print(f"[splu] {name_limit} | laplacian_2d(300, 300) condest (Hager, transpose solves of the "
+          f"scheduled factor): rcond {rcond:.3e} in {time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+    for f, inst in ((fac, "f32"), (fac64, "f64")):
+        out.update(hold_and_time_splu(name_limit, "laplacian_2d(300, 300) fill", f._dev,
+                                      f._filled.data, f._pivot_eps, (inst,), errs, latency, l2,
+                                      reps=5))
+    return out
+
+
+def stragglers(a, k, seed):
+    """``a`` and k entries at random places: a remainder for the DIA path."""
+    rng = np.random.default_rng(seed)
+    coo = a.tocoo()
+    n = a.nrows
+    return coo_to_csr(COOMatrix(a.shape, np.r_[coo.row, rng.integers(0, n, k)].astype(np.int32),
+                                np.r_[coo.col, rng.integers(0, n, k)].astype(np.int32),
+                                np.r_[coo.val, rng.uniform(-0.5, 0.5, k)]))
+
+
+def dia_path(name_limit):
+    """Phase 12: ``sweep_spmv`` on the ecology2 and tmt_unsym stand-ins at
+    catalogue size through ``fmt="auto"`` (DIA by respatpu's rule), fp64
+    and every low precision, each timing past the byte gate of the DIA
+    format; returns the launch counts."""
+    mats = {m: corpus.load_matrix(m)[0] for m in GRIDS}
+    for m, a in mats.items():
+        if not isinstance(K.to_device(a, "fp32", "cpu"), K.DeviceDia):
+            raise AssertionError(f"{m}: fmt='auto' did not pick DIA")
+    reset_counts()
+    for p in LOW:
+        for row in runner.sweep_spmv(list(GRIDS), policies=("fp64", p), reps=REPS, device="cuda",
+                                     verbose=False):
+            for t in (row["timing_hi"], row["timing_lo"]):
+                if not (t.floor_s > 0 and t.min >= t.floor_s):
+                    raise AssertionError(f"{row['matrix']} {p}: timing not gated")
+            nnz = int(row["nnz"])
+            print(f"[dia] {name_limit} | {row['matrix']} n={row['n']} nnz={nnz} fmt=auto (DIA) "
+                  f"fp64 {float(row['t_hi_s']) * 1e6:.2f} us {p} {float(row['t_lo_s']) * 1e6:.2f} "
+                  f"us mean_abs_err={row['mean_abs_err']} gate floors "
+                  f"{row['timing_hi'].floor_s * 1e6:.2f} / {row['timing_lo'].floor_s * 1e6:.2f} us "
+                  f"(the DIA byte model)", flush=True)
+    launches = splu_counts()
+    per = (1 + WARMUP + REPS) * len(GRIDS)
+    want = {"respa_dia_spmv_f64": per * len(LOW), **{f"respa_dia_spmv_{INST[p]}": per for p in LOW}}
+    if any(launches[k] != v for k, v in want.items()) or any(launches[f"spmv_{p}"] for p in TOL):
+        raise AssertionError(f"DIA path launches {launches}, expected {want} and no CSR product")
+    print(f"[dia] launches of the DIA path {launches}", flush=True)
+    return launches, mats
+
+
+def build_probes():
+    """``bench/csrc/smoke_probes.cu`` (K9's other remainder design, which
+    includes the package's kernel source, and the L2 read probe) in a
+    library of its own, bound by ctypes."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    csrc = os.path.join(here, "respatpu_torch", "kernels", "csrc")
+    path = build_shared("librespa_smoke_probes.so", [os.path.join(here, PROBES_SOURCE)],
+                        [_build._nvcc(), *_build.NVCC_FLAGS],
+                        depends=[os.path.join(csrc, f) for f in ("dia.cu", *_build.HEADERS)])
+    lib = ctypes.CDLL(path)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # device, n, ncols, ndiag, offsets, diags, x, addend, y, stream
+    lib.respa_dia_design_addend_f32.argtypes = [i32, i64, i64, i32, *[ptr] * 6]
+    lib.respa_dia_design_addend_f32.restype = i32
+    # device, buf, words, rounds, out, stream
+    lib.respa_l2_read_probe.argtypes = [i32, ptr, i64, i32, ptr, ptr]
+    lib.respa_l2_read_probe.restype = i32
+    return lib
+
+
+def dia_by_addend(lib, dev, rem_csr, x):
+    """K9's other remainder design, fp32: the remainder's product by K0 over
+    all n rows, then the diagonals with it as an addend; not counted."""
+    addend = K.spmv(rem_csr, x)
+    y = torch.empty(dev.n, dtype=torch.float32, device="cuda")
+    rc = lib.respa_dia_design_addend_f32(dev.device.index, dev.n, dev.ncols, dev.ndiag,
+                                         dev.offsets.data_ptr(), dev.diags.data_ptr(),
+                                         x.data_ptr(), addend.data_ptr(), y.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K9 addend design: cudaError {rc}")
+    return y
+
+
+def compare_dia_remainders(name_limit, designs, a):
+    """ecology2 with 2,000 stragglers, fp32: the kept design (the remainder
+    summed inside K9) against the other (K0 on the remainder, then K9 adding
+    its product), equal bit for bit, each timed by events over its whole
+    product in 3 rounds, the order turned each round; the kept one by the
+    profiler too. Returns the times."""
+    dev = K.to_device(a, "fp32", "cuda", fmt="dia")
+    rem_csr = K.to_device(DI.build_dia(a).remainder, "fp32", "cuda", fmt="csr")
+    x = x_for(dev, np.random.default_rng(42).standard_normal(a.shape[1]))
+    kept, other = DI.dia_spmv(dev, x), dia_by_addend(designs, dev, rem_csr, x)
+    if not torch.equal(kept, other):
+        raise AssertionError("K9's two remainder designs disagree on ecology2 with stragglers")
+    fns = {"remainder summed inside K9 (kept)": lambda: DI.dia_spmv(dev, x),
+           "K0 on the remainder, then K9 adding it": lambda: dia_by_addend(designs, dev, rem_csr,
+                                                                            x)}
+    out = {k: [] for k in fns}
+    for rnd in range(3):
+        for k in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+            out[k].append(events_ms(fns[k], 10))
+    prof = profiler_ms(fns["remainder summed inside K9 (kept)"], "dia_spmv_kernel", 10)
+    for k, v in out.items():
+        print(f"[time] {name_limit} | K9 ecology2 with 2,000 stragglers fp32 (remainder "
+              f"{dev.rem.nnz} entries on {dev.rem.nrows} rows), {k}: events "
+              f"{', '.join(f'{t:.4f}' for t in v)} ms (rounds); equal bit for bit", flush=True)
+    print(f"[time] {name_limit} | K9 with the remainder inside, profiler {fmt_ms(prof)}",
+          flush=True)
+    return {"events_ms": out, "kept_profiler_ms": prof}
+
+
+def hold_and_time_dia(name_limit, mats, errs, times, designs):
+    """Beside phase 12, not counted: K9 against its plain version in every
+    instance on both grids and on ecology2 with 2,000 stragglers (the
+    remainder summed inside), twice, bit for bit; the fp64 result against
+    the host oracle; then timed on ecology2 by events and the profiler
+    beside its byte bound, K0 on the same matrix and
+    ``torch.sparse_csr_tensor @ x`` (cuSPARSE), and the plain version; and
+    the two remainder designs timed on the stragglers case."""
+    cases = {**mats, "ecology2+stragglers": stragglers(mats["ecology2"], 2000, 31)}
+    for cname, a in cases.items():
+        x64 = np.random.default_rng(42).standard_normal(a.shape[1])
+        for inst, policy in ILU_POLICIES.items():
+            dev = K.to_device(a, policy, "cuda", fmt="dia")
+            x = x_for(dev, x64)
+            ys = [DI.dia_spmv(dev, x) for _ in range(2)]
+            want = DI.dia_spmv_plain(dev, x)
+            if not all(torch.equal(y, want) for y in ys):
+                raise AssertionError(f"K9 {inst} on {cname}: kernel != plain")
+            name = f"respa_dia_spmv_{inst}"
+            errs[name] = 0.0
+            ref = K.spmv_csr_reference(a, x64) if policy == "fp64" else None
+            e = "" if ref is None else f", fp64 vs host oracle {rel_err(ys[0], torch.from_numpy(ref)):.3e}"
+            print(f"[kernel] K9 {inst} {cname} ndiag={dev.ndiag} remainder "
+                  f"{0 if dev.rem is None else dev.rem.nnz}: == plain bit for bit twice{e}",
+                  flush=True)
+            if ref is not None and rel_err(ys[0], torch.from_numpy(ref)) > 1e-14:
+                raise AssertionError(f"K9 f64 {cname}: off the host oracle")
+            if cname != "ecology2":
+                continue
+            csr = K.to_device(a, policy, "cuda", fmt="csr")
+            nbytes = K.spmv_sol_bytes(dev, x.element_size())
+            lib_ms, lib = None, ("none: torch has no product of a flushing or a bf16-valued "
+                                 "sparse matrix with an fp32 vector")
+            if policy in HAS_LIBRARY:
+                sp = torch.sparse_csr_tensor(csr.indptr, csr.indices.long(), csr.vals,
+                                             size=a.shape)
+                got = torch.mv(sp, x)
+                if rel_err(got, ys[0]) > TOL[policy] * 10:
+                    raise AssertionError(f"cuSPARSE disagrees with K9 on {cname} {policy}")
+                lib_ms, lib = events_ms(lambda: torch.mv(sp, x), 10), "torch.mv on a sparse CSR tensor"
+            t0 = time.perf_counter()
+            DI.dia_spmv_plain(dev, x)
+            torch.cuda.synchronize()
+            t = {"ms": events_ms(lambda: DI.dia_spmv(dev, x), 10),
+                 "profiler_ms": profiler_ms(lambda: DI.dia_spmv(dev, x), "dia_spmv_kernel", 10),
+                 "plain_ms": (time.perf_counter() - t0) * 1e3,
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                 "library_ms": lib_ms, "library": lib,
+                 "k0_ms": events_ms(lambda: K.spmv(csr, x), 10),
+                 "k0_profiler_ms": profiler_ms(lambda: K.spmv(csr, x), KERNEL, 10),
+                 "k0_bound_ms": spmv_csr_sol_bytes(a.shape[0], a.shape[1], a.nnz,
+                                                   csr.vals.element_size(),
+                                                   x.element_size()) / HBM_BYTES_PER_S * 1e3,
+                 "shape": f"ecology2 n={a.nrows} ndiag={dev.ndiag}"}
+            times[name] = t
+            print(f"[time] {name_limit} | K9 {inst} ecology2 (n={a.nrows}, {dev.ndiag} "
+                  f"diagonals): events {fmt_ms(t['ms'])}, profiler {fmt_ms(t['profiler_ms'])}; "
+                  f"bound {t['bound_ms']:.4f} ms ({nbytes} bytes at 3.35 TB/s); K0 on the same "
+                  f"matrix events {fmt_ms(t['k0_ms'])}, profiler {fmt_ms(t['k0_profiler_ms'])} "
+                  f"(its bound {t['k0_bound_ms']:.4f} ms); library "
+                  f"{fmt_ms(lib_ms) if lib_ms else lib}; plain {t['plain_ms']:.2f} ms", flush=True)
+    times["respa_dia_spmv_f32"]["remainder_designs"] = compare_dia_remainders(
+        name_limit, designs, cases["ecology2+stragglers"])
+
+
+_PHASE = [0.0]
+
+
+def phase_done(k):
+    """Print phase k's seconds on a line of its own."""
+    now = time.perf_counter()
+    print(f"[phase] {k} took {now - _PHASE[0]:.1f} s", flush=True)
+    _PHASE[0] = now
+
+
+SPLU_LONG_PAIRS = (1, 128, 256, 512)
+
+
+def time_splu_alone(name_limit):
+    """``python3 chip_smoke.py --splu-times``: K8 at the path's two shapes
+    (2cubes_sphere's ILU(0), laplacian_2d(300, 300)'s fill) in a fresh
+    process, the plan cut into runs of long entries at each of
+    ``SPLU_LONG_PAIRS`` (1: a long entry a task), fp32 and fp64: each
+    plan's factor bit for bit with the first plan's (and that one with the
+    plain version), timed by events and the profiler in 3 rounds; the times
+    as one JSON line."""
+    _build.load()
+    check_parser()
+    latency = link_probe(name_limit)
+    a = corpus.load_matrix("2cubes_sphere")[0]
+    lap = laplacian_2d(300, 300)
+    fill = analysis.symbolic_fill_lu(analysis.permute_csr(lap, analysis.ordering(lap, "fillauto")))
+    out = {}
+    for what, f in (("2cubes_sphere ILU(0)", a), ("laplacian_2d(300, 300) fill", fill)):
+        sched = analysis.chow_patel_schedule(f)
+        first = {}
+        for lp in SPLU_LONG_PAIRS:
+            plan = SP._plan_cut(f.nrows, sched, lp)
+            d = SP.splu_to_device(plan, "cuda")
+            for policy in ("fp32", "fp64"):
+                p = get_policy(policy)
+                eps = (1e-13 if policy == "fp64" else 1e-4) * float(np.abs(f.data).max())
+                av = p.cast_host(f.data).cuda()
+                got = SP.splu_factor(d, av, eps)
+                if policy not in first:
+                    if not torch.equal(got, SP.splu_factor_plain(d, av, eps)):
+                        raise AssertionError(f"K8 {policy} on {what}: kernel != plain")
+                    first[policy] = got
+                elif not torch.equal(got, first[policy]):
+                    raise AssertionError(f"K8 {policy} on {what}, long_pairs {lp}: another result")
+                ev, prof = [], []
+                for _ in range(3):
+                    ev.append(events_ms(lambda: SP.splu_factor(d, av, eps), 5))
+                    prof.append(profiler_ms(lambda: SP.splu_factor(d, av, eps),
+                                            "splu_factor_kernel", 5))
+                key = f"{what} {policy} long_pairs={lp}"
+                out[key] = {"events_ms": ev, "profiler_ms": prof, "tasks": len(plan.tasks),
+                            "levels": plan.nlevels}
+                print(f"[time] {name_limit} | K8 {key}: {len(plan.tasks)} tasks, {plan.nlevels} "
+                      f"levels; events {', '.join(f'{x:.4f}' for x in ev)} ms, profiler "
+                      f"{', '.join(fmt_ms(x) for x in prof)} (rounds); chain bound "
+                      f"{(plan.nlevels - 1) * latency * 1e3:.4f} ms; == the first plan's bit for "
+                      f"bit", flush=True)
+            del d
+    print(json.dumps(out))
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1846,14 +2440,24 @@ def main():
     if sys.argv[1:2] == ["--ilu-times"]:
         time_ilu_alone(name_limit)
         return
+    if sys.argv[1:2] == ["--upload-times"]:
+        upload_times_in_turns(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--splu-times"]:
+        time_splu_alone(name_limit)
+        return
 
     # 2. build
     t0 = time.perf_counter()
+    _PHASE[0] = t0
+    builder = ThreadPoolExecutor(1)  # the probes of phases 10 and 12, beside the kernels
+    probes = builder.submit(build_probes)
     lib = _build.load()
     print(f"[build] {lib._name} ready in {time.perf_counter() - t0:.2f} s "
           f"(cap {lib.respa_spmv_csr_cap()}, max rows {lib.respa_spmv_csr_max_rows()}, "
           f"largest band block {lib.respa_band_max_p()})", flush=True)
     check_parser()
+    phase_done(2)
 
     # 3. kernel vs plain
     errs = {p: 0.0 for p in TOL}
@@ -1900,6 +2504,8 @@ def main():
                   f"library {us(t['library_ms']).replace('not measured', 'none')}; "
                   f"plain {us(t['plain_ms'])}", flush=True)
 
+    phase_done(3)
+
     # 4. main path
     reset_counts()
     rows = {p: runner.sweep_spmv(list(MAIN), policies=("fp64", p), reps=REPS, device="cuda")
@@ -1913,7 +2519,7 @@ def main():
     y64s = {}
     for mname, a in mats.items():
         x64 = np.random.default_rng(42).standard_normal(a.shape[1])
-        d64 = K.to_device(a, "fp64", "cuda")
+        d64 = K.to_device(a, "fp64", "cuda", fmt="csr")
         y64s[mname] = K.spmv(d64, x_for(d64, x64))
         e64 = rel_err(y64s[mname], torch.from_numpy(K.spmv_csr_reference(a, x64)))
         if e64 > 1e-13:
@@ -1923,7 +2529,7 @@ def main():
         for row in rows[p]:
             a = mats[row["matrix"]]
             x64 = np.random.default_rng(42).standard_normal(a.shape[1])
-            dlo = K.to_device(a, p, "cuda")
+            dlo = K.to_device(a, p, "cuda", fmt="csr")
             y64 = y64s[row["matrix"]]
             ylo = K.spmv(dlo, x_for(dlo, x64))
             err = float((y64.cpu() - ylo.double().cpu()).abs().mean())
@@ -1940,21 +2546,25 @@ def main():
                   f"mean_abs_err={row['mean_abs_err']} "
                   f"gate_floor_lo={row['timing_lo'].floor_s * 1e6:.2f} us", flush=True)
     profile_sweep_row(name_limit)
+    phase_done(4)
 
     # 5. band kernels vs plain
     band_errs, band_times = {}, {}
     check_block_lu(band_errs)
     check_band_sweep(band_errs)
+    phase_done(5)
 
     # 6. direct path at full width
     band_launches, spmv_direct = direct_path(name_limit, mats[MAIN[0]], band_times)
     for name, n in band_launches.items():
         if n < 1:
             raise AssertionError(f"{name} was not launched on the direct path")
+    phase_done(6)
 
     # 7. frontal kernels vs plain
     front_errs, front_full, front_times = {}, {}, {}
     check_frontal_kernels(front_errs)
+    phase_done(7)
 
     # 8. multifrontal path at full width
     front_launches = multifrontal_path(name_limit, mats, front_errs, front_full, front_times)
@@ -1962,6 +2572,7 @@ def main():
                  "respa_block_lu_f64", "spmv_fp64"):
         if front_launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the multifrontal path")
+    phase_done(8)
 
     # 9. the ILU(0) path
     ilu_errs, ilu_times = {}, {}
@@ -1969,13 +2580,40 @@ def main():
     latency = link_probe(name_limit)
     check_tri_synthetic(name_limit, ilu_errs, latency)
     ilu_launches = ilu_path(name_limit, mats)
-    for name in (*I.LAUNCHES, *S.LAUNCHES, "spmv_fp32", "spmv_fp32_ftz", "spmv_bf16"):
+    # the grid Laplacian's products take the DIA kernel, 2cubes_sphere's the CSR one
+    for name in (*I.LAUNCHES, *S.LAUNCHES, "spmv_fp32", "respa_dia_spmv_f32",
+                 "respa_dia_spmv_f32_ftz", "respa_dia_spmv_bf16"):
         if ilu_launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the ILU path")
     schedule_sizes(name_limit, "dc1", mats["dc1"])
     hold_and_time_ilu(name_limit, mats["2cubes_sphere"], ilu_errs, ilu_times, latency, None)
+    phase_done(9)
 
-    # 10. result
+    # 10. exact ILU(0) by the scheduled LU (K8)
+    splu_errs, splu_times = {}, {}
+    splu_ilu_launches = splu_ilu_path(name_limit)
+    for name in ("respa_splu_factor_f32", "respa_splu_factor_f64", "respa_splu_factor_f32_ftz",
+                 "respa_splu_factor_bf16", "respa_tri_solve_lower_f64"):
+        if splu_ilu_launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the exact ILU(0) path")
+    l2 = l2_read_rate(name_limit, probes.result())
+    hold_splu_ilu(name_limit, mats["2cubes_sphere"], splu_errs, splu_times, latency, l2)
+    phase_done(10)
+
+    # 11. the direct scheduled LU at full width
+    splu_direct_launches, fac_s, fac_s64 = splu_direct_path(name_limit)
+    splu_lu_times = hold_splu_direct(name_limit, fac_s, fac_s64, splu_errs, latency, l2)
+    del fac_s, fac_s64
+    phase_done(11)
+
+    # 12. the DIA path
+    dia_errs, dia_times = {}, {}
+    dia_launches, grids = dia_path(name_limit)
+    hold_and_time_dia(name_limit, grids, dia_errs, dia_times, probes.result())
+    builder.shutdown()
+    phase_done(12)
+
+    # 13. result
     kernels = []
     for p in TOL:
         kernels.append({"name": f"respa_spmv_csr_{INST[p]}", "route": "cuda", "source": SOURCE,
@@ -2007,6 +2645,21 @@ def main():
                         "replaces": (ILU_REPLACES if sweep else TRI_REPLACES)[inst],
                         "launches": ilu_launches[name], "max_abs_err": ilu_errs[name],
                         **ilu_times[name]})
+    for name in SP.LAUNCHES:
+        inst = "f32_ftz" if name.endswith("_ftz") else name.rsplit("_", 1)[-1]
+        kernels.append({"name": name, "route": "cuda", "source": SPLU_SOURCE,
+                        "replaces": SPLU_REPLACES[inst], "launches": splu_ilu_launches[name],
+                        "launches_direct_sparse_path": splu_direct_launches[name],
+                        "max_abs_err": splu_errs[name], **splu_times[name],
+                        **({"lu_laplacian": splu_lu_times[name]} if name in splu_lu_times
+                           else {})})
+    for name in DI.LAUNCHES:
+        inst = "f32_ftz" if name.endswith("_ftz") else name.rsplit("_", 1)[-1]
+        kernels.append({"name": name, "route": "cuda", "source": DIA_SOURCE,
+                        "replaces": DIA_REPLACES[inst], "launches": dia_launches[name],
+                        "launches_ilu_path": ilu_launches[name],
+                        "launches_exact_ilu_path": splu_ilu_launches[name],
+                        "max_abs_err": dia_errs[name], **dia_times[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

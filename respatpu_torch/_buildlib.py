@@ -32,14 +32,15 @@ def _run(cmd: Sequence[str]) -> None:
 
 
 def build_shared(name: str, sources: Sequence[str], command: Sequence[str],
-                 per_source: bool = False) -> str:
+                 per_source: bool = False, depends: Sequence[str] = ()) -> str:
     """Path of the shared library ``name`` built from ``sources`` (absolute
     paths) by ``command + ["-o", out, *sources]``; compiles only if that
     library is not there yet. With ``per_source`` each source is compiled to
     an object file by a compiler process of its own, all started together,
-    and the objects are then linked by the same command."""
+    and the objects are then linked by the same command. ``depends`` are
+    the files the sources include: hashed with them, not compiled."""
     h = hashlib.sha256()
-    for src in sources:
+    for src in [*sources, *depends]:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     h.update("\0".join(command[1:]).encode())

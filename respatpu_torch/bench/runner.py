@@ -106,10 +106,10 @@ def sweep_lu(names: Sequence[str], csv_path: Optional[str] = None,
 
     Routes through ``solve.factorize``'s auto chain: band LU when the band
     fits ``max_band_bytes``, else the multifrontal LU (with GESP matching on
-    structurally unsymmetric patterns); a matrix that both refuse gets an
-    ``infeasible`` row that names each refusal. The method that served each
-    row is recorded in the ``method`` column (``method=band`` or
-    ``method=snlu,...``);
+    structurally unsymmetric patterns), else the scheduled sparse LU; a
+    matrix that all three refuse gets an ``infeasible`` row that names each
+    refusal. The method that served each row is recorded in the ``method``
+    column (``method=band``, ``method=snlu,...`` or ``method=sparse,...``);
     ``t_factor_s`` is the first factorization, ``t_factor_warm_s`` a second
     one (PARDISO phase 22 is reported warm by the reference protocol too,
     run_pardiso.sh 11-rep loop)."""
@@ -186,15 +186,16 @@ def sweep_ilu0(names: Sequence[str], csv_path: Optional[str] = None,
                policy="fp32", sweeps: int = 8,
                max_synth_nnz: Optional[int] = 10_000_000,
                krylov_gate: float = 1e-10, verbose: bool = True,
-               device: Union[str, torch.device] = "cuda"):
+               device: Union[str, torch.device] = "cuda", method: str = "chow_patel"):
     """ILU(0) factorization + preconditioner apply, phase-timed
     (GPU/run_ilu0.sh protocol), plus an ILU-preconditioned GMRES(40) driven
     through fp64 host-residual refinement to the reference 1e-10 gate
     (BASELINE.json target #2; test_superILU.c:117-133 capability).
 
-    The factorization is ``solve.Ilu0Preconditioner`` with its defaults
-    (Chow-Patel sweeps; Jacobi applies for single-word policies, the exact
-    solves for fp64). ``t_apply_s`` is one apply after a warm one, ended by a
+    The factorization is ``solve.Ilu0Preconditioner`` with ``method``
+    (Chow-Patel sweeps by default, or "scheduled": exact ILU(0), no sweeps)
+    and its default applies (Jacobi for single-word policies, the exact
+    solves for fp64); ``cp_residual`` then holds its notes. ``t_apply_s`` is one apply after a warm one, ended by a
     device synchronize; the Krylov phase is ended by the host's copy of x.
     Status is ``ok`` at the gate, else ``stagnated``; a preconditioner
     refused for lack of memory gives an ``infeasible`` row. Returns one dict
@@ -205,7 +206,8 @@ def sweep_ilu0(names: Sequence[str], csv_path: Optional[str] = None,
     for name in names:
         a, synth = corpus.load_matrix(name, max_synth_nnz=max_synth_nnz)
         try:
-            pre = slv.Ilu0Preconditioner(a, policy=pol, sweeps=sweeps, device=device)
+            pre = slv.Ilu0Preconditioner(a, policy=pol, sweeps=sweeps, method=method,
+                                         device=device)
         except MemoryError as e:
             row = [pol.name, name, a.shape[0], a.nnz, int(synth), "", "", "",
                    str(e)[:120], 0, "", 0, "", "infeasible", _ts()]

@@ -72,7 +72,7 @@ def main(argv=None):
         a = corpus.load_matrix(mname)[0]
         x64 = np.random.default_rng(42).standard_normal(a.shape[1])
         for policy in POLICIES:
-            dev = K.to_device(a, policy, "cuda")
+            dev = K.to_device(a, policy, "cuda", fmt="csr")
             x = torch.from_numpy(x64).to(dev.policy.accum_dtype).cuda()
             plain = K.spmv_plain(dev, x)
             y = torch.empty_like(plain)

@@ -1,7 +1,7 @@
 """Command-line drivers of the port:
 
   python -m respatpu_torch spmv  <matrix.mtx|corpus-name> [--policy fp32] [--csv out.csv]
-  python -m respatpu_torch lu    <matrix.mtx|corpus-name> [--method auto|band] [--no-refine]
+  python -m respatpu_torch lu    <matrix.mtx|corpus-name> [--method auto|band|snlu|sparse] [--no-refine]
   python -m respatpu_torch ilu0  <matrix.mtx|corpus-name> [--policy fp32] [--sweeps 8]
   python -m respatpu_torch sweep spmv|lu|ilu0 [--group moderate|big|all]
 
@@ -143,8 +143,8 @@ def main(argv=None):
     def direct(sp):
         sp.add_argument("--method", default="auto",
                         choices=["auto", "band", "snlu", "multifrontal", "sparse"],
-                        help="auto (band, then multifrontal) | band | snlu "
-                             "(= multifrontal); sparse is not ported yet")
+                        help="auto (band, then multifrontal, then the scheduled sparse "
+                             "LU) | band | snlu (= multifrontal) | sparse")
         sp.add_argument("--no-refine", action="store_true",
                         help="one direct solve, no fp64 iterative refinement")
 

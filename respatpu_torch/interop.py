@@ -14,12 +14,14 @@ from .formats import CSRMatrix
 from .kernels.bandlu import DeviceBand
 from .kernels.snlu import SupernodePartition
 from .kernels.snlu_device import FrontalPlan, build_frontal_plan
+from .kernels.splu import ScheduledLuPlan, plan_from_schedule
 from .kernels.sptrsv import DeviceTri, tri_to_device
 from .precision import get_policy
 
 __all__ = ["csr_from_respatpu", "df_to_numpy", "band_from_respatpu",
            "band_to_numpy", "partition_from_respatpu", "plan_from_respatpu",
-           "pool_from_respatpu", "ilu_schedule_from_respatpu", "tri_from_respatpu"]
+           "pool_from_respatpu", "ilu_schedule_from_respatpu", "splu_plan_from_respatpu",
+           "tri_from_respatpu"]
 
 
 def csr_from_respatpu(obj) -> CSRMatrix:
@@ -122,6 +124,14 @@ def ilu_schedule_from_respatpu(sched) -> IluSchedule:
                        diag_pos_col=np.asarray(sched.diag_pos_col, np.int64),
                        diag_pos=np.asarray(sched.diag_pos, np.int64),
                        zero_diag=np.asarray(sched.zero_diag, bool))
+
+
+def splu_plan_from_respatpu(plan) -> ScheduledLuPlan:
+    """The port's scheduled-LU plan from respatpu's ``ScheduledLuPlan``: its
+    padded pair lists kept ragged (:func:`ilu_schedule_from_respatpu`), then
+    the port's entry levels and tasks; respatpu's chunks and ``depth`` are
+    left behind. Both packages then factor with the same pair lists."""
+    return plan_from_schedule(int(plan.n), ilu_schedule_from_respatpu(plan.sched))
 
 
 def tri_from_respatpu(t_csr, values=None, lower: bool = True, unit_diag: bool = False,

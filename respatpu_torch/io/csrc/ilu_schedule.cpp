@@ -1,10 +1,12 @@
-// Host schedules of the ILU(0) path: the level (wavefront) of every row of a
-// triangular solve, and the Chow-Patel pair lists of every stored entry.
+// Host schedules of the ILU(0) path and the scheduled LU: the level
+// (wavefront) of every row of a triangular solve, the Chow-Patel pair lists of
+// every stored entry, and the level of every entry of an exact elimination.
 //
 // level_schedule and cp_schedule_count are the routines of respatpu's host
 // library as they are; cp_schedule_fill writes the pair lists ragged (entry p
 // owns pairs ptr[p] .. ptr[p+1] - 1) instead of padded to the longest list,
-// since one hub row of a circuit would otherwise pad every entry.
+// since one hub row of a circuit would otherwise pad every entry;
+// entry_levels reads those ragged lists.
 #include <cstdint>
 #include <thread>
 #include <vector>
@@ -116,6 +118,30 @@ int cp_schedule_fill(int64_t n, const int64_t* indptr, const int32_t* indices,
       }
     });
   for (auto& th : threads) th.join();
+  return 0;
+}
+
+// level[p] = 1 + the largest level among entry p's pair entries (l_ik, u_kj)
+// and, for an entry below the diagonal, its column's diagonal u_jj; 0 for an
+// entry with neither. Every one of them precedes p in CSR order (row i's own
+// earlier columns, or an earlier row), so one forward pass suffices.
+int entry_levels(int64_t nnz, const int64_t* ptr, const int64_t* pairs_a,
+                 const int64_t* pairs_b, const int64_t* diag_pos_col,
+                 const int8_t* is_lower, int32_t* level) {
+  for (int64_t p = 0; p < nnz; ++p) {
+    int32_t lv = 0;
+    for (int64_t t = ptr[p]; t < ptr[p + 1]; ++t) {
+      int32_t la = level[pairs_a[t]];
+      int32_t lb = level[pairs_b[t]];
+      int32_t m = la > lb ? la : lb;
+      if (m >= lv) lv = m + 1;
+    }
+    if (is_lower[p] && diag_pos_col[p] >= 0) {
+      int32_t ld = level[diag_pos_col[p]];
+      if (ld >= lv) lv = ld + 1;
+    }
+    level[p] = lv;
+  }
   return 0;
 }
 

@@ -6,8 +6,9 @@ what the multifrontal analysis needs: the symmetric symbolic fill
 (``io/csrc/sparse_assignment.cpp``), the fill-reducing orderings
 (``io/csrc/fill_order.cpp``: approximate minimum degree, nested dissection)
 and the front pool's assembly map (``io/csrc/frontal_assembly.cpp``); and the
-ILU(0) path's schedules (``io/csrc/ilu_schedule.cpp``: the level of every row
-of a triangular solve, the Chow-Patel pair lists).
+ILU(0) path's and the scheduled LU's schedules (``io/csrc/ilu_schedule.cpp``:
+the level of every row of a triangular solve, the Chow-Patel pair lists, the
+level of every entry of an exact elimination).
 
 The sources are the port's own. They are compiled at first use with the host C++
 compiler into the checkout's ``build/`` directory
@@ -103,6 +104,9 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.cp_schedule_fill.argtypes = [ctypes.c_int64, _i64p, _i32p, _i64p, _i32p, _i64p,
                                          _i64p, _i64p, _i64p, ctypes.c_int32]
         lib.cp_schedule_fill.restype = ctypes.c_int
+        lib.entry_levels.argtypes = [ctypes.c_int64, _i64p, _i64p, _i64p, _i64p,
+                                     ctypes.POINTER(ctypes.c_int8), _i32p]
+        lib.entry_levels.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -307,3 +311,25 @@ def cp_schedule(n: int, indptr: np.ndarray, indices: np.ndarray, col_ptr: np.nda
                          pairs_a.ctypes.data_as(_i64p), pairs_b.ctypes.data_as(_i64p),
                          nthreads)
     return ptr, pairs_a, pairs_b, int(t_max)
+
+
+def entry_levels(ptr: np.ndarray, pairs_a: np.ndarray, pairs_b: np.ndarray,
+                 diag_pos_col: np.ndarray, is_lower: np.ndarray) -> np.ndarray:
+    """Level of every entry of an exact elimination on a pattern (int32[nnz])
+    from its ragged Chow-Patel pair lists; see ``kernels.splu.entry_levels``."""
+    lib = _load()
+    ptr = np.ascontiguousarray(ptr, np.int64)
+    nnz = ptr.size - 1
+    pa = np.ascontiguousarray(pairs_a, np.int64)
+    pb = np.ascontiguousarray(pairs_b, np.int64)
+    dpc = np.ascontiguousarray(diag_pos_col, np.int64)
+    low = np.ascontiguousarray(is_lower, np.int8)
+    if pa.shape != (int(ptr[-1]),) or pb.shape != pa.shape or dpc.shape != (nnz,) \
+            or low.shape != (nnz,):
+        raise ValueError("entry_levels: the pair lists do not match ptr")
+    out = np.zeros(nnz, dtype=np.int32)
+    lib.entry_levels(nnz, ptr.ctypes.data_as(_i64p), pa.ctypes.data_as(_i64p),
+                     pb.ctypes.data_as(_i64p), dpc.ctypes.data_as(_i64p),
+                     low.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+                     out.ctypes.data_as(_i32p))
+    return out

@@ -16,7 +16,9 @@ from typing import Sequence
 from .._buildlib import CompileError, build_shared
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("spmv_csr.cu", "band_lu.cu", "frontal.cu", "ilu0.cu", "sptrsv.cu")
+SOURCES = ("spmv_csr.cu", "band_lu.cu", "frontal.cu", "ilu0.cu", "sptrsv.cu", "splu.cu",
+           "dia.cu")
+HEADERS = ("common.cuh",)  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 _ENTRIES = ("respa_spmv_csr_f32", "respa_spmv_csr_f32_ftz",
@@ -33,6 +35,8 @@ _ILU_INSTANCES = ("f32", "f32_ftz", "bf16", "f64")
 _ILU0_SWEEP = tuple(f"respa_ilu0_sweep_{i}" for i in _ILU_INSTANCES)
 _TRI_SOLVE = tuple(f"respa_tri_solve_{d}_{i}" for d in ("lower", "upper")
                    for i in _ILU_INSTANCES)
+_SPLU_FACTOR = tuple(f"respa_splu_factor_{i}" for i in _ILU_INSTANCES)
+_DIA_SPMV = tuple(f"respa_dia_spmv_{i}" for i in _ILU_INSTANCES)
 
 _lib = None
 _lock = threading.Lock()
@@ -57,7 +61,8 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """
     path = build_shared("librespa_kernels.so",
                         [os.path.join(_CSRC, s) for s in SOURCES],
-                        [_nvcc(), *NVCC_FLAGS, *extra_flags], per_source=True)
+                        [_nvcc(), *NVCC_FLAGS, *extra_flags], per_source=True,
+                        depends=[os.path.join(_CSRC, h) for h in HEADERS])
     lib = ctypes.CDLL(path)
     for name in _ENTRIES:
         fn = getattr(lib, name)
@@ -108,6 +113,20 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.respa_tri_solve_limit.argtypes = [i32]
     lib.respa_tri_solve_limit.restype = ctypes.c_int
+    for name in _SPLU_FACTOR:
+        fn = getattr(lib, name)
+        # device, ntasks, warps, tasks, level_ptr, perm, ptr, pairs_a, pairs_b, is_lower,
+        # diag_col, a, vals, eps, ctl, nctl, stream
+        fn.argtypes = [i32, i32, i32, *[ptr] * 10, ctypes.c_double, ptr, i32, ptr]
+        fn.restype = ctypes.c_int
+    lib.respa_splu_limit.argtypes = [i32]
+    lib.respa_splu_limit.restype = ctypes.c_int
+    for name in _DIA_SPMV:
+        fn = getattr(lib, name)
+        # device, n, ncols, ndiag, offsets, diags, x, tile, then the remainder's tile_ptr,
+        # rows, ptr, cols, vals, and y, stream
+        fn.argtypes = [i32, i64, i64, i32, *[ptr] * 3, i32, *[ptr] * 7]
+        fn.restype = ctypes.c_int
     # device, rounds, flag, out, stream
     lib.respa_link_probe.argtypes = [i32, i32, ptr, ptr, ptr]
     lib.respa_link_probe.restype = ctypes.c_int

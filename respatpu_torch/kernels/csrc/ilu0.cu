@@ -34,51 +34,12 @@
 // Instances: f32; f32_ftz (every value read, product, partial sum and result
 // flushed to zero); bf16 (bf16 values, sums in fp32, each result rounded to
 // bf16 once); f64.
-#include <cfloat>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float flush(float v) { return fabsf(v) < FLT_MIN ? 0.0f : v; }
-
-template <bool FTZ>
-__device__ __forceinline__ float fz(float v) {
-    if constexpr (FTZ) return flush(v);
-    return v;
-}
-template <bool FTZ>
-__device__ __forceinline__ double fz(double v) { return v; }
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ double widen(double v) { return v; }
-
-// to the value type; on the host too, where the launch rounds eps
-template <typename V>
-__host__ __device__ __forceinline__ V narrow(float v);
-template <>
-__host__ __device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <>
-__host__ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-    return __float2bfloat16_rn(v);
-}
-template <typename V>
-__host__ __device__ __forceinline__ V narrow(double v) { return v; }
 
 // the largest of a warp's |new - old| (non-negative, so ordered as their
 // bits; a NaN's bits are the largest), folded into *r by lane 0

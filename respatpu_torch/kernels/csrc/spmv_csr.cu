@@ -61,10 +61,7 @@
 // that no fused multiply-add skips the flush of the product. Values were
 // flushed at upload.
 
-#include <cstdint>
-#include <cfloat>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "common.cuh"
 
 #ifndef RESPA_SPMV_THREADS
 #define RESPA_SPMV_THREADS 256
@@ -89,8 +86,6 @@ constexpr int kLongUnroll = 4;
 static_assert(kPerThread % kF64Batch == 0, "an fp64 thread loads its entries in whole batches");
 static_assert(kThreads >= 32 && kThreads <= 1024 && (kThreads & (kThreads - 1)) == 0,
               "kThreads must be a power of two in [32, 1024]");
-
-__device__ __forceinline__ float flush(float v) { return fabsf(v) < FLT_MIN ? 0.0f : v; }
 
 __device__ __forceinline__ float to_acc(float v) { return v; }
 __device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -57,47 +57,16 @@
 // Also here: a probe of the card's one-way link latency, two warps on two SMs
 // bouncing a flag through L2 by release and acquire, which gives the chain
 // bound levels x latency.
-#include <cfloat>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 4;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kShort = 16;        // a short row: at most this many strict entries
 constexpr int kRunRows = 128;     // a run's rows, staged in shared memory
 constexpr int kRunEntries = 512;  // a run's entries
-constexpr int kEager = 64;        // polls before a wait starts to sleep
-// A wait of more polls than this traps (a launch failure) instead of
-// hanging. Each poll is an L2 round trip (about 0.6 us on the H100, the link
-// probe's hand-over) and, after the first kEager, a sleep as well, so the
-// trap comes after ten seconds or more of waiting.
-constexpr unsigned kSpinLimit = 1u << 24;
-
-__device__ __forceinline__ float flush(float v) { return fabsf(v) < FLT_MIN ? 0.0f : v; }
-
-template <bool FTZ>
-__device__ __forceinline__ float fz(float v) {
-    if constexpr (FTZ) return flush(v);
-    return v;
-}
-template <bool FTZ>
-__device__ __forceinline__ double fz(double v) { return v; }
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ double widen(double v) { return v; }
 
 template <typename V>
 __device__ __forceinline__ float round_to(float v) {
@@ -107,62 +76,15 @@ __device__ __forceinline__ float round_to(float v) {
 template <typename V>
 __device__ __forceinline__ double round_to(double v) { return v; }
 
-__device__ __forceinline__ int load_acquire(const int* p) {
-    int v;
-    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-    return v;
-}
-__device__ __forceinline__ void store_release(int* p, int v) {
-    asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// A value of y by position, read and written whole (single-copy atomic), so
-// that under mode 1 the value is its own ready flag: yp starts as kPending,
-// a signalling NaN that no arithmetic result can be (an operation on a NaN
-// returns a quiet one).
+// Under mode 1 a value of y (read and written whole by load_value and
+// store_value) is its own ready flag: yp starts as kPending, a signalling NaN
+// that no arithmetic result can be (an operation on a NaN returns a quiet one).
+// Mode 0 waits on level counters (wait_level, post_level).
 constexpr unsigned kPending32 = 0x7f800001u;
 constexpr unsigned long long kPending64 = 0x7ff0000000000001ull;
-__device__ __forceinline__ float load_value(const float* p) {
-    unsigned v;
-    asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p));
-    return __uint_as_float(v);
-}
-__device__ __forceinline__ double load_value(const double* p) {
-    unsigned long long v;
-    asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p));
-    return __longlong_as_double(static_cast<long long>(v));
-}
-__device__ __forceinline__ void store_value(float* p, float v) {
-    asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(__float_as_uint(v)));
-}
-__device__ __forceinline__ void store_value(double* p, double v) {
-    asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p),
-                 "l"(static_cast<unsigned long long>(__double_as_longlong(v))));
-}
 __device__ __forceinline__ bool pending(float v) { return __float_as_uint(v) == kPending32; }
 __device__ __forceinline__ bool pending(double v) {
     return static_cast<unsigned long long>(__double_as_longlong(v)) == kPending64;
-}
-
-__device__ __forceinline__ void backoff(unsigned& spins) {
-    if (++spins > kSpinLimit) __trap();
-    if (spins > kEager) __nanosleep(32);
-}
-
-// mode 0: lane 0 waits until level v - 1 is complete; the warp follows
-__device__ __forceinline__ void wait_level(const int* ctl, int v, int need, int lane) {
-    if (lane == 0 && v > 0) {
-        unsigned spins = 0;
-        while (load_acquire(ctl + v - 1) < need) backoff(spins);
-    }
-    __syncwarp();
-}
-
-// mode 0: the warp's rows are written; lane 0 adds them to level v's count
-__device__ __forceinline__ void post_level(int* ctl, int v, int rows, int lane) {
-    __threadfence();
-    __syncwarp();
-    if (lane == 0) atomicAdd(ctl + v, rows);
 }
 
 // mode 1: until every value of `cols` (this lane's entries e0 + lane, +32,

@@ -17,6 +17,13 @@ fp64      f64          f64     f64          none
 ``spmv`` launches the kernel for a matrix on a CUDA device and runs
 ``spmv_plain`` for one on the CPU; nothing else chooses between them.
 
+Stencil matrices may take the DIA kernel instead (``kernels/dia.py``, K9):
+``to_device(fmt="dia")`` gives a :class:`~respatpu_torch.kernels.dia.DeviceDia`,
+the stored diagonals and the remainder that the DIA kernel sums too, and
+``fmt="auto"`` picks it by respatpu's rule (diagonals of occupancy >= 0.25
+cover >= 90% of the entries, with at most 3x padding); ``spmv`` dispatches on
+the type.
+
 The kernel gives one thread block to each group of consecutive rows that
 ``row_blocks`` cuts from the row pointer at upload: at most ``CAP`` entries
 and ``MAX_ROWS`` rows a group, a longer row alone in its group.
@@ -24,16 +31,18 @@ and ``MAX_ROWS`` rows a group, a longer row alone in its group.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..formats import CSRMatrix
 from ..precision import Policy, ftz, get_policy
+from ..timing import spmv_csr_sol_bytes
+from .dia import DeviceDia, build_dia, dia_coverage, dia_spmv, dia_to_device, diagonals
 
-__all__ = ["DeviceCsr", "to_device", "row_blocks", "spmv", "spmv_plain",
-           "spmv_csr_reference", "LAUNCHES", "CAP", "MAX_ROWS"]
+__all__ = ["DeviceCsr", "DeviceDia", "to_device", "row_blocks", "spmv", "spmv_plain",
+           "spmv_sol_bytes", "spmv_csr_reference", "LAUNCHES", "CAP", "MAX_ROWS"]
 
 # The kernel's compile-time sizes (kCap and kMaxRows of csrc/spmv_csr.cu):
 # the entries a block streams through shared memory, and the rows it reduces.
@@ -95,21 +104,30 @@ def row_blocks(indptr: np.ndarray, cap: int = CAP, max_rows: int = MAX_ROWS) -> 
 
 def to_device(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
               device: Union[str, torch.device] = "cuda",
-              fmt: str = "auto") -> DeviceCsr:
+              fmt: str = "auto") -> Union[DeviceCsr, DeviceDia]:
     """Upload host CSR to ``device`` under ``policy``.
 
-    ``fmt`` "auto" and "csr" give CSR. The DIA stencil path is not ported
-    yet. GSELL, BELL, RG-ELL and the padded ELL are TPU-only layouts that the
-    port replaces with CSR, since the card gathers in hardware.
+    ``fmt``: "csr" gives CSR; "dia" the stencil path (:class:`DeviceDia`,
+    with its remainder); "auto" (the default) DIA when diagonals of
+    occupancy >= 0.25 cover at least 90% of the entries and store at most 3
+    values an entry, as respatpu chooses (``respatpu/kernels/spmv.py``), and
+    CSR otherwise. GSELL, BELL, RG-ELL and the padded ELL are TPU-only
+    layouts that the port replaces with CSR, since the card gathers in
+    hardware.
     """
     policy = get_policy(policy)
-    if fmt == "dia":
-        raise NotImplementedError("fmt='dia' (kernels/dia.py) is not ported yet")
     if fmt in _TPU_ONLY:
         raise ValueError(f"fmt={fmt!r} is a TPU-only layout and is not ported; "
                          "use fmt='csr'")
-    if fmt not in ("auto", "csr"):
+    if fmt not in ("auto", "csr", "dia"):
         raise ValueError(f"unknown fmt {fmt!r}")
+    diag = diagonals(a) if fmt != "csr" else None
+    if fmt == "auto":
+        offs, cov = dia_coverage(a, diag=diag)
+        waste = len(offs) * a.shape[0] / max(a.nnz, 1)
+        fmt = "dia" if cov >= 0.90 and waste <= 3.0 else "csr"
+    if fmt == "dia":
+        return dia_to_device(build_dia(a, diag=diag), policy, device)
     m, n = a.shape
     if a.nnz >= 2 ** 31 or n >= 2 ** 31 or m >= 2 ** 31:
         raise ValueError("column and row-block indices are int32: nnz, nrows "
@@ -140,13 +158,16 @@ def _library():
     return _lib
 
 
-def spmv(dev: DeviceCsr, x: torch.Tensor) -> torch.Tensor:
+def spmv(dev: Union[DeviceCsr, DeviceDia], x: torch.Tensor) -> torch.Tensor:
     """y = A x under the matrix's policy; y has the policy's accumulator type.
 
     On a CUDA device this launches the CSR kernel on the current stream and
     raises if the inputs do not fit it or the launch fails. On the CPU it
-    runs :func:`spmv_plain`.
+    runs :func:`spmv_plain`. A :class:`DeviceDia` goes to the DIA kernel
+    (:func:`~respatpu_torch.kernels.dia.dia_spmv`).
     """
+    if isinstance(dev, DeviceDia):
+        return dia_spmv(dev, x)
     if dev.device.type == "cpu":
         return spmv_plain(dev, x)
     if dev.device.type != "cuda":
@@ -195,6 +216,20 @@ def spmv_plain(dev: DeviceCsr, x: torch.Tensor) -> torch.Tensor:
                                    torch.diff(dev.indptr), output_size=dev.nnz)
     y = torch.zeros(m, dtype=acc, device=dev.device).index_add_(0, rows, prod)
     return ftz(y, p.flush_to_zero)
+
+
+def spmv_sol_bytes(dev: Union[DeviceCsr, DeviceDia], vec_bytes: int) -> int:
+    """Least bytes one SpMV of the upload moves: the CSR byte model, or for
+    the DIA path the ndiag x n values, x and y once each, and the
+    remainder's rows (int32), row pointer (int64), columns and values."""
+    m, n = dev.shape
+    if isinstance(dev, DeviceCsr):
+        return spmv_csr_sol_bytes(m, n, dev.nnz, dev.vals.element_size(), vec_bytes)
+    nbytes = dev.diags.numel() * dev.diags.element_size() + (m + n) * vec_bytes
+    r = dev.rem
+    if r is not None:
+        nbytes += r.nrows * 4 + (r.nrows + 1) * 8 + r.nnz * (4 + r.vals.element_size())
+    return nbytes
 
 
 def spmv_csr_reference(a: CSRMatrix, x: np.ndarray) -> np.ndarray:

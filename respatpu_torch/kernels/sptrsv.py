@@ -461,7 +461,7 @@ def jacobi_tri(t_csr: CSRMatrix, lower: bool = True, unit_diag: bool = False,
     strict, diag = _strict_and_diag(t_csr, lower, unit_diag)
     safe = np.where(diag == 0.0, 1.0, diag)
     dv = policy.cast_host(1.0 / safe).to(torch.device(device))
-    dev = to_device(strict, policy, device) if strict.nnz else None
+    dev = to_device(strict, policy, device, fmt="csr") if strict.nnz else None
     return JacobiTri(n=t_csr.nrows, sweeps=sweeps, strict=dev, dinv=dv, policy=policy)
 
 
@@ -531,7 +531,7 @@ def isai_tri(t_csr: CSRMatrix, lower: bool = True, unit_diag: bool = False,
                         m[r] = ei[r]
             mvals[offs.reshape(-1)] = m.reshape(-1)
     mcsr = CSRMatrix(t_csr.shape, indptr, indices, mvals)
-    dev = to_device(mcsr, policy, device)
+    dev = to_device(mcsr, policy, device, fmt="csr")
     return JacobiTri(n=n, sweeps=0, strict=dev, dinv=policy.cast_host(np.ones(n)).to(dev.device),
                      policy=policy, isai=True)
 

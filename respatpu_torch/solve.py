@@ -9,18 +9,22 @@ The counterpart of ``respatpu/solve.py``:
                              test_mumps.c (direct LU factorize + solve)
 * ``SupernodalLuFactorization`` — the same slot for patterns whose band does
                              not fit: multifrontal LU with GESP matching
-* ``factorize``            — the method chain: band, then multifrontal
+* ``SparseLuFactorization`` — the exact scheduled sparse LU on the filled
+                             pattern (one launch of K8) and its triangular
+                             solves (K7)
+* ``factorize``            — the method chain: band, then multifrontal, then
+                             the scheduled sparse LU
 * ``solve_refined``        — factor in fp32/bf16, residual in fp64: the
                              study's headline pipeline
-* ``Ilu0Preconditioner``   — GPU/ilu0.cu: ILU(0) by Chow-Patel sweeps and its
-                             triangular applies (exact, Jacobi sweeps or ISAI)
+* ``Ilu0Preconditioner``   — GPU/ilu0.cu: ILU(0) by Chow-Patel sweeps, or
+                             exactly by the scheduled LU, and its triangular
+                             applies (exact, Jacobi sweeps or ISAI)
 * ``cg``, ``gmres``, ``bicgstab`` — preconditioned Krylov solvers, their
                              vectors on the device
 * residual / error verification — the reference's three idioms.
 
 Phase timing (analyze / factorize / solve) mirrors PARDISO phases 11/22/33
-(test_pardiso.c:185-244); each phase ends after a device synchronize. The
-scheduled sparse LU is ported in a later slice.
+(test_pardiso.c:185-244); each phase ends after a device synchronize.
 """
 from __future__ import annotations
 
@@ -32,21 +36,22 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .analysis import (apply_matching_scaling, permute_csr, rcm_ordering,
-                       structural_symmetry, weighted_matching_scaling)
-from .formats import COOMatrix, CSRMatrix, coo_to_csr, split_triangular
+from .analysis import (apply_matching_scaling, chow_patel_schedule, ordering, permute_csr,
+                       rcm_ordering, structural_symmetry, symbolic_fill_lu,
+                       weighted_matching_scaling)
+from .formats import COOMatrix, CSRMatrix, coo_to_csr, csr_transpose, split_triangular
 from .kernels import bandlu, snlu_device
+from .kernels import splu as _splu
 from .kernels.ilu0 import ilu0_factor
 from .kernels.snlu import analyze_supernodes
-from .kernels.spmv import spmv, to_device
+from .kernels.spmv import spmv, spmv_sol_bytes, to_device
 from .kernels.sptrsv import isai_tri, jacobi_tri, sptrsv, tri_to_device
 from .precision import Policy, get_policy
-from .timing import (OpTiming, check_plausible, device_bandwidth,
-                     spmv_csr_sol_bytes, time_op)
+from .timing import OpTiming, check_plausible, device_bandwidth, time_op
 
 __all__ = ["SolveReport", "spmv_timed", "condition_estimate",
            "BandLuFactorization", "factorize_band",
-           "SupernodalLuFactorization", "factorize",
+           "SupernodalLuFactorization", "SparseLuFactorization", "factorize",
            "solve_refined", "relative_residual", "inf_norm_error",
            "make_rhs_for_known_x", "Ilu0Preconditioner", "ilu0", "cg", "gmres",
            "bicgstab"]
@@ -100,18 +105,18 @@ def spmv_timed(a: CSRMatrix, x: np.ndarray, policy: Union[str, Policy] = "fp32",
     Uploads ``a`` under ``policy`` and x (host fp64) in the policy's x type,
     computes y once, then times ``WARMUP`` untimed and ``reps`` timed SpMVs
     with :func:`respatpu_torch.timing.time_op`. The timing must pass the
-    plausibility gate against the CSR byte model at the device's measured
-    copy bandwidth (probed once per device), or this raises. Returns
-    ``(y, OpTiming)``; y stays on ``device``.
+    plausibility gate against the byte model of the format uploaded
+    (``kernels.spmv.spmv_sol_bytes``: CSR, or the DIA path's diagonals and
+    remainder) at the device's measured copy bandwidth (probed once per
+    device), or this raises. Returns ``(y, OpTiming)``; y stays on
+    ``device``.
     """
     policy = get_policy(policy)
     dev = to_device(a, policy, device, fmt=fmt)
     xd = torch.from_numpy(np.asarray(x, np.float64)).to(policy.accum_dtype).to(dev.device)
     y = spmv(dev, xd)
     t: OpTiming = time_op(lambda: spmv(dev, xd), dev.device, warmup=WARMUP, reps=reps)
-    m, n = a.shape
-    nbytes = spmv_csr_sol_bytes(m, n, a.nnz, dev.vals.element_size(), xd.element_size())
-    check_plausible(t, nbytes, device_bandwidth(dev.device))
+    check_plausible(t, spmv_sol_bytes(dev, xd.element_size()), device_bandwidth(dev.device))
     return y, t
 
 
@@ -476,7 +481,146 @@ class SupernodalLuFactorization:
         return self.report.rcond_est
 
 
-_SLICE = {"sparse": "scheduled sparse LU (ROADMAP Queue 1, slice 6)"}
+def _with_unit_diagonal(strict: CSRMatrix) -> CSRMatrix:
+    """A strict triangle with its unit diagonal stored."""
+    n = strict.nrows
+    coo, dn = strict.tocoo(), np.arange(n, dtype=np.int32)
+    return coo_to_csr(COOMatrix((n, n), np.concatenate([coo.row, dn]),
+                                np.concatenate([coo.col, dn]),
+                                np.concatenate([coo.val, np.ones(n)])))
+
+
+def _lu_triangles(pattern: CSRMatrix, vals: np.ndarray):
+    """(L with its unit diagonal stored, U) of factor values on a pattern."""
+    L, _, U = split_triangular(CSRMatrix(pattern.shape, pattern.indptr, pattern.indices, vals))
+    return _with_unit_diagonal(L), U
+
+
+class SparseLuFactorization:
+    """Exact sparse LU by symbolic fill and a level-scheduled elimination.
+
+    The direct solver for patterns whose band does not fit and which the
+    multifrontal path refuses, last in the ``auto`` chain: a fill-reducing
+    ordering, the symbolic fill (PARDISO phase-11 analogue), the Chow-Patel
+    pair lists of the filled pattern and K8's plan on the host
+    (``kernels/splu.py``), then the exact numeric factorization in one
+    launch of K8 and the exact triangular solves of its L and U (K7), with
+    U^T and L^T for ``solve_transpose`` and ``condest``. The factor is in the
+    policy's value type (bf16 values sum in fp32); reference accuracy comes
+    from :func:`solve_refined`.
+
+    ``max_schedule_bytes`` caps the pair lists as the port stores them on
+    the device (ragged int32 positions and an int64 offset an entry,
+    ``IluSchedule.layout_bytes()["ragged"]``); past it this raises
+    ``MemoryError``. respatpu's guard counts its lists padded to t_max and
+    refuses patterns this one admits (divergence D4)."""
+
+    def __init__(self, a: CSRMatrix, policy: Union[str, Policy] = "fp32",
+                 order: str = "fillauto", pivot_eps: Optional[float] = None,
+                 max_schedule_bytes: int = 4 << 30,
+                 device: Union[str, torch.device] = "cuda"):
+        policy = get_policy(policy)
+        if a.shape[0] != a.shape[1]:
+            raise ValueError(f"sparse LU requires a square matrix, got {a.shape}")
+        self.policy = policy
+        self.a = a
+        self.device = torch.device(device)
+        self.report = SolveReport(policy=policy.name)
+
+        t0 = time.perf_counter()
+        self.perm = ordering(a, order)
+        filled = symbolic_fill_lu(permute_csr(a, self.perm))
+        sched = chow_patel_schedule(filled)
+        need = _splu.estimate_schedule_bytes(sched)
+        if need > max_schedule_bytes:
+            raise MemoryError(
+                f"scheduled-LU pair lists would need {need / 2**30:.1f} GiB ragged "
+                f"(fill nnz={filled.nnz}, {sched.npairs} pairs, t_max={sched.t_max})")
+        self._filled = filled
+        self.plan = _splu.build_scheduled_lu(filled, sched)
+        self._dev = _splu.splu_to_device(self.plan, self.device)
+        self._perm_dev = torch.from_numpy(self.perm.astype(np.int64)).to(self.device)
+        _sync(self.device)
+        self.report.t_analyze = time.perf_counter() - t0
+        amax = float(np.abs(filled.data).max()) if filled.nnz else 1.0
+        self._pivot_eps = (pivot_eps if pivot_eps is not None else
+                           (1e-13 if policy.dtype == torch.float64 else 1e-4) * amax)
+
+        self.report.t_factorize = self.refactorize_timed()
+        # the triangles' schedules are made once on the host, from the first
+        # factorization's values (a refactorization gives the same bits)
+        t0 = time.perf_counter()
+        self._fill_vals = _to_host_f64(self.values)
+        lfull, U = _lu_triangles(filled, self._fill_vals)
+        self._l = tri_to_device(lfull, lower=True, unit_diag=True, policy=policy,
+                                device=self.device)
+        self._u = tri_to_device(U, lower=False, policy=policy, device=self.device)
+        self._ut = self._lt = None
+        _sync(self.device)
+        self.report.t_analyze += time.perf_counter() - t0
+        amax = float(np.abs(a.data).max()) if a.nnz else 1.0
+        self.report.pivot_growth = float(np.abs(self._fill_vals).max()) / max(amax, 1e-300)
+        self.report.factor_bytes = self.values.numel() * self.values.element_size()
+
+    def refactorize_timed(self) -> float:
+        """Numeric phase wall time (PARDISO phase 22), to the device
+        synchronize: one launch of K8 on the filled pattern and the count of
+        perturbed pivots. Refreshes the stored factor values."""
+        t0 = time.perf_counter()
+        res, _ = _splu.scheduled_lu_factor(self._filled, plan=self.plan, policy=self.policy,
+                                           pivot_eps=self._pivot_eps, device=self.device,
+                                           dev_plan=self._dev)
+        _sync(self.device)
+        self.values = res.values
+        self.report.n_pivot_perturbed = res.n_pivot_perturbed
+        return time.perf_counter() - t0
+
+    def solve_device(self, bp_dev: torch.Tensor) -> torch.Tensor:
+        """Device-side solve in the permuted system's coordinates; the
+        solution comes back in the policy's accumulator type."""
+        return sptrsv(self._u, sptrsv(self._l, bp_dev))
+
+    def solve_original_device(self, r: torch.Tensor) -> torch.Tensor:
+        """Solve A x = r in the original coordinates, fp64 tensors on the
+        factor's device in and out (the refinement loops' correction)."""
+        x = torch.empty_like(r)
+        x[self._perm_dev] = self.solve_device(
+            r[self._perm_dev].to(self.policy.accum_dtype)).double()
+        return x
+
+    def solve(self, b: np.ndarray) -> np.ndarray:
+        """Solve A x = b (host in/out)."""
+        t0 = time.perf_counter()
+        bb = np.asarray(b, np.float64)
+        x = _to_host_f64(self.solve_original_device(torch.from_numpy(bb).to(self.device)))
+        self.report.t_solve = time.perf_counter() - t0
+        self.report.residual = relative_residual(self.a, x, bb)
+        return x
+
+    def solve_transpose(self, s: np.ndarray) -> np.ndarray:
+        """Solve A^T z = s (host in/out) from the same factor values:
+        A^T = U^T L^T, U^T lower triangular with its diagonal and L^T unit
+        upper, their solves made at the first call (the true Hager
+        iteration's transpose solve)."""
+        if self._lt is None:
+            L, _, U = split_triangular(CSRMatrix(self._filled.shape, self._filled.indptr,
+                                                 self._filled.indices, self._fill_vals))
+            self._ut = tri_to_device(csr_transpose(U), lower=True, policy=self.policy,
+                                     device=self.device)
+            self._lt = tri_to_device(_with_unit_diagonal(csr_transpose(L)), lower=False,
+                                     unit_diag=True, policy=self.policy, device=self.device)
+        sp_ = np.asarray(s, np.float64)[self.perm]
+        zs = sptrsv(self._lt, sptrsv(self._ut, torch.from_numpy(sp_).to(self.device)))
+        zh = _to_host_f64(zs)
+        z = np.empty_like(zh)
+        z[self.perm] = zh
+        return z
+
+    def condest(self, iters: int = 5) -> float:
+        inv_norm = condition_estimate(self.a, self.solve, iters=iters,
+                                      solve_t_fn=self.solve_transpose)
+        self.report.rcond_est = 1.0 / max(_norm1(self.a) * inv_norm, 1e-300)
+        return self.report.rcond_est
 
 
 def _memlike(e: Exception) -> bool:
@@ -497,12 +641,12 @@ def factorize(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
     * method="band":  dense band LU after RCM (BandLuFactorization)
     * method="snlu" / "multifrontal":  supernodal multifrontal LU
       (SupernodalLuFactorization)
-    * method="sparse": the scheduled sparse LU is not ported yet; it raises
-      ``NotImplementedError`` naming the slice that brings it
+    * method="sparse": the exact scheduled sparse LU (SparseLuFactorization)
     * method="auto":  band when the band fits the memory budget, else
-      multifrontal. When both refuse for lack of memory this raises
-      ``MemoryError`` naming each method's refusal; there is no retry on the
-      CPU and no quiet change of method.
+      multifrontal, else the scheduled sparse LU: respatpu's order, each
+      falling through only on a refusal for lack of memory. When all three
+      refuse this raises ``MemoryError`` naming each method's refusal; there
+      is no retry on the CPU and no quiet change of method.
 
     ``matching``: True/False forces GESP weighted matching + Ruiz scaling on
     the methods that support it; "auto" is computed as respatpu does (on
@@ -515,9 +659,7 @@ def factorize(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
     """
     if matching == "auto":
         matching = a.nrows == a.ncols and structural_symmetry(a) < 0.9
-    if method in _SLICE:
-        raise NotImplementedError(f"method={method!r} is not ported yet: {_SLICE[method]}")
-    if method not in ("band", "snlu", "multifrontal", "auto"):
+    if method not in ("band", "snlu", "multifrontal", "sparse", "auto"):
         raise ValueError(f"unknown method {method!r}")
 
     def _mk(cls, tag):
@@ -538,16 +680,18 @@ def factorize(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
         return _mk(BandLuFactorization, "band")
     if method in ("snlu", "multifrontal"):
         return _mk(SupernodalLuFactorization, "snlu")
+    if method == "sparse":
+        return _mk(SparseLuFactorization, "sparse")
     errs = []
-    for cls, tag in ((BandLuFactorization, "band"), (SupernodalLuFactorization, "snlu")):
+    for cls, tag in ((BandLuFactorization, "band"), (SupernodalLuFactorization, "snlu"),
+                     (SparseLuFactorization, "sparse")):
         try:
             return _mk(cls, tag)
         except Exception as e:
             if not _memlike(e):
                 raise
             errs.append(f"{tag}: {e}")
-    raise MemoryError("every direct method refused: " + "; ".join(errs)
-                      + "; sparse: not ported")
+    raise MemoryError("every direct method refused: " + "; ".join(errs))
 
 
 # ---------------------------------------------------------------------------
@@ -692,9 +836,10 @@ class Ilu0Preconditioner:
     with the L-then-U intent of its descriptors -- not its L^T bug, SURVEY
     §3.4).
 
-    ``method``: "chow_patel" (fixed-point sweeps, ``kernels.ilu0``); the
-    exact "scheduled" ILU(0) rests on the scheduled sparse LU, which is not
-    ported yet, and raises ``NotImplementedError`` naming its slice.
+    ``method``: "chow_patel" (fixed-point sweeps, ``kernels.ilu0``) or
+    "scheduled" (exact ILU(0) by the scheduled LU on A's own pattern,
+    ``kernels.splu``, one launch of K8; no sweep count; ``notes`` says
+    ``exact_scheduled``).
 
     ``apply_mode``: "scheduled" (the exact one-launch triangular solves),
     "jacobi" (``apply_sweeps`` fixed-point sweeps on the CSR SpMV kernel, an
@@ -712,28 +857,25 @@ class Ilu0Preconditioner:
         self.policy = policy
         self.device = torch.device(device)
         self.report = SolveReport(policy=policy.name)
-        if method in ("scheduled", "sparse"):
-            raise NotImplementedError(f"method={method!r} is not ported yet: {_SLICE['sparse']}")
-        if method != "chow_patel":
+        if method not in ("chow_patel", "scheduled"):
             raise ValueError(f"unknown method {method!r}")
         if apply_mode not in ("auto", "scheduled", "jacobi", "isai"):
             raise ValueError(f"unknown apply_mode {apply_mode!r}")
         t0 = time.perf_counter()
-        res, self.schedule = ilu0_factor(a, policy=policy, sweeps=sweeps, device=self.device)
-        self.report.notes = f"cp_residual={res.residual:.2e}"
+        if method == "scheduled":
+            res, plan = _splu.scheduled_lu_factor(a, policy=policy, device=self.device)
+            self.schedule = plan.sched
+            self.report.notes = "exact_scheduled"
+        else:
+            res, self.schedule = ilu0_factor(a, policy=policy, sweeps=sweeps, device=self.device)
+            self.report.notes = f"cp_residual={res.residual:.2e}"
         vals = _to_host_f64(res.values)
         self.report.t_factorize = time.perf_counter() - t0
         self.report.n_pivot_perturbed = res.n_pivot_perturbed
         self.report.factor_bytes = vals.size * res.values.element_size()
 
         t0 = time.perf_counter()
-        n = a.nrows
-        L, d, U = split_triangular(CSRMatrix(a.shape, a.indptr, a.indices, vals))
-        dn = np.arange(n, dtype=np.int32)
-        lcoo = L.tocoo()
-        lfull = coo_to_csr(COOMatrix((n, n), np.concatenate([lcoo.row, dn]),
-                                     np.concatenate([lcoo.col, dn]),
-                                     np.concatenate([lcoo.val, np.ones(n)])))
+        lfull, U = _lu_triangles(a, vals)
         if apply_mode == "auto":
             apply_mode = "scheduled" if policy.dtype == torch.float64 else "jacobi"
         self.apply_mode = apply_mode

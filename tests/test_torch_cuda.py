@@ -1,6 +1,6 @@
 """The hand-written kernels (CSR SpMV, block LU, band sweep, extend-add,
-frontal sweep, row reduction, ILU(0) sweep, triangular solve) against their
-plain versions on a CUDA card.
+frontal sweep, row reduction, ILU(0) sweep, triangular solve, scheduled LU,
+DIA SpMV) against their plain versions on a CUDA card.
 
 Marked ``cuda``: without a card each test skips with a reason. On a machine
 with one, run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -16,7 +16,9 @@ from respatpu_torch.bench import synth
 from respatpu_torch.formats import COOMatrix, coo_to_csr
 from respatpu_torch import analysis, solve
 from respatpu_torch.kernels import bandlu as B
+from respatpu_torch.kernels import dia as DI
 from respatpu_torch.kernels import ilu0 as I
+from respatpu_torch.kernels import splu as SP
 from respatpu_torch.kernels import sptrsv as S
 from respatpu_torch.precision import get_policy
 from respatpu_torch.kernels import snlu, snlu_device as F
@@ -60,7 +62,7 @@ def test_kernel_matches_plain(card, name, policy):
     a = (_matrix() if name == "rect" else synth.mesh_fem_3d(5000, seed=2) if name == "mesh"
          else synth.row_block_edges(K.CAP, K.MAX_ROWS)[name])
     x64 = np.random.default_rng(1).standard_normal(a.shape[1]) + 1.0
-    dev = K.to_device(a, policy, card)
+    dev = K.to_device(a, policy, card, fmt="csr")
     x = torch.from_numpy(x64).to(dev.policy.accum_dtype).to(card)
     before = K.LAUNCHES[policy]
     y = K.spmv(dev, x)
@@ -76,7 +78,7 @@ def test_kernel_matches_plain(card, name, policy):
 
 
 def test_wrapper_rejects_bad_input(card):
-    dev = K.to_device(synth.laplacian_3d(5, 5, 5), "fp32", card)
+    dev = K.to_device(synth.laplacian_3d(5, 5, 5), "fp32", card, fmt="csr")
     with pytest.raises(TypeError):
         K.spmv(dev, torch.zeros(125, dtype=torch.float64, device=card))
     with pytest.raises(ValueError):
@@ -99,30 +101,34 @@ SWEEP_TOL = {"fp32": 2e-5, "fp32_ftz": 2e-5, "bf16": 2e-5, "fp64": 1e-12}
 @pytest.mark.parametrize("dtype,flush", [(torch.float32, False), (torch.float32, True),
                                          (torch.bfloat16, False), (torch.float64, False)],
                          ids=["fp32", "fp32_ftz", "bf16", "fp64"])
-@pytest.mark.parametrize("layout", ["in_band", "contiguous"])
-@pytest.mark.parametrize("nblocks", [1, 7])
-@pytest.mark.parametrize("p", [16, 32, 128])
-def test_block_lu_matches_plain(card, p, nblocks, layout, dtype, flush):
+def test_block_lu_matches_plain(card, dtype, flush):
     """Blocks whose first pivot is planted: zero, exactly eps, eps / 2,
-    negative tiny, exactly -eps, twice eps (kept), and an ordinary one."""
+    negative tiny, exactly -eps, twice eps (kept), and an ordinary one; for
+    every block size (16, 32, 128), count (1, 7) and layout (read in place
+    from a band, contiguous), each case named in its message."""
     eps = 1e-13 if dtype == torch.float64 else 2.0 ** -13
-    rng = np.random.default_rng(p)
-    blk = rng.standard_normal((nblocks, p, 3 * p)) + np.tile(4 * np.sqrt(p) * np.eye(p), 3)
-    for i, plant in enumerate([0.0, eps, eps / 2, -eps / 2, -eps, 2 * eps][:nblocks]):
-        blk[i, 0, p] = plant
-    x = torch.from_numpy(blk).to(dtype).to(card)[:, :, p:2 * p]
-    if layout == "contiguous":
-        x = x.contiguous()
     name = "respa_block_lu_" + ("f64" if dtype == torch.float64 else "f32_ftz" if flush else "f32")
-    before = B.LAUNCHES[name]
-    lu, cnt = B.block_lu(x, eps, flush)
-    torch.cuda.synchronize()
-    assert B.LAUNCHES[name] == before + 1
-    ref, rcnt = B.block_lu_plain(x, eps, flush)
-    assert torch.equal(cnt, rcnt) and int(cnt.sum()) >= min(nblocks, 5)
-    assert float((lu - ref).abs().max() / ref.abs().max()) <= LU_TOL[dtype]
-    again = B.block_lu(x, eps, flush)
-    assert torch.equal(lu, again[0]) and torch.equal(cnt, again[1])
+    for p in (16, 32, 128):
+        for nblocks in (1, 7):
+            for layout in ("in_band", "contiguous"):
+                case = f"p={p} nblocks={nblocks} layout={layout}"
+                rng = np.random.default_rng(p)
+                blk = rng.standard_normal((nblocks, p, 3 * p)) + np.tile(4 * np.sqrt(p) * np.eye(p),
+                                                                          3)
+                for i, plant in enumerate([0.0, eps, eps / 2, -eps / 2, -eps, 2 * eps][:nblocks]):
+                    blk[i, 0, p] = plant
+                x = torch.from_numpy(blk).to(dtype).to(card)[:, :, p:2 * p]
+                if layout == "contiguous":
+                    x = x.contiguous()
+                before = B.LAUNCHES[name]
+                lu, cnt = B.block_lu(x, eps, flush)
+                torch.cuda.synchronize()
+                assert B.LAUNCHES[name] == before + 1, case
+                ref, rcnt = B.block_lu_plain(x, eps, flush)
+                assert torch.equal(cnt, rcnt) and int(cnt.sum()) >= min(nblocks, 5), case
+                assert float((lu - ref).abs().max() / ref.abs().max()) <= LU_TOL[dtype], case
+                again = B.block_lu(x, eps, flush)
+                assert torch.equal(lu, again[0]) and torch.equal(cnt, again[1]), case
 
 
 def _sweep_matrix(name):
@@ -505,3 +511,103 @@ def test_ilu_kernels_match_plain(card):
         y = S.tri_solve(S.tri_to_device(l2, policy=policy, device=card),
                         torch.tensor([1e-19, 0.0], device=card))
         assert (float(y[1]) != 0.0) == nonzero
+
+
+def test_splu_kernel_matches_plain(card):
+    """K8 (the scheduled LU in one launch) bit for bit with its plain
+    version in every instance, twice, counting its launches, the slot past
+    the output untouched: exact ILU(0) of a circuit with hub rows, the exact
+    LU of a band's fill (entries of up to 40 pairs: the warp's path) and of
+    a grid's, each plan with a long entry a run and with runs of about
+    LONG_PAIRS pairs; a perturbed pivot counted; a subnormal pivot flushed and
+    clamped under fp32_ftz; K8 on two streams at once equal to the
+    sequential factorizations."""
+    pats = {"ilu0_circuit": synth.circuit_like(4000, 5, seed=2, diag="dominant"),
+            "lu_banded": analysis.symbolic_fill_lu(synth.random_banded(400, 40, 12, seed=5)),
+            "lu_grid": analysis.symbolic_fill_lu(synth.laplacian_2d(40, 35))}
+    for (pname, f), long_pairs in [(kv, lp) for kv in pats.items() for lp in (1, SP.LONG_PAIRS)]:
+        d = SP.splu_to_device(SP._plan_cut(f.nrows, analysis.chow_patel_schedule(f), long_pairs),
+                              card)
+        for inst, policy in ILU_INST.items():
+            p = get_policy(policy)
+            av = p.cast_host(f.data).to(card)
+            eps = 1e-4 * float(np.abs(f.data).max())
+            name = f"respa_splu_factor_{inst}"
+            before = SP.LAUNCHES[name]
+            outs = []
+            for _ in range(2):
+                out = torch.full((f.nnz + 1,), 7.0, dtype=p.dtype, device=card)
+                SP.splu_factor(d, av, eps, p.flush_to_zero, out=out)
+                outs.append(out)
+            want = SP.splu_factor_plain(d, av, eps, p.flush_to_zero)
+            torch.cuda.synchronize()
+            assert SP.LAUNCHES[name] == before + 2, (pname, long_pairs, inst)
+            for out in outs:
+                assert torch.equal(out[:-1], want) and float(out[-1]) == 7.0, \
+                    (pname, long_pairs, inst)
+    f = pats["lu_grid"]
+    d = SP.splu_to_device(SP.build_scheduled_lu(f), card)
+    a1 = torch.from_numpy(f.data).to(card)
+    a2 = (a1 * 1.5).contiguous()
+    y1, y2 = SP.splu_factor(d, a1, 1e-13), SP.splu_factor(d, a2, 1e-13)
+    got = _on_two_streams(lambda: SP.splu_factor(d, a1, 1e-13),
+                          lambda: SP.splu_factor(d, a2, 1e-13))
+    assert torch.equal(got[0], y1) and torch.equal(got[1], y2)
+    # a zero pivot used by L entries (counted), and a subnormal one under fp32_ftz
+    z = solve.CSRMatrix((2, 2), np.array([0, 2, 4]), np.array([0, 1, 0, 1], np.int32),
+                        np.array([0.0, 1.0, 1.0, 1.0]))
+    res, _ = SP.scheduled_lu_factor(z, policy="fp64", pivot_eps=0.5, device=card)
+    assert res.n_pivot_perturbed == 1 and float(res.values[2]) == 2.0
+    s = solve.CSRMatrix((2, 2), np.array([0, 1, 3]), np.array([0, 0, 1], np.int32),
+                        np.array([1e-39, 1e-10, 1.0]))
+    r32, _ = SP.scheduled_lu_factor(s, policy="fp32", pivot_eps=1e-44, device=card)
+    rftz, _ = SP.scheduled_lu_factor(s, policy="fp32_ftz", pivot_eps=1e-44, device=card)
+    assert r32.n_pivot_perturbed == 0 and rftz.n_pivot_perturbed == 1
+    assert float(rftz.values[0]) == 0.0 and float(r32.values[0]) > 0.0
+
+
+def test_dia_kernel_matches_plain(card):
+    """K9 (the DIA SpMV) bit for bit with its plain version in every
+    instance, twice, counting its launches: a 3-D stencil, a rectangular
+    matrix, a stencil with a remainder (summed inside the kernel), no
+    diagonal kept (rows of several remainder entries); subnormals flushed
+    under fp32_ftz."""
+    rng = np.random.default_rng(4)
+    lap = synth.laplacian_2d(60, 50)
+    coo = lap.tocoo()
+    extra = rng.integers(0, lap.nrows, (2, 200))
+    stragglers = coo_to_csr(COOMatrix(lap.shape, np.r_[coo.row, extra[0]].astype(np.int32),
+                                      np.r_[coo.col, extra[1]].astype(np.int32),
+                                      np.r_[coo.val, rng.uniform(-0.5, 0.5, 200)]))
+    rows = np.r_[np.arange(500), np.arange(500), np.arange(480)]
+    rect = coo_to_csr(COOMatrix((500, 700), rows.astype(np.int32),
+                                np.r_[np.arange(500), np.arange(500) + 150,
+                                      np.arange(480) + 220].astype(np.int32),
+                                rng.uniform(-1.0, 1.0, rows.size)))
+    scattered = coo_to_csr(COOMatrix((300, 300), rng.integers(0, 300, 400).astype(np.int32),
+                                     rng.integers(0, 300, 400).astype(np.int32),
+                                     rng.standard_normal(400)))
+    for mname, a in {"stencil_3d": synth.laplacian_3d(30, 20, 10), "rect": rect,
+                     "stragglers": stragglers, "scattered": scattered}.items():
+        x64 = rng.standard_normal(a.shape[1])
+        x64[::9] = 1e-40
+        for inst, policy in ILU_INST.items():
+            dev = K.to_device(a, policy, card, fmt="dia")
+            x = torch.from_numpy(x64).to(dev.policy.accum_dtype).to(card)
+            name = f"respa_dia_spmv_{inst}"
+            before = DI.LAUNCHES[name]
+            ys = [DI.dia_spmv(dev, x) for _ in range(2)]
+            want = DI.dia_spmv_plain(dev, x)
+            torch.cuda.synchronize()
+            assert DI.LAUNCHES[name] == before + 2, (mname, inst)
+            assert all(torch.equal(y, want) for y in ys), (mname, inst)
+            assert torch.equal(K.spmv(dev, x), ys[0]), (mname, inst)
+            ref = K.spmv_csr_reference(a, x.double().cpu().numpy())
+            err = float(np.abs(ys[0].double().cpu().numpy() - ref).max() / np.abs(ref).max())
+            assert err <= TOL[policy] or policy == "bf16", (mname, inst, err)
+    one = K.to_device(solve.CSRMatrix((1, 1), np.array([0, 1]), np.array([0], np.int32),
+                                      np.array([1e-20])), "fp32_ftz", card, fmt="dia")
+    assert float(K.spmv(one, torch.tensor([1e-20], device=card))[0]) == 0.0
+    keep = K.to_device(solve.CSRMatrix((1, 1), np.array([0, 1]), np.array([0], np.int32),
+                                       np.array([1e-20])), "fp32", card, fmt="dia")
+    assert float(K.spmv(keep, torch.tensor([1e-20], device=card))[0]) != 0.0

@@ -120,17 +120,24 @@ def test_factorize_auto_chain(monkeypatch):
     monkeypatch.setattr(analysis, "_USE_NATIVE", True)
     with pytest.raises(MemoryError) as err:
         solve.factorize(csr_from_respatpu(_scrambled()), method="auto", order="natural",
-                        max_band_bytes=1 << 20, max_pool_bytes=1 << 10, device="cpu")
+                        max_band_bytes=1 << 20, max_pool_bytes=1 << 10,
+                        max_schedule_bytes=1 << 10, device="cpu")
     text = str(err.value)
     assert text.startswith("every direct method refused: band: band storage would need")
     assert "; snlu: front pool would need" in text
-    assert text.endswith("; sparse: not ported")
+    assert "; sparse: scheduled-LU pair lists would need" in text
+    # the third step of the chain serves what band and snlu refuse
+    third = solve.factorize(csr_from_respatpu(_scrambled()), method="auto", order="natural",
+                            max_band_bytes=1 << 20, max_pool_bytes=1 << 10, device="cpu")
+    assert isinstance(third, solve.SparseLuFactorization)
+    assert third.report.notes.startswith("method=sparse")
     for method in ("snlu", "multifrontal"):
         served = solve.factorize(a, method=method, device="cpu")
         assert isinstance(served, solve.SupernodalLuFactorization)
         assert served.report.notes == "method=snlu,apply=frontal_fp32"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve.factorize(a, method="sparse", device="cpu")
+    served = solve.factorize(a, method="sparse", device="cpu")
+    assert isinstance(served, solve.SparseLuFactorization)
+    assert served.report.notes == "method=sparse"
     with pytest.raises(ValueError):
         solve.factorize(a, method="cholesky", device="cpu")
     # an error that is not about memory passes through the chain unchanged
@@ -147,8 +154,10 @@ def test_memlike_errors_become_the_refusal(exc, monkeypatch):
         raise exc
     monkeypatch.setattr(solve.BandLuFactorization, "__init__", boom)
     monkeypatch.setattr(solve.SupernodalLuFactorization, "__init__", boom)
+    monkeypatch.setattr(solve.SparseLuFactorization, "__init__", boom)
     a = csr_from_respatpu(laplacian_2d(4, 4))
-    with pytest.raises(MemoryError, match="every direct method refused: band: .*; snlu: "):
+    with pytest.raises(MemoryError,
+                       match="every direct method refused: band: .*; snlu: .*; sparse: "):
         solve.factorize(a, method="auto", device="cpu")
     with pytest.raises(type(exc)):
         solve.factorize(a, method="band", device="cpu")
@@ -255,12 +264,14 @@ def test_cli_lu(mtx, capsys, refine):
     assert resid < (1e-10 if refine else 1e-4)
 
 
-def test_cli_lu_refuses_without_a_card_and_unported_methods(mtx, monkeypatch):
+def test_cli_lu_refuses_without_a_card_and_unported_methods(mtx, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         cli.main(["lu", mtx])
-    with pytest.raises(NotImplementedError):
-        cli.main(["lu", mtx, "--device", "cpu", "--method", "sparse"])
+    # the scheduled sparse LU, once unported, now serves
+    cli.main(["lu", mtx, "--device", "cpu", "--method", "sparse"])
+    out = capsys.readouterr().out
+    assert "[method=sparse]" in out and float(out.split("rel_residual=")[1].split()[0]) < 1e-10
 
 
 def _sweep_lu_header():

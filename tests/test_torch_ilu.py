@@ -242,8 +242,17 @@ def test_ilu_slice_matches_respatpu(tmp_path, monkeypatch, capsys):
             assert jr.converged and tr.converged, case
             assert abs(tr.iterations - jr.iterations) <= 2, (case, tr.iterations, jr.iterations)
             assert _rel2(tx, jx) <= 1e-6, (case, _rel2(tx, jx))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        solve.Ilu0Preconditioner(csr_from_respatpu(lap), method="scheduled", device="cpu")
+    # exact ILU(0) by the scheduled LU, once unported: both packages' notes
+    # and pivots, and the same GMRES iterations within one
+    jp = jsolve.Ilu0Preconditioner(lap, policy="fp32", method="scheduled")
+    tp = solve.Ilu0Preconditioner(csr_from_respatpu(lap), "fp32", method="scheduled",
+                                  device="cpu")
+    assert tp.report.notes == jp.report.notes == "exact_scheduled,apply=jacobi6"
+    assert tp.report.n_pivot_perturbed == int(jp.report.n_pivot_perturbed) == 0
+    b = rng.standard_normal(lap.nrows)
+    jx, jr = jsolve.gmres(lap, b, precond=jp, tol=1e-6)
+    tx, tr = solve.gmres(csr_from_respatpu(lap), b, precond=tp, tol=1e-6)
+    assert jr.converged and tr.converged and abs(tr.iterations - jr.iterations) <= 1
 
     # one sweep_ilu0 row of each package
     jrow = jrunner.sweep_ilu0(["ct20stif"], max_synth_nnz=1500, verbose=False)[0]

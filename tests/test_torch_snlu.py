@@ -140,14 +140,18 @@ def test_auto_falls_through_from_band_to_snlu(systems):
     assert solve.factorize(lap, method="auto", device="cpu").report.notes == "method=band"
     with pytest.raises(MemoryError) as err:
         solve.factorize(a, method="auto", max_band_bytes=1 << 10, max_pool_bytes=1 << 10,
-                        device="cpu")
+                        max_schedule_bytes=1 << 10, device="cpu")
     text = str(err.value)
     assert text.startswith("every direct method refused: band: band storage would need")
-    assert "; snlu: front pool would need" in text and text.endswith("; sparse: not ported")
+    assert "; snlu: front pool would need" in text
+    assert "; sparse: scheduled-LU pair lists would need" in text
     with pytest.raises(MemoryError, match="front pool would need"):
         solve.factorize(a, method="snlu", max_pool_bytes=1 << 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        solve.factorize(a, method="sparse", device="cpu")
+    # the third step: what band and snlu refuse, the scheduled sparse LU serves
+    third = solve.factorize(a, method="auto", max_band_bytes=1 << 10, max_pool_bytes=1 << 10,
+                            device="cpu")
+    assert isinstance(third, solve.SparseLuFactorization)
+    assert third.report.notes.startswith("method=sparse")
     with pytest.raises(ValueError, match="square"):
         from respatpu_torch.formats import COOMatrix, coo_to_csr
         solve.SupernodalLuFactorization(coo_to_csr(COOMatrix(

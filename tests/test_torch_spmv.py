@@ -30,8 +30,8 @@ from respatpu.kernels.gsell_df import gsell_df_to_device, spmv_gsell_df
 from respatpu_torch.bench import synth
 from respatpu_torch.formats import COOMatrix, CSRMatrix, coo_to_csr
 from respatpu_torch.interop import df_to_numpy
-from respatpu_torch.kernels.spmv import (CAP, MAX_ROWS, row_blocks, spmv, spmv_csr_reference,
-                                         spmv_plain, to_device)
+from respatpu_torch.kernels.spmv import (CAP, MAX_ROWS, DeviceDia, row_blocks, spmv,
+                                         spmv_csr_reference, spmv_plain, to_device)
 
 
 def _rect_empty_rows():
@@ -74,7 +74,7 @@ def _jcsr(a: CSRMatrix) -> JCSR:
 
 
 def _port(a: CSRMatrix, policy: str, x: np.ndarray) -> np.ndarray:
-    dev = to_device(a, policy, "cpu")
+    dev = to_device(a, policy, "cpu", fmt="csr")
     xt = torch.from_numpy(np.asarray(x, np.float64)).to(dev.policy.accum_dtype)
     y = spmv(dev, xt)
     assert torch.equal(y, spmv_plain(dev, xt))  # the CPU wrapper is the plain version
@@ -139,17 +139,20 @@ def test_ftz_flushes_products():
 
 def test_to_device_formats():
     a = synth.laplacian_3d(4, 4, 4)
-    for fmt in ("auto", "csr"):
-        dev = to_device(a, "fp32", "cpu", fmt=fmt)
-        assert dev.indptr.dtype == torch.int64 and dev.indices.dtype == torch.int32
-        assert dev.vals.dtype == torch.float32 and dev.shape == a.shape
-    with pytest.raises(NotImplementedError):
-        to_device(a, "fp32", "cpu", fmt="dia")
+    dev = to_device(a, "fp32", "cpu", fmt="csr")
+    assert dev.indptr.dtype == torch.int64 and dev.indices.dtype == torch.int32
+    assert dev.vals.dtype == torch.float32 and dev.shape == a.shape
+    # a stencil: "auto" and "dia" give the DIA path (kernels/dia.py), with
+    # every entry on its seven diagonals
+    for fmt in ("auto", "dia"):
+        dia = to_device(a, "fp32", "cpu", fmt=fmt)
+        assert isinstance(dia, DeviceDia) and dia.rem is None and dia.ndiag == 7
+        assert dia.shape == a.shape and dia.diags.dtype == torch.float32
     for fmt in ("gsell", "bell", "rgell", "ell"):
         with pytest.raises(ValueError):
             to_device(a, "fp32", "cpu", fmt=fmt)
-    assert to_device(a, "df64", "cpu").vals.dtype == torch.float64
-    assert to_device(a, "bf16", "cpu").vals.dtype == torch.bfloat16
+    assert to_device(a, "df64", "cpu", fmt="csr").vals.dtype == torch.float64
+    assert to_device(a, "bf16", "cpu", fmt="csr").vals.dtype == torch.bfloat16
 
 
 # --- the kernel's row partition (a pure function of the row pointer) --------
