@@ -38,7 +38,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    factorization and direct solve of the same matrix, bf16 and fp32_ftz with
    refinement on a 300 x 300 grid Laplacian and the condition estimate; the
    phase times, and both band kernels timed at the full-width shapes beside
-   bound, library and plain;
+   bound, library and plain; the block-LU kernel beside its chain bound too,
+   128 pivots times one block barrier with a shared-memory hand-over (a probe
+   in ``bench/csrc/smoke_probes.cu``);
 7. frontal kernels vs plain: extend-add, the forward and backward frontal
    sweep and the row reduction against their plain versions on synthetic
    groups in each of the sweep's regimes (one front; a parent with hundreds
@@ -116,7 +118,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    case beside the remainder's other design (K0 on the remainder, then K9
    adding its product: ``bench/csrc/smoke_probes.cu``, built with the
    kernels), equal bit for bit;
-13. result: a JSON line of the kernels, then the device line last.
+13. persistence: dc1's multifrontal fp32 factor from phase 8 saved, loaded
+   back onto K7 triangles that hold ``factor_values()`` bit for bit, and
+   refined through GMRES-IR to 1e-10 by the host oracle; laplacian_2d(300,
+   300)'s scheduled factors from phase 11 (fp32, fp64) and its band factor
+   (fp32) saved and loaded, each loaded solve equal to the live one bit for
+   bit and refined; an fp64 multifrontal factor forced onto its frontal pool
+   (no device memory granted to its triangles), which stays fp64; each with its save and load
+   seconds and file bytes, and the path's launch counts;
+14. the precision study: ``attempt_fetch`` timed with the download refused
+   at once (nothing in this script opens a connection), then
+   ``study.run_study`` on 2cubes_sphere at catalogue size (the band path,
+   five configurations) and on dc1 cut to 100,000 entries by the multifrontal
+   LU, every row and ``summarize``'s JSON printed; any status but ``ok`` (or
+   ``stagnated`` for dc1's bf16+ir), a 2cubes_sphere ``+ir`` row above 1e-12,
+   or a kernel of the band or frontal path not launched fails the run;
+15. result: a JSON line of the kernels (with their launches on the study and
+   persistence paths), then the device line last.
 
 Each phase prints its seconds on a line of its own (``[phase] k took``).
 
@@ -134,10 +152,12 @@ with its plan cut into runs of long entries of several sizes
 ``python3 chip_smoke.py --upload-times TREE ...`` times each tree's upload of
 the offshore and ecology2 stand-ins the same way (:func:`upload_times_in_turns`).
 """
+import contextlib
 import ctypes
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -151,11 +171,13 @@ import torch  # noqa: E402
 
 from respatpu_torch import io as rio  # noqa: E402
 from respatpu_torch._buildlib import build_shared  # noqa: E402
-from respatpu_torch.bench import corpus, runner  # noqa: E402
+from respatpu_torch import persist  # noqa: E402
+from respatpu_torch.bench import corpus, fetch, runner, study  # noqa: E402
 from respatpu_torch import solve as slv  # noqa: E402
-from respatpu_torch.bench.synth import (frontal_group, laplacian_2d, mesh_fem_3d,  # noqa: E402
-                                        random_banded, row_block_edges, skew_banded)
-from respatpu_torch.formats import COOMatrix, CSRMatrix, coo_to_csr  # noqa: E402
+from respatpu_torch.bench.synth import (circuit_like, frontal_group, laplacian_2d,  # noqa: E402
+                                        mesh_fem_3d, random_banded, row_block_edges,
+                                        skew_banded)
+from respatpu_torch.formats import COOMatrix, CSRMatrix, coo_to_csr, split_triangular  # noqa: E402
 from respatpu_torch.io import native  # noqa: E402
 from respatpu_torch.kernels import _build  # noqa: E402
 from respatpu_torch import analysis  # noqa: E402
@@ -1206,7 +1228,8 @@ def two_streams_frontal(name_limit, fac, bd):
 
 def multifrontal_path(name_limit, mats, errs, full, times):
     """Phase 8; returns the launch counts of the frontal, block-LU and fp64
-    SpMV kernels on the multifrontal path."""
+    SpMV kernels on the multifrontal path, and dc1's fp32 factorization
+    (phase 13 saves it)."""
     reset_counts()
     a = mats["dc1"]
     if slv.structural_symmetry(a) >= 0.9:
@@ -1270,11 +1293,10 @@ def multifrontal_path(name_limit, mats, errs, full, times):
                     ("laplacian_2d(300, 300) fp32_ftz", fac_z)):
         hold_frontal_full(name_limit, name, f, errs, full)
     time_frontal(name_limit, fac, times)
-    del fac
     time_frontal(name_limit, fac64, times)
     del fac64
     time_frontal(name_limit, fac_z, times)
-    return launches
+    return launches, fac
 
 
 # ---------------------------------------------------------------------------
@@ -1930,6 +1952,26 @@ def splu_gather_bytes(d, itemsize):
     return d.pairs_a.numel() * 2 * itemsize
 
 
+def block_barrier(name_limit, probes, rounds=(1 << 14, 1 << 17)):
+    """Seconds of one barrier with a shared-memory hand-over in a block of
+    256 threads (``respa_barrier_probe``), K1's least step a pivot: the
+    difference of two launches' times over the difference of their rounds
+    (the launch itself cancels), each the median of 10 by events."""
+    out = torch.zeros(1, dtype=torch.float32, device="cuda")
+
+    def launch(r):
+        rc = probes.respa_barrier_probe(out.device.index, r, out.data_ptr(),
+                                        torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"respa_barrier_probe: cudaError {rc}")
+    ms = [events_ms(lambda r=r: launch(r), 10) for r in rounds]
+    step = (ms[1] - ms[0]) * 1e-3 / (rounds[1] - rounds[0])
+    print(f"[time] {name_limit} | block barrier probe: {rounds[0]} and {rounds[1]} hand-overs "
+          f"through shared memory past a barrier of 256 threads in {ms[0]:.4f} and {ms[1]:.4f} "
+          f"ms (medians of 10 by events): {step * 1e9:.2f} ns a hand-over", flush=True)
+    return step
+
+
 def l2_read_rate(name_limit, probes, mib=16, rounds=64):
     """The card's L2 read rate: bytes/s of one probe launch
     (``respa_l2_read_probe``) that reads a ``mib`` MiB buffer, small enough to
@@ -2248,6 +2290,9 @@ def build_probes():
     # device, buf, words, rounds, out, stream
     lib.respa_l2_read_probe.argtypes = [i32, ptr, i64, i32, ptr, ptr]
     lib.respa_l2_read_probe.restype = i32
+    # device, rounds, out, stream
+    lib.respa_barrier_probe.argtypes = [i32, i32, ptr, ptr]
+    lib.respa_barrier_probe.restype = i32
     return lib
 
 
@@ -2357,6 +2402,211 @@ def hold_and_time_dia(name_limit, mats, errs, times, designs):
                   f"{fmt_ms(lib_ms) if lib_ms else lib}; plain {t['plain_ms']:.2f} ms", flush=True)
     times["respa_dia_spmv_f32"]["remainder_designs"] = compare_dia_remainders(
         name_limit, designs, cases["ecology2+stragglers"])
+
+
+# ---------------------------------------------------------------------------
+# 13. persistence and 14. the precision study
+# ---------------------------------------------------------------------------
+
+
+def all_counts():
+    """Every kernel's launch count, by the name in the ``kernels`` line."""
+    out = {f"respa_spmv_csr_{INST[p]}": n for p, n in K.LAUNCHES.items()}
+    for counts in (B.LAUNCHES, F.LAUNCHES, I.LAUNCHES, S.LAUNCHES, SP.LAUNCHES, DI.LAUNCHES):
+        out.update(counts)
+    return out
+
+
+def synced(fn):
+    """(fn(), seconds on the host clock to a device synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def no_triangle_room():
+    """Loaded triangles get no device memory: a multifrontal factor's load
+    takes its frontal branch."""
+    budget = persist._tri_budget
+    persist._tri_budget = lambda device: 0
+    try:
+        yield
+    finally:
+        persist._tri_budget = budget
+
+
+def persist_row(name_limit, what, live, a, tmp, bitwise, no_room=False):
+    """Save ``live``, load it back bound to ``a`` (with no room for the
+    triangles where ``no_room``), one solve and a refined solve; the loaded
+    solve equal to the live one bit for bit where ``bitwise``. Returns the
+    loaded factorization."""
+    band = isinstance(live, slv.BandLuFactorization)
+    path = os.path.join(tmp, "_".join(re.findall(r"\w+", what)) + ".npz")
+    _, t_save = synced(lambda: (persist.save_band_factorization if band else
+                                persist.save_sparse_factorization)(path, live))
+    nbytes = os.path.getsize(path)
+    with no_triangle_room() if no_room else contextlib.nullcontext():
+        fac, t_load = synced(lambda: persist.load_band_factorization(path, a) if band else
+                             persist.load_sparse_factorization(path, a))
+    b, _ = slv.make_rhs_for_known_x(a)
+    x = fac.solve(b)
+    t_one, r_one = fac.report.t_solve, fac.report.residual
+    if bitwise and not np.array_equal(x, live.solve(b)):
+        raise AssertionError(f"{what}: the loaded solve differs from the live one")
+    xr, rep = slv.solve_refined(a, b, fac=fac)
+    if not (rep.converged and rep.residual <= 1e-10 and np.isfinite(xr).all()
+            and xr.shape == (a.nrows,)):
+        raise AssertionError(f"{what}, loaded and refined: {rep}")
+    print(f"[persist] {name_limit} | {what} [{fac.report.notes}, {type(fac).__name__}]: save "
+          f"{t_save:.2f} s, file {nbytes} bytes, load {t_load:.2f} s (the triangles' schedules "
+          f"or the pool included), one solve {t_one * 1e3:.1f} ms (residual {r_one:.3e}), refined "
+          f"solve {rep.t_solve * 1e3:.1f} ms in {rep.iterations} iterations to {rep.residual:.3e} "
+          f"(host oracle) [{rep.notes}]{'; loaded solve == live solve bit for bit' if bitwise else ''} "
+          f"(host clock, each step ended by a device synchronize)", flush=True)
+    return fac
+
+
+def hold_loaded_triangles(fac, live):
+    """dc1's loaded triangles hold ``factor_values()`` bit for bit: L's and
+    U's strict entries and U's reciprocal diagonal in the policy's type."""
+    vals = live.factor_values()
+    if not np.array_equal(fac.factor_values(), vals):
+        raise AssertionError("dc1: the loaded values differ from factor_values()")
+    f = live.part.filled
+    L, _, U = split_triangular(CSRMatrix(f.shape, f.indptr, f.indices, vals))
+    u_strict, u_diag = S._strict_and_diag(U, lower=False, unit_diag=False)
+    for tri, strict in ((fac._l, L), (fac._u, u_strict)):
+        got = tri.strict_csr()
+        if not (np.array_equal(got.indptr, strict.indptr)
+                and np.array_equal(got.indices, strict.indices)
+                and np.array_equal(got.data, fac.policy.cast_host(strict.data).double().numpy())):
+            raise AssertionError("dc1: a loaded triangle differs from factor_values()")
+    dinv = fac.policy.cast_host(1.0 / np.where(u_diag == 0.0, 1.0, u_diag))
+    if not torch.equal(fac._u.dinv.cpu(), dinv):
+        raise AssertionError("dc1: the loaded U's diagonal differs from factor_values()")
+    print(f"[persist] dc1: the loaded triangles hold factor_values() bit for bit "
+          f"(L {fac._l.nnz} and U {fac._u.nnz} strict entries, {fac._l.levels} and "
+          f"{fac._u.levels} levels, {fac._l.tasks.shape[0]} and {fac._u.tasks.shape[0]} tasks)",
+          flush=True)
+
+
+PERSIST_KERNELS = ("respa_tri_solve_lower_f32", "respa_tri_solve_upper_f32",
+                   "respa_tri_solve_lower_f64", "respa_tri_solve_upper_f64",
+                   "respa_band_sweep_fwd_f32", "respa_band_sweep_bwd_f32",
+                   "respa_front_sweep_fwd_f64", "respa_front_sweep_bwd_f64",
+                   "respa_rows_reduce_f64", "respa_spmv_csr_f64")
+
+
+def persistence_path(name_limit, fac_dc1, fac_s, fac_s64):
+    """Phase 13: factors saved, loaded back and solved: dc1's multifrontal
+    fp32 factor from phase 8 (loaded onto K7 triangles, refined through
+    GMRES-IR to 1e-10), laplacian_2d(300, 300)'s scheduled factors from
+    phase 11 (fp32, fp64) and its band factor (fp32), both solving bit for
+    bit like the live ones, and an fp64 multifrontal factor forced onto its
+    frontal pool, which stays fp64. The live band and fp64 factors are made
+    before the counts are zeroed. Returns the launch counts of the path."""
+    lap = fac_s.a
+    band = slv.factorize(lap, "fp32", method="band", device="cuda")
+    circ = circuit_like(20_000, 5, seed=4)
+    snlu64 = slv.SupernodalLuFactorization(circ, policy="fp64", matching=True, device="cuda")
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        dc1 = persist_row(name_limit, "dc1 multifrontal fp32, matched", fac_dc1, fac_dc1.a, tmp,
+                          False)
+        if not isinstance(dc1, persist.LoadedSparseLu):
+            raise AssertionError(f"dc1 loaded as {type(dc1).__name__}, not onto K7")
+        hold_loaded_triangles(dc1, fac_dc1)
+        del dc1
+        for live in (fac_s, fac_s64):
+            persist_row(name_limit, f"laplacian_2d(300, 300) scheduled {live.policy.name}", live,
+                        lap, tmp, True)
+        persist_row(name_limit, "laplacian_2d(300, 300) band fp32", band, lap, tmp, True)
+        forced = persist_row(name_limit, "circuit_like(20000) multifrontal fp64, matched",
+                             snlu64, circ, tmp, True, no_room=True)
+        if not (isinstance(forced, persist.LoadedFrontalLu)
+                and forced._frontal.pool.dtype == torch.float64):
+            raise AssertionError(f"the forced frontal branch: {type(forced).__name__}, "
+                                 f"{forced._frontal.pool.dtype}")
+        print(f"[persist] the forced branch (no room for the triangles) solves from an fp64 pool of "
+              f"{forced.report.factor_bytes} bytes, rebuilt with no factorization", flush=True)
+    launches = all_counts()
+    for name in PERSIST_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the persistence path")
+    print(f"[persist] launches of the persistence path "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def offline():
+    """``urllib.request.urlretrieve`` refuses at once: no call in this run
+    opens a connection, and ``attempt_fetch`` takes its first-failure path,
+    as it does on a machine with no network."""
+    import urllib.error
+    import urllib.request
+    old = urllib.request.urlretrieve
+
+    def refuse(url, *args, **kwargs):
+        raise urllib.error.URLError(f"not fetched: {url}")
+
+    urllib.request.urlretrieve = refuse
+    try:
+        yield
+    finally:
+        urllib.request.urlretrieve = old
+
+
+STUDY_KERNELS = (*B.LAUNCHES, *F.LAUNCHES, "respa_spmv_csr_f64")
+# dc1 in phase 14: cut to this many entries (its analysis at catalogue size takes 38 s a row),
+# and by the multifrontal LU, which ``auto`` reaches at catalogue size (the band refuses: 72.8
+# GiB), while the cut matrix's band would fit
+STUDY_CUT = 100_000
+
+
+def study_path(name_limit):
+    """Phase 14: ``run_study`` on 2cubes_sphere at catalogue size (the band
+    path, five configurations, fp64 band 3.94 GB) and on dc1 cut to
+    ``STUDY_CUT`` entries by ``method="snlu"`` (the multifrontal path with
+    matching, which ``auto`` takes at catalogue size), each row
+    printed with ``summarize``'s JSON. Fails unless 2cubes_sphere's rows are
+    all ``ok`` with its ``+ir`` rows at 1e-12 and dc1's are ``ok`` (its
+    ``bf16+ir`` may stagnate). Returns the launch counts of the path."""
+    with offline():
+        got, t_fetch = synced(lambda: fetch.attempt_fetch(["2cubes_sphere", "dc1"]))
+        print(f"[study] attempt_fetch: {got} matrices on disk after {t_fetch:.3f} s (the download "
+              "refused at once, as with no network; the stand-ins serve)", flush=True)
+        reset_counts()
+        rows, t_cubes = synced(lambda: study.run_study(["2cubes_sphere"], device="cuda"))
+        more, t_dc1 = synced(lambda: study.run_study(["dc1"], max_synth_nnz=STUDY_CUT,
+                                                     method="snlu", device="cuda"))
+    launches = all_counts()
+    rows += more
+    for r in rows:
+        print(f"[study] {name_limit} | {json.dumps(r)}", flush=True)
+    summary = study.summarize(rows)
+    print(f"[study] {name_limit} | 2cubes_sphere {t_cubes:.1f} s, dc1 (cut to {STUDY_CUT} "
+          f"entries) {t_dc1:.1f} s; summary {json.dumps(summary)}", flush=True)
+    allowed = {(r["matrix"], r["config"]): {"ok"} for r in rows}
+    allowed["dc1", "bf16+ir"] = {"ok", "stagnated"}
+    for r in rows:
+        if r["status"] not in allowed[r["matrix"], r["config"]]:
+            raise AssertionError(f"study row {r['matrix']}/{r['config']}: {r['status']} "
+                                 f"[{r['method']}]")
+        if r["matrix"] == "2cubes_sphere" and r["config"].endswith("+ir") and \
+                not float(r["rel_residual"]) <= 1e-12:
+            raise AssertionError(f"study row 2cubes_sphere/{r['config']}: {r['rel_residual']}")
+    if summary["n_matrices"] != 2 or summary["fp32_ir_reaches_1e-10_frac"] != 1.0:
+        raise AssertionError(f"study summary {summary}")
+    for name in STUDY_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the study path")
+    print(f"[study] launches of the study path "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
 
 
 _PHASE = [0.0]
@@ -2559,6 +2809,14 @@ def main():
     for name, n in band_launches.items():
         if n < 1:
             raise AssertionError(f"{name} was not launched on the direct path")
+    barrier = block_barrier(name_limit, probes.result())
+    for name in ("respa_block_lu_f32", "respa_block_lu_f32_ftz", "respa_block_lu_f64"):
+        t = band_times[name]
+        t["chain_bound_ms"] = B.MAX_P * barrier * 1e3  # a pivot of 128 waits at one barrier
+        print(f"[time] {name_limit} | {name}: chain bound {t['chain_bound_ms'] * 1e3:.3f} us "
+              f"({B.MAX_P} pivots x the barrier probe); the kernel "
+              f"{fmt_ms(t['profiler_ms'] or t['ms'])} is "
+              f"{(t['profiler_ms'] or t['ms']) / t['chain_bound_ms']:.1f}x it", flush=True)
     phase_done(6)
 
     # 7. frontal kernels vs plain
@@ -2567,7 +2825,8 @@ def main():
     phase_done(7)
 
     # 8. multifrontal path at full width
-    front_launches = multifrontal_path(name_limit, mats, front_errs, front_full, front_times)
+    front_launches, fac_dc1 = multifrontal_path(name_limit, mats, front_errs, front_full,
+                                                front_times)
     for name in (*F.LAUNCHES, "respa_block_lu_f32", "respa_block_lu_f32_ftz",
                  "respa_block_lu_f64", "spmv_fp64"):
         if front_launches[name] < 1:
@@ -2603,7 +2862,6 @@ def main():
     # 11. the direct scheduled LU at full width
     splu_direct_launches, fac_s, fac_s64 = splu_direct_path(name_limit)
     splu_lu_times = hold_splu_direct(name_limit, fac_s, fac_s64, splu_errs, latency, l2)
-    del fac_s, fac_s64
     phase_done(11)
 
     # 12. the DIA path
@@ -2613,7 +2871,16 @@ def main():
     builder.shutdown()
     phase_done(12)
 
-    # 13. result
+    # 13. persistence
+    persist_launches = persistence_path(name_limit, fac_dc1, fac_s, fac_s64)
+    del fac_dc1, fac_s, fac_s64
+    phase_done(13)
+
+    # 14. the precision study
+    study_launches = study_path(name_limit)
+    phase_done(14)
+
+    # 15. result
     kernels = []
     for p in TOL:
         kernels.append({"name": f"respa_spmv_csr_{INST[p]}", "route": "cuda", "source": SOURCE,
@@ -2660,6 +2927,9 @@ def main():
                         "launches_ilu_path": ilu_launches[name],
                         "launches_exact_ilu_path": splu_ilu_launches[name],
                         "max_abs_err": dia_errs[name], **dia_times[name]})
+    for k in kernels:
+        k["launches_study_path"] = study_launches[k["name"]]
+        k["launches_persist_path"] = persist_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,10 @@ dependent chains, ``factorize(method="auto")``, mixed-precision iterative
 refinement with fp64 residuals and the GMRES-IR fallback), the multifrontal
 LU with GESP matching, and the ILU(0) path (Chow-Patel sweeps and one-launch
 triangular solves, two hand-written CUDA kernels, with the Jacobi and ISAI
-applies and the CG, GMRES and BiCGSTAB solvers). See ROADMAP.md for the
-order of the rest.
+applies and the CG, GMRES and BiCGSTAB solvers), the scheduled sparse LU and
+the DIA stencil SpMV, factor persistence (``persist``), the experiment
+config (``config``) and the precision study (``bench.study``). See
+ROADMAP.md for the order of the rest.
 """
 from . import formats, precision
 from .formats import COOMatrix, CSRMatrix, coo_to_csr
@@ -26,7 +28,7 @@ __version__ = "0.1.0"
 
 def __getattr__(name):
     if name in ("solve", "timing", "kernels", "bench", "io", "interop", "cli",
-                "analysis"):
+                "analysis", "persist", "config"):
         import importlib
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
@@ -39,4 +41,5 @@ __all__ = [
     "FP32", "FP32_FTZ", "BF16", "FP64", "Policy", "get_policy",
     "downcast_check", "ftz", "formats", "precision",
     "solve", "timing", "kernels", "bench", "io", "interop", "cli", "analysis",
+    "persist", "config",
 ]

@@ -3,7 +3,10 @@
 //   respa_dia_design_addend_f32  the other design of the DIA SpMV's remainder
 //                                (K9), timed against the package's (phase 12);
 //   respa_l2_read_probe          the card's L2 read rate, which K8's value
-//                                gathers are set against (phase 10).
+//                                gathers are set against (phase 10);
+//   respa_barrier_probe          one block's barrier with a shared-memory
+//                                hand-over, K1's step a pivot, which its chain
+//                                of 128 pivots is set against (phase 6).
 //
 // K9: the package's kernel sums each remainder row inside K9. Here the remainder's
 // product comes from the CSR kernel K0 (a DeviceCsr over all n rows) and this
@@ -90,5 +93,34 @@ extern "C" int respa_l2_read_probe(int device, const void* buf, int64_t words, i
     if (words < 1 || rounds < 1) return static_cast<int>(cudaErrorInvalidValue);
     l2_read_probe_kernel<<<8 * sms, 256, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(buf), words, rounds, static_cast<float*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// One block of 256 threads (K1's 16 x 16) passes a value on `rounds` times:
+// a thread writes a double-buffered shared word, the block meets at a barrier,
+// every thread reads the word. That is the least a pivot of K1 costs: its
+// pivot row and column go through shared memory past one barrier.
+__global__ void __launch_bounds__(256) barrier_probe_kernel(int rounds, float* __restrict__ out) {
+    __shared__ float cell[2];
+    float v = static_cast<float>(threadIdx.x);
+    for (int r = 0; r < rounds; ++r) {
+        if (threadIdx.x == static_cast<unsigned>(r & 255)) cell[r & 1] = v;
+        __syncthreads();
+        v += cell[r & 1];
+    }
+    if (v == -1.0f) out[0] = v;  // never: keeps the loop
+}
+
+}  // namespace
+
+// device, rounds, out (fp32[1]), stream: one launch of one block of 256 threads.
+extern "C" int respa_barrier_probe(int device, int rounds, void* out, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (rounds < 1) return static_cast<int>(cudaErrorInvalidValue);
+    barrier_probe_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        rounds, static_cast<float*>(out));
     return static_cast<int>(cudaGetLastError());
 }

@@ -4,13 +4,16 @@
   python -m respatpu_torch lu    <matrix.mtx|corpus-name> [--method auto|band|snlu|sparse] [--no-refine]
   python -m respatpu_torch ilu0  <matrix.mtx|corpus-name> [--policy fp32] [--sweeps 8]
   python -m respatpu_torch sweep spmv|lu|ilu0 [--group moderate|big|all]
+  python -m respatpu_torch study [matrix ...] [--csv out.csv] [--max-synth-nnz N]
+  python -m respatpu_torch fetch [moderate|big|all]
 
-All run on ``--device cuda`` (the default), through the hand-written
-kernels; without a card they refuse to run unless ``--device cpu`` is given,
-which runs the kernels' plain PyTorch versions on the host. The high
-precision is fp64; ``--policy`` picks the low one (fp32 | fp32_ftz | bf16).
-respatpu's other subcommands (sweep ilu0dist, fetch, study, scaling) are not
-ported yet.
+All but ``fetch`` run on ``--device cuda`` (the default), through the
+hand-written kernels; without a card they refuse to run unless ``--device
+cpu`` is given, which runs the kernels' plain PyTorch versions on the host.
+The high precision is fp64; ``--policy`` picks the low one (fp32 | fp32_ftz |
+bf16). ``study`` prints the summary of the precision study as JSON; it
+downloads nothing: ``fetch`` puts the real matrices on disk. respatpu's
+``sweep ilu0dist`` and ``scaling`` wait for the distributed stack.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import os
 import numpy as np
 import torch
 
-_NOT_PORTED = ("fetch", "study", "scaling")
+_NOT_PORTED = ("scaling",)
 
 
 def _load(spec: str):
@@ -116,6 +119,19 @@ def cmd_sweep(args):
                       device=device, **kw)
 
 
+def cmd_fetch(args):
+    from .bench import fetch
+    fetch.main([args.group])
+
+
+def cmd_study(args):
+    import json
+    from .bench import study
+    rows = study.run_study(args.matrices or None, csv_path=args.csv,
+                           max_synth_nnz=args.max_synth_nnz, device=_device(args.device))
+    print(json.dumps(study.summarize(rows), indent=2))
+
+
 def _not_ported(args):
     raise SystemExit(f"{args.cmd} is not ported to respatpu_torch yet; "
                      f"use python -m respatpu {args.cmd}")
@@ -170,6 +186,18 @@ def main(argv=None):
     common(sp)
     direct(sp)
     sp.set_defaults(fn=cmd_sweep)
+
+    sp = sub.add_parser("fetch", help="download the SuiteSparse corpus")
+    sp.add_argument("group", nargs="?", default="moderate",
+                    choices=["moderate", "big", "all"])
+    sp.set_defaults(fn=cmd_fetch)
+
+    sp = sub.add_parser("study", help="the precision study (five configurations a matrix)")
+    sp.add_argument("matrices", nargs="*")
+    sp.add_argument("--csv", default=None)
+    sp.add_argument("--max-synth-nnz", type=int, default=500_000)
+    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_study)
 
     for name in _NOT_PORTED:
         sp = sub.add_parser(name, help="not ported yet")

@@ -38,7 +38,7 @@ def df_to_numpy(hi, lo) -> np.ndarray:
     return np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
 
 
-def band_from_respatpu(obj, device: Union[str, torch.device] = "cpu") -> DeviceBand:
+def band_from_respatpu(obj, device: Union[str, torch.device] = "cuda") -> DeviceBand:
     """The port's band from anything shaped like respatpu's ``DeviceBand``
     (``n``, ``p``, ``ml``, ``mu``, ``policy_name`` and ``data``, a tuple of
     arrays: one in the policy's type, or the double-float ``(hi, lo)``,
@@ -94,7 +94,7 @@ def _front_gather(src_off: np.ndarray, dst_off: np.ndarray, mp: np.ndarray):
     return np.repeat(src_off, size) + within, np.repeat(dst_off, size) + within
 
 
-def pool_from_respatpu(plan, pool_np, device: Union[str, torch.device] = "cpu",
+def pool_from_respatpu(plan, pool_np, device: Union[str, torch.device] = "cuda",
                        dtype: torch.dtype = torch.float32):
     """``(port plan, port pool)`` from respatpu's ``FrontalPlan`` and its pool
     (assembled or factored) as a numpy array: every front moved from
@@ -135,7 +135,7 @@ def splu_plan_from_respatpu(plan) -> ScheduledLuPlan:
 
 
 def tri_from_respatpu(t_csr, values=None, lower: bool = True, unit_diag: bool = False,
-                      policy="fp32", device: Union[str, torch.device] = "cpu") -> DeviceTri:
+                      policy="fp32", device: Union[str, torch.device] = "cuda") -> DeviceTri:
     """The port's exact-solve factor from a triangle of respatpu's (anything
     shaped like its ``CSRMatrix``) and, optionally, factor values on its
     pattern (numpy; respatpu's ILU(0) values, double-float pairs summed with

@@ -314,11 +314,127 @@ def factorize_band(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
 
 
 # ---------------------------------------------------------------------------
+# Solves in the original coordinates of a sparse factorization
+# ---------------------------------------------------------------------------
+
+
+class _OriginalSolves:
+    """The solves of a sparse factorization of P A' P^T, A' = A itself or,
+    matched, ``Dr A Dc`` with its columns permuted by the matching: every
+    permutation and the scaling unwound around the holder's
+    ``solve_device`` (a solve in the permuted system) and
+    ``_solve_t_permuted`` (its transpose). The holder sets ``policy``,
+    ``a``, ``device``, ``report``, ``perm`` and ``_perm_dev``; a matched one
+    sets ``matched`` with ``_cperm``, ``_dr``, ``_dc`` on the host and their
+    device copies ``_cperm_dev``, ``_dr_dev``, ``_dc_dev``."""
+
+    matched = False
+
+    def solve_original_device(self, r: torch.Tensor) -> torch.Tensor:
+        """Solve A x = r in the original coordinates, fp64 tensors on the
+        factor's device in and out: the scaling, the matching's column
+        permutation and the fill-reducing permutation all unwound on the
+        device (the refinement loops' correction solve)."""
+        bw = self._dr_dev * r if self.matched else r      # A' x' = Dr b
+        x = torch.empty_like(r)
+        x[self._perm_dev] = self.solve_device(
+            bw[self._perm_dev].to(self.policy.accum_dtype)).double()
+        if self.matched:
+            xo = torch.empty_like(x)
+            xo[self._cperm_dev] = self._dc_dev * x        # x[cperm[j]] = dc[j] * x'[j]
+            x = xo
+        return x
+
+    def solve(self, b: np.ndarray) -> np.ndarray:
+        """Solve A x = b (host in/out)."""
+        t0 = time.perf_counter()
+        bb = np.asarray(b, np.float64)
+        x = _to_host_f64(self.solve_original_device(torch.from_numpy(bb).to(self.device)))
+        self.report.t_solve = time.perf_counter() - t0
+        self.report.residual = relative_residual(self.a, x, bb)
+        return x
+
+    def solve_transpose(self, s: np.ndarray) -> np.ndarray:
+        """Solve A^T z = s (host in/out) from the same factors: the true
+        Hager iteration's transpose solve."""
+        sw = np.asarray(s, np.float64)
+        if self.matched:
+            sw = self._dc * sw[self._cperm]   # A^T = Pc Dc^-1 A'^T Dr^-1
+        zh = _to_host_f64(self._solve_t_permuted(torch.from_numpy(sw[self.perm]).to(self.device)))
+        z = np.empty_like(zh)
+        z[self.perm] = zh
+        if self.matched:
+            z = self._dr * z
+        return z
+
+    def condest(self, iters: int = 5) -> float:
+        inv_norm = condition_estimate(self.a, self.solve, iters=iters,
+                                      solve_t_fn=self.solve_transpose)
+        self.report.rcond_est = 1.0 / max(_norm1(self.a) * inv_norm, 1e-300)
+        return self.report.rcond_est
+
+
+def _with_unit_diagonal(strict: CSRMatrix) -> CSRMatrix:
+    """A strict triangle with its unit diagonal stored."""
+    n = strict.nrows
+    coo, dn = strict.tocoo(), np.arange(n, dtype=np.int32)
+    return coo_to_csr(COOMatrix((n, n), np.concatenate([coo.row, dn]),
+                                np.concatenate([coo.col, dn]),
+                                np.concatenate([coo.val, np.ones(n)])))
+
+
+def _lu_triangles(pattern: CSRMatrix, vals: np.ndarray):
+    """(L with its unit diagonal stored, U) of factor values on a pattern."""
+    L, _, U = split_triangular(CSRMatrix(pattern.shape, pattern.indptr, pattern.indices, vals))
+    return _with_unit_diagonal(L), U
+
+
+def lu_triangles_to_device(filled: CSRMatrix, vals: np.ndarray, policy: Union[str, Policy],
+                           device: Union[str, torch.device]):
+    """K7's two factors, unit-lower L and U, of factor values (host fp64)
+    on their filled pattern, each scheduled once on the host: the solves of
+    the scheduled sparse LU and of a factor read from a file."""
+    lfull, U = _lu_triangles(filled, vals)
+    return (tri_to_device(lfull, lower=True, unit_diag=True, policy=policy, device=device),
+            tri_to_device(U, lower=False, policy=policy, device=device))
+
+
+class _TriangleSolves(_OriginalSolves):
+    """Solves from the exact factor's two triangles on the device, one
+    launch of K7 each (:func:`lu_triangles_to_device`); the transposed ones,
+    U^T then L^T, made at the first call. The holder sets ``_l``, ``_u``,
+    ``_filled`` and ``_fill_vals`` (the factor on the filled pattern, host
+    fp64) and ``_lt = None``; the transposes take ``_l``'s policy."""
+
+    def factor_values(self) -> np.ndarray:
+        """Factored entries in the filled pattern's layout (host fp64)."""
+        return self._fill_vals
+
+    def solve_device(self, bp_dev: torch.Tensor) -> torch.Tensor:
+        """Device-side solve in the permuted system's coordinates; the
+        solution comes back in the policy's accumulator type."""
+        return sptrsv(self._u, sptrsv(self._l, bp_dev))
+
+    def _solve_t_permuted(self, sp: torch.Tensor) -> torch.Tensor:
+        """A^T = U^T L^T: U^T lower triangular with its diagonal and L^T unit
+        upper, their solves made at the first call."""
+        if self._lt is None:
+            L, _, U = split_triangular(CSRMatrix(self._filled.shape, self._filled.indptr,
+                                                 self._filled.indices, self._fill_vals))
+            policy = self._l.policy
+            self._ut = tri_to_device(csr_transpose(U), lower=True, policy=policy,
+                                     device=self.device)
+            self._lt = tri_to_device(_with_unit_diagonal(csr_transpose(L)), lower=False,
+                                     unit_diag=True, policy=policy, device=self.device)
+        return sptrsv(self._lt, sptrsv(self._ut, sp))
+
+
+# ---------------------------------------------------------------------------
 # Multifrontal direct LU
 # ---------------------------------------------------------------------------
 
 
-class SupernodalLuFactorization:
+class SupernodalLuFactorization(_OriginalSolves):
     """Supernodal multifrontal LU with the numeric phase on the device.
 
     The PARDISO-class pipeline (phases 11/22/33, test_pardiso.c:185-244) for
@@ -375,6 +491,7 @@ class SupernodalLuFactorization:
         t1 = time.perf_counter()
         part = analyze_supernodes(a_work, order=order, amalg=amalg)
         self.phases["symbolic"] = time.perf_counter() - t1
+        self._order, self._amalg = order, amalg  # persisted: a reload re-runs the analysis
         self.part = part
         self.perm = part.perm
         if max_pool_bytes is None:
@@ -436,67 +553,13 @@ class SupernodalLuFactorization:
         system's coordinates; the solution comes back in the pool's type."""
         return self._frontal.solve_device(bp_dev)
 
-    def solve_original_device(self, r: torch.Tensor) -> torch.Tensor:
-        """Solve A x = r in the original coordinates, fp64 tensors on the
-        factor's device in and out: the scaling, the matching's column
-        permutation and the fill-reducing permutation all unwound on the
-        device (the refinement loops' correction solve)."""
-        bw = self._dr_dev * r if self.matched else r      # A' x' = Dr b
-        x = torch.empty_like(r)
-        x[self._perm_dev] = self.solve_device(bw[self._perm_dev].to(self._dtype)).double()
-        if self.matched:
-            xo = torch.empty_like(x)
-            xo[self._cperm_dev] = self._dc_dev * x        # x[cperm[j]] = dc[j] * x'[j]
-            x = xo
-        return x
-
-    def solve(self, b: np.ndarray) -> np.ndarray:
-        """Solve A x = b (host in/out)."""
-        t0 = time.perf_counter()
-        bb = np.asarray(b, np.float64)
-        x = _to_host_f64(self.solve_original_device(torch.from_numpy(bb).to(self.device)))
-        self.report.t_solve = time.perf_counter() - t0
-        self.report.residual = relative_residual(self.a, x, bb)
-        return x
-
-    def solve_transpose(self, s: np.ndarray) -> np.ndarray:
-        """Solve A^T z = s (host in/out) straight from the pool (U^T forward
-        then L^T backward): the true Hager iteration's transpose solve."""
-        sw = np.asarray(s, np.float64)
-        if self.matched:
-            sw = self._dc * sw[self._cperm]
-        zs = self._frontal.solve_t_device(
-            torch.from_numpy(sw[self.perm]).to(self.device).to(self._dtype))
-        zh = _to_host_f64(zs)
-        z = np.empty_like(zh)
-        z[self.perm] = zh
-        if self.matched:
-            z = self._dr * z
-        return z
-
-    def condest(self, iters: int = 5) -> float:
-        inv_norm = condition_estimate(self.a, self.solve, iters=iters,
-                                      solve_t_fn=self.solve_transpose)
-        self.report.rcond_est = 1.0 / max(_norm1(self.a) * inv_norm, 1e-300)
-        return self.report.rcond_est
+    def _solve_t_permuted(self, sp: torch.Tensor) -> torch.Tensor:
+        """(L U)^T w = sp straight from the pool: U^T forward, then L^T
+        backward."""
+        return self._frontal.solve_t_device(sp.to(self._dtype))
 
 
-def _with_unit_diagonal(strict: CSRMatrix) -> CSRMatrix:
-    """A strict triangle with its unit diagonal stored."""
-    n = strict.nrows
-    coo, dn = strict.tocoo(), np.arange(n, dtype=np.int32)
-    return coo_to_csr(COOMatrix((n, n), np.concatenate([coo.row, dn]),
-                                np.concatenate([coo.col, dn]),
-                                np.concatenate([coo.val, np.ones(n)])))
-
-
-def _lu_triangles(pattern: CSRMatrix, vals: np.ndarray):
-    """(L with its unit diagonal stored, U) of factor values on a pattern."""
-    L, _, U = split_triangular(CSRMatrix(pattern.shape, pattern.indptr, pattern.indices, vals))
-    return _with_unit_diagonal(L), U
-
-
-class SparseLuFactorization:
+class SparseLuFactorization(_TriangleSolves):
     """Exact sparse LU by symbolic fill and a level-scheduled elimination.
 
     The direct solver for patterns whose band does not fit and which the
@@ -528,6 +591,7 @@ class SparseLuFactorization:
         self.report = SolveReport(policy=policy.name)
 
         t0 = time.perf_counter()
+        self._order, self._amalg = order, None  # persisted; no supernodes to amalgamate
         self.perm = ordering(a, order)
         filled = symbolic_fill_lu(permute_csr(a, self.perm))
         sched = chow_patel_schedule(filled)
@@ -551,11 +615,8 @@ class SparseLuFactorization:
         # factorization's values (a refactorization gives the same bits)
         t0 = time.perf_counter()
         self._fill_vals = _to_host_f64(self.values)
-        lfull, U = _lu_triangles(filled, self._fill_vals)
-        self._l = tri_to_device(lfull, lower=True, unit_diag=True, policy=policy,
-                                device=self.device)
-        self._u = tri_to_device(U, lower=False, policy=policy, device=self.device)
-        self._ut = self._lt = None
+        self._l, self._u = lu_triangles_to_device(filled, self._fill_vals, policy, self.device)
+        self._lt = None
         _sync(self.device)
         self.report.t_analyze += time.perf_counter() - t0
         amax = float(np.abs(a.data).max()) if a.nnz else 1.0
@@ -574,53 +635,6 @@ class SparseLuFactorization:
         self.values = res.values
         self.report.n_pivot_perturbed = res.n_pivot_perturbed
         return time.perf_counter() - t0
-
-    def solve_device(self, bp_dev: torch.Tensor) -> torch.Tensor:
-        """Device-side solve in the permuted system's coordinates; the
-        solution comes back in the policy's accumulator type."""
-        return sptrsv(self._u, sptrsv(self._l, bp_dev))
-
-    def solve_original_device(self, r: torch.Tensor) -> torch.Tensor:
-        """Solve A x = r in the original coordinates, fp64 tensors on the
-        factor's device in and out (the refinement loops' correction)."""
-        x = torch.empty_like(r)
-        x[self._perm_dev] = self.solve_device(
-            r[self._perm_dev].to(self.policy.accum_dtype)).double()
-        return x
-
-    def solve(self, b: np.ndarray) -> np.ndarray:
-        """Solve A x = b (host in/out)."""
-        t0 = time.perf_counter()
-        bb = np.asarray(b, np.float64)
-        x = _to_host_f64(self.solve_original_device(torch.from_numpy(bb).to(self.device)))
-        self.report.t_solve = time.perf_counter() - t0
-        self.report.residual = relative_residual(self.a, x, bb)
-        return x
-
-    def solve_transpose(self, s: np.ndarray) -> np.ndarray:
-        """Solve A^T z = s (host in/out) from the same factor values:
-        A^T = U^T L^T, U^T lower triangular with its diagonal and L^T unit
-        upper, their solves made at the first call (the true Hager
-        iteration's transpose solve)."""
-        if self._lt is None:
-            L, _, U = split_triangular(CSRMatrix(self._filled.shape, self._filled.indptr,
-                                                 self._filled.indices, self._fill_vals))
-            self._ut = tri_to_device(csr_transpose(U), lower=True, policy=self.policy,
-                                     device=self.device)
-            self._lt = tri_to_device(_with_unit_diagonal(csr_transpose(L)), lower=False,
-                                     unit_diag=True, policy=self.policy, device=self.device)
-        sp_ = np.asarray(s, np.float64)[self.perm]
-        zs = sptrsv(self._lt, sptrsv(self._ut, torch.from_numpy(sp_).to(self.device)))
-        zh = _to_host_f64(zs)
-        z = np.empty_like(zh)
-        z[self.perm] = zh
-        return z
-
-    def condest(self, iters: int = 5) -> float:
-        inv_norm = condition_estimate(self.a, self.solve, iters=iters,
-                                      solve_t_fn=self.solve_transpose)
-        self.report.rcond_est = 1.0 / max(_norm1(self.a) * inv_norm, 1e-300)
-        return self.report.rcond_est
 
 
 def _memlike(e: Exception) -> bool:

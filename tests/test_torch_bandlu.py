@@ -44,7 +44,7 @@ def test_device_scatter_packing_bitwise(name, policy):
     dev = bandlu.csr_to_device_band(t, policy, "cpu", p=16)
     assert torch.equal(host.data, dev.data) and dev.data.dtype == dev.policy.dtype
     jd = jband.band_to_device(jband.csr_to_band(a, p=16), "df64" if policy == "fp64" else policy)
-    ours = band_from_respatpu(jd)
+    ours = band_from_respatpu(jd, device="cpu")
     assert (ours.n, ours.p, ours.ml, ours.mu) == (dev.n, dev.p, dev.ml, dev.mu)
     if policy == "fp64":
         assert float((ours.data - dev.data).abs().max()) <= 1e-13 * float(dev.data.abs().max())
@@ -160,7 +160,7 @@ def test_band_lu_matches_respatpu_and_dense(name, p, policy):
     before = dev.data.clone()
     tres = bandlu.band_lu(dev)
     assert torch.equal(dev.data, before)  # the uploaded band is left as it was
-    jlu = band_from_respatpu(jres.lu).data.double().numpy()
+    jlu = band_from_respatpu(jres.lu, device="cpu").data.double().numpy()
     tlu = tres.lu.data.double().numpy()
     scale = np.abs(jlu).max()
     assert np.abs(tlu - jlu).max() <= FACTOR_TOL[policy] * scale
@@ -224,7 +224,7 @@ def test_interop_band_roundtrip(direction):
     if direction == "respatpu_factor_port_solve":
         for jpol in ("fp32", "df64"):
             jres = jband.band_lu(jband.band_to_device(jband.csr_to_band(a, p=16), jpol))
-            lu = band_from_respatpu(jres.lu)
+            lu = band_from_respatpu(jres.lu, device="cpu")
             assert lu.policy.name == ("fp64" if jpol == "df64" else "fp32")
             x = bandlu.band_solve(lu, torch.from_numpy(b).to(lu.policy.accum_dtype))
             tol = 1e-10 if jpol == "df64" else 1e-3

@@ -142,22 +142,24 @@ def _sweep_matrix(name):
 SWEEP_CASES = ["one_block_row", "ml_ne_mu", "ml_eq_nb", "laplacian_2d", "banded_p128"]
 
 
-@pytest.mark.parametrize("fwd", [True, False], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("policy", list(SWEEP_TOL))
 @pytest.mark.parametrize("name", SWEEP_CASES)
-def test_band_sweep_matches_plain(card, name, policy, fwd):
+def test_band_sweep_matches_plain(card, name, policy):
+    """The forward and the backward sweep, each direction named in its
+    message."""
     a, p = _sweep_matrix(name)
     lu = B.band_lu(B.csr_to_device_band(a, policy, card, p=p)).lu
     b = torch.from_numpy(np.random.default_rng(3).standard_normal(lu.nb * p))
     b = b.to(lu.policy.accum_dtype).to(card)
-    key = f"respa_band_sweep_{'fwd' if fwd else 'bwd'}_{TOL_INST[policy]}"
-    before = B.LAUNCHES[key]
-    y = B.band_sweep(lu, b, fwd)
-    torch.cuda.synchronize()
-    assert B.LAUNCHES[key] == before + 1
-    ref = B.band_sweep_plain(lu, b, fwd)
-    assert float((y - ref).abs().max() / ref.abs().max()) <= SWEEP_TOL[policy]
-    assert torch.equal(y, B.band_sweep(lu, b, fwd))
+    for fwd in (True, False):
+        key = f"respa_band_sweep_{'fwd' if fwd else 'bwd'}_{TOL_INST[policy]}"
+        before = B.LAUNCHES[key]
+        y = B.band_sweep(lu, b, fwd)
+        torch.cuda.synchronize()
+        assert B.LAUNCHES[key] == before + 1, key
+        ref = B.band_sweep_plain(lu, b, fwd)
+        assert float((y - ref).abs().max() / ref.abs().max()) <= SWEEP_TOL[policy], key
+        assert torch.equal(y, B.band_sweep(lu, b, fwd)), key
 
 
 @pytest.mark.parametrize("policy", ["fp32", "fp64"])
@@ -611,3 +613,51 @@ def test_dia_kernel_matches_plain(card):
     keep = K.to_device(solve.CSRMatrix((1, 1), np.array([0, 1]), np.array([0], np.int32),
                                        np.array([1e-20])), "fp32", card, fmt="dia")
     assert float(K.spmv(keep, torch.tensor([1e-20], device=card))[0]) != 0.0
+
+
+def test_persisted_factors_solve_on_the_card_like_the_live_ones(card, tmp_path, monkeypatch):
+    """A saved scheduled sparse LU (every policy) and a band LU (fp32,
+    fp64) load onto the card and solve bit for bit like the live factors:
+    the same values, the same K7 schedules and K2 launches; a matched
+    multifrontal factor loads onto K7 triangles of its pool's type (fp32
+    for bf16) and refines to 1e-12, and an fp64 one forced onto its frontal
+    pool keeps fp64."""
+    from respatpu_torch import persist
+    lap = synth.laplacian_2d(40, 35)
+    b, _ = solve.make_rhs_for_known_x(lap)
+    for policy in ("fp32", "fp32_ftz", "bf16", "fp64"):
+        live = solve.factorize(lap, policy, method="sparse", device=card)
+        path = str(tmp_path / f"sparse_{policy}.npz")
+        persist.save_sparse_factorization(path, live)
+        before = dict(S.LAUNCHES)
+        fac = persist.load_sparse_factorization(path, lap, device=card)
+        x = fac.solve(b)
+        assert sum(S.LAUNCHES.values()) == sum(before.values()) + 2, policy
+        assert np.array_equal(x, live.solve(b)) and fac.policy == live.policy, policy
+    for policy in ("fp32", "fp64"):
+        live = solve.factorize(lap, policy, method="band", device=card)
+        path = str(tmp_path / f"band_{policy}.npz")
+        persist.save_band_factorization(path, live)
+        fac = persist.load_band_factorization(path, lap, device=card)
+        assert fac._lu.data.device.type == "cuda" and torch.equal(fac._lu.data, live._lu.data)
+        assert np.array_equal(fac.solve(b), live.solve(b)), policy
+        _, rep = solve.solve_refined(lap, b, fac=fac)
+        assert rep.residual <= 1e-12, policy
+    circ = synth.circuit_like(3000, 5, seed=4)
+    bc, _ = solve.make_rhs_for_known_x(circ)
+    for policy, no_room in (("fp32", False), ("bf16", False), ("fp64", True)):
+        live = solve.SupernodalLuFactorization(circ, policy=policy, matching=True, device=card)
+        path = str(tmp_path / f"snlu_{policy}.npz")
+        persist.save_sparse_factorization(path, live)
+        with monkeypatch.context() as mp:
+            if no_room:
+                mp.setattr(persist, "_tri_budget", lambda device: 0)
+            fac = persist.load_sparse_factorization(path, circ, device=card)
+        _, rep = solve.solve_refined(circ, bc, fac=fac)
+        assert rep.residual <= 1e-12, policy
+        if not no_room:
+            assert fac._l.vals.dtype == live._dtype, policy  # bf16's pool is fp32
+        else:
+            assert isinstance(fac, persist.LoadedFrontalLu)
+            assert fac._frontal.pool.dtype == torch.float64 and fac._frontal.pool.is_cuda
+            assert np.array_equal(fac.solve(bc), live.solve(bc))

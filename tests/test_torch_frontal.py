@@ -424,7 +424,7 @@ def test_fp32_pool_matches_respatpus_values_from_pool():
     assembled = np.zeros(jplan.pool_size, np.float32)
     assembled[jplan.asm_dst] = jplan.part.filled.data
     assembled[jplan.ones_dst] = max(1.0, eps * 1.001)
-    tplan, tpool = pool_from_respatpu(jplan, assembled)
+    tplan, tpool = pool_from_respatpu(jplan, assembled, device="cpu")
     np.testing.assert_array_equal(tpool, dev.assemble_pool(plan, torch.float32, "cpu", eps))
     tpool, tbad = dev.frontal_factor_pool(tplan, torch.float32, "cpu", pool=tpool)
     tvals = dev.values_from_pool(tplan, tpool)
@@ -433,7 +433,7 @@ def test_fp32_pool_matches_respatpus_values_from_pool():
     # and the factored pool carried over is solved alike by both packages
     b = np.random.default_rng(4).standard_normal(a.nrows).astype(np.float32)
     xj = np.asarray(jdev.FrontalSolver(jplan, jpool).solve_device(jnp.asarray(b)))
-    _, carried = pool_from_respatpu(jplan, np.asarray(jpool))
+    _, carried = pool_from_respatpu(jplan, np.asarray(jpool), device="cpu")
     xt = dev.FrontalSolver(tplan, carried).solve_device(torch.from_numpy(b)).numpy()
     assert np.abs(xt - xj).max() <= 2e-5 * np.abs(xj).max()
 

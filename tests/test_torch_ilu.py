@@ -71,7 +71,8 @@ def _with_diag(T, d):
 
 def _solve_both(T, lower, unit, b, policy):
     """(port, respatpu) exact solves of the same triangle."""
-    y = ttri.sptrsv(tri_from_respatpu(T, lower=lower, unit_diag=unit, policy=policy),
+    y = ttri.sptrsv(tri_from_respatpu(T, lower=lower, unit_diag=unit, policy=policy,
+                                      device="cpu"),
                     torch.from_numpy(b)).double().numpy()
     jd = jtri.tri_to_device(T, lower=lower, unit_diag=unit, policy=policy, c=64)
     if policy == "df64":
@@ -158,7 +159,7 @@ def test_ilu_modules_match_respatpu():
     for policy, tol in (("df64", 1e-12), ("fp32", 1e-5)):
         y, jy = _solve_both(chain, True, False, b, policy)
         assert _rel(y, jy) <= tol and _rel(y, host) <= tol, policy
-    tasks = tri_from_respatpu(chain).tasks.numpy()  # runs of thin levels, none longer than 128
+    tasks = tri_from_respatpu(chain, device="cpu").tasks.numpy()  # runs of thin levels, none longer than 128
     assert (tasks[:, 3] > tasks[:, 2]).all() and (tasks[:, 1] - tasks[:, 0]).max() == 128
 
     # the kernel's row classes: rows with no strict entry, short rows, rows
@@ -179,7 +180,7 @@ def test_ilu_modules_match_respatpu():
                         JCOO((n, n), n - 1 - rows, n - 1 - cols, vals))
         one = csr_from_respatpu(T)
         one.data[one.data == 0.0] = 1.0
-        d = tri_from_respatpu(T, lower=lower)
+        d = tri_from_respatpu(T, lower=lower, device="cpu")
         assert (d.tasks[:, 3] == -1).sum() == 2 and (np.diff(d.ptr.numpy()) == 0).any()
         for unit in (False, True):
             host = ttri.sptrsv_host_reference(one, b[:n], lower, unit)

@@ -90,7 +90,7 @@ def test_cli_device_rules(mtx, capsys, monkeypatch):
     cli.main(["sweep", "spmv", "--group", "moderate", "--max-synth-nnz", "2000",
               "--device", "cpu", "--reps", "1"])
     assert capsys.readouterr().out.count("[spmv]") == 21
-    for argv in (["fetch", "moderate"], ["sweep", "ilu0dist", "--device", "cpu"]):
+    for argv in (["scaling", "atmosmodd"], ["sweep", "ilu0dist", "--device", "cpu"]):
         with pytest.raises(SystemExit, match="not ported"):
             cli.main(argv)
 
