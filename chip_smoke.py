@@ -133,8 +133,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    LU, every row and ``summarize``'s JSON printed; any status but ``ok`` (or
    ``stagnated`` for dc1's bf16+ir), a 2cubes_sphere ``+ir`` row above 1e-12,
    or a kernel of the band or frontal path not launched fails the run;
-15. result: a JSON line of the kernels (with their launches on the study and
-   persistence paths), then the device line last.
+15. the distributed stack, 4 shards on the card (``dist.make_mesh(4,
+   "cuda:0")``): ``DistSpmv`` on offshore in fp32 and fp64 against the
+   single-card K0 (1e-6 / 1e-14 in the inf-norm; bit-equality reported; two
+   calls bit for bit; the bytes exchanged a call), ``dist_cg`` on ecology2's
+   stand-in, ``runner.sweep_ilu0_dist`` on ecology2 (must be ``ok`` at
+   1e-10) and 2cubes_sphere (reported), SPIKE (``dist_lu.DistBandLu``) on
+   2cubes_sphere factored twice bit for bit and refined to 1e-10, the
+   subtree-sharded LU on 2cubes_sphere factored twice bit for bit, refined to
+   1e-10, saved, loaded and solved, its factor against the single-card pool
+   of the same partition, and ``measure_scaling`` on offshore at 1, 2 and 4
+   shards (not a scaling: one card); any failed gate or a kernel of the path
+   (K0 f32 and f64, K1, K2, K3, K4, K5, K6) not launched fails the run;
+16. result: a JSON line of the kernels (with their launches on the study,
+   persistence and distributed paths), then the device line last.
 
 Each phase prints its seconds on a line of its own (``[phase] k took``).
 
@@ -151,6 +163,7 @@ with its plan cut into runs of long entries of several sizes
 (:func:`ilu_rows_in_turns`), to compare two commits on one card in one call;
 ``python3 chip_smoke.py --upload-times TREE ...`` times each tree's upload of
 the offshore and ecology2 stand-ins the same way (:func:`upload_times_in_turns`).
+``python3 chip_smoke.py --dist`` builds the kernels and runs phase 15 alone.
 """
 import contextlib
 import ctypes
@@ -2609,6 +2622,211 @@ def study_path(name_limit):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15. the distributed stack, 4 shards on the card
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 4
+DIST_DEVICE = "cuda:0"  # all the shards on the first card
+# the kernels the distributed path must launch
+DIST_KERNELS = ("respa_spmv_csr_f32", "respa_spmv_csr_f64", "respa_block_lu_f32",
+                "respa_band_sweep_fwd_f32", "respa_band_sweep_bwd_f32", "respa_extend_add_f32",
+                "respa_front_sweep_fwd_f32", "respa_front_sweep_bwd_f32", "respa_rows_reduce_f32",
+                "respa_ilu0_sweep_f32")
+DIST_SPMV_TOL = {"fp32": 1e-6, "fp64": 1e-14}
+# 2cubes_sphere's band in the natural order, ml = mu = 18 blocks of 128, on 4 shards: the
+# reduced system's order is 4 x 36 x 128 = 18,432, past respatpu's default cap of 16,384
+SPIKE_MAX_REDUCED = 18_432
+
+
+def dist_spmv_rows(name_limit, mesh, a, refs):
+    """The distributed SpMV on ``a`` against the single-card products
+    ``refs`` (by policy), two calls bit for bit; its rows."""
+    from respatpu_torch import dist
+    x = np.random.default_rng(42).standard_normal(a.shape[1])
+    out = {}
+    for policy, ref in refs.items():
+        op, t_up = synced(lambda: dist.DistSpmv(a, mesh, policy=policy))
+        xs = op.shard_vector(x)
+        moved = mesh.bytes_moved
+        y1, t1 = synced(lambda: op(xs))
+        per_call = mesh.bytes_moved - moved
+        times = [synced(lambda: op(xs))[1] for _ in range(REPS)]
+        y2 = op(xs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(y1, y2)):
+            raise AssertionError(f"distributed SpMV {policy}: two calls differ")
+        got = torch.from_numpy(op.unshard(y1))
+        err = float((got - ref).abs().max() / ref.abs().max())
+        bitwise = bool(torch.equal(got, ref))
+        if err > DIST_SPMV_TOL[policy]:
+            raise AssertionError(f"distributed SpMV {policy}: {err:.3e} from the single-card K0")
+        out[policy] = dict(upload_s=t_up, first_s=t1, median_s=float(np.median(times)),
+                           exchange_bytes=per_call, rel_err_inf=err, bit_equal=bitwise)
+        print(f"[dist] {name_limit} | DistSpmv {policy} offshore ({mesh.describe()}): "
+              f"{per_call} bytes exchanged a call ({op.plan.exchange_entries} entries, halo "
+              f"{op.plan.halo}); upload {t_up:.3f} s; a call {float(np.median(times)) * 1e3:.3f} "
+              f"ms (median of {REPS}, host clock to a synchronize); against the single-card "
+              f"K0 {err:.3e} (tol {DIST_SPMV_TOL[policy]}), bit-equal {bitwise}; two calls "
+              f"equal bit for bit", flush=True)
+    return out
+
+
+def dist_path(name_limit, mats, tmp):
+    """Phase 15: the distributed stack with ``DIST_SHARDS`` shards on the
+    card, through its entry points: ``DistSpmv`` on offshore (fp32, fp64)
+    against the single-card K0; ``dist_cg`` on ecology2's stand-in;
+    ``runner.sweep_ilu0_dist`` on ecology2 and 2cubes_sphere (ecology2 must
+    be ``ok``); SPIKE (``DistBandLu``, factored twice, bit for bit) on
+    2cubes_sphere refined to 1e-10; the subtree-sharded LU on 2cubes_sphere
+    (factored twice, bit for bit) refined to 1e-10, saved, loaded and solved,
+    its factor against the single-card pool of the same partition;
+    ``measure_scaling`` on offshore. Returns the path's launch counts,
+    counted from just before it to just after it (the single-card
+    references come before and after). A failed gate is raised at the end of
+    the phase, after every row has run and printed."""
+    from respatpu_torch import dist, dist_lu, dist_snlu_sub
+    from respatpu_torch.bench import scaling
+    mesh = dist.make_mesh(DIST_SHARDS, DIST_DEVICE)
+    print(f"[dist] mesh: {mesh.describe()} ({name_limit})", flush=True)
+    off, cubes = mats["offshore"], mats["2cubes_sphere"]
+    eco = corpus.load_matrix("ecology2")[0]
+    x = np.random.default_rng(42).standard_normal(off.shape[1])
+    refs = {}
+    for policy in DIST_SPMV_TOL:
+        one = K.to_device(off, policy, DIST_DEVICE, fmt="csr")
+        xd = torch.from_numpy(x).to(one.policy.accum_dtype).to(one.device)
+        refs[policy] = K.spmv(one, xd).cpu().double()
+    failed = []
+    reset_counts()
+    t_path = time.perf_counter()
+    rows = {"spmv": dist_spmv_rows(name_limit, mesh, off, refs)}
+
+    # b = A x for a random x: A times ones is zero off the boundary, and its small b puts the
+    # fp32 iteration's attainable residual near 1e-5
+    b_eco = slv.make_rhs_for_known_x(eco, np.random.default_rng(7).standard_normal(eco.nrows))[0]
+    (xc, it), t_cg = synced(lambda: dist.dist_cg(eco, b_eco, mesh=mesh, tol=1e-6,
+                                                 max_iters=20_000))
+    res = slv.relative_residual(eco, xc, b_eco)
+    rows["cg"] = dict(iterations=it, seconds=t_cg, residual=res)
+    print(f"[dist] {name_limit} | dist_cg ecology2 (n {eco.nrows}): {it} iterations, {t_cg:.2f} s "
+          f"(host clock to a synchronize), host-oracle residual {res:.3e} (tol 1e-6)", flush=True)
+    if not (it < 20_000 and res <= 1e-5):
+        failed.append(f"dist_cg on ecology2: {it} iterations, residual {res:.3e}")
+
+    sweep, t_sweep = synced(lambda: runner.sweep_ilu0_dist(["ecology2", "2cubes_sphere"],
+                                                           ndev=DIST_SHARDS, device=DIST_DEVICE))
+    for r in sweep:
+        print(f"[dist] {name_limit} | sweep_ilu0_dist {json.dumps(r)}", flush=True)
+    rows["ilu0dist"] = sweep
+    if sweep[0]["status"] != "ok" or not float(sweep[0]["krylov_residual"]) <= 1e-10:
+        failed.append(f"sweep_ilu0_dist ecology2: {sweep[0]}")
+
+    b2 = slv.make_rhs_for_known_x(cubes)[0]
+    spike, t_f = synced(lambda: dist_lu.DistBandLu(cubes, mesh=mesh,
+                                                   max_reduced=SPIKE_MAX_REDUCED))
+    again = dist_lu.DistBandLu(cubes, mesh=mesh, max_reduced=SPIKE_MAX_REDUCED)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(u.lu.data, v.lu.data) for u, v in zip(spike._parts, again._parts))
+            and all(torch.equal(spike._rlu.values[d][0], again._rlu.values[d][0])
+                    for d in mesh.devices))
+    del again
+    if not same:
+        failed.append("SPIKE: two factorizations differ")
+    _, t_s = synced(lambda: spike.solve(b2))
+    (xr, rep), t_r = synced(lambda: dist_lu.dist_solve_refined(cubes, b2, fac=spike))
+    res = slv.relative_residual(cubes, xr, b2)
+    rows["spike"] = dict(reduced_order=spike.reduced_order, reduced_bytes=spike.reduced_bytes,
+                         ml=spike.ml, mu=spike.mu, nb_loc=spike.nb_loc,
+                         analyze_s=spike.report.t_analyze, factor_s=t_f, phases=spike.phases,
+                         solve_s=t_s, refined_s=t_r, iterations=rep.iterations, residual=res,
+                         pivots=spike.report.n_pivot_perturbed)
+    print(f"[dist] {name_limit} | SPIKE 2cubes_sphere fp32: ml = mu = {spike.mu} blocks of "
+          f"{spike.p}, {spike.nb_loc} block rows a shard; reduced system order "
+          f"{spike.reduced_order}, {spike.reduced_bytes} bytes once on the card; analyze "
+          f"{spike.report.t_analyze:.3f} s, construction {t_f:.3f} s (factor "
+          f"{spike.report.t_factorize:.3f}: band LU {spike.phases['band_lu']:.3f}, tips "
+          f"{spike.phases['tips']:.3f}, reduced {spike.phases['reduced']:.3f}), two factorizations "
+          f"bit for bit; one solve {t_s * 1e3:.1f} ms; refined {t_r:.3f} s in {rep.iterations} "
+          f"iterations to {res:.3e} (host oracle; tol 1e-10); pivots perturbed "
+          f"{spike.report.n_pivot_perturbed} (host clock to a synchronize)", flush=True)
+    if not res <= 1e-10:
+        failed.append(f"SPIKE refined residual {res:.3e}")
+    del spike
+
+    sub, t_sub = synced(lambda: dist_snlu_sub.DistSubtreeLu(cubes, mesh=mesh))
+    vals = sub.factor_values()
+    t_warm = sub.refactorize_timed()
+    if not np.array_equal(sub.factor_values(), vals):
+        failed.append("subtree LU: two factorizations differ")
+    _, t_s = synced(lambda: sub.solve(b2))
+    xs, t_r = synced(lambda: sub.solve_refined(b2))
+    res = slv.relative_residual(cubes, xs, b2)
+    if not res <= 1e-10:
+        failed.append(f"subtree LU refined residual {res:.3e}")
+    path = os.path.join(tmp, "subtree.npz")
+    _, t_save = synced(lambda: persist.save_sparse_factorization(path, sub, compressed=False))
+    loaded, t_load = synced(lambda: persist.load_sparse_factorization(path, cubes,
+                                                                      device=DIST_DEVICE))
+    xl, t_ls = synced(lambda: loaded.solve(b2))
+    xd = sub.solve(b2)
+    lerr = float(np.abs(xl - xd).max() / np.abs(xd).max())
+    if not lerr <= 1e-4:
+        failed.append(f"subtree LU loaded: its solve is {lerr:.3e} from the live one")
+    plan = sub.plan
+    rows["subtree"] = dict(
+        analyze_s=sub.report.t_analyze, construction_s=t_sub, factor_s=sub.report.t_factorize,
+        factor_warm_s=t_warm, solve_s=t_s, refined_s=t_r, iterations=sub.report.iterations,
+        residual=res, local_pool_bytes=[int(v) * 4 for v in plan.local_sizes],
+        stage_bytes=[int(v) * 4 for v in plan.stage_sizes],
+        replicated_pool_bytes=sub.replicated_pool_bytes,
+        corner_bytes_exchanged=sub.bytes_exchanged, groups=len(plan.groups),
+        fronts_per_shard=np.bincount(plan.owner, minlength=DIST_SHARDS).tolist(),
+        save_s=t_save, file_bytes=os.path.getsize(path), load_s=t_load, loaded_solve_s=t_ls,
+        loaded_vs_live=lerr, pivots=sub.report.n_pivot_perturbed)
+    os.remove(path)
+    del loaded
+
+    srows, t_scale = synced(lambda: scaling.measure_scaling("offshore", (1, 2, DIST_SHARDS),
+                                                            max_synth_nnz=None, device=DIST_DEVICE))
+    for r in srows:
+        print(f"[dist] {name_limit} | scaling {json.dumps(r)}", flush=True)
+    rows["scaling"] = srows
+    t_path = time.perf_counter() - t_path
+    launches = all_counts()
+
+    # after the count: the single-card pool of the same partition
+    plan1 = F.build_frontal_plan(sub.part)
+    pool1, _ = F.frontal_factor_pool(plan1, torch.float32, DIST_DEVICE,
+                                     pivot_eps=sub.pivot_eps)
+    single = F.values_from_pool(plan1, pool1)
+    del pool1
+    diff = float(np.abs(vals - single).max())
+    rows["subtree"].update(max_abs_diff_single=diff, scale=float(np.abs(single).max()),
+                           bit_equal_single=bool(np.array_equal(vals, single)))
+    r = rows["subtree"]
+    print(f"[dist] {name_limit} | subtree LU 2cubes_sphere fp32 ({mesh.describe()}): "
+          f"{r['groups']} groups, fronts a shard {r['fronts_per_shard']}; pool bytes a shard "
+          f"{r['local_pool_bytes']} (+ staging {r['stage_bytes']}) against "
+          f"{r['replicated_pool_bytes']} unsharded; corners exchanged {r['corner_bytes_exchanged']} "
+          f"bytes; analyze {r['analyze_s']:.2f} s, factor {r['factor_s']:.3f} s (again "
+          f"{t_warm:.3f}; bit for bit); one solve {r['solve_s'] * 1e3:.1f} ms; refined "
+          f"{r['refined_s']:.3f} s in {r['iterations']} iterations to {res:.3e} (host oracle, tol "
+          f"1e-10); factor_values() against the single-card pool of the same partition: largest "
+          f"difference {diff:.3e} (of {r['scale']:.3e}), bit-equal {r['bit_equal_single']}; "
+          f"saved uncompressed in {t_save:.2f} s ({r['file_bytes']} bytes), loaded in "
+          f"{t_load:.2f} s, its solve {t_ls * 1e3:.1f} ms, {lerr:.3e} from the live one (host "
+          f"clock to a synchronize)", flush=True)
+    print(f"[dist] {name_limit} | the path {t_path:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"[dist] {name_limit} | rows {json.dumps(rows, default=str)}", flush=True)
+    failed += [f"{name} was not launched on the distributed path"
+               for name in DIST_KERNELS if launches[name] < 1]
+    if failed:
+        raise AssertionError("phase 15: " + "; ".join(failed))
+    return launches
+
+
 _PHASE = [0.0]
 
 
@@ -2695,6 +2913,11 @@ def main():
         return
     if sys.argv[1:2] == ["--splu-times"]:
         time_splu_alone(name_limit)
+        return
+    if sys.argv[1:2] == ["--dist"]:
+        _build.load()
+        with tempfile.TemporaryDirectory() as tmp:
+            dist_path(name_limit, {m: corpus.load_matrix(m)[0] for m in MAIN}, tmp)
         return
 
     # 2. build
@@ -2880,7 +3103,12 @@ def main():
     study_launches = study_path(name_limit)
     phase_done(14)
 
-    # 15. result
+    # 15. the distributed stack
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_launches = dist_path(name_limit, mats, tmp)
+    phase_done(15)
+
+    # 16. result
     kernels = []
     for p in TOL:
         kernels.append({"name": f"respa_spmv_csr_{INST[p]}", "route": "cuda", "source": SOURCE,
@@ -2930,6 +3158,7 @@ def main():
     for k in kernels:
         k["launches_study_path"] = study_launches[k["name"]]
         k["launches_persist_path"] = persist_launches[k["name"]]
+        k["launches_dist_path"] = dist_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

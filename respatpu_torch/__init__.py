@@ -15,8 +15,10 @@ LU with GESP matching, and the ILU(0) path (Chow-Patel sweeps and one-launch
 triangular solves, two hand-written CUDA kernels, with the Jacobi and ISAI
 applies and the CG, GMRES and BiCGSTAB solvers), the scheduled sparse LU and
 the DIA stencil SpMV, factor persistence (``persist``), the experiment
-config (``config``) and the precision study (``bench.study``). See
-ROADMAP.md for the order of the rest.
+config (``config``) and the precision study (``bench.study``), and the
+distributed stack on a mesh of shards (``dist``: the row-partitioned SpMV,
+block-Jacobi ILU(0), CG and BiCGSTAB; ``dist_lu``: SPIKE; ``dist_snlu_sub``:
+the subtree-sharded multifrontal LU). See ROADMAP.md for the rest.
 """
 from . import formats, precision
 from .formats import COOMatrix, CSRMatrix, coo_to_csr
@@ -28,7 +30,7 @@ __version__ = "0.1.0"
 
 def __getattr__(name):
     if name in ("solve", "timing", "kernels", "bench", "io", "interop", "cli",
-                "analysis", "persist", "config"):
+                "analysis", "persist", "config", "dist", "dist_lu", "dist_snlu_sub"):
         import importlib
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
@@ -41,5 +43,5 @@ __all__ = [
     "FP32", "FP32_FTZ", "BF16", "FP64", "Policy", "get_policy",
     "downcast_check", "ftz", "formats", "precision",
     "solve", "timing", "kernels", "bench", "io", "interop", "cli", "analysis",
-    "persist", "config",
+    "persist", "config", "dist", "dist_lu", "dist_snlu_sub",
 ]

@@ -7,8 +7,9 @@ row, and the append-mode CSV keeps sweeps resumable (test_spmv.c:50).
 ``sweep_lu`` is the direct LU sweep with optional fp64 refinement
 (test_pardiso.c / run_pardiso.sh protocol); ``sweep_ilu0`` the ILU(0)
 factorization, one timed apply and a preconditioned GMRES refined on the host
-(GPU/run_ilu0.sh protocol). The distributed ILU sweep is ported with the
-distributed stack.
+(GPU/run_ilu0.sh protocol); ``sweep_ilu0_dist`` its distributed leg (block-Jacobi
+ILU(0) and BiCGSTAB on a mesh of shards). ``run_sweep`` runs one of them over a
+corpus group; it downloads nothing.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from . import corpus
 from .. import solve as slv
 from ..precision import downcast_check, get_policy
 
-__all__ = ["sweep_spmv", "sweep_lu", "sweep_ilu0", "SPMV_HEADER", "LU_HEADER",
-           "ILU0_HEADER"]
+__all__ = ["sweep_spmv", "sweep_lu", "sweep_ilu0", "sweep_ilu0_dist", "run_sweep",
+           "SPMV_HEADER", "LU_HEADER", "ILU0_HEADER", "ILU0DIST_HEADER"]
 
 SPMV_HEADER = ["policy_hi", "policy_lo", "chips", "matrix", "n", "nnz",
                "synthetic", "t_hi_s", "t_lo_s", "t_lo_min_s", "t_lo_std_s",
@@ -43,6 +44,11 @@ ILU0_HEADER = ["policy", "matrix", "n", "nnz", "synthetic", "t_analyze_s",
                "t_factor_s", "t_apply_s", "cp_residual", "pivots_perturbed",
                "t_krylov_s", "krylov_iters", "krylov_residual", "status",
                "timestamp"]
+
+
+ILU0DIST_HEADER = ["policy", "matrix", "n", "nnz", "synthetic", "ndev",
+                   "t_setup_s", "t_krylov_s", "krylov_iters", "krylov_residual",
+                   "status", "timestamp"]
 
 
 def _ts() -> str:
@@ -157,22 +163,32 @@ def sweep_lu(names: Sequence[str], csv_path: Optional[str] = None,
     return out
 
 
-def _krylov_ir(solve_once, a, b, tol: float = 1e-10, rounds: int = 5):
-    """Host-level iterative refinement around an inner Krylov solve: the
-    inner solver converges to its (fp32) limit; fp64 host residuals push the
-    composite to the reference 1e-10 gate when the preconditioner is strong
-    enough. Returns (x, residual, total_inner_iters)."""
+def _host_matvec(a):
+    rows = np.repeat(np.arange(a.nrows), a.row_lengths())
+
+    def mv(x):
+        ax = np.zeros(a.nrows)
+        np.add.at(ax, rows, a.data * x[a.indices])
+        return ax
+
+    return mv
+
+
+def _krylov_ir(solve_once, a, b, tol: float = 1e-10, rounds: int = 5, matvec=None):
+    """Iterative refinement around an inner Krylov solve: the inner solver
+    converges to its (fp32) limit; fp64 residuals push the composite to the
+    reference 1e-10 gate when the preconditioner is strong enough. The
+    residuals are fp64 products on the host, or by ``matvec`` (host x in,
+    host A x out). Returns (x, residual, total_inner_iters)."""
     bb = np.asarray(b, np.float64)
     nb = np.linalg.norm(bb)
     nb = nb if nb > 0 else 1.0
     x = np.zeros_like(bb)
     total = 0
     resid = float("inf")
-    rows = np.repeat(np.arange(a.nrows), a.row_lengths())
+    matvec = matvec or _host_matvec(a)
     for _ in range(rounds):
-        ax = np.zeros(a.nrows)
-        np.add.at(ax, rows, a.data * x[a.indices])
-        r = bb - ax
+        r = bb - matvec(x)
         resid = float(np.linalg.norm(r)) / nb
         if resid <= tol:
             break
@@ -248,3 +264,62 @@ def sweep_ilu0(names: Sequence[str], csv_path: Optional[str] = None,
                   f"apply={t_apply*1e3:.1f}ms krylov={kres:.1e}/{kiters}it "
                   f"{status}{' (synthetic)' if synth else ''}")
     return out
+
+
+def sweep_ilu0_dist(names: Sequence[str], csv_path: Optional[str] = None,
+                    ndev: int = 8, max_synth_nnz: Optional[int] = 5_000_000,
+                    krylov_gate: float = 1e-10, verbose: bool = True,
+                    device: Union[str, torch.device] = "cuda"):
+    """Distributed ILU sweep: per-shard block-Jacobi ILU(0) and the
+    row-partitioned SpMV on a mesh of ``ndev`` shards on ``device``
+    (``dist.make_mesh``: the cards round-robin), BiCGSTAB inner solves (tol
+    1e-7) refined to ``krylov_gate`` by fp64 residuals on the CSR SpMV kernel
+    (K0) on the mesh's first device: the N-device leg of respatpu's ILU
+    target. ``t_setup_s`` is the partition, the uploads and the
+    factorization, ended by a device synchronize; the Krylov phase ends with
+    the host's copy of x. Status ``ok`` at the gate, else ``stagnated``.
+    Returns one dict per matrix with the CSV row's fields."""
+    from .. import dist
+    from ..kernels.spmv import spmv, to_device
+    out = []
+    for name in names:
+        a, synth = corpus.load_matrix(name, max_synth_nnz=max_synth_nnz)
+        mesh = dist.make_mesh(ndev, device)
+        dev = mesh.devices[0]
+        t0 = time.perf_counter()
+        op = dist.DistSpmv(a, mesh)
+        pre = dist.BlockJacobiIlu(a, op.plan, mesh)
+        mesh.synchronize()
+        t_setup = time.perf_counter() - t0
+        a64 = to_device(a, "fp64", dev, fmt="csr")
+
+        def matvec(x):
+            return spmv(a64, torch.from_numpy(x).to(dev)).cpu().numpy()
+
+        def inner(r):
+            return dist.dist_bicgstab(a, r, mesh=mesh, tol=1e-7, op=op, pre=pre)
+
+        b, _ = slv.make_rhs_for_known_x(a)
+        t0 = time.perf_counter()
+        x, kres, kiters = _krylov_ir(inner, a, b, tol=krylov_gate, matvec=matvec)
+        t_krylov = time.perf_counter() - t0
+        status = "ok" if kres <= krylov_gate else "stagnated"
+        row = ["fp32+ir_fp64", name, a.shape[0], a.nnz, int(synth), ndev,
+               f"{t_setup:.4f}", f"{t_krylov:.4f}", kiters, f"{kres:.3e}", status, _ts()]
+        _append(csv_path, ILU0DIST_HEADER, row)
+        out.append(dict(zip(ILU0DIST_HEADER, row)))
+        if verbose:
+            print(f"[ilu0dist] {name}: setup={t_setup:.2f}s krylov={kres:.1e}/{kiters}it "
+                  f"{status} ({mesh.describe()}){' (synthetic)' if synth else ''}")
+    return out
+
+
+def run_sweep(kind: str, group: str = "moderate", **kw):
+    """One sweep (``spmv``, ``ilu0``, ``lu`` or ``ilu0dist``) over a corpus
+    group's names. Unlike respatpu's, it tries no download first: the
+    stand-ins serve where a file is missing (``fetch`` downloads)."""
+    names = [e.name for e in {"moderate": corpus.MODERATE, "big": corpus.BIG,
+                              "all": corpus.ALL}[group]]
+    fn = {"spmv": sweep_spmv, "ilu0": sweep_ilu0, "lu": sweep_lu,
+          "ilu0dist": sweep_ilu0_dist}[kind]
+    return fn(names, **kw)

@@ -1,10 +1,12 @@
 """Command-line drivers of the port:
 
   python -m respatpu_torch spmv  <matrix.mtx|corpus-name> [--policy fp32] [--csv out.csv]
-  python -m respatpu_torch lu    <matrix.mtx|corpus-name> [--method auto|band|snlu|sparse] [--no-refine]
+  python -m respatpu_torch lu    <matrix.mtx|corpus-name> [--method auto|band|snlu|sparse|subtree]
+                                 [--no-refine] [--shards P]
   python -m respatpu_torch ilu0  <matrix.mtx|corpus-name> [--policy fp32] [--sweeps 8]
-  python -m respatpu_torch sweep spmv|lu|ilu0 [--group moderate|big|all]
+  python -m respatpu_torch sweep spmv|lu|ilu0|ilu0dist [--group moderate|big|all] [--shards P]
   python -m respatpu_torch study [matrix ...] [--csv out.csv] [--max-synth-nnz N]
+  python -m respatpu_torch scaling [corpus-name] [--shards 1 2 4 8]
   python -m respatpu_torch fetch [moderate|big|all]
 
 All but ``fetch`` run on ``--device cuda`` (the default), through the
@@ -12,8 +14,13 @@ hand-written kernels; without a card they refuse to run unless ``--device
 cpu`` is given, which runs the kernels' plain PyTorch versions on the host.
 The high precision is fp64; ``--policy`` picks the low one (fp32 | fp32_ftz |
 bf16). ``study`` prints the summary of the precision study as JSON; it
-downloads nothing: ``fetch`` puts the real matrices on disk. respatpu's
-``sweep ilu0dist`` and ``scaling`` wait for the distributed stack.
+downloads nothing: ``fetch`` puts the real matrices on disk.
+
+The distributed commands (``lu --method subtree``, ``sweep ilu0dist``,
+``scaling``) run on a mesh of ``--shards`` shards on the cards round-robin
+(``dist.make_mesh``): where respatpu takes every local device, ``--shards``
+lets one card hold several shards, which runs the distributed path there but
+measures no scaling.
 """
 from __future__ import annotations
 
@@ -22,9 +29,6 @@ import os
 
 import numpy as np
 import torch
-
-_NOT_PORTED = ("scaling",)
-
 
 def _load(spec: str):
     from .bench.corpus import _BY_NAME, load_matrix
@@ -69,6 +73,22 @@ def cmd_lu(args):
     device = _device(args.device)
     a, synth, name = _load(args.matrix)
     b, x_true = slv.make_rhs_for_known_x(a)
+    if args.method == "subtree":
+        # distributed (the MUMPS job=4/3 slot): the subtree-sharded multifrontal LU
+        from .dist import make_mesh
+        from .dist_snlu_sub import DistSubtreeLu
+        fac = DistSubtreeLu(a, mesh=make_mesh(args.shards, device), policy=args.policy)
+        fac.report.notes = (f"method=subtree {fac.mesh.describe()} "
+                            f"local_pool={fac.local_pool_bytes / 2**20:.0f}MiB "
+                            f"(replicated {fac.replicated_pool_bytes / 2**20:.0f})")
+        x = fac.solve(b) if args.no_refine else fac.solve_refined(b)
+        rep = fac.report
+        print(f"{name}{' (synthetic)' if synth else ''}: policy={rep.policy} "
+              f"[{rep.notes}] analyze={rep.t_analyze:.3f}s "
+              f"factor={rep.t_factorize:.3f}s solve={rep.t_solve:.3f}s "
+              f"rel_residual={rep.residual:.3e} "
+              f"inf_err={slv.inf_norm_error(x, x_true):.3e}")
+        return
     fac = slv.factorize(a, policy=args.policy, method=args.method, device=device)
     if args.no_refine:
         x = fac.solve(b)
@@ -96,8 +116,6 @@ def cmd_ilu0(args):
 
 
 def cmd_sweep(args):
-    if args.kind not in ("spmv", "lu", "ilu0"):
-        raise SystemExit(f"sweep {args.kind} is not ported to respatpu_torch yet")
     from .bench import corpus, runner
     device = _device(args.device)
     entries = {"moderate": corpus.MODERATE, "big": corpus.BIG,
@@ -105,6 +123,11 @@ def cmd_sweep(args):
     kw = {}
     if args.max_synth_nnz is not None:
         kw["max_synth_nnz"] = args.max_synth_nnz
+    if args.kind == "ilu0dist":
+        if args.shards is not None:
+            kw["ndev"] = args.shards
+        runner.run_sweep("ilu0dist", group=args.group, csv_path=args.csv, device=device, **kw)
+        return
     if args.kind == "ilu0":
         runner.sweep_ilu0([e.name for e in entries], csv_path=args.csv, policy=args.policy,
                           sweeps=args.sweeps, device=device, **kw)
@@ -132,9 +155,12 @@ def cmd_study(args):
     print(json.dumps(study.summarize(rows), indent=2))
 
 
-def _not_ported(args):
-    raise SystemExit(f"{args.cmd} is not ported to respatpu_torch yet; "
-                     f"use python -m respatpu {args.cmd}")
+def cmd_scaling(args):
+    import json
+    from .bench import scaling
+    kw = {} if args.max_synth_nnz is None else {"max_synth_nnz": args.max_synth_nnz}
+    print(json.dumps(scaling.measure_scaling(args.matrix, device_counts=args.shards,
+                                             device=_device(args.device), **kw), indent=2))
 
 
 def main(argv=None):
@@ -158,11 +184,15 @@ def main(argv=None):
 
     def direct(sp):
         sp.add_argument("--method", default="auto",
-                        choices=["auto", "band", "snlu", "multifrontal", "sparse"],
+                        choices=["auto", "band", "snlu", "multifrontal", "sparse", "subtree"],
                         help="auto (band, then multifrontal, then the scheduled sparse "
-                             "LU) | band | snlu (= multifrontal) | sparse")
+                             "LU) | band | snlu (= multifrontal) | sparse | subtree (the "
+                             "distributed multifrontal LU on --shards shards)")
         sp.add_argument("--no-refine", action="store_true",
                         help="one direct solve, no fp64 iterative refinement")
+        sp.add_argument("--shards", type=int, default=None,
+                        help="shards of a distributed run (lu --method subtree: default one "
+                             "a card; sweep ilu0dist: default 8), on the cards round-robin")
 
     sp = sub.add_parser("lu", help="direct LU factorize + refined solve")
     sp.add_argument("matrix")
@@ -199,10 +229,14 @@ def main(argv=None):
     sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     sp.set_defaults(fn=cmd_study)
 
-    for name in _NOT_PORTED:
-        sp = sub.add_parser(name, help="not ported yet")
-        sp.add_argument("rest", nargs=argparse.REMAINDER)
-        sp.set_defaults(fn=_not_ported)
+    sp = sub.add_parser("scaling", help="distributed SpMV at several shard counts")
+    sp.add_argument("matrix", nargs="?", default="atmosmodd")
+    sp.add_argument("--shards", type=int, nargs="+", default=[1, 2, 4, 8],
+                    help="shard counts, on the cards round-robin (a count above the cards "
+                         "is marked: not a scaling result)")
+    sp.add_argument("--max-synth-nnz", type=int, default=None)
+    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_scaling)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -66,8 +66,12 @@ class ExperimentConfig:
     def run(self, verbose: bool = True):
         """Execute the configured experiment via the sweep runners."""
         if self.n_devices > 1:
-            raise NotImplementedError("n_devices > 1 needs the distributed stack, which is not "
-                                      "ported to respatpu_torch yet")
+            # respatpu's run ignores n_devices; a config that asks for more than
+            # one device must not run on one without saying so (ROADMAP D8)
+            raise NotImplementedError(
+                f"n_devices={self.n_devices}: ExperimentConfig.run drives the single-card "
+                "sweeps; run a distributed workload through its own entry points "
+                "(runner.sweep_ilu0_dist, bench.scaling, dist_snlu_sub, dist_lu) with a mesh")
         from .bench import runner, study
         names = self.matrix_names()
         pol = self.resolved_policy()

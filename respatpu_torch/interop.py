@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from .analysis import IluSchedule
-from .formats import CSRMatrix
+from .formats import COOMatrix, CSRMatrix, coo_to_csr
 from .kernels.bandlu import DeviceBand
 from .kernels.snlu import SupernodePartition
 from .kernels.snlu_device import FrontalPlan, build_frontal_plan
@@ -21,7 +21,7 @@ from .precision import get_policy
 __all__ = ["csr_from_respatpu", "df_to_numpy", "band_from_respatpu",
            "band_to_numpy", "partition_from_respatpu", "plan_from_respatpu",
            "pool_from_respatpu", "ilu_schedule_from_respatpu", "splu_plan_from_respatpu",
-           "tri_from_respatpu"]
+           "tri_from_respatpu", "row_partition_from_respatpu", "sharded_pool_from_respatpu"]
 
 
 def csr_from_respatpu(obj) -> CSRMatrix:
@@ -142,3 +142,53 @@ def tri_from_respatpu(t_csr, values=None, lower: bool = True, unit_diag: bool = 
     :func:`df_to_numpy`), so that both packages solve with the same factor."""
     return tri_to_device(csr_from_respatpu(t_csr), lower=lower, unit_diag=unit_diag,
                          policy=policy, values=values, device=device)
+
+
+def row_partition_from_respatpu(plan):
+    """The port's row partition (``dist.RowPartitionPlan``) of the matrix and
+    shard count of respatpu's ``RowPartitionPlan`` (its numpy arrays): each
+    shard's ELL sub-rows read back into global entries (the columns through
+    respatpu's halo layout and ``send_idx``), then partitioned by the port.
+    An explicit zero at a shard's first local column reads as ELL padding
+    and is dropped; it adds nothing to a product."""
+    from .dist import build_row_partition
+    ndev, n_loc, halo, n = int(plan.ndev), int(plan.n_loc), int(plan.halo), int(plan.n)
+    cols = np.asarray(plan.cols, np.int64)
+    vals = np.asarray(plan.vals, np.float64)
+    ros = np.asarray(plan.row_of_sub, np.int64)
+    send_idx = np.asarray(plan.send_idx, np.int64)
+    rows_g, cols_g, vals_g = [], [], []
+    for d in range(ndev):
+        c, v = cols[d], vals[d]
+        live = (ros[d][:, None] >= 0) & ((v != 0) | (c != 0))
+        r = np.broadcast_to(ros[d][:, None], c.shape)[live] + d * n_loc
+        c, v = c[live], v[live]
+        t = c - n_loc
+        remote = t >= 0
+        s, pos = t[remote] // halo, t[remote] % halo
+        g = c + d * n_loc
+        g[remote] = s * n_loc + send_idx[s, d, pos]
+        rows_g.append(r)
+        cols_g.append(g)
+        vals_g.append(v)
+    a = coo_to_csr(COOMatrix((n, n), np.concatenate(rows_g).astype(np.int32),
+                             np.concatenate(cols_g).astype(np.int32), np.concatenate(vals_g)))
+    out = build_row_partition(a, ndev)
+    if (out.n_loc, out.halo) != (n_loc, halo):
+        raise ValueError(f"the partition read back has (n_loc, halo) = {(out.n_loc, out.halo)}, "
+                         f"respatpu's {(n_loc, halo)}")
+    return out
+
+
+def sharded_pool_from_respatpu(fac, mesh=None, policy="fp32"):
+    """The port's ``DistSubtreeLu`` holding the factor of respatpu's
+    ``DistSubtreeLu`` ``fac``: its ``factor_values()`` (host fp64) scattered
+    into the port's shard pools for the same partition, nothing factored, so
+    that the port's distributed solves can be held against respatpu's on one
+    factor. ``mesh`` defaults to as many shards as ``fac`` has, on the card."""
+    from .dist import make_mesh
+    from .dist_snlu_sub import DistSubtreeLu
+    mesh = mesh if mesh is not None else make_mesh(int(fac.ndev))
+    return DistSubtreeLu.from_factor(csr_from_respatpu(fac.a), partition_from_respatpu(fac.part),
+                                     np.asarray(fac.factor_values(), np.float64), mesh=mesh,
+                                     policy=policy)

@@ -257,14 +257,17 @@ class LoadedFrontalLu(_Loaded, slv.SupernodalLuFactorization):
                               + ("fp64" if self._dtype == torch.float64 else "fp32"))
 
 
-def save_sparse_factorization(path: str, fac) -> None:
+def save_sparse_factorization(path: str, fac, compressed: bool = True) -> None:
     """Save a sparse direct factorization: a
     ``solve.SupernodalLuFactorization`` (its values pulled from the pool
-    once), a ``solve.SparseLuFactorization`` or a loaded one. Stored: the
-    filled pattern (``findptr``, ``findices``), the factored values on it
-    (``fvals``, fp64), the fill-reducing permutation, and the matching's
-    ``cperm``, ``dr``, ``dc`` when matched: everything a solving process
-    needs to rebuild the triangular solves without factoring again."""
+    once), a ``solve.SparseLuFactorization``, a ``dist_snlu_sub.DistSubtreeLu``
+    (each shard's pool pulled once) or a loaded one. Stored: the filled
+    pattern (``findptr``, ``findices``), the factored values on it (``fvals``,
+    fp64), the fill-reducing permutation, and the matching's ``cperm``,
+    ``dr``, ``dc`` when matched: everything a solving process needs to
+    rebuild the triangular solves without factoring again. ``compressed``
+    False writes the arrays as they are (zlib takes most of the time of a
+    large factor's save; both load alike)."""
     filled = fac.part.filled if hasattr(fac, "part") else fac._filled
     vals = np.asarray(fac.factor_values(), np.float64)
     # the type the factor holds its values in: a multifrontal pool's (fp32
@@ -277,7 +280,7 @@ def save_sparse_factorization(path: str, fac) -> None:
     arrays = dict(findptr=filled.indptr, findices=filled.indices, fvals=vals, perm=fac.perm)
     if fac.matched:
         arrays.update(cperm=fac._cperm, dr=fac._dr, dc=fac._dc)
-    np.savez_compressed(path, meta=json.dumps(meta), **arrays)
+    (np.savez_compressed if compressed else np.savez)(path, meta=json.dumps(meta), **arrays)
 
 
 def load_sparse_factorization(path: str, a: CSRMatrix,

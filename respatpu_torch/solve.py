@@ -50,7 +50,7 @@ from .precision import Policy, get_policy
 from .timing import OpTiming, check_plausible, device_bandwidth, time_op
 
 __all__ = ["SolveReport", "spmv_timed", "condition_estimate",
-           "BandLuFactorization", "factorize_band",
+           "BandLuFactorization", "band_ordering", "factorize_band",
            "SupernodalLuFactorization", "SparseLuFactorization", "factorize",
            "solve_refined", "relative_residual", "inf_norm_error",
            "make_rhs_for_known_x", "Ilu0Preconditioner", "ilu0", "cg", "gmres",
@@ -180,6 +180,33 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def band_ordering(a: CSRMatrix, order: str = "rcm") -> Tuple[np.ndarray, int, int]:
+    """``(perm, bl, bu)``: the band path's symmetric permutation and the
+    scalar lower and upper bandwidths under it. ``order="rcm"`` keeps
+    whichever of the natural order and RCM gives the narrower band (RCM can
+    widen an already banded matrix); ``"natural"`` keeps the natural order."""
+    rows = np.repeat(np.arange(a.nrows, dtype=np.int64), a.row_lengths())
+
+    def _bandwidth(perm):
+        # bandwidth under a symmetric permutation, from the edge list alone
+        # (no permuted-CSR materialization)
+        pos = np.empty(a.nrows, dtype=np.int64)
+        pos[perm] = np.arange(a.nrows)
+        d = pos[a.indices] - pos[rows]
+        return (int(max(0, -d.min())), int(max(0, d.max()))) if d.size else (0, 0)
+
+    perm = np.arange(a.nrows, dtype=np.int32)
+    bl, bu = _bandwidth(perm)
+    if order == "rcm":
+        rperm = rcm_ordering(a)
+        rbl, rbu = _bandwidth(rperm)
+        if rbl + rbu < bl + bu:
+            perm, bl, bu = rperm, rbl, rbu
+    elif order != "natural":
+        raise ValueError(f"unknown order {order!r}")
+    return perm, bl, bu
+
+
 class BandLuFactorization:
     """RCM + blocked band LU: the direct solver (PARDISO-equivalent pipeline).
 
@@ -210,28 +237,7 @@ class BandLuFactorization:
                                "factorization needs full fp32 products")
 
         t0 = time.perf_counter()
-        rows = np.repeat(np.arange(a.nrows, dtype=np.int64), a.row_lengths())
-
-        def _bandwidth(perm):
-            # bandwidth under a symmetric permutation, from the edge list
-            # alone (no permuted-CSR materialization)
-            pos = np.empty(a.nrows, dtype=np.int64)
-            pos[perm] = np.arange(a.nrows)
-            d = pos[a.indices] - pos[rows]
-            return ((int(max(0, -d.min())), int(max(0, d.max())))
-                    if d.size else (0, 0))
-
-        self.perm = np.arange(a.nrows, dtype=np.int32)
-        bl, bu = _bandwidth(self.perm)
-        if order == "rcm":
-            # keep whichever of natural / RCM gives the narrower band —
-            # RCM can widen an already-banded matrix
-            rperm = rcm_ordering(a)
-            rbl, rbu = _bandwidth(rperm)
-            if rbl + rbu < bl + bu:
-                self.perm, bl, bu = rperm, rbl, rbu
-        elif order != "natural":
-            raise ValueError(f"unknown order {order!r}")
+        self.perm, bl, bu = band_ordering(a, order)
         need = bandlu.band_memory_bytes(a.nrows, bl, bu, p,
                                         policy.dtype == torch.float64)
         if need > max_band_bytes:

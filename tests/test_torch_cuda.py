@@ -1,6 +1,7 @@
 """The hand-written kernels (CSR SpMV, block LU, band sweep, extend-add,
 frontal sweep, row reduction, ILU(0) sweep, triangular solve, scheduled LU,
-DIA SpMV) against their plain versions on a CUDA card.
+DIA SpMV) against their plain versions on a CUDA card, and the distributed
+stack with four shards on one card.
 
 Marked ``cuda``: without a card each test skips with a reason. On a machine
 with one, run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -162,22 +163,25 @@ def test_band_sweep_matches_plain(card, name, policy):
         assert torch.equal(y, B.band_sweep(lu, b, fwd)), key
 
 
-@pytest.mark.parametrize("policy", ["fp32", "fp64"])
 @pytest.mark.parametrize("name", SWEEP_CASES)
-def test_band_factor_and_solve_on_the_card(card, name, policy):
+def test_band_factor_and_solve_on_the_card(card, name):
     """The factorization on the card against the one on the CPU, and the
-    solve's residual against the dense matrix."""
+    solve's residual against the dense matrix, in fp32 and fp64 (each named
+    in its message)."""
     a, p = _sweep_matrix(name)
-    lu = B.band_lu(B.csr_to_device_band(a, policy, card, p=p)).lu
-    plain = B.band_lu(B.csr_to_device_band(a, policy, "cpu", p=p)).lu
-    scale = float(plain.data.float().abs().max())
-    assert float((lu.data.cpu().float() - plain.data.float()).abs().max()) <= 1e-2 * scale
-    b = torch.from_numpy(np.random.default_rng(3).standard_normal(lu.nb * p))
-    b = b.to(lu.policy.accum_dtype).to(card)
-    x = B.band_solve(lu, b[:a.nrows])
-    dense = torch.from_numpy(a.toarray())
-    resid = (dense @ x.double().cpu() - b[:a.nrows].double().cpu()).norm() / b[:a.nrows].norm().cpu()
-    assert float(resid) <= {"fp64": 1e-12, "bf16": 5e-2}.get(policy, 1e-4)
+    for policy in ("fp32", "fp64"):
+        lu = B.band_lu(B.csr_to_device_band(a, policy, card, p=p)).lu
+        plain = B.band_lu(B.csr_to_device_band(a, policy, "cpu", p=p)).lu
+        scale = float(plain.data.float().abs().max())
+        assert float((lu.data.cpu().float() - plain.data.float()).abs().max()) <= 1e-2 * scale, \
+            policy
+        b = torch.from_numpy(np.random.default_rng(3).standard_normal(lu.nb * p))
+        b = b.to(lu.policy.accum_dtype).to(card)
+        x = B.band_solve(lu, b[:a.nrows])
+        dense = torch.from_numpy(a.toarray())
+        resid = ((dense @ x.double().cpu() - b[:a.nrows].double().cpu()).norm()
+                 / b[:a.nrows].norm().cpu())
+        assert float(resid) <= {"fp64": 1e-12, "bf16": 5e-2}.get(policy, 1e-4), policy
 
 
 TOL_INST = {"fp32": "f32", "fp32_ftz": "f32_ftz", "bf16": "bf16", "fp64": "f64"}
@@ -661,3 +665,88 @@ def test_persisted_factors_solve_on_the_card_like_the_live_ones(card, tmp_path, 
             assert isinstance(fac, persist.LoadedFrontalLu)
             assert fac._frontal.pool.dtype == torch.float64 and fac._frontal.pool.is_cuda
             assert np.array_equal(fac.solve(bc), live.solve(bc))
+
+
+def _dist_results(mesh, a, lap, band):
+    """The distributed stack's results on ``mesh``, on the host."""
+    from respatpu_torch import dist, dist_lu, dist_snlu_sub
+    x = np.random.default_rng(1).standard_normal(a.nrows)
+    out = {}
+    for policy in ("fp32", "fp64"):
+        op = dist.DistSpmv(a, mesh, policy=policy)
+        out[policy] = op.unshard(op(op.shard_vector(x)))
+    out["cg"] = dist.dist_cg(lap, solve.make_rhs_for_known_x(lap)[0], mesh=mesh, tol=1e-6,
+                             max_iters=2000)
+    out["bicgstab"] = dist.dist_bicgstab(a, solve.make_rhs_for_known_x(a)[0], mesh=mesh)
+    fac = dist_lu.DistBandLu(band, mesh=mesh, p=32)
+    out["spike"] = fac.solve(solve.make_rhs_for_known_x(band)[0])
+    sub = dist_snlu_sub.DistSubtreeLu(a, mesh=mesh)
+    out["subtree"] = sub.factor_values()
+    out["subtree_solve"] = sub.solve(solve.make_rhs_for_known_x(a)[0])
+    return out
+
+
+def test_distributed_stack_on_one_card(card):
+    """Four shards on one card, small: the distributed SpMV (fp32, fp64)
+    against the single-card product and bit for bit from call to call, CG and
+    BiCGSTAB with block-Jacobi ILU(0), SPIKE refined, and the subtree-sharded
+    LU (two factorizations bit for bit, refined); each kernel of the path
+    launched. On a host with several cards, the same four shards spread over
+    them give the same bits (the subtree solve's copies between cards
+    included)."""
+    from respatpu_torch import dist, dist_lu, dist_snlu_sub
+    from respatpu_torch.kernels import ilu0 as I
+    mesh = dist.make_mesh(4, "cuda:0")
+    assert mesh.describe() == "4 shards on 1 card"
+    for counts in (K.LAUNCHES, B.LAUNCHES, F.LAUNCHES, I.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    a = synth.mesh_fem_3d(3000, seed=5)
+    x = np.random.default_rng(1).standard_normal(a.nrows)
+    for policy, tol in (("fp32", 1e-6), ("fp64", 1e-14)):
+        op = dist.DistSpmv(a, mesh, policy=policy)
+        xs = op.shard_vector(x)
+        y = op(xs)
+        assert all(torch.equal(u, v) for u, v in zip(y, op(xs))), policy
+        one = K.to_device(a, policy, card, fmt="csr")
+        ref = K.spmv(one, torch.from_numpy(x).to(one.policy.accum_dtype).to(card)).cpu().numpy()
+        got = op.unshard(y)
+        assert np.abs(got - ref).max() <= tol * np.abs(ref).max(), policy
+    lap = synth.laplacian_2d(60, 50)
+    b = solve.make_rhs_for_known_x(lap)[0]
+    xc, it = dist.dist_cg(lap, b, mesh=mesh, tol=1e-6, max_iters=2000)
+    assert solve.relative_residual(lap, xc, b) <= 1e-5 and 0 < it < 2000
+    xb, it = dist.dist_bicgstab(a, solve.make_rhs_for_known_x(a)[0], mesh=mesh)
+    assert solve.relative_residual(a, xb, solve.make_rhs_for_known_x(a)[0]) <= 1e-5
+    band = synth.random_banded(5000, bandwidth=60, nnz_per_row=7, seed=3)
+    fac = dist_lu.DistBandLu(band, mesh=mesh, p=32)
+    xr, rep = dist_lu.dist_solve_refined(band, solve.make_rhs_for_known_x(band)[0], fac=fac)
+    assert rep.residual <= 1e-10
+    sub = dist_snlu_sub.DistSubtreeLu(a, mesh=mesh)
+    vals = sub.factor_values()
+    sub.refactorize_timed()
+    np.testing.assert_array_equal(sub.factor_values(), vals)
+    bb = solve.make_rhs_for_known_x(a)[0]
+    sub.solve_refined(bb)
+    assert sub.report.residual <= 1e-10
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fp32"] > 0 and K.LAUNCHES["fp64"] > 0, K.LAUNCHES
+    for counts, names in ((B.LAUNCHES, ("respa_block_lu_f32", "respa_band_sweep_fwd_f32",
+                                        "respa_band_sweep_bwd_f32")),
+                          (F.LAUNCHES, ("respa_extend_add_f32", "respa_front_sweep_fwd_f32",
+                                        "respa_front_sweep_bwd_f32", "respa_rows_reduce_f32")),
+                          (I.LAUNCHES, ("respa_ilu0_sweep_f32",))):
+        for name in names:
+            assert counts[name] > 0, name
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        spread = dist.make_mesh(4, "cuda")
+        assert spread.describe() == f"4 shards on {min(cards, 4)} cards"
+        one = _dist_results(mesh, a, lap, band)
+        many = _dist_results(spread, a, lap, band)
+        for key, got in many.items():
+            want = one[key]
+            if isinstance(got, tuple):
+                assert got[1] == want[1], key
+                got, want = got[0], want[0]
+            np.testing.assert_array_equal(got, want, err_msg=key)

@@ -84,15 +84,17 @@ def test_sweep_spmv_rows_and_header(tmp_path):
 def test_cli_device_rules(mtx, capsys, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
-        for cmd in ("spmv", "lu", "ilu0"):
+        for argv in ([cmd, mtx] for cmd in ("spmv", "lu", "ilu0")):
             with pytest.raises(SystemExit, match="--device cpu"):
-                cli.main([cmd, mtx])  # the default device is cuda
+                cli.main(argv)  # the default device is cuda
+        # the distributed commands, ported now, follow the same rule
+        for argv in (["lu", mtx, "--method", "subtree"], ["scaling", "atmosmodd"],
+                     ["sweep", "ilu0dist"]):
+            with pytest.raises(SystemExit, match="--device cpu"):
+                cli.main(argv)
     cli.main(["sweep", "spmv", "--group", "moderate", "--max-synth-nnz", "2000",
               "--device", "cpu", "--reps", "1"])
     assert capsys.readouterr().out.count("[spmv]") == 21
-    for argv in (["scaling", "atmosmodd"], ["sweep", "ilu0dist", "--device", "cpu"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            cli.main(argv)
 
 
 def test_timing_gate_raises_on_too_fast():
