@@ -138,15 +138,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    single-card K0 (1e-6 / 1e-14 in the inf-norm; bit-equality reported; two
    calls bit for bit; the bytes exchanged a call), ``dist_cg`` on ecology2's
    stand-in, ``runner.sweep_ilu0_dist`` on ecology2 (must be ``ok`` at
-   1e-10) and 2cubes_sphere (reported), SPIKE (``dist_lu.DistBandLu``) on
-   2cubes_sphere factored twice bit for bit and refined to 1e-10, the
-   subtree-sharded LU on 2cubes_sphere factored twice bit for bit, refined to
-   1e-10, saved, loaded and solved, its factor against the single-card pool
-   of the same partition, and ``measure_scaling`` on offshore at 1, 2 and 4
-   shards (not a scaling: one card); any failed gate or a kernel of the path
-   (K0 f32 and f64, K1, K2, K3, K4, K5, K6) not launched fails the run;
-16. result: a JSON line of the kernels (with their launches on the study,
-   persistence and distributed paths), then the device line last.
+   1e-10) and 2cubes_sphere (reported), SPIKE (``dist_lu.DistBandLu``,
+   natural order) on 2cubes_sphere factored twice bit for bit and refined to
+   1e-10, the subtree-sharded LU on 2cubes_sphere factored twice bit for bit,
+   refined to 1e-10, saved, loaded and solved, its factor against the
+   single-card pool of the same partition, and ``measure_scaling`` on
+   offshore at 1, 2 and 4 shards (not a scaling: one card); any failed gate
+   or a kernel of the path (K0 f32 and f64, K1, K2, K3, K4, K5, K6) not
+   launched fails the run; every result's SHA-256 is kept for phase 16;
+16. the distributed stack over processes: two workers of this script
+   (``--rank-worker``), ranks of a process group (``dist.init_distributed``,
+   a store in a temporary file) on the card, 2 shards each, so 4 shards over
+   2 ranks, through gloo and the host (NCCL with a card a rank, where there
+   are as many): phase 15's path without the 2cubes_sphere sweep row,
+   persistence and scaling, every result equal to phase 15's bit for bit
+   on both ranks, and every kernel of the path launched in each; then one
+   shard a rank: respatpu's psum check (1 + 2 = 3 on both ranks) and the
+   offshore ``DistSpmv`` and ``dist_cg`` bit for bit with
+   ``make_mesh(2, "cuda:0")``; the ranks' times beside phase 15's; a
+   worker's failure, timeout or mismatch fails the run;
+17. result: a JSON line of the kernels (with their launches on the study,
+   persistence and distributed paths, and in each worker of phase 16), then
+   the device line last.
 
 Each phase prints its seconds on a line of its own (``[phase] k took``).
 
@@ -163,11 +176,14 @@ with its plan cut into runs of long entries of several sizes
 (:func:`ilu_rows_in_turns`), to compare two commits on one card in one call;
 ``python3 chip_smoke.py --upload-times TREE ...`` times each tree's upload of
 the offshore and ecology2 stand-ins the same way (:func:`upload_times_in_turns`).
-``python3 chip_smoke.py --dist`` builds the kernels and runs phase 15 alone.
+``python3 chip_smoke.py --dist`` builds the kernels and runs phase 15 alone;
+``python3 chip_smoke.py --ranks`` builds them, runs phase 15's shared path
+on one process for the reference, and then phase 16.
 """
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -2639,56 +2655,181 @@ DIST_SPMV_TOL = {"fp32": 1e-6, "fp64": 1e-14}
 SPIKE_MAX_REDUCED = 18_432
 
 
-def dist_spmv_rows(name_limit, mesh, a, refs):
-    """The distributed SpMV on ``a`` against the single-card products
-    ``refs`` (by policy), two calls bit for bit; its rows."""
+def digest(*arrays) -> str:
+    """SHA-256 of arrays' bytes: results held bit for bit across processes."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def dist_spmv_rows(tag, mesh, a, refs, digests):
+    """The distributed SpMV on ``a``, two calls bit for bit, against the
+    single-card products ``refs`` (by policy) where given; its rows, and each
+    product's digest in ``digests``."""
     from respatpu_torch import dist
     x = np.random.default_rng(42).standard_normal(a.shape[1])
     out = {}
-    for policy, ref in refs.items():
+    for policy in DIST_SPMV_TOL:
         op, t_up = synced(lambda: dist.DistSpmv(a, mesh, policy=policy))
         xs = op.shard_vector(x)
-        moved = mesh.bytes_moved
+        moved = mesh.bytes_moved + mesh.bytes_sent
         y1, t1 = synced(lambda: op(xs))
-        per_call = mesh.bytes_moved - moved
+        per_call = mesh.bytes_moved + mesh.bytes_sent - moved
         times = [synced(lambda: op(xs))[1] for _ in range(REPS)]
         y2 = op(xs)
         torch.cuda.synchronize()
-        if not all(torch.equal(u, v) for u, v in zip(y1, y2)):
+        if not all(torch.equal(u, v) for u, v in zip(y1, y2) if u is not None):
             raise AssertionError(f"distributed SpMV {policy}: two calls differ")
-        got = torch.from_numpy(op.unshard(y1))
-        err = float((got - ref).abs().max() / ref.abs().max())
-        bitwise = bool(torch.equal(got, ref))
-        if err > DIST_SPMV_TOL[policy]:
-            raise AssertionError(f"distributed SpMV {policy}: {err:.3e} from the single-card K0")
-        out[policy] = dict(upload_s=t_up, first_s=t1, median_s=float(np.median(times)),
-                           exchange_bytes=per_call, rel_err_inf=err, bit_equal=bitwise)
-        print(f"[dist] {name_limit} | DistSpmv {policy} offshore ({mesh.describe()}): "
-              f"{per_call} bytes exchanged a call ({op.plan.exchange_entries} entries, halo "
-              f"{op.plan.halo}); upload {t_up:.3f} s; a call {float(np.median(times)) * 1e3:.3f} "
-              f"ms (median of {REPS}, host clock to a synchronize); against the single-card "
-              f"K0 {err:.3e} (tol {DIST_SPMV_TOL[policy]}), bit-equal {bitwise}; two calls "
-              f"equal bit for bit", flush=True)
+        got = op.unshard(y1)
+        digests[f"spmv_{policy}"] = digest(got)
+        row = dict(upload_s=t_up, first_s=t1, median_s=float(np.median(times)),
+                   exchange_bytes=per_call)
+        against = ""
+        if refs is not None:
+            ref = refs[policy]
+            err = float((torch.from_numpy(got) - ref).abs().max() / ref.abs().max())
+            row.update(rel_err_inf=err, bit_equal=bool(torch.equal(torch.from_numpy(got), ref)))
+            if err > DIST_SPMV_TOL[policy]:
+                raise AssertionError(f"distributed SpMV {policy}: {err:.3e} from the "
+                                     "single-card K0")
+            against = (f"; against the single-card K0 {err:.3e} (tol {DIST_SPMV_TOL[policy]}), "
+                       f"bit-equal {row['bit_equal']}")
+        out[policy] = row
+        print(f"{tag} | DistSpmv {policy} offshore ({mesh.describe()}): {per_call} bytes this "
+              f"rank moved a call ({op.plan.exchange_entries} entries, halo {op.plan.halo}); "
+              f"upload {t_up:.3f} s; a call {float(np.median(times)) * 1e3:.3f} ms (median of "
+              f"{REPS}, host clock to a synchronize){against}; two calls equal bit for bit",
+              flush=True)
     return out
+
+
+def dist_cg_row(tag, mesh, eco, digests, failed):
+    from respatpu_torch import dist
+    # b = A x for a random x: A times ones is zero off the boundary, and its small b puts the
+    # fp32 iteration's attainable residual near 1e-5
+    b_eco = slv.make_rhs_for_known_x(eco, np.random.default_rng(7).standard_normal(eco.nrows))[0]
+    (xc, it), t_cg = synced(lambda: dist.dist_cg(eco, b_eco, mesh=mesh, tol=1e-6,
+                                                 max_iters=20_000))
+    res = slv.relative_residual(eco, xc, b_eco)
+    digests["cg"] = [digest(xc), it]
+    print(f"{tag} | dist_cg ecology2 (n {eco.nrows}, {mesh.describe()}): {it} iterations, "
+          f"{t_cg:.2f} s, {t_cg / max(it, 1) * 1e3:.3f} ms an iteration (host clock to a "
+          f"synchronize), host-oracle residual {res:.3e} (tol 1e-6)", flush=True)
+    if it >= 20_000 or not res <= 1e-5:
+        failed.append(f"dist_cg on ecology2: {it} iterations, residual {res:.3e}")
+    return dict(iterations=it, seconds=t_cg, ms_per_iteration=t_cg / max(it, 1) * 1e3,
+                residual=res)
+
+
+def pool_digests(sub, mesh):
+    return {f"pool_{d}": digest(sub.pools[d].cpu().numpy()) for d in mesh.local_shards}
+
+
+def dist_core(tag, mesh, device, off, eco, cubes, refs=None):
+    """The distributed path that phases 15 and 16 share, on ``mesh`` (this
+    rank's part of it): ``DistSpmv`` on offshore (fp32, fp64); ``dist_cg`` on
+    ecology2's stand-in; ``runner.sweep_ilu0_dist`` on ecology2 (``ok`` at
+    1e-10), its mesh made on ``device`` (None: the rank's); SPIKE on 2cubes_sphere in the natural order, factored twice bit
+    for bit, solved and refined to 1e-10; the subtree LU on 2cubes_sphere,
+    factored twice bit for bit, solved and refined to 1e-10. Returns (rows,
+    digests of every result, failed gates, the subtree factor)."""
+    from respatpu_torch import dist_lu, dist_snlu_sub
+    digests, failed = {}, []
+    rows = {"spmv": dist_spmv_rows(tag, mesh, off, refs, digests)}
+    rows["cg"] = dist_cg_row(tag, mesh, eco, digests, failed)
+
+    (row,), t_sweep = synced(lambda: runner.sweep_ilu0_dist(["ecology2"], ndev=mesh.size,
+                                                            device=device, verbose=False))
+    print(f"{tag} | sweep_ilu0_dist {json.dumps(row)}", flush=True)
+    rows["ilu0dist"] = [row]
+    digests["ilu0dist"] = [row["krylov_iters"], row["krylov_residual"]]
+    if row["status"] != "ok" or not float(row["krylov_residual"]) <= 1e-10:
+        failed.append(f"sweep_ilu0_dist ecology2: {row}")
+
+    b2 = slv.make_rhs_for_known_x(cubes)[0]
+    spike, t_f = synced(lambda: dist_lu.DistBandLu(cubes, mesh=mesh, order="natural",
+                                                   max_reduced=SPIKE_MAX_REDUCED))
+    again = dist_lu.DistBandLu(cubes, mesh=mesh, order="natural", max_reduced=SPIKE_MAX_REDUCED)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(spike._parts[j].lu.data, again._parts[j].lu.data)
+                for j in mesh.local_shards)
+            and all(torch.equal(spike._rlu.values[pl][0], again._rlu.values[pl][0])
+                    for pl in mesh.local_places))
+    del again
+    if not same:
+        failed.append("SPIKE: two factorizations differ")
+    x, t_s = synced(lambda: spike.solve(b2))
+    (xr, rep), t_r = synced(lambda: dist_lu.dist_solve_refined(cubes, b2, fac=spike))
+    res = slv.relative_residual(cubes, xr, b2)
+    digests.update(spike_x=digest(x), spike_refined=[digest(xr), rep.iterations])
+    rows["spike"] = dict(reduced_order=spike.reduced_order, reduced_bytes=spike.reduced_bytes,
+                         ml=spike.ml, mu=spike.mu, nb_loc=spike.nb_loc,
+                         analyze_s=spike.report.t_analyze, factor_s=t_f, phases=spike.phases,
+                         solve_s=t_s, refined_s=t_r, iterations=rep.iterations, residual=res,
+                         pivots=spike.report.n_pivot_perturbed)
+    print(f"{tag} | SPIKE 2cubes_sphere fp32 ({mesh.describe()}): ml = mu = {spike.mu} "
+          f"blocks of {spike.p}, {spike.nb_loc} block rows a shard; reduced system order "
+          f"{spike.reduced_order}, {spike.reduced_bytes} bytes once a place; analyze "
+          f"{spike.report.t_analyze:.3f} s, construction {t_f:.3f} s (factor "
+          f"{spike.report.t_factorize:.3f}: band LU {spike.phases['band_lu']:.3f}, tips "
+          f"{spike.phases['tips']:.3f}, reduced {spike.phases['reduced']:.3f}), two "
+          f"factorizations bit for bit {same}; one solve {t_s * 1e3:.1f} ms; refined {t_r:.3f} s "
+          f"in {rep.iterations} iterations to {res:.3e} (host oracle; tol 1e-10); pivots "
+          f"perturbed {spike.report.n_pivot_perturbed} (host clock to a synchronize)", flush=True)
+    if not res <= 1e-10:
+        failed.append(f"SPIKE refined residual {res:.3e}")
+    del spike
+
+    sub, t_sub = synced(lambda: dist_snlu_sub.DistSubtreeLu(cubes, mesh=mesh))
+    pools = pool_digests(sub, mesh)
+    t_warm = sub.refactorize_timed()
+    if pool_digests(sub, mesh) != pools:
+        failed.append("subtree LU: two factorizations differ")
+    digests.update(pools)
+    x, t_s = synced(lambda: sub.solve(b2))
+    xs, t_r = synced(lambda: sub.solve_refined(b2))
+    res = slv.relative_residual(cubes, xs, b2)
+    digests.update(subtree_x=digest(x), subtree_refined=[digest(xs), sub.report.iterations])
+    if not res <= 1e-10:
+        failed.append(f"subtree LU refined residual {res:.3e}")
+    plan = sub.plan
+    rows["subtree"] = dict(
+        analyze_s=sub.report.t_analyze, construction_s=t_sub, factor_s=sub.report.t_factorize,
+        factor_warm_s=t_warm, solve_s=t_s, refined_s=t_r, iterations=sub.report.iterations,
+        residual=res, local_pool_bytes=[int(v) * 4 for v in plan.local_sizes],
+        stage_bytes=[int(v) * 4 for v in plan.stage_sizes],
+        replicated_pool_bytes=sub.replicated_pool_bytes,
+        corner_bytes_exchanged=sub.bytes_exchanged, groups=len(plan.groups),
+        fronts_per_shard=np.bincount(plan.owner, minlength=mesh.size).tolist(),
+        pivots=sub.report.n_pivot_perturbed)
+    r = rows["subtree"]
+    print(f"{tag} | subtree LU 2cubes_sphere fp32 ({mesh.describe()}): {r['groups']} groups, "
+          f"fronts a shard {r['fronts_per_shard']}; pool bytes a shard {r['local_pool_bytes']} "
+          f"(+ staging {r['stage_bytes']}) against {r['replicated_pool_bytes']} unsharded; "
+          f"corners this rank moved {r['corner_bytes_exchanged']} bytes; analyze "
+          f"{r['analyze_s']:.2f} s, factor {r['factor_s']:.3f} s (again {t_warm:.3f}; bit for "
+          f"bit); one solve {t_s * 1e3:.1f} ms; refined {t_r:.3f} s in {r['iterations']} "
+          f"iterations to {res:.3e} (host oracle, tol 1e-10) (host clock to a synchronize)",
+          flush=True)
+    return rows, digests, failed, sub
 
 
 def dist_path(name_limit, mats, tmp):
     """Phase 15: the distributed stack with ``DIST_SHARDS`` shards on the
-    card, through its entry points: ``DistSpmv`` on offshore (fp32, fp64)
-    against the single-card K0; ``dist_cg`` on ecology2's stand-in;
-    ``runner.sweep_ilu0_dist`` on ecology2 and 2cubes_sphere (ecology2 must
-    be ``ok``); SPIKE (``DistBandLu``, factored twice, bit for bit) on
-    2cubes_sphere refined to 1e-10; the subtree-sharded LU on 2cubes_sphere
-    (factored twice, bit for bit) refined to 1e-10, saved, loaded and solved,
-    its factor against the single-card pool of the same partition;
-    ``measure_scaling`` on offshore. Returns the path's launch counts,
-    counted from just before it to just after it (the single-card
-    references come before and after). A failed gate is raised at the end of
-    the phase, after every row has run and printed."""
-    from respatpu_torch import dist, dist_lu, dist_snlu_sub
+    card, through its entry points: :func:`dist_core` (with ``DistSpmv``
+    held to the single-card K0), then ``runner.sweep_ilu0_dist`` on
+    2cubes_sphere (reported), the subtree factor saved, loaded and solved,
+    and ``measure_scaling`` on offshore. Returns the path's launch counts,
+    counted from just before it to just after it (the single-card references
+    come before and after), and the digests phase 16 holds the ranks to. A
+    failed gate is raised at the end of the phase, after every row has run
+    and printed."""
+    from respatpu_torch import dist
     from respatpu_torch.bench import scaling
     mesh = dist.make_mesh(DIST_SHARDS, DIST_DEVICE)
-    print(f"[dist] mesh: {mesh.describe()} ({name_limit})", flush=True)
+    tag = f"[dist] {name_limit}"
+    print(f"{tag} | mesh: {mesh.describe()}", flush=True)
     off, cubes = mats["offshore"], mats["2cubes_sphere"]
     eco = corpus.load_matrix("ecology2")[0]
     x = np.random.default_rng(42).standard_normal(off.shape[1])
@@ -2697,73 +2838,16 @@ def dist_path(name_limit, mats, tmp):
         one = K.to_device(off, policy, DIST_DEVICE, fmt="csr")
         xd = torch.from_numpy(x).to(one.policy.accum_dtype).to(one.device)
         refs[policy] = K.spmv(one, xd).cpu().double()
-    failed = []
     reset_counts()
     t_path = time.perf_counter()
-    rows = {"spmv": dist_spmv_rows(name_limit, mesh, off, refs)}
-
-    # b = A x for a random x: A times ones is zero off the boundary, and its small b puts the
-    # fp32 iteration's attainable residual near 1e-5
-    b_eco = slv.make_rhs_for_known_x(eco, np.random.default_rng(7).standard_normal(eco.nrows))[0]
-    (xc, it), t_cg = synced(lambda: dist.dist_cg(eco, b_eco, mesh=mesh, tol=1e-6,
-                                                 max_iters=20_000))
-    res = slv.relative_residual(eco, xc, b_eco)
-    rows["cg"] = dict(iterations=it, seconds=t_cg, residual=res)
-    print(f"[dist] {name_limit} | dist_cg ecology2 (n {eco.nrows}): {it} iterations, {t_cg:.2f} s "
-          f"(host clock to a synchronize), host-oracle residual {res:.3e} (tol 1e-6)", flush=True)
-    if not (it < 20_000 and res <= 1e-5):
-        failed.append(f"dist_cg on ecology2: {it} iterations, residual {res:.3e}")
-
-    sweep, t_sweep = synced(lambda: runner.sweep_ilu0_dist(["ecology2", "2cubes_sphere"],
-                                                           ndev=DIST_SHARDS, device=DIST_DEVICE))
-    for r in sweep:
-        print(f"[dist] {name_limit} | sweep_ilu0_dist {json.dumps(r)}", flush=True)
-    rows["ilu0dist"] = sweep
-    if sweep[0]["status"] != "ok" or not float(sweep[0]["krylov_residual"]) <= 1e-10:
-        failed.append(f"sweep_ilu0_dist ecology2: {sweep[0]}")
+    rows, digests, failed, sub = dist_core(tag, mesh, DIST_DEVICE, off, eco, cubes, refs)
+    more = runner.sweep_ilu0_dist(["2cubes_sphere"], ndev=DIST_SHARDS, device=DIST_DEVICE,
+                                  verbose=False)
+    print(f"{tag} | sweep_ilu0_dist {json.dumps(more[0])}", flush=True)
+    rows["ilu0dist"] += more
 
     b2 = slv.make_rhs_for_known_x(cubes)[0]
-    spike, t_f = synced(lambda: dist_lu.DistBandLu(cubes, mesh=mesh,
-                                                   max_reduced=SPIKE_MAX_REDUCED))
-    again = dist_lu.DistBandLu(cubes, mesh=mesh, max_reduced=SPIKE_MAX_REDUCED)
-    torch.cuda.synchronize()
-    same = (all(torch.equal(u.lu.data, v.lu.data) for u, v in zip(spike._parts, again._parts))
-            and all(torch.equal(spike._rlu.values[d][0], again._rlu.values[d][0])
-                    for d in mesh.devices))
-    del again
-    if not same:
-        failed.append("SPIKE: two factorizations differ")
-    _, t_s = synced(lambda: spike.solve(b2))
-    (xr, rep), t_r = synced(lambda: dist_lu.dist_solve_refined(cubes, b2, fac=spike))
-    res = slv.relative_residual(cubes, xr, b2)
-    rows["spike"] = dict(reduced_order=spike.reduced_order, reduced_bytes=spike.reduced_bytes,
-                         ml=spike.ml, mu=spike.mu, nb_loc=spike.nb_loc,
-                         analyze_s=spike.report.t_analyze, factor_s=t_f, phases=spike.phases,
-                         solve_s=t_s, refined_s=t_r, iterations=rep.iterations, residual=res,
-                         pivots=spike.report.n_pivot_perturbed)
-    print(f"[dist] {name_limit} | SPIKE 2cubes_sphere fp32: ml = mu = {spike.mu} blocks of "
-          f"{spike.p}, {spike.nb_loc} block rows a shard; reduced system order "
-          f"{spike.reduced_order}, {spike.reduced_bytes} bytes once on the card; analyze "
-          f"{spike.report.t_analyze:.3f} s, construction {t_f:.3f} s (factor "
-          f"{spike.report.t_factorize:.3f}: band LU {spike.phases['band_lu']:.3f}, tips "
-          f"{spike.phases['tips']:.3f}, reduced {spike.phases['reduced']:.3f}), two factorizations "
-          f"bit for bit; one solve {t_s * 1e3:.1f} ms; refined {t_r:.3f} s in {rep.iterations} "
-          f"iterations to {res:.3e} (host oracle; tol 1e-10); pivots perturbed "
-          f"{spike.report.n_pivot_perturbed} (host clock to a synchronize)", flush=True)
-    if not res <= 1e-10:
-        failed.append(f"SPIKE refined residual {res:.3e}")
-    del spike
-
-    sub, t_sub = synced(lambda: dist_snlu_sub.DistSubtreeLu(cubes, mesh=mesh))
     vals = sub.factor_values()
-    t_warm = sub.refactorize_timed()
-    if not np.array_equal(sub.factor_values(), vals):
-        failed.append("subtree LU: two factorizations differ")
-    _, t_s = synced(lambda: sub.solve(b2))
-    xs, t_r = synced(lambda: sub.solve_refined(b2))
-    res = slv.relative_residual(cubes, xs, b2)
-    if not res <= 1e-10:
-        failed.append(f"subtree LU refined residual {res:.3e}")
     path = os.path.join(tmp, "subtree.npz")
     _, t_save = synced(lambda: persist.save_sparse_factorization(path, sub, compressed=False))
     loaded, t_load = synced(lambda: persist.load_sparse_factorization(path, cubes,
@@ -2773,24 +2857,15 @@ def dist_path(name_limit, mats, tmp):
     lerr = float(np.abs(xl - xd).max() / np.abs(xd).max())
     if not lerr <= 1e-4:
         failed.append(f"subtree LU loaded: its solve is {lerr:.3e} from the live one")
-    plan = sub.plan
-    rows["subtree"] = dict(
-        analyze_s=sub.report.t_analyze, construction_s=t_sub, factor_s=sub.report.t_factorize,
-        factor_warm_s=t_warm, solve_s=t_s, refined_s=t_r, iterations=sub.report.iterations,
-        residual=res, local_pool_bytes=[int(v) * 4 for v in plan.local_sizes],
-        stage_bytes=[int(v) * 4 for v in plan.stage_sizes],
-        replicated_pool_bytes=sub.replicated_pool_bytes,
-        corner_bytes_exchanged=sub.bytes_exchanged, groups=len(plan.groups),
-        fronts_per_shard=np.bincount(plan.owner, minlength=DIST_SHARDS).tolist(),
-        save_s=t_save, file_bytes=os.path.getsize(path), load_s=t_load, loaded_solve_s=t_ls,
-        loaded_vs_live=lerr, pivots=sub.report.n_pivot_perturbed)
+    rows["subtree"].update(save_s=t_save, file_bytes=os.path.getsize(path), load_s=t_load,
+                           loaded_solve_s=t_ls, loaded_vs_live=lerr)
     os.remove(path)
     del loaded
 
     srows, t_scale = synced(lambda: scaling.measure_scaling("offshore", (1, 2, DIST_SHARDS),
                                                             max_synth_nnz=None, device=DIST_DEVICE))
     for r in srows:
-        print(f"[dist] {name_limit} | scaling {json.dumps(r)}", flush=True)
+        print(f"{tag} | scaling {json.dumps(r)}", flush=True)
     rows["scaling"] = srows
     t_path = time.perf_counter() - t_path
     launches = all_counts()
@@ -2800,31 +2875,209 @@ def dist_path(name_limit, mats, tmp):
     pool1, _ = F.frontal_factor_pool(plan1, torch.float32, DIST_DEVICE,
                                      pivot_eps=sub.pivot_eps)
     single = F.values_from_pool(plan1, pool1)
-    del pool1
+    del pool1, sub
     diff = float(np.abs(vals - single).max())
     rows["subtree"].update(max_abs_diff_single=diff, scale=float(np.abs(single).max()),
                            bit_equal_single=bool(np.array_equal(vals, single)))
     r = rows["subtree"]
-    print(f"[dist] {name_limit} | subtree LU 2cubes_sphere fp32 ({mesh.describe()}): "
-          f"{r['groups']} groups, fronts a shard {r['fronts_per_shard']}; pool bytes a shard "
-          f"{r['local_pool_bytes']} (+ staging {r['stage_bytes']}) against "
-          f"{r['replicated_pool_bytes']} unsharded; corners exchanged {r['corner_bytes_exchanged']} "
-          f"bytes; analyze {r['analyze_s']:.2f} s, factor {r['factor_s']:.3f} s (again "
-          f"{t_warm:.3f}; bit for bit); one solve {r['solve_s'] * 1e3:.1f} ms; refined "
-          f"{r['refined_s']:.3f} s in {r['iterations']} iterations to {res:.3e} (host oracle, tol "
-          f"1e-10); factor_values() against the single-card pool of the same partition: largest "
-          f"difference {diff:.3e} (of {r['scale']:.3e}), bit-equal {r['bit_equal_single']}; "
-          f"saved uncompressed in {t_save:.2f} s ({r['file_bytes']} bytes), loaded in "
-          f"{t_load:.2f} s, its solve {t_ls * 1e3:.1f} ms, {lerr:.3e} from the live one (host "
-          f"clock to a synchronize)", flush=True)
-    print(f"[dist] {name_limit} | the path {t_path:.1f} s; launches "
+    print(f"{tag} | subtree LU: factor_values() against the single-card pool of the same "
+          f"partition: largest difference {diff:.3e} (of {r['scale']:.3e}), bit-equal "
+          f"{r['bit_equal_single']}; saved uncompressed in {t_save:.2f} s ({r['file_bytes']} "
+          f"bytes), loaded in {t_load:.2f} s, its solve {t_ls * 1e3:.1f} ms, {lerr:.3e} from the "
+          f"live one (host clock to a synchronize)", flush=True)
+    print(f"{tag} | the path {t_path:.1f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    print(f"[dist] {name_limit} | rows {json.dumps(rows, default=str)}", flush=True)
+    print(f"{tag} | rows {json.dumps(rows, default=str)}", flush=True)
     failed += [f"{name} was not launched on the distributed path"
                for name in DIST_KERNELS if launches[name] < 1]
     if failed:
         raise AssertionError("phase 15: " + "; ".join(failed))
-    return launches
+    return launches, digests, rows
+
+
+# ---------------------------------------------------------------------------
+# 16. the distributed stack over processes
+# ---------------------------------------------------------------------------
+
+RANKS = 2
+RANK_TIMEOUT_S = 400  # a worker's wall time before phase 16 fails
+
+
+def rank_worker(name_limit, argv):
+    """``chip_smoke.py --rank-worker MODE RANK WORLD STORE OUT``: one rank of
+    phase 16, joined to the others through a store in the file STORE. Mode
+    ``2x2``: :func:`dist_core` on a mesh of 2 shards a rank, with the
+    launch counts of its path; ``2x1``: respatpu's psum check and the
+    offshore ``DistSpmv`` and ``dist_cg`` on one shard a rank. Writes its
+    rows, digests and counts to OUT as JSON."""
+    from respatpu_torch import dist
+    mode, rank, world, store, out = argv
+    dist.init_distributed(num_processes=int(world), process_id=int(rank), device="cuda",
+                          init_method=f"file://{store}", timeout_s=RANK_TIMEOUT_S)
+    tag = f"[rank {rank}] {name_limit}"
+    try:
+        _build.load()  # the parent built the kernels; this only loads them
+        t0 = time.perf_counter()
+        off = corpus.load_matrix("offshore")[0]
+        eco = corpus.load_matrix("ecology2")[0]
+        digests, failed = {}, []
+        if mode == "2x2":
+            cubes = corpus.load_matrix("2cubes_sphere")[0]
+            mesh = dist.make_mesh(2 * int(world))
+            reset_counts()
+            t_path = time.perf_counter()
+            rows, digests, failed, sub = dist_core(tag, mesh, None, off, eco, cubes)
+            t_path = time.perf_counter() - t_path
+            launches = all_counts()
+            del sub
+        else:
+            mesh = dist.make_mesh(int(world))
+            one = mesh.map(lambda d: torch.tensor(float(dist.process_index() + 1),
+                                                  device=mesh.shards[d].device))
+            rows = {"psum": float(mesh.psum(one).first)}
+            t_path = time.perf_counter()
+            rows["spmv"] = dist_spmv_rows(tag, mesh, off, None, digests)
+            rows["cg"] = dist_cg_row(tag, mesh, eco, digests, failed)
+            t_path = time.perf_counter() - t_path
+            launches = all_counts()
+        result = dict(rows=rows, digests=digests, failed=failed, launches=launches,
+                      mesh=mesh.describe(), path_s=t_path, seconds=time.perf_counter() - t0)
+    finally:
+        dist.shutdown_distributed()
+    with open(out, "w") as f:
+        json.dump(result, f, default=str)
+
+
+def run_ranks(tmp, mode):
+    """Start ``RANKS`` workers of ``mode`` and wait for them, each at most
+    ``RANK_TIMEOUT_S``; kills any left. Returns each rank's exit code,
+    result (None without one) and log."""
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the ranks share this host
+    outs = [os.path.join(tmp, f"{mode}_rank{r}.json") for r in range(RANKS)]
+    logs = [os.path.join(tmp, f"{mode}_rank{r}.log") for r in range(RANKS)]
+    procs = []
+    try:
+        for r in range(RANKS):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank-worker", mode, str(r),
+                     str(RANKS), os.path.join(tmp, f"store_{mode}"), outs[r]],
+                    stdout=log, stderr=subprocess.STDOUT, env=env))
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for o in outs:
+        if os.path.exists(o):
+            with open(o) as f:
+                results.append(json.load(f))
+        else:
+            results.append(None)
+    texts = []
+    for path in logs:
+        with open(path) as f:
+            texts.append(f.read())
+    return rcs, results, texts
+
+
+def rank_times(rows):
+    """The times of a :func:`dist_core` run that phase 16 sets beside phase
+    15's."""
+    sp, sub = rows["spike"], rows["subtree"]
+    return {"DistSpmv fp32 ms": rows["spmv"]["fp32"]["median_s"] * 1e3,
+            "DistSpmv fp64 ms": rows["spmv"]["fp64"]["median_s"] * 1e3,
+            "dist_cg ms an iteration": rows["cg"]["ms_per_iteration"],
+            "sweep_ilu0_dist ecology2 setup s": float(rows["ilu0dist"][0]["t_setup_s"]),
+            "sweep_ilu0_dist ecology2 Krylov s": float(rows["ilu0dist"][0]["t_krylov_s"]),
+            "SPIKE factor s": sp["factor_s"], "SPIKE solve ms": sp["solve_s"] * 1e3,
+            "SPIKE refined s": sp["refined_s"], "subtree analyze s": sub["analyze_s"],
+            "subtree factor s": sub["factor_s"], "subtree factor again s": sub["factor_warm_s"],
+            "subtree solve ms": sub["solve_s"] * 1e3, "subtree refined s": sub["refined_s"]}
+
+
+def ranks_path(name_limit, ref, ref_rows):
+    """Phase 16: the distributed stack over processes, ``RANKS`` workers of
+    this script on the card (gloo through the host when they share it; NCCL
+    with a card a rank), each holding 2 shards: their ``dist_core`` results
+    equal ``ref``, the one-process mesh of 4 shards (phase 15), bit for bit
+    on every rank, and every kernel of the path launches in every worker.
+    Then one shard a rank: respatpu's psum (1 + 2 = 3 on both) and the
+    offshore ``DistSpmv`` and ``dist_cg``, bit for bit with
+    ``make_mesh(2, DIST_DEVICE)``; the ranks' times beside phase 15's.
+    Returns each 2 x 2 worker's launch counts."""
+    from respatpu_torch import dist
+    tag = f"[ranks] {name_limit}"
+    failed = []
+    mesh2 = dist.make_mesh(RANKS, DIST_DEVICE)  # the one-shard-a-rank reference
+    ref2 = {}
+    dist_spmv_rows(f"{tag} | reference", mesh2, corpus.load_matrix("offshore")[0], None, ref2)
+    dist_cg_row(f"{tag} | reference", mesh2, corpus.load_matrix("ecology2")[0], ref2, failed)
+    del mesh2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for mode in ("2x2", "2x1"):
+            t0 = time.perf_counter()
+            runs[mode] = run_ranks(tmp, mode)
+            print(f"{tag} | {RANKS} ranks, mode {mode}: {time.perf_counter() - t0:.1f} s, exit "
+                  f"codes {runs[mode][0]}", flush=True)
+    for mode, want in (("2x2", ref), ("2x1", ref2)):
+        rcs, results, texts = runs[mode]
+        for r, (rc, res, text) in enumerate(zip(rcs, results, texts)):
+            lines = [ln for ln in text.splitlines() if ln.startswith(f"[rank {r}]")]
+            print("\n".join(lines), flush=True)
+            if rc != 0 or res is None:
+                print(f"{tag} | rank {r} of {mode} failed ({rc}); its log's end:\n"
+                      f"{text[-4000:]}", flush=True)
+                failed.append(f"rank {r} of {mode}: exit {rc}")
+                continue
+            failed += [f"rank {r} of {mode}: {f}" for f in res["failed"]]
+            for key, value in want.items():
+                if key.startswith("pool_") and key not in res["digests"]:
+                    continue  # another rank's shard
+                if res["digests"].get(key) != value:
+                    failed.append(f"rank {r} of {mode}: {key} differs from the one-process mesh")
+            if mode == "2x1" and res["rows"]["psum"] != 3.0:
+                failed.append(f"rank {r}: psum {res['rows']['psum']}, not 1 + 2 = 3")
+            if mode == "2x2":
+                failed += [f"{name} was not launched in rank {r}" for name in DIST_KERNELS
+                           if res["launches"][name] < 1]
+                pools = [k for k in res["digests"] if k.startswith("pool_")]
+                if len(pools) != 2:
+                    failed.append(f"rank {r} holds the pools {pools}")
+    one = rank_times(ref_rows)
+    for r, res in enumerate(runs["2x2"][1]):
+        if res is not None:
+            print(f"{tag} | rank {r} launches "
+                  f"{ {k: v for k, v in res['launches'].items() if v} }", flush=True)
+            mine = rank_times(res["rows"])
+            print(f"{tag} | rank {r} ({res['mesh']}), beside one process of 4 shards in "
+                  f"brackets: " + "; ".join(f"{k} {v:.3f} ({one[k]:.3f})" for k, v in mine.items())
+                  + f"; its path {res['path_s']:.1f} s, its process {res['seconds']:.1f} s (host "
+                  "clock to a synchronize)", flush=True)
+    for r, res in enumerate(runs["2x1"][1]):
+        if res is not None:
+            rr = res["rows"]
+            print(f"{tag} | rank {r} ({res['mesh']}): psum {rr['psum']}; DistSpmv offshore "
+                  f"{rr['spmv']['fp32']['median_s'] * 1e3:.3f} / "
+                  f"{rr['spmv']['fp64']['median_s'] * 1e3:.3f} ms a call; dist_cg "
+                  f"{rr['cg']['ms_per_iteration']:.3f} ms an iteration", flush=True)
+    rows = {m: [res and res["rows"] for res in runs[m][1]] for m in runs}
+    print(f"{tag} | rows {json.dumps(rows, default=str)}", flush=True)
+    if failed:
+        raise AssertionError("phase 16: " + "; ".join(failed))
+    return [res["launches"] for res in runs["2x2"][1]]
 
 
 _PHASE = [0.0]
@@ -2918,6 +3171,27 @@ def main():
         _build.load()
         with tempfile.TemporaryDirectory() as tmp:
             dist_path(name_limit, {m: corpus.load_matrix(m)[0] for m in MAIN}, tmp)
+        return
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(name_limit, sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--ranks"]:
+        from respatpu_torch import dist
+        _build.load()
+        off, cubes, eco = (corpus.load_matrix(m)[0] for m in ("offshore", "2cubes_sphere",
+                                                                "ecology2"))
+        t0 = time.perf_counter()
+        rows, digests, failed, sub = dist_core(f"[dist] {name_limit}",
+                                               dist.make_mesh(DIST_SHARDS, DIST_DEVICE),
+                                               DIST_DEVICE, off, eco, cubes)
+        del sub
+        if failed:
+            raise AssertionError("the one-process reference: " + "; ".join(failed))
+        print(f"[ranks] the one-process reference took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        ranks_path(name_limit, digests, rows)
+        print(f"[ranks] phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
         return
 
     # 2. build
@@ -3105,10 +3379,16 @@ def main():
 
     # 15. the distributed stack
     with tempfile.TemporaryDirectory() as tmp:
-        dist_launches = dist_path(name_limit, mats, tmp)
+        dist_launches, dist_digests, dist_rows = dist_path(name_limit, mats, tmp)
     phase_done(15)
 
-    # 16. result
+    # 16. the distributed stack over processes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rank_launches = ranks_path(name_limit, dist_digests, dist_rows)
+    phase_done(16)
+
+    # 17. result
     kernels = []
     for p in TOL:
         kernels.append({"name": f"respa_spmv_csr_{INST[p]}", "route": "cuda", "source": SOURCE,
@@ -3159,6 +3439,7 @@ def main():
         k["launches_study_path"] = study_launches[k["name"]]
         k["launches_persist_path"] = persist_launches[k["name"]]
         k["launches_dist_path"] = dist_launches[k["name"]]
+        k["launches_rank_path"] = [w[k["name"]] for w in rank_launches]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ triangular solves, two hand-written CUDA kernels, with the Jacobi and ISAI
 applies and the CG, GMRES and BiCGSTAB solvers), the scheduled sparse LU and
 the DIA stencil SpMV, factor persistence (``persist``), the experiment
 config (``config``) and the precision study (``bench.study``), and the
-distributed stack on a mesh of shards (``dist``: the row-partitioned SpMV,
+distributed stack on a mesh of shards, in one process or over the ranks of
+a process group (``dist``: ``init_distributed``, the row-partitioned SpMV,
 block-Jacobi ILU(0), CG and BiCGSTAB; ``dist_lu``: SPIKE; ``dist_snlu_sub``:
 the subtree-sharded multifrontal LU). See ROADMAP.md for the rest.
 """

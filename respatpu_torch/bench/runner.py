@@ -278,14 +278,16 @@ def sweep_ilu0_dist(names: Sequence[str], csv_path: Optional[str] = None,
     target. ``t_setup_s`` is the partition, the uploads and the
     factorization, ended by a device synchronize; the Krylov phase ends with
     the host's copy of x. Status ``ok`` at the gate, else ``stagnated``.
-    Returns one dict per matrix with the CSV row's fields."""
+    Returns one dict per matrix with the CSV row's fields. In a process
+    group (``dist.init_distributed``) the mesh spans its ranks, every rank
+    returns the rows, and rank 0 alone writes the CSV and prints."""
     from .. import dist
     from ..kernels.spmv import spmv, to_device
     out = []
     for name in names:
         a, synth = corpus.load_matrix(name, max_synth_nnz=max_synth_nnz)
         mesh = dist.make_mesh(ndev, device)
-        dev = mesh.devices[0]
+        dev = mesh.local_places[0].device
         t0 = time.perf_counter()
         op = dist.DistSpmv(a, mesh)
         pre = dist.BlockJacobiIlu(a, op.plan, mesh)
@@ -306,8 +308,10 @@ def sweep_ilu0_dist(names: Sequence[str], csv_path: Optional[str] = None,
         status = "ok" if kres <= krylov_gate else "stagnated"
         row = ["fp32+ir_fp64", name, a.shape[0], a.nnz, int(synth), ndev,
                f"{t_setup:.4f}", f"{t_krylov:.4f}", kiters, f"{kres:.3e}", status, _ts()]
-        _append(csv_path, ILU0DIST_HEADER, row)
         out.append(dict(zip(ILU0DIST_HEADER, row)))
+        if dist.process_index():
+            continue
+        _append(csv_path, ILU0DIST_HEADER, row)
         if verbose:
             print(f"[ilu0dist] {name}: setup={t_setup:.2f}s krylov={kres:.1e}/{kiters}it "
                   f"{status} ({mesh.describe()}){' (synthetic)' if synth else ''}")

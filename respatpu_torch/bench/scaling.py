@@ -13,6 +13,7 @@ the counts it has no devices for. Here a count above the cards runs, with
 several shards a card, and its row says so: ``cards``, ``shards_per_card``,
 and ``scaling_result`` false. Such a row times the distributed path on
 shared cards (its exchanges and its per-shard launches), not a scaling.
+It builds one-process meshes, and refuses to run in a process group.
 """
 from __future__ import annotations
 
@@ -33,6 +34,9 @@ def measure_scaling(name: str = "atmosmodd", device_counts: Sequence[int] = (1, 
                     max_synth_nnz: Optional[int] = 2_000_000, reps: int = 5,
                     verbose: bool = True, device: Union[str, torch.device] = "cuda"
                     ) -> List[dict]:
+    if dist.process_count() > 1:
+        raise RuntimeError("measure_scaling builds one-process meshes of several sizes; run it "
+                           "outside a process group")
     a, synth = corpus.load_matrix(name, max_synth_nnz=max_synth_nnz)
     x = np.random.default_rng(0).standard_normal(a.shape[1])
     out = []
@@ -47,9 +51,9 @@ def measure_scaling(name: str = "atmosmodd", device_counts: Sequence[int] = (1, 
             op(xs)
         mesh.synchronize()
         dt = (time.perf_counter() - t0) / reps
-        cards = len(mesh.devices)
-        kind = (torch.cuda.get_device_name(mesh.devices[0]) if mesh.devices[0].type == "cuda"
-                else "cpu")
+        cards = len(mesh.places)
+        first = mesh.places[0].device
+        kind = torch.cuda.get_device_name(first) if first.type == "cuda" else "cpu"
         row = dict(matrix=name, synthetic=synth, n=a.shape[0], nnz=a.nnz, devices=nd,
                    halo=op.plan.halo, t_spmv_s=round(dt, 6),
                    gnnz_per_s=round(a.nnz / dt / 1e9, 4), card=kind, cards=cards,

@@ -2,7 +2,7 @@
 
   python -m respatpu_torch spmv  <matrix.mtx|corpus-name> [--policy fp32] [--csv out.csv]
   python -m respatpu_torch lu    <matrix.mtx|corpus-name> [--method auto|band|snlu|sparse|subtree]
-                                 [--no-refine] [--shards P]
+                                 [--refine] [--matching auto|on|off] [--shards P]
   python -m respatpu_torch ilu0  <matrix.mtx|corpus-name> [--policy fp32] [--sweeps 8]
   python -m respatpu_torch sweep spmv|lu|ilu0|ilu0dist [--group moderate|big|all] [--shards P]
   python -m respatpu_torch study [matrix ...] [--csv out.csv] [--max-synth-nnz N]
@@ -16,16 +16,23 @@ The high precision is fp64; ``--policy`` picks the low one (fp32 | fp32_ftz |
 bf16). ``study`` prints the summary of the precision study as JSON; it
 downloads nothing: ``fetch`` puts the real matrices on disk.
 
+``lu`` solves once with the factorization unless ``--refine`` asks for
+fp64 iterative refinement, as respatpu's does; it warns on stderr when a
+refined or fp64 residual is above 1e-10.
+
 The distributed commands (``lu --method subtree``, ``sweep ilu0dist``,
 ``scaling``) run on a mesh of ``--shards`` shards on the cards round-robin
 (``dist.make_mesh``): where respatpu takes every local device, ``--shards``
 lets one card hold several shards, which runs the distributed path there but
-measures no scaling.
+measures no scaling. Started in a process group (``dist.init_distributed``
+from a script, or torchrun), ``lu --method subtree`` and ``sweep ilu0dist``
+spread their shards over its ranks, and rank 0 prints; ``scaling`` refuses.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import numpy as np
 import torch
@@ -39,6 +46,9 @@ def _load(spec: str):
         a, synth = load_matrix(spec)
         return a, synth, spec
     raise SystemExit(f"matrix {spec!r}: no such file or corpus entry")
+
+
+_MATCHING = {"auto": "auto", "on": True, "off": False}
 
 
 def _device(spec: str) -> torch.device:
@@ -81,20 +91,23 @@ def cmd_lu(args):
         fac.report.notes = (f"method=subtree {fac.mesh.describe()} "
                             f"local_pool={fac.local_pool_bytes / 2**20:.0f}MiB "
                             f"(replicated {fac.replicated_pool_bytes / 2**20:.0f})")
-        x = fac.solve(b) if args.no_refine else fac.solve_refined(b)
+        x = fac.solve_refined(b) if args.refine else fac.solve(b)
         rep = fac.report
+        if fac.mesh.rank:
+            return
         print(f"{name}{' (synthetic)' if synth else ''}: policy={rep.policy} "
               f"[{rep.notes}] analyze={rep.t_analyze:.3f}s "
               f"factor={rep.t_factorize:.3f}s solve={rep.t_solve:.3f}s "
               f"rel_residual={rep.residual:.3e} "
               f"inf_err={slv.inf_norm_error(x, x_true):.3e}")
         return
-    fac = slv.factorize(a, policy=args.policy, method=args.method, device=device)
-    if args.no_refine:
+    fac = slv.factorize(a, policy=args.policy, method=args.method,
+                        matching=_MATCHING[args.matching], device=device)
+    if args.refine:
+        x, rep = slv.solve_refined(a, b, fac=fac)
+    else:
         x = fac.solve(b)
         rep = fac.report
-    else:
-        x, rep = slv.solve_refined(a, b, fac=fac)
     print(f"{name}: policy={rep.policy} [{fac.report.notes}] "
           f"analyze={rep.t_analyze:.3f}s factorize={rep.t_factorize:.3f}s "
           f"solve={rep.t_solve:.3f}s iterations={rep.iterations} "
@@ -102,6 +115,8 @@ def cmd_lu(args):
           f"inf_norm_error={slv.inf_norm_error(x, x_true):.3e} "
           f"pivots_perturbed={rep.n_pivot_perturbed} device={device}"
           f"{' (synthetic)' if synth else ''}")
+    if rep.residual > 1e-10 and (fac.policy.name == "fp64" or args.refine):
+        print("WARNING: residual above 1e-10 gate", file=sys.stderr)
 
 
 def cmd_ilu0(args):
@@ -135,7 +150,8 @@ def cmd_sweep(args):
     if args.kind == "lu":
         runner.sweep_lu([e.name for e in entries], csv_path=args.csv,
                         policy=args.policy, method=args.method,
-                        refine=not args.no_refine, device=device, **kw)
+                        matching=_MATCHING[args.matching], refine=not args.no_refine,
+                        device=device, **kw)
         return
     runner.sweep_spmv([e.name for e in entries], csv_path=args.csv,
                       policies=("fp64", args.policy), reps=args.reps,
@@ -188,16 +204,22 @@ def main(argv=None):
                         help="auto (band, then multifrontal, then the scheduled sparse "
                              "LU) | band | snlu (= multifrontal) | sparse | subtree (the "
                              "distributed multifrontal LU on --shards shards)")
-        sp.add_argument("--no-refine", action="store_true",
-                        help="one direct solve, no fp64 iterative refinement")
+        sp.add_argument("--matching", default="auto", choices=["auto", "on", "off"],
+                        help="GESP weighted matching + Ruiz scaling (auto = on for "
+                             "structurally unsymmetric; the band and subtree methods take none)")
         sp.add_argument("--shards", type=int, default=None,
                         help="shards of a distributed run (lu --method subtree: default one "
                              "a card; sweep ilu0dist: default 8), on the cards round-robin")
 
-    sp = sub.add_parser("lu", help="direct LU factorize + refined solve")
+    sp = sub.add_parser("lu", help="direct LU factorize + solve")
     sp.add_argument("matrix")
     common(sp)
     direct(sp)
+    how = sp.add_mutually_exclusive_group()  # one direct solve unless asked, as respatpu's
+    how.add_argument("--refine", action="store_true",
+                     help="fp64 iterative refinement after the direct solve")
+    how.add_argument("--no-refine", action="store_true",
+                     help="one direct solve, no refinement (the default)")
     sp.set_defaults(fn=cmd_lu)
 
     sp = sub.add_parser("ilu0", help="ILU(0) factorization (Chow-Patel sweeps)")
@@ -215,6 +237,8 @@ def main(argv=None):
     sp.add_argument("--sweeps", type=int, default=8, help="ILU(0) sweeps (sweep ilu0)")
     common(sp)
     direct(sp)
+    sp.add_argument("--no-refine", action="store_true",  # sweep lu refines, as respatpu's
+                    help="one direct solve, no fp64 iterative refinement (sweep lu)")
     sp.set_defaults(fn=cmd_sweep)
 
     sp = sub.add_parser("fetch", help="download the SuiteSparse corpus")

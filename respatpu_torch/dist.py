@@ -1,25 +1,53 @@
 """Distributed sparse linear algebra over a mesh of shards: the row-partitioned
-SpMV with its halo exchange, block-Jacobi ILU(0), CG and BiCGSTAB.
+SpMV with its halo exchange, block-Jacobi ILU(0), CG and BiCGSTAB; and the
+process group that lets a mesh span processes.
 
 The counterpart of ``respatpu/dist.py``, which fills the reference's only
 distributed slot (MUMPS over MPI, test_mumps.c:87-158) with a 1-D device mesh,
-``shard_map`` and XLA collectives. Here one process drives a :class:`Mesh` of P
-shards, each a torch device and a CUDA stream of its own. A shard's body is a
-step of a loop over the shards, run on its stream; a collective is a copy
-between shards, ordered across streams by CUDA events, so that nothing makes
-the host wait but a convergence test. With more shards than cards the shards
-share the cards round-robin (``"4 shards on 1 card"``): that runs the
-distributed path, with its exchanges and its per-shard launches, on one card,
-but it is not a scaling measurement. On several cards the same copies go
-between cards.
+``shard_map`` and XLA collectives, and whose ``init_distributed``
+(``jax.distributed.initialize``, the ``MPI_Init`` of test_mumps.c:87-88) spreads
+that mesh over processes.
 
-Rules every module of the distributed stack keeps:
+A :class:`Mesh` is P shards, each a torch device and a CUDA stream of its own.
+A shard's body is a step of a loop over the shards, run on its stream; a
+collective between shards of one process is a copy ordered across streams by
+CUDA events, so that nothing makes the host wait but a convergence test. With
+more shards than cards the shards share the cards round-robin (``"4 shards
+on 1 card"``): that runs the distributed path, with its exchanges and its
+per-shard launches, on one card, but it is not a scaling measurement.
+
+After :func:`init_distributed`, ``make_mesh(n)`` spreads n shards over the
+ranks of the process group, k = n / ranks a rank: shard d belongs to rank
+d // k (respatpu's mesh orders its devices by process) and lies on that
+rank's device. The one-process mesh is the case of a single rank that owns
+every shard; the interface is the same. Each rank runs its own shards only
+(``Mesh.map`` leaves ``None`` for the others) and every rank walks the same
+host loops in the same order, so that each transfer meets its partner:
+
+* a value is held once a *place* (:class:`Place`, a rank and a device: two
+  ranks on one card are two places, since two processes cannot share a
+  tensor);
+* a transfer between ranks is point to point, and an exchange posts all of
+  a rank's sends and receives at once (``batch_isend_irecv``); a receiver
+  knows every shape from the host plan, which every rank builds alike and
+  checks against the others' (:meth:`Mesh.check_plan`) when a distributed
+  object is made;
+* the transport is NCCL when every rank has a card of its own, else gloo:
+  on the CPU, and for ranks that share a card (NCCL refuses two ranks on one
+  device), where a card's tensor goes through a host copy each way.
+  A failing transfer raises; nothing is rerouted.
+
+Rules every module of the distributed stack keeps, on one process or many:
 
 * every sum across shards (``Mesh.psum``, a dot product, a remote
   extend-add) is taken in shard order with no floating-point atomics, so two
-  runs give the same bits;
-* a replicated value (:class:`Replicated`) is stored once per distinct
-  device, not once per shard;
+  runs give the same bits; across ranks, ``psum`` is an all-gather and the
+  same left fold on every place, never an ``all_reduce``, whose order NCCL
+  does not fix, so a mesh over ranks gives the bits of the one-process mesh
+  with as many shards;
+* a replicated value (:class:`Replicated`) is stored once a place, not once
+  a shard, and every rank holds the same bits, so every rank takes the same
+  branch of a convergence test;
 * respatpu's double-float paths are native fp64.
 
 The row partition is respatpu's: contiguous bands of ``n_loc = ceil(n/P)``
@@ -35,19 +63,122 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+import datetime
+import hashlib
+import math
+import os
+import socket
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from .formats import COOMatrix, CSRMatrix, coo_to_csr, split_triangular
 from .kernels.ilu0 import ilu0_factor
 from .kernels.spmv import DeviceCsr, spmv, to_device
 from .precision import Policy, get_policy
 
-__all__ = ["Shard", "Mesh", "Replicated", "make_mesh", "RowPartitionPlan",
+__all__ = ["init_distributed", "shutdown_distributed", "process_count", "process_index",
+           "Place", "Shard", "Mesh", "Replicated", "make_mesh", "RowPartitionPlan",
            "build_row_partition", "DistSpmv", "dist_spmv", "BlockJacobiIlu",
            "dist_cg", "dist_bicgstab"]
+
+
+# ---------------------------------------------------------------------------
+# The process group
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Ranks:
+    """The process group :func:`init_distributed` set up."""
+    rank: int
+    world: int
+    device: torch.device  # this rank's
+    devices: List[torch.device]  # every rank's, as that rank names it
+    hosts: List[str]  # every rank's host
+    backend: str  # "gloo" or "nccl"
+
+
+_RANKS: Optional[_Ranks] = None  # torch.distributed's default group is as global
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None, process_id: Optional[int] = None, *,
+                     backend: Optional[str] = None, device: Union[str, torch.device] = "cuda",
+                     timeout_s: float = 120, init_method: Optional[str] = None) -> None:
+    """Join this process to a group of ``num_processes`` ranks as rank
+    ``process_id``: respatpu's ``init_distributed``, on ``torch.distributed``.
+
+    ``coordinator_address`` ("host:port") is rank 0's address, as in
+    ``jax.distributed.initialize``; ``init_method`` may name another
+    rendezvous instead (``"file:///path"``, a store in a file). With neither,
+    the address, the world size and the rank come from torchrun's
+    environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``).
+    ``device="cuda"`` puts the rank on card ``LOCAL_RANK % device_count()``
+    (``LOCAL_RANK`` defaults to the rank) and raises without a card;
+    ``"cpu"`` keeps it on the host. The transport is NCCL when every rank has
+    a card of its own, else gloo; ``backend`` overrides the choice. Every
+    call of the group waits at most ``timeout_s`` seconds for its partners
+    and then raises."""
+    global _RANKS
+    if _RANKS is not None:
+        raise RuntimeError("init_distributed: this process is in a group already")
+    env = os.environ
+    try:
+        if init_method is None:
+            if coordinator_address is None:
+                coordinator_address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+            init_method = f"tcp://{coordinator_address}"
+        world = int(num_processes if num_processes is not None else env["WORLD_SIZE"])
+        rank = int(process_id if process_id is not None else env["RANK"])
+    except KeyError as e:
+        raise ValueError(f"init_distributed: {e.args[0]} is not set; pass coordinator_address, "
+                         "num_processes and process_id, or run under torchrun") from None
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed: CUDA is not available; pass device='cpu' to "
+                               "run the ranks on the host")
+        local = int(env.get("LOCAL_RANK", rank))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    elif device.type != "cpu":
+        raise ValueError(f"init_distributed: no rank on {device}")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store, rank, world = next(tdist.rendezvous(init_method, rank, world, timeout=timeout))
+    store.set_timeout(timeout)
+    # every rank's place, read before the transport is chosen
+    store.set(f"mesh_place_{rank}", f"{socket.gethostname()}|{device}")
+    places = [store.get(f"mesh_place_{r}").decode().split("|", 1) for r in range(world)]
+    hosts = [h for h, _ in places]
+    devices = [torch.device(d) for _, d in places]
+    if backend is None:
+        own_cards = (all(d.type == "cuda" for d in devices)
+                     and len({(h, str(d)) for h, d in zip(hosts, devices)}) == world)
+        backend = "nccl" if own_cards else "gloo"
+    tdist.init_process_group(backend, store=store, rank=rank, world_size=world, timeout=timeout)
+    _RANKS = _Ranks(rank=rank, world=world, device=device, devices=devices, hosts=hosts,
+                    backend=backend)
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (a no-op outside one)."""
+    global _RANKS
+    if _RANKS is not None:
+        tdist.destroy_process_group()
+        _RANKS = None
+
+
+def process_count() -> int:
+    """The ranks of the process group (1 outside one)."""
+    return _RANKS.world if _RANKS is not None else 1
+
+
+def process_index() -> int:
+    """This process's rank (0 outside a group)."""
+    return _RANKS.rank if _RANKS is not None else 0
 
 
 # ---------------------------------------------------------------------------
@@ -55,61 +186,106 @@ __all__ = ["Shard", "Mesh", "Replicated", "make_mesh", "RowPartitionPlan",
 # ---------------------------------------------------------------------------
 
 
+class Place(NamedTuple):
+    """Where a replicated value is held: a rank and a device of it."""
+    rank: int
+    device: torch.device
+
+
 @dataclasses.dataclass(frozen=True)
 class Shard:
     index: int
     device: torch.device
-    stream: Optional["torch.cuda.Stream"]  # None on the CPU
+    stream: Optional["torch.cuda.Stream"]  # None on the CPU and for another rank's shard
+    rank: int = 0
+
+    @property
+    def place(self) -> Place:
+        return Place(self.rank, self.device)
 
 
 class Replicated:
-    """A value held once on every distinct device of a mesh (the output of
-    a collective); ``at(d)`` is the copy on shard d's device."""
+    """A value held once on every place of this rank (the output of a
+    collective); ``at(d)`` is the copy at shard d's place."""
 
-    def __init__(self, mesh: "Mesh", values: Dict[torch.device, torch.Tensor]):
+    def __init__(self, mesh: "Mesh", values: Dict[Place, torch.Tensor]):
         self.mesh = mesh
         self.values = values
 
     def at(self, d: int) -> torch.Tensor:
-        return self.values[self.mesh.shards[d].device]
+        return self.values[self.mesh.shards[d].place]
 
     @property
     def first(self) -> torch.Tensor:
-        """The copy on the mesh's first device."""
-        return self.values[self.mesh.devices[0]]
+        """The copy at this rank's first place."""
+        return self.values[self.mesh.local_places[0]]
+
+
+def _digest(h, part) -> None:
+    if isinstance(part, np.ndarray):
+        h.update(f"{part.dtype}{part.shape}".encode())
+        h.update(np.ascontiguousarray(part).tobytes())
+    elif isinstance(part, (list, tuple)):
+        h.update(f"[{len(part)}".encode())
+        for p in part:
+            _digest(h, p)
+    else:
+        h.update(repr(part).encode())
 
 
 class Mesh:
-    """P shards over a list of torch devices, one stream a shard on a card.
+    """P shards over a list of torch devices, one stream a shard on a card,
+    on one rank or spread over the ranks of the process group (``ranks[d]``
+    is shard d's; by default every shard is this process's).
 
     A shard's work runs under :meth:`on`; :meth:`fork` starts a distributed
     operation (every shard's stream waits for its device's current stream)
     and :meth:`join` ends it (every device's current stream waits for its
-    shards). Between the two, the collectives order the streams they connect
-    by events and count the bytes they copy in ``bytes_moved``."""
+    shards); both cover this rank's shards. Between the two, the collectives
+    order the streams they connect by events. ``bytes_moved`` counts the
+    bytes handed between this rank's shards, ``bytes_sent`` those this rank
+    sent to others."""
 
-    def __init__(self, devices: Sequence[Union[str, torch.device]]):
+    def __init__(self, devices: Sequence[Union[str, torch.device]],
+                 ranks: Optional[Sequence[int]] = None):
         devices = [torch.device(d) for d in devices]
         if not devices:
             raise ValueError("a mesh needs at least one shard")
+        me = process_index()
+        ranks = [me] * len(devices) if ranks is None else [int(r) for r in ranks]
+        spans = sorted(set(ranks))
+        if len(spans) > 1:
+            world = process_count()
+            k = len(devices) // world
+            if k * world != len(devices) or ranks != [d // k for d in range(len(devices))]:
+                raise ValueError(f"a mesh over ranks gives each of the group's {world} ranks an "
+                                 f"equal run of shards in rank order, not {ranks}")
         shards = []
-        for i, dev in enumerate(devices):
-            if dev.type == "cuda":
-                if dev.index is None:
-                    dev = torch.device("cuda", torch.cuda.current_device())
-                stream = torch.cuda.Stream(dev)
-            elif dev.type == "cpu":
-                stream = None
-            else:
-                raise ValueError(f"no mesh on {dev}")
-            shards.append(Shard(i, dev, stream))
+        for i, (dev, r) in enumerate(zip(devices, ranks)):
+            stream = None
+            if r == me:
+                if dev.type == "cuda":
+                    if dev.index is None:
+                        dev = torch.device("cuda", torch.cuda.current_device())
+                    stream = torch.cuda.Stream(dev)
+                elif dev.type != "cpu":
+                    raise ValueError(f"no mesh on {dev}")
+            shards.append(Shard(i, dev, stream, r))
         self.shards: List[Shard] = shards
-        self.devices: List[torch.device] = list(dict.fromkeys(s.device for s in shards))
-        # the first shard on each device computes the device's replicated values
-        self.lead: Dict[torch.device, int] = {}
+        self.rank = me
+        self.ranks = len(spans)  # the ranks the mesh spans
+        self.local_shards: List[int] = [s.index for s in shards if s.rank == me]
+        self.places: List[Place] = list(dict.fromkeys(s.place for s in shards))
+        self.local_places: List[Place] = [p for p in self.places if p.rank == me]
+        if self.ranks > 1 and len(self.local_places) != 1:
+            raise ValueError("a mesh over ranks puts each rank's shards on one device")
+        # the first shard of each place computes the place's replicated values
+        self.lead: Dict[Place, int] = {}
         for s in shards:
-            self.lead.setdefault(s.device, s.index)
+            self.lead.setdefault(s.place, s.index)
+        self._group = _RANKS if self.ranks > 1 else None
         self.bytes_moved = 0
+        self.bytes_sent = 0
 
     @property
     def size(self) -> int:
@@ -118,18 +294,33 @@ class Mesh:
     def __len__(self) -> int:
         return len(self.shards)
 
+    def is_local(self, d: int) -> bool:
+        """Whether shard d is this rank's."""
+        return self.shards[d].rank == self.rank
+
     def describe(self) -> str:
-        """"4 shards on 1 card", "8 shards on the CPU"."""
+        """"4 shards on 1 card", "8 shards on the CPU", "4 shards over 2 ranks
+        on 1 card (gloo through the host)"."""
         p = self.size
-        if self.devices[0].type == "cpu":
-            return f"{p} shard{'s' * (p != 1)} on the CPU"
-        c = len(self.devices)
-        return f"{p} shard{'s' * (p != 1)} on {c} card{'s' * (c != 1)}"
+        what = f"{p} shard{'s' * (p != 1)}"
+        cpu = self.places[0].device.type == "cpu"
+        if self._group is None:
+            c = len(self.places)
+            return f"{what} on the CPU" if cpu else f"{what} on {c} card{'s' * (c != 1)}"
+        what += f" over {self.ranks} ranks"
+        if cpu:
+            return f"{what} on the CPU ({self._group.backend})"
+        c = len({(self._group.hosts[pl.rank], str(pl.device)) for pl in self.places})
+        how = "gloo through the host" if self._group.backend == "gloo" else self._group.backend
+        return f"{what} on {c} card{'s' * (c != 1)} ({how})"
 
     @contextlib.contextmanager
     def on(self, d: int):
-        """Run what follows as shard d: on its device and its stream."""
+        """Run what follows as shard d (one of this rank's): on its device and
+        its stream."""
         s = self.shards[d]
+        if s.rank != self.rank:
+            raise ValueError(f"shard {d} is rank {s.rank}'s, not this rank's ({self.rank})")
         if s.stream is None:
             yield
             return
@@ -147,23 +338,37 @@ class Mesh:
                 torch.cuda.current_stream(s.device).wait_stream(s.stream)
 
     def wait(self, d: int, srcs: Sequence[int]) -> None:
-        """Shard d's stream waits for the work queued so far on each of the
-        shards ``srcs``."""
+        """Shard d's stream waits for the work queued so far on each of this
+        rank's shards among ``srcs``."""
         mine = self.shards[d].stream
         if mine is None:
             return
         for s in srcs:
-            if s != d:
+            if s != d and self.shards[s].stream is not None:
                 mine.wait_stream(self.shards[s].stream)
 
-    def take(self, t: torch.Tensor, src: int, d: int, count: bool = True) -> torch.Tensor:
+    def take(self, t: Optional[torch.Tensor], src: int, d: int, count: bool = True,
+             like: Optional[Tuple[Sequence[int], torch.dtype]] = None
+             ) -> Optional[torch.Tensor]:
         """``t``, made on shard ``src`` (which shard d has waited for), for use
         on shard d: the same tensor on the same device, else a copy made with
         both shards' streams current (the copy runs on src's and d's stream
-        waits for it). Counts its bytes in ``bytes_moved`` unless told not to."""
+        waits for it). Counts its bytes in ``bytes_moved`` unless told not to.
+
+        Between ranks it is one transfer, which both ranks call: src's sends
+        ``t``, d's receives a tensor of ``like`` (shape, dtype) and returns
+        it; any other rank, and the sender, get None."""
+        s, o = self.shards[d], self.shards[src]
+        if s.rank != o.rank:
+            if o.rank == self.rank:
+                with self.on(src):
+                    self._exchange(src, {s.rank: [t]}, {})
+            elif s.rank == self.rank:
+                with self.on(d):
+                    return self._exchange(d, {}, {o.rank: [like]})[o.rank][0]
+            return None
         if count:
             self.bytes_moved += t.numel() * t.element_size()
-        s, o = self.shards[d], self.shards[src]
         if t.device == s.device:
             if s.stream is not None:
                 t.record_stream(s.stream)
@@ -172,40 +377,139 @@ class Mesh:
                           else contextlib.nullcontext()):
             return t.to(s.device, non_blocking=True)
 
+    def _staged(self, device: torch.device) -> bool:
+        """Whether a tensor on ``device`` goes through the host (gloo)."""
+        return self._group.backend == "gloo" and device.type == "cuda"
+
+    def _exchange(self, d: int, sends: Dict[int, List[torch.Tensor]],
+                  recvs: Dict[int, List[Tuple[Sequence[int], torch.dtype]]]
+                  ) -> Dict[int, List[torch.Tensor]]:
+        """One batch of transfers between this rank and others, on shard d's
+        stream (current): ``sends[r]`` flattened into one message to rank r,
+        ``recvs[r]`` the (shape, dtype) of the tensors of rank r's message, in
+        its order. Every send and receive is posted at once, then waited for.
+        Returns the received tensors by rank, on d's device."""
+        dev = self.shards[d].device
+        staged = self._staged(dev)
+        ops, bufs = [], {}
+        for peer in sorted(sends):
+            ts = sends[peer]
+            if len({t.dtype for t in ts}) != 1:
+                raise ValueError("one message carries one type")
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            wire = flat.to("cpu") if staged else flat
+            self.bytes_sent += wire.numel() * wire.element_size()
+            ops.append(tdist.P2POp(tdist.isend, wire, peer))
+        for peer in sorted(recvs):
+            specs = recvs[peer]
+            if len({dt for _, dt in specs}) != 1:
+                raise ValueError("one message carries one type")
+            numel = sum(math.prod(shape) for shape, _ in specs)
+            bufs[peer] = torch.empty(numel, dtype=specs[0][1], device="cpu" if staged else dev)
+            ops.append(tdist.P2POp(tdist.irecv, bufs[peer], peer))
+        if ops:
+            for work in tdist.batch_isend_irecv(ops):
+                work.wait()
+        out = {}
+        for peer, specs in recvs.items():
+            buf = bufs[peer].to(dev) if staged else bufs[peer]
+            parts, at = [], 0
+            for shape, _ in specs:
+                m = math.prod(shape)
+                parts.append(buf[at:at + m].view(tuple(shape)))
+                at += m
+            out[peer] = parts
+        return out
+
+    def _gather(self, t: torch.Tensor, count: bool) -> torch.Tensor:
+        """``[ranks, *t.shape]``: every rank's ``t`` (one shape on all), in
+        rank order, on t's device, on the current stream; what this rank
+        sends counted in ``bytes_sent`` where ``count``."""
+        staged = self._staged(t.device)
+        wire = t.to("cpu") if staged else t.contiguous()
+        out = [torch.empty_like(wire) for _ in range(self.ranks)]
+        tdist.all_gather(out, wire)
+        if count:
+            self.bytes_sent += wire.numel() * wire.element_size() * (self.ranks - 1)
+        return torch.stack(out).to(t.device)
+
     def map(self, fn: Callable, *args) -> list:
-        """``[fn(d, *args at d) for each shard d]``, each under :meth:`on`; an
-        argument is a list (indexed by shard), a :class:`Replicated` (its copy
-        on d's device) or anything else (passed as it is)."""
-        out = []
-        for d in range(self.size):
+        """``[fn(d, *args at d) for each shard d]``, each under :meth:`on`,
+        ``None`` for another rank's shard; an argument is a list (indexed by
+        shard), a :class:`Replicated` (its copy at d's place) or anything else
+        (passed as it is)."""
+        out = [None] * self.size
+        for d in self.local_shards:
             picked = [a[d] if isinstance(a, list) else a.at(d) if isinstance(a, Replicated)
                       else a for a in args]
             with self.on(d):
-                out.append(fn(d, *picked))
+                out[d] = fn(d, *picked)
         return out
 
-    def all_to_all(self, send: List[List[Optional[torch.Tensor]]]
-                   ) -> List[List[Optional[torch.Tensor]]]:
+    def all_to_all(self, send: List[List[Optional[torch.Tensor]]],
+                   expect: Optional[List[List[Optional[Tuple[Sequence[int], torch.dtype]]]]]
+                   = None) -> List[List[Optional[torch.Tensor]]]:
         """``recv[d][s] = send[s][d]`` moved to shard d (None where nothing
-        is sent). A shard's own entry is handed over without being counted."""
+        is sent), for this rank's shards d. A shard's own entry is handed over
+        without being counted. ``send[s]`` is given for this rank's shards s;
+        ``expect[d][s]``, the (shape, dtype) of what another rank's shard s
+        sends shard d, for the others. What this rank sends another goes in
+        one message, the pairs (s, d) in order, and every message to and from
+        this rank is posted at once."""
         p = self.size
         recv: List[List[Optional[torch.Tensor]]] = [[None] * p for _ in range(p)]
-        for d in range(p):
-            srcs = [s for s in range(p) if send[s][d] is not None]
+        if self._group is not None:
+            if expect is None:
+                raise ValueError("all_to_all over ranks needs expect: the shapes this rank "
+                                 "receives from the others")
+            sends: Dict[int, List[torch.Tensor]] = {}
+            recvs: Dict[int, list] = {}
+            pairs: Dict[int, List[Tuple[int, int]]] = {}
+            for s in self.local_shards:
+                for d in range(p):
+                    if send[s][d] is not None and not self.is_local(d):
+                        sends.setdefault(self.shards[d].rank, []).append(send[s][d])
+            for s in range(p):
+                if self.is_local(s):
+                    continue
+                for d in self.local_shards:
+                    if expect[d][s] is not None:
+                        recvs.setdefault(self.shards[s].rank, []).append(expect[d][s])
+                        pairs.setdefault(self.shards[s].rank, []).append((s, d))
+            if sends or recvs:
+                lead = self.local_shards[0]
+                self.wait(lead, self.local_shards)
+                with self.on(lead):
+                    got = self._exchange(lead, sends, recvs)
+                for r, sd in pairs.items():
+                    for (s, d), t in zip(sd, got[r]):
+                        if d != lead:
+                            self.wait(d, [lead])
+                            if self.shards[d].stream is not None:
+                                t.record_stream(self.shards[d].stream)
+                        recv[d][s] = t
+        for d in self.local_shards:
+            srcs = [s for s in self.local_shards if send[s][d] is not None]
             with self.on(d):
                 self.wait(d, srcs)
                 for s in srcs:
                     recv[d][s] = self.take(send[s][d], s, d, count=s != d)
         return recv
 
-    def all_gather(self, xs: Sequence[torch.Tensor]) -> Replicated:
+    def all_gather(self, xs: Sequence[Optional[torch.Tensor]]) -> Replicated:
         """Every shard's tensor concatenated in shard order, once on every
-        device."""
+        place (across ranks every shard's tensor has one shape)."""
         return self._replicate(xs, torch.cat)
 
-    def psum(self, xs: Sequence[torch.Tensor]) -> Replicated:
+    def gather(self, xs: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+        """Every shard's tensor concatenated in shard order, at this rank's
+        first place only (across ranks, on every rank), its bytes not
+        counted."""
+        return self._replicate(xs, torch.cat, first_only=True, count=False).first
+
+    def psum(self, xs: Sequence[Optional[torch.Tensor]]) -> Replicated:
         """The sum of the shards' tensors, added in shard order (a left fold,
-        no atomics), once on every device."""
+        no atomics), once on every place."""
 
         def fold(parts):
             acc = parts[0]
@@ -215,40 +519,56 @@ class Mesh:
 
         return self._replicate(xs, fold)
 
-    def _per_device(self, fn: Callable) -> Replicated:
-        """``fn(device, lead)`` once on every device, on the stream of its
-        first shard (``lead``), which the device's other shards then wait for."""
+    def _per_device(self, fn: Callable, first_only: bool = False) -> Replicated:
+        """``fn(place, lead)`` once on every place of this rank (the first
+        only where ``first_only``), on the stream of its first shard
+        (``lead``), which the place's other shards then wait for."""
         out = {}
-        for dev in self.devices:
-            lead = self.lead[dev]
+        for place in self.local_places[:1] if first_only else self.local_places:
+            lead = self.lead[place]
             with self.on(lead):
-                out[dev] = fn(dev, lead)
-            for s in self.shards:
-                if s.device == dev and s.index != lead:
-                    self.wait(s.index, [lead])
+                out[place] = fn(place, lead)
+            for d in self.local_shards:
+                if self.shards[d].place == place and d != lead:
+                    self.wait(d, [lead])
         return Replicated(self, out)
 
-    def _replicate(self, xs, combine) -> Replicated:
-        def one(dev, lead):
-            self.wait(lead, range(self.size))
-            return combine([self.take(x, s, lead) for s, x in enumerate(xs)])
+    def _replicate(self, xs, combine, first_only: bool = False, count: bool = True
+                   ) -> Replicated:
+        if self._group is None:
+            def one(place, lead):
+                self.wait(lead, range(self.size))
+                return combine([self.take(x, s, lead, count=count) for s, x in enumerate(xs)])
 
-        return self._per_device(one)
+            return self._per_device(one, first_only)
+
+        def across(place, lead):
+            # one all-gather of this rank's shards' tensors, stacked, and the fold
+            # over every shard's in shard order, as on one process
+            mine = self.local_shards
+            self.wait(lead, mine)
+            if count:
+                self.bytes_moved += sum(xs[d].numel() * xs[d].element_size() for d in mine)
+            every = self._gather(torch.stack([xs[d] for d in mine]), count)
+            return combine([t for part in every for t in part.unbind(0)])
+
+        return self._per_device(across)
 
     def each_device(self, fn: Callable, *reps: Replicated) -> Replicated:
-        """``fn`` of replicated values, computed once on every device."""
-        return self._per_device(lambda dev, lead: fn(*[r.values[dev] for r in reps]))
+        """``fn`` of replicated values, computed once on every place."""
+        return self._per_device(lambda place, lead: fn(*[r.values[place] for r in reps]))
 
     def synchronize(self) -> None:
-        """The host waits for every card of the mesh."""
-        for dev in self.devices:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        """The host waits for this rank's cards of the mesh."""
+        for place in self.local_places:
+            if place.device.type == "cuda":
+                torch.cuda.synchronize(place.device)
 
     def test(self, fn: Callable, *reps: Replicated) -> bool:
-        """A convergence test: ``bool(fn(...))`` of replicated values on the
-        first device, the one wait of the host."""
-        with self.on(self.lead[self.devices[0]]):
+        """A convergence test: ``bool(fn(...))`` of replicated values at this
+        rank's first place, the one wait of the host. Every rank holds the
+        same bits, so every rank takes the same branch."""
+        with self.on(self.lead[self.local_places[0]]):
             return bool(fn(*[r.first for r in reps]))
 
     def dot(self, u: List[torch.Tensor], v: List[torch.Tensor]) -> Replicated:
@@ -256,16 +576,56 @@ class Mesh:
         :meth:`psum`."""
         return self.psum(self.map(lambda d, a, b: torch.dot(a.float(), b.float()), u, v))
 
+    def rank_values(self, values) -> np.ndarray:
+        """``values`` (an fp64 host array of one shape on every rank) of every
+        rank the mesh spans, stacked in rank order: a report's counts are
+        summed from it."""
+        v = torch.from_numpy(np.array(values, np.float64, ndmin=1))
+        if self._group is None:
+            return v.numpy()[None]
+        place = self.local_places[0]
+        with self.on(self.lead[place]):
+            return self._gather(v.to(place.device) if self._group.backend == "nccl"
+                                else v, False).cpu().numpy()
 
-def make_mesh(n_devices: Optional[int] = None, device: Union[str, torch.device] = "cuda"
-              ) -> Mesh:
+    def check_plan(self, what: str, *parts) -> None:
+        """Raise unless every rank built the same host plan: ``parts``
+        (arrays, lists of them, numbers, strings) hashed on each rank and the
+        digests compared. Ranks that differ would wait on transfers that
+        never come, or take the wrong bytes."""
+        if self._group is None:
+            return
+        h = hashlib.sha256()
+        _digest(h, list(parts))
+        got = self.rank_values(np.frombuffer(h.digest(), np.uint8))
+        if not (got == got[0]).all():
+            raise RuntimeError(f"{what}: the ranks built different plans (their digests "
+                               "differ); every rank must pass the same matrix and arguments")
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              device: Optional[Union[str, torch.device]] = None) -> Mesh:
     """A mesh of ``n_devices`` shards on ``device``.
 
-    ``"cuda"`` puts the shards on the cards round-robin (by default one a
-    card); ``"cuda:k"`` puts them all on card k; ``"cpu"`` on the host (by
-    default one). A mesh on a card raises when there is none: it never falls
-    back to the CPU."""
-    device = torch.device(device)
+    In a process group (:func:`init_distributed`) the shards are spread over
+    its ranks, ``n_devices / ranks`` a rank (by default one), each rank's on
+    its own device; ``device``, where given, must be of the rank's kind.
+    Otherwise ``"cuda"`` (the default) puts the shards on the cards
+    round-robin (by default one a card); ``"cuda:k"`` puts them all on card
+    k; ``"cpu"`` on the host (by default one). A mesh on a card raises when
+    there is none: it never falls back to the CPU."""
+    g = _RANKS
+    if g is not None:
+        if device is not None:
+            want = torch.device(device)
+            if want.type != g.device.type or (want.index is not None and want != g.device):
+                raise ValueError(f"make_mesh: this rank runs on {g.device}, not {want}")
+        n = g.world if n_devices is None else int(n_devices)
+        if n < 1 or n % g.world:
+            raise ValueError(f"make_mesh: {n} shards do not split evenly over {g.world} ranks")
+        ranks = [d // (n // g.world) for d in range(n)]
+        return Mesh([g.devices[r] for r in ranks], ranks)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: CUDA is not available; pass device='cpu' to run "
@@ -400,9 +760,14 @@ class DistSpmv:
         self.n = a.nrows
         self.plan = build_row_partition(a, mesh.size)
         p, n_loc = mesh.size, self.plan.n_loc
-        self._shards: List[_ShardSpmv] = []
+        acc = self.policy.accum_dtype
+        mesh.check_plan("DistSpmv", self.policy.name, n_loc, self.plan.requests)
+        # what shard d receives from shard s, known to d from the plan
+        self._expect = [[((r.size,), acc) if r.size else None for r in row]
+                        for row in self.plan.requests]
+        self._shards: List[Optional[_ShardSpmv]] = [None] * p
         mesh.fork()
-        for d in range(p):
+        for d in mesh.local_shards:
             dev = mesh.shards[d].device
             loc = self.plan.local[d]
             inner = self.plan.interior(d)
@@ -419,7 +784,7 @@ class DistSpmv:
                 off = np.r_[0, np.cumsum([s.size for s in sends])].tolist()
                 idx = (torch.from_numpy(np.concatenate(sends).astype(np.int64)).to(dev)
                        if off[-1] else None)
-            self._shards.append(_ShardSpmv(interior, boundary, bnd_rows, idx, off))
+            self._shards[d] = _ShardSpmv(interior, boundary, bnd_rows, idx, off)
         mesh.join()
 
     @property
@@ -427,9 +792,10 @@ class DistSpmv:
         """Bytes of x one call moves between shards."""
         return self.plan.exchange_entries * torch.finfo(self.policy.accum_dtype).bits // 8
 
-    def shard_vector(self, x) -> List[torch.Tensor]:
+    def shard_vector(self, x) -> List[Optional[torch.Tensor]]:
         """A host vector (length n) split into the shards' padded pieces of
-        the policy's x type, each on its shard's device."""
+        the policy's x type, each on its shard's device (this rank's
+        shards; None for the others)."""
         xp = np.zeros(self.plan.ndev * self.plan.n_loc, np.float64)
         xp[:self.n] = np.asarray(x, np.float64)
         n_loc = self.plan.n_loc
@@ -437,28 +803,28 @@ class DistSpmv:
         return self.mesh.map(lambda d: torch.from_numpy(xp[d * n_loc:(d + 1) * n_loc]).to(
             self.mesh.shards[d].device).to(acc))
 
-    def unshard(self, y: Sequence[torch.Tensor]) -> np.ndarray:
+    def unshard(self, y: Sequence[Optional[torch.Tensor]]) -> np.ndarray:
+        """The host vector of a sharded one, gathered: the whole of it on
+        every rank."""
+        full = self.mesh.gather(y)
         self.mesh.join()
-        return torch.cat([t.detach().to("cpu", torch.float64) for t in y]).numpy()[:self.n]
+        return full.detach().to("cpu", torch.float64).numpy()[:self.n]
 
-    def __call__(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def __call__(self, xs: List[Optional[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
         mesh, p = self.mesh, self.mesh.size
         mesh.fork()
-        ys, sent = [], []
-        for d in range(p):
-            sh = self._shards[d]
-            with mesh.on(d):
-                sent.append(xs[d].index_select(0, sh.send_idx) if sh.send_idx is not None
-                            else None)
-                ys.append(spmv(sh.interior, xs[d]))
-        send = [[None] * p for _ in range(p)]
-        for s in range(p):
-            off = self._shards[s].send_off
+        ys: List[Optional[torch.Tensor]] = [None] * p
+        send: List[List[Optional[torch.Tensor]]] = [[None] * p for _ in range(p)]
+        for s in mesh.local_shards:
+            sh = self._shards[s]
+            with mesh.on(s):
+                sent = xs[s].index_select(0, sh.send_idx) if sh.send_idx is not None else None
+                ys[s] = spmv(sh.interior, xs[s])
             for d in range(p):
-                if off[d + 1] > off[d]:  # a shard sends itself nothing
-                    send[s][d] = sent[s][off[d]:off[d + 1]]
-        recv = mesh.all_to_all(send)
-        for d in range(p):
+                if sh.send_off[d + 1] > sh.send_off[d]:  # a shard sends itself nothing
+                    send[s][d] = sent[sh.send_off[d]:sh.send_off[d + 1]]
+        recv = mesh.all_to_all(send, self._expect)
+        for d in mesh.local_shards:
             sh = self._shards[d]
             if sh.boundary is None:
                 continue
@@ -508,9 +874,10 @@ class BlockJacobiIlu:
         self.n_loc = n_loc = plan.n_loc
         n = plan.n
         rows_all = np.repeat(np.arange(n, dtype=np.int64), a.row_lengths())
-        self._shards: List[_ShardIlu] = []
+        mesh.check_plan("BlockJacobiIlu", n_loc, plan.ndev, sweeps, apply_sweeps)
+        self._shards: List[Optional[_ShardIlu]] = [None] * plan.ndev
         mesh.fork()
-        for d in range(plan.ndev):
+        for d in mesh.local_shards:
             lo, hi = min(d * n_loc, n), min((d + 1) * n_loc, n)
             sel = (rows_all >= lo) & (rows_all < hi) & (a.indices >= lo) & (a.indices < hi)
             r = (rows_all[sel] - lo).astype(np.int32)
@@ -534,10 +901,10 @@ class BlockJacobiIlu:
                 dinv = np.ones(n_loc)
                 dv = np.where(np.abs(dfac) > 0, dfac, 1.0)
                 dinv[:hi - lo] = 1.0 / dv[:hi - lo]
-                self._shards.append(_ShardIlu(
+                self._shards[d] = _ShardIlu(
                     to_device(L, "fp32", dev, fmt="csr") if L.nnz else None,
                     to_device(strict_u, "fp32", dev, fmt="csr") if strict_u.nnz else None,
-                    torch.from_numpy(dinv.astype(np.float32)).to(dev)))
+                    torch.from_numpy(dinv.astype(np.float32)).to(dev))
         mesh.join()
 
     def _apply_shard(self, d: int, r: torch.Tensor) -> torch.Tensor:
@@ -560,14 +927,16 @@ class BlockJacobiIlu:
         return out
 
     def apply_host(self, r: np.ndarray) -> np.ndarray:
-        """Host-vector convenience wrapper around :meth:`apply`."""
+        """Host-vector convenience wrapper around :meth:`apply` (the whole
+        of M^-1 r on every rank)."""
         n_loc = self.n_loc
         rp = np.zeros(self.mesh.size * n_loc)
         rp[:r.size] = r
         rs = self.mesh.map(lambda d: torch.from_numpy(rp[d * n_loc:(d + 1) * n_loc]).float().to(
             self.mesh.shards[d].device))
-        out = self.apply(rs)
-        return torch.cat([t.to("cpu", torch.float64) for t in out]).numpy()[:r.size]
+        full = self.mesh.gather(self.apply(rs))
+        self.mesh.join()
+        return full.to("cpu", torch.float64).numpy()[:r.size]
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ The counterpart of ``respatpu/dist_lu.py``, which fills the reference's MUMPS
 slot (job=4 analyze + factorize, test_mumps.c:121-128; job=3 solve,
 :136-143) with the partitioned band algorithm of Polizzi and Sameh:
 
-1. the band path's ordering (``solve.band_ordering``: the narrower of the
-   natural order and RCM) and block-aligned band layout
+1. respatpu's ordering (RCM for ``order="rcm"``, the default, else the
+   natural order; the single-card band path keeps the narrower of the two
+   instead, ``solve.band_ordering``) and the block-aligned band layout
    (``kernels/bandlu.py``), split into P contiguous partitions of ``nb_loc``
    block rows, one a shard;
 2. the entries that cross a partition edge carved out into dense coupling
@@ -19,10 +20,15 @@ slot (job=4 analyze + factorize, test_mumps.c:121-128; job=3 solve,
    K2 takes one right-hand side, several go block row by block row through
    torch ops, ROADMAP item f). One ``all_gather`` of
    the tips assembles the reduced system R (identity plus the tips, of order
-   P*(ml+mu)*p), LU-factored by ``torch.linalg`` once on every device;
+   P*(ml+mu)*p), LU-factored by ``torch.linalg`` once on every place;
 4. solve: g_j = A_j^-1 b_j (two launches of K2), an ``all_gather`` of g's
-   tips, the reduced solve once a device, and each shard back-substitutes
-   ``x_j = A_j^-1 (b_j - [0; B_j u_{j+1}] - [C_j d_{j-1}; 0])``.
+   tips, the reduced solve once a place, and each shard back-substitutes
+   ``x_j = A_j^-1 (b_j - [0; B_j u_{j+1}] - [C_j d_{j-1}; 0])``; x is
+   gathered onto every rank.
+
+On a mesh over ranks each rank sets up and factors its own partitions and
+holds the right-hand side and x whole, so that the refinement runs on every
+rank alike, with the same bits.
 
 As in respatpu, the shards' perturbed pivots are summed into the report, and
 accuracy comes from refinement (:func:`dist_solve_refined`: fp64 residuals on
@@ -33,12 +39,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .analysis import permute_csr
+from .analysis import permute_csr, rcm_ordering
 from .dist import Mesh, make_mesh
 from .formats import CSRMatrix
 from .kernels import bandlu
@@ -48,10 +54,12 @@ from .solve import SolveReport, band_ordering, relative_residual, solve_refined
 __all__ = ["DistBandLu", "dist_factorize_band", "dist_solve_refined"]
 
 
-def _split_coupling(a: CSRMatrix, ndev: int, nb_loc: int, p: int, ml: int, mu: int):
-    """Each partition's band entries and coupling blocks, on the host.
+def _split_coupling(a: CSRMatrix, ndev: int, nb_loc: int, p: int, ml: int, mu: int,
+                    parts: Sequence[int]):
+    """The band entries and coupling blocks of the partitions ``parts``, on
+    the host.
 
-    Returns, for every partition j, ``(flat, vals, B_j, C_j)``: the flat
+    Returns, for each partition j of them, ``(flat, vals, B_j, C_j)``: the flat
     positions in its band [nb_loc, p, (ml+mu+1)*p] of its entries (the
     identity on the padding rows past n included) and their values, and the
     dense coupling blocks ``B_j`` [mu*p, mu*p] (its last mu block rows
@@ -65,7 +73,7 @@ def _split_coupling(a: CSRMatrix, ndev: int, nb_loc: int, p: int, ml: int, mu: i
     part = rows // (nb_loc * p)
     pad = np.arange(n, ndev * nb_loc * p, dtype=np.int64)
     out = []
-    for j in range(ndev):
+    for j in parts:
         r0, r1 = j * nb_loc, (j + 1) * nb_loc
         sel = part == j
         rj, cj, vj = rows[sel], cols[sel], a.data[sel]
@@ -98,11 +106,12 @@ class DistBandLu:
     in a ``SolveReport``.
 
     ``max_reduced`` caps the reduced system's order P*(ml+mu)*p and
-    ``max_band_bytes`` the partitions' bands together: past either this
-    raises ``MemoryError``. ``phases`` holds the factorization's seconds:
-    ``band_lu`` (every shard's band), ``tips`` (the multi-right-hand-side
-    solves), ``reduced`` (the gather, assembly and LU of R), each ended by a
-    device synchronize."""
+    ``max_band_bytes`` the band (unpadded, counted in fp32, as respatpu
+    counts it): past either this raises ``MemoryError``. ``order`` is
+    respatpu's: RCM for ``"rcm"``, else the natural order. ``phases`` holds
+    the factorization's seconds: ``band_lu`` (every shard's band), ``tips``
+    (the multi-right-hand-side solves), ``reduced`` (the gather, assembly
+    and LU of R), each ended by a device synchronize."""
 
     def __init__(self, a: CSRMatrix, mesh: Optional[Mesh] = None,
                  policy: Union[str, Policy] = "fp32",
@@ -117,24 +126,28 @@ class DistBandLu:
         self.a = a
         self.mesh = mesh = mesh or make_mesh()
         self.ndev = ndev = mesh.size
-        self.device = mesh.devices[0]
+        self.device = mesh.local_places[0].device
         self.report = SolveReport(policy=f"{policy.name}+spike{ndev}")
-        for dev in mesh.devices:
-            if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        for place in mesh.local_places:
+            if place.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
                 raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on; the band "
                                    "factorization needs full fp32 products")
         acc = policy.accum_dtype
 
         t0 = time.perf_counter()
-        self.perm, bl, bu = band_ordering(a, order)
-        natural = bool((self.perm == np.arange(a.nrows)).all())
-        self._ap = a if natural else permute_csr(a, self.perm)
+        if order == "rcm":
+            self.perm = rcm_ordering(a)
+            self._ap = permute_csr(a, self.perm)
+        else:
+            self.perm = np.arange(a.nrows, dtype=np.int32)
+            self._ap = a
+        _, bl, bu = band_ordering(self._ap, "natural")
         ml, mu = max(1, -(-bl // p)), max(1, -(-bu // p))
         nb = -(-a.nrows // p)
         # tips must not overlap: nb_loc >= ml + mu
         nb_loc = max(-(-nb // ndev), ml + mu)
         w = (ml + mu + 1) * p
-        need = ndev * nb_loc * p * w * policy.dtype.itemsize
+        need = nb * p * w * 4
         if need > max_band_bytes:
             raise MemoryError(f"band storage would need {need / 2**30:.1f} GiB across the mesh "
                               f"(bandwidth {bl}+{bu} after ordering)")
@@ -148,18 +161,19 @@ class DistBandLu:
         if pivot_eps is None:
             amax = float(np.abs(a.data).max()) if a.nnz else 1.0
             pivot_eps = (1e-13 if acc == torch.float64 else 1e-4) * max(amax, 1.0)
-        split = _split_coupling(self._ap, ndev, nb_loc, p, ml, mu)
-        bands, couplings = [], []
+        mesh.check_plan("DistBandLu", policy.name, self.perm, p, ml, mu, nb_loc)
+        split = _split_coupling(self._ap, ndev, nb_loc, p, ml, mu, mesh.local_shards)
+        bands, couplings = [None] * ndev, [None] * ndev
         mesh.fork()
-        for j, (flat, vals, b, c) in enumerate(split):
+        for j, (flat, vals, b, c) in zip(mesh.local_shards, split):
             dev = mesh.shards[j].device
             with mesh.on(j):
                 data = torch.zeros(nb_loc * p * w, dtype=policy.dtype, device=dev)
                 data[torch.from_numpy(flat).to(dev)] = policy.cast_host(vals).to(dev)
-                bands.append(bandlu.DeviceBand(n=nb_loc * p, p=p, ml=ml, mu=mu, policy=policy,
-                                               data=data.view(nb_loc, p, w)))
-                couplings.append((torch.from_numpy(b).to(acc).to(dev),
-                                  torch.from_numpy(c).to(acc).to(dev)))
+                bands[j] = bandlu.DeviceBand(n=nb_loc * p, p=p, ml=ml, mu=mu, policy=policy,
+                                             data=data.view(nb_loc, p, w))
+                couplings[j] = (torch.from_numpy(b).to(acc).to(dev),
+                                torch.from_numpy(c).to(acc).to(dev))
         mesh.join()
         mesh.synchronize()
         self.report.t_analyze = time.perf_counter() - t0
@@ -170,8 +184,9 @@ class DistBandLu:
         mesh.fork()
         results = mesh.map(lambda j, band: bandlu.band_lu(band, pivot_eps), bands)
         del bands
-        self._parts = [_Part(res.lu, b, c) for res, (b, c) in zip(results, couplings)]
-        self.report.n_pivot_perturbed = sum(res.n_pivot_perturbed for res in results)
+        self._parts: List[Optional[_Part]] = [None] * ndev
+        for j in mesh.local_shards:
+            self._parts[j] = _Part(results[j].lu, *couplings[j])
         mesh.join()
         mesh.synchronize()
         self.phases["band_lu"] = time.perf_counter() - t0
@@ -191,15 +206,19 @@ class DistBandLu:
         self.report.t_factorize = time.perf_counter() - t0
         amax = float(np.abs(a.data).max()) if a.nnz else 1.0
         umax = 0.0
-        for part in self._parts:
-            lo, hi = torch.aminmax(part.lu.data)
+        for j in mesh.local_shards:
+            lo, hi = torch.aminmax(self._parts[j].lu.data)
             umax = max(umax, abs(float(lo)), abs(float(hi)))
-        self.report.pivot_growth = umax / max(amax, 1e-300)
+        # every rank's pivots and largest entry, for the one report every rank holds
+        counts = mesh.rank_values([sum(results[j].n_pivot_perturbed for j in mesh.local_shards),
+                                   umax])
+        self.report.n_pivot_perturbed = int(counts[:, 0].sum())
+        self.report.pivot_growth = float(counts[:, 1].max()) / max(amax, 1e-300)
         item = torch.finfo(acc).bits // 8
         self.reduced_bytes = self.reduced_order ** 2 * item
         self.report.factor_bytes = (
-            sum(part.lu.data.numel() * part.lu.data.element_size() for part in self._parts)
-            + len(mesh.devices) * self.reduced_bytes + ndev * (mu * mu + ml * ml) * p * p * item)
+            ndev * self._parts[mesh.local_shards[0]].lu.data.element_size() * nb_loc * p * w
+            + len(mesh.places) * self.reduced_bytes + ndev * (mu * mu + ml * ml) * p * p * item)
 
     def _tips(self, j: int) -> torch.Tensor:
         """Shard j's tips, flat: the top mu*p and bottom ml*p rows of V_j and
@@ -266,40 +285,36 @@ class DistBandLu:
 
         return mesh.map(back, bs, y)
 
-    def _pieces(self, bp: torch.Tensor) -> List[torch.Tensor]:
-        """A permuted right-hand side ([n] or [n, k] on the first device)
-        padded and cut into the shards' pieces, on their devices."""
+    def _pieces(self, bp: torch.Tensor) -> List[Optional[torch.Tensor]]:
+        """A permuted right-hand side ([n] or [n, k] at this rank's first
+        place) padded and cut into its shards' pieces, on their devices."""
         npts = self.ndev * self.nb_loc * self.p
         acc = self.policy.accum_dtype
         mesh = self.mesh
-        first = mesh.lead[mesh.devices[0]]
+        first = mesh.lead[mesh.local_places[0]]
         with mesh.on(first):
             full = torch.zeros((npts, *bp.shape[1:]), dtype=acc, device=bp.device)
             full[:self.n] = ftz(bp.to(acc), self.policy.flush_to_zero)
         m = self.nb_loc * self.p
-        out = []
-        for j in range(self.ndev):
+        out: List[Optional[torch.Tensor]] = [None] * self.ndev
+        for j in mesh.local_shards:
             mesh.wait(j, [first])
-            out.append(mesh.take(full[j * m:(j + 1) * m], first, j, count=False))
+            out[j] = mesh.take(full[j * m:(j + 1) * m], first, j, count=False)
         return out
 
     def solve_device(self, bp: torch.Tensor) -> torch.Tensor:
-        """Solve in permuted coordinates: ``bp`` [n] or [n, k] on the mesh's
-        first device in, x in the accumulator type there out."""
+        """Solve in permuted coordinates: ``bp`` [n] or [n, k] at this rank's
+        first place in, x in the accumulator type there out (on a mesh over
+        ranks, every rank passes the same b and gets the whole x)."""
         mesh = self.mesh
         mesh.fork()
-        xs = self._solve_parts(self._pieces(bp))
-        first = mesh.lead[mesh.devices[0]]
-        mesh.wait(first, range(self.ndev))
-        parts = [mesh.take(x, j, first, count=False) for j, x in enumerate(xs)]
-        with mesh.on(first):
-            x = torch.cat(parts)[:self.n]
+        x = mesh.gather(self._solve_parts(self._pieces(bp)))[:self.n]
         mesh.join()
         return x
 
     def solve_original_device(self, r: torch.Tensor) -> torch.Tensor:
-        """Solve A x = r in the original coordinates, fp64 tensors on the
-        mesh's first device in and out (``solve_refined``'s correction)."""
+        """Solve A x = r in the original coordinates, fp64 tensors at this
+        rank's first place in and out (``solve_refined``'s correction)."""
         if getattr(self, "_perm_dev", None) is None:
             self._perm_dev = torch.from_numpy(self.perm.astype(np.int64)).to(self.device)
         x = torch.empty_like(r)
@@ -331,10 +346,11 @@ def dist_solve_refined(a: CSRMatrix, b: np.ndarray,
                        tol: float = 1e-12, max_iters: int = 40
                        ) -> Tuple[np.ndarray, SolveReport]:
     """Distributed factorization + fp64 iterative refinement: the
-    correction solves on the mesh (SPIKE), the residuals in fp64 on the
-    mesh's first device (K0), one host wait an iteration, and GMRES-IR if
+    correction solves on the mesh (SPIKE), the residuals in fp64 at each
+    rank's first place (K0), one host wait an iteration, and GMRES-IR if
     plain refinement stalls (``solve.solve_refined``). Reaches reference
-    fp64 residuals from the fp32 factorization."""
+    fp64 residuals from the fp32 factorization. Over ranks every rank runs
+    the same refinement on the same bits and returns the same x."""
     if fac is None:
         fac = DistBandLu(a, mesh=mesh)
     x, rep = solve_refined(a, b, fac=fac, tol=tol, max_iters=max_iters)

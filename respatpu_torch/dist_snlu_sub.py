@@ -21,11 +21,19 @@ communicator).
   (respatpu's ``valid``).
 * The solves go over the groups too: every shard runs the frontal sweep
   kernel K4 on its fronts against the right-hand side, which is held once a
-  device (fronts of one group never share a pivot row, so the shards of one
+  place (fronts of one group never share a pivot row, so the shards of one
   card write disjoint entries of it), with control words of its own (P3);
-  forward, each shard's updates to ancestor rows are then added by the
-  row-reduction kernel K5 into that copy, shard after shard: the psum of
+  every other place then receives the shard's solved pivots, and, forward,
+  each shard's updates to ancestor rows are added by the row-reduction
+  kernel K5 into every place's copy, shard after shard: the psum of
   respatpu's per-shard deltas, in shard order.
+
+On a mesh over ranks each rank uploads, assembles and factors its own
+shards' pools; a corner whose parent another rank owns, and a solve's
+pivots and updates, go to the other ranks in one exchange a group. Every
+rank holds the right-hand side and x whole and the report's counts summed.
+The pools stay where they are: ``factor_values`` and persistence refuse
+such a factor.
 
 Refinement (:meth:`DistSubtreeLu.solve_refined`) is ``solve.solve_refined``
 around these solves: fp64 residuals on the CSR SpMV kernel (K0), GMRES-IR if
@@ -282,6 +290,7 @@ def build_sharded_plan(part: SupernodePartition, ndev: int,
 
 
 _ARRAYS = ("piv", "rsx", "lp", "poff", "pmp", "seg_ptr", "red_rows", "red_ptr", "red_src")
+_FAR = ("piv", "red_rows", "red_ptr", "red_src")  # what a place needs of another's shard
 
 
 class DistSubtreeLu(_OriginalSolves):
@@ -323,7 +332,7 @@ class DistSubtreeLu(_OriginalSolves):
     def _setup(self, a, mesh, policy, order, amalg, part, max_pool_floats, pivot_eps):
         self.mesh = mesh = mesh or make_mesh()
         self.ndev = mesh.size
-        self.device = mesh.devices[0]
+        self.device = mesh.local_places[0].device
         policy = get_policy(policy)
         self.policy = policy
         self.a = a
@@ -331,22 +340,29 @@ class DistSubtreeLu(_OriginalSolves):
         self._dtype = policy.accum_dtype  # bf16 values are factored in fp32
         self._itemsize = torch.finfo(self._dtype).bits // 8
         self._flush = policy.flush_to_zero
-        for dev in mesh.devices:
-            if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        for place in mesh.local_places:
+            if place.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
                 raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on; the front "
                                    "factorization needs full fp32 products")
         t0 = time.perf_counter()
         self._order, self._amalg = order, amalg  # persisted: a reload re-runs the analysis
         self.part = part if part is not None else analyze_supernodes(a, order=order, amalg=amalg)
         self.perm = self.part.perm
-        self.plan = build_sharded_plan(self.part, self.ndev, max_pool_floats=max_pool_floats)
+        self.plan = plan = build_sharded_plan(self.part, self.ndev,
+                                              max_pool_floats=max_pool_floats)
+        mesh.check_plan("DistSubtreeLu", policy.name, self.perm, plan.owner, plan.local_sizes,
+                        plan.stage_sizes, [(g.level, g.wp, g.rp, [sg.nf if sg else 0
+                                                                  for sg in g.shards])
+                                           for g in plan.groups])
         self._perm_dev = torch.from_numpy(self.perm.astype(np.int64)).to(self.device)
-        # every group's index arrays on its shards, uploaded once
+        # every group's index arrays on this rank's shards, uploaded once; and at
+        # each place the pivots and reduction lists of the other places' shards
         self._dev = []
         mesh.fork()
-        for g in self.plan.groups:
-            row = []
-            for d, sg in enumerate(g.shards):
+        for g in plan.groups:
+            row: List[Optional[dict]] = [None] * self.ndev
+            for d in mesh.local_shards:
+                sg = g.shards[d]
                 dev = mesh.shards[d].device
                 with mesh.on(d):
                     t = ({k: torch.from_numpy(np.ascontiguousarray(getattr(sg, k))).to(dev)
@@ -354,7 +370,13 @@ class DistSubtreeLu(_OriginalSolves):
                     t["incoming"] = [{k: torch.from_numpy(getattr(r, k)).to(dev)
                                       for k in ("lp", "poff", "pmp", "seg_ptr")}
                                      for r in g.incoming[d]]
-                row.append(t)
+                    t["far"] = {}
+                    if d == mesh.lead[mesh.shards[d].place]:
+                        t["far"] = {e: {k: torch.from_numpy(np.ascontiguousarray(
+                                        getattr(g.shards[e], k))).to(dev) for k in _FAR}
+                                    for e in range(self.ndev) if g.shards[e] is not None
+                                    and mesh.shards[e].place != mesh.shards[d].place}
+                row[d] = t
             self._dev.append(row)
         mesh.join()
         self.mesh.synchronize()
@@ -374,9 +396,9 @@ class DistSubtreeLu(_OriginalSolves):
         if nz is None:
             nz = np.arange(plan.asm_dst.size)
         vals = np.asarray(values, np.float64)[nz]
-        pools = []
+        pools: List[Optional[torch.Tensor]] = [None] * self.ndev
         mesh.fork()
-        for d in range(self.ndev):
+        for d in mesh.local_shards:
             dev = mesh.shards[d].device
             with mesh.on(d):
                 pool = torch.zeros(int(plan.local_sizes[d] + plan.stage_sizes[d]),
@@ -387,7 +409,7 @@ class DistSubtreeLu(_OriginalSolves):
                     v = torch.where(v.abs() < torch.finfo(v.dtype).tiny, torch.zeros_like(v), v)
                 pool[torch.from_numpy(plan.asm_dst[nz][sel]).to(dev)] = v.to(dev)
                 pool[torch.from_numpy(plan.ones_dst[plan.ones_dev == d]).to(dev)] = ones
-            pools.append(pool)
+            pools[d] = pool
         mesh.join()
         return pools
 
@@ -397,14 +419,16 @@ class DistSubtreeLu(_OriginalSolves):
         stored factor."""
         self.pools = None
         mesh, plan, eps, fl = self.mesh, self.plan, self.pivot_eps, self._flush
+        p = self.ndev
         t0 = time.perf_counter()
         pools = self._assemble(self.part.filled.data, max(1.0, eps * 1.001), plan.asm_nz)
-        counts = [[] for _ in range(self.ndev)]
-        moved = mesh.bytes_moved
+        counts: List[list] = [[] for _ in range(p)]
+        moved = mesh.bytes_moved + mesh.bytes_sent
         mesh.fork()
         for g, dg in zip(plan.groups, self._dev):
             wp, rp = g.wp, g.rp
-            for d, sg in enumerate(g.shards):
+            for d in mesh.local_shards:
+                sg = g.shards[d]
                 if sg is None:
                     continue
                 t = dg[d]
@@ -417,32 +441,43 @@ class DistSubtreeLu(_OriginalSolves):
                                      t["pmp"][:k], t["seg_ptr"], fl)
             if not rp:
                 continue
-            for e in range(self.ndev):
+            # the corners whose parents another shard owns, to the owner
+            send: List[List[Optional[torch.Tensor]]] = [[None] * p for _ in range(p)]
+            expect: List[List[Optional[tuple]]] = [[None] * p for _ in range(p)]
+            for e in range(p):
+                for r in g.incoming[e]:
+                    s, src = r.src, g.shards[r.src]
+                    if mesh.is_local(s):
+                        send[s][e] = pools[s][src.g0:src.g0 + src.nf * g.mp ** 2].view(
+                            src.nf, g.mp, g.mp)[r.b0:r.b1, wp:, wp:]
+                    expect[e][s] = ((r.b1 - r.b0, rp, rp), self._dtype)
+            recv = mesh.all_to_all(send, expect)
+            for e in mesh.local_shards:
                 base = int(plan.local_sizes[e])
                 for r, rt in zip(g.incoming[e], dg[e]["incoming"]):
-                    s, nr = r.src, r.b1 - r.b0
-                    src = g.shards[s]
-                    corner = pools[s][src.g0:src.g0 + src.nf * g.mp ** 2].view(
-                        src.nf, g.mp, g.mp)[r.b0:r.b1, wp:, wp:]
-                    mesh.wait(e, [s])
-                    corner = mesh.take(corner, s, e)
+                    nr = r.b1 - r.b0
                     with mesh.on(e):
                         staged = pools[e][base:base + nr * (rp + 1) ** 2].view(nr, rp + 1, rp + 1)
-                        staged[:, 1:, 1:].copy_(corner)
+                        staged[:, 1:, 1:].copy_(recv[e][r.src])
                         F.extend_add(pools[e], base, nr, 1, rp, rt["lp"], rt["poff"],
                                      rt["pmp"], rt["seg_ptr"], fl)
         nbad = mesh.map(lambda d, c: torch.stack(c).sum() if c else None, counts)
         mesh.join()
-        self.report.n_pivot_perturbed = sum(int(c) for c in nbad if c is not None)
+        mine = sum(int(nbad[d]) for d in mesh.local_shards if nbad[d] is not None)
+        self.report.n_pivot_perturbed = int(mesh.rank_values([mine]).sum())
         self.mesh.synchronize()
         self.pools = pools
-        self.bytes_exchanged = mesh.bytes_moved - moved
+        self.bytes_exchanged = mesh.bytes_moved + mesh.bytes_sent - moved
         return time.perf_counter() - t0
 
     def factor_values(self) -> np.ndarray:
         """Factored entries in ``part.filled.data`` layout (host fp64, the
         pools' accuracy), for persistence and checks: each shard's pool
-        pulled once, into host memory."""
+        pulled once, into host memory. A mesh over ranks refuses: each rank
+        holds only its own shards' pools (``pools[d]``)."""
+        if self.mesh.ranks > 1:
+            raise ValueError("factor_values: the factor's pools lie on several ranks; each rank "
+                             "holds its own shards' pools only")
         plan = self.plan
         out = np.empty(plan.asm_dst.size, np.float64)
         self.mesh.join()
@@ -463,69 +498,89 @@ class DistSubtreeLu(_OriginalSolves):
         return self.plan.total_front_vol * self._itemsize
 
     def solve_device(self, bp: torch.Tensor) -> torch.Tensor:
-        """Solve L U x = bp in permuted coordinates, ``bp`` [n] on the mesh's
-        first device; x in the pool's type there. The right-hand side is held
-        once a device: K4 on every shard's fronts of a group, then (forward)
-        K5 of every shard into it in shard order on the device's first shard,
-        with a copy of each shard's solved pivots and updates to the other
-        devices."""
+        """Solve L U x = bp in permuted coordinates, ``bp`` [n] at this rank's
+        first place; x in the pool's type there (over ranks, every rank
+        passes the same b and gets the whole x). The right-hand side is held
+        once a place: K4 on every shard's fronts of a group; then every other
+        place receives the shard's solved pivots and, forward, its updates,
+        which K5 adds into every place's copy in shard order."""
         mesh, plan = self.mesh, self.plan
-        n, fl, item = self.part.n, self._flush, self._itemsize
+        n, fl, item, p = self.part.n, self._flush, self._itemsize, self.ndev
         mesh.fork()
-        first = mesh.lead[mesh.devices[0]]
+        first = mesh.lead[mesh.local_places[0]]
         ys = {}
-        for dev in mesh.devices:
-            lead = mesh.lead[dev]
+        for place in mesh.local_places:
+            lead = mesh.lead[place]
             mesh.wait(lead, [first])
             with mesh.on(lead):
-                y = torch.zeros(n + 1, dtype=self._dtype, device=dev)
-                y[:n] = bp.to(self._dtype).to(dev)
-            ys[dev] = y
-        for s in mesh.shards:
-            mesh.wait(s.index, [mesh.lead[s.device]])
+                y = torch.zeros(n + 1, dtype=self._dtype, device=place.device)
+                y[:n] = bp.to(self._dtype).to(place.device)
+            ys[place] = y
+        for d in mesh.local_shards:
+            mesh.wait(d, [mesh.lead[mesh.shards[d].place]])
         # each shard's control words for the whole solve, zeroed on its stream
-        ctl, at = [], []
-        for d in range(self.ndev):
+        ctl, at = {}, {}
+        for d in mesh.local_shards:
             words = [F.control_words(g.shards[d].nf, g.wp, g.rp, item)
                      if g.shards[d] is not None else 0 for g in plan.groups]
-            at.append(np.r_[0, np.cumsum(words)].tolist())
+            at[d] = np.r_[0, np.cumsum(words)].tolist()
             with mesh.on(d):
-                ctl.append(torch.zeros(2 * at[d][-1], dtype=torch.int32,
-                                       device=mesh.shards[d].device))
+                ctl[d] = torch.zeros(2 * at[d][-1], dtype=torch.int32,
+                                     device=mesh.shards[d].device)
 
         def sweep(gi, forward):
             g, dg = plan.groups[gi], self._dev[gi]
+            add = forward and g.rp > 0
             upd = {}
-            for d, sg in enumerate(g.shards):
+            for d in mesh.local_shards:
+                sg = g.shards[d]
                 if sg is None:
                     continue
                 t = dg[d]
                 base = 0 if forward else at[d][-1]
                 with mesh.on(d):
                     upd[d] = F.front_sweep(
-                        self.pools[d], ys[mesh.shards[d].device], sg.g0, sg.nf, g.wp, g.rp,
+                        self.pools[d], ys[mesh.shards[d].place], sg.g0, sg.nf, g.wp, g.rp,
                         t["piv"], t["rsx"], forward, fl,
                         control=ctl[d][base + at[d][gi]:base + at[d][gi + 1]])
-            for dev in mesh.devices:
-                lead = mesh.lead[dev]
-                mesh.wait(lead, list(upd))
-                for d in upd:
-                    t = dg[d]
-                    if mesh.shards[d].device != dev:  # the shard's pivots, from its device
+            # a shard's solved pivots (and updates) to every other place
+            send: List[List[Optional[torch.Tensor]]] = [[None] * p for _ in range(p)]
+            expect: List[List[Optional[tuple]]] = [[None] * p for _ in range(p)]
+            for d, sg in enumerate(g.shards):
+                if sg is None:
+                    continue
+                for place in mesh.places:
+                    lead = mesh.lead[place]
+                    if place == mesh.shards[d].place:
+                        continue
+                    if mesh.is_local(d):
                         with mesh.on(d):
-                            z = ys[mesh.shards[d].device][t["piv"].long()]
-                        idx = mesh.take(t["piv"], d, lead, count=False)
-                        z = mesh.take(z, d, lead)
+                            z = ys[mesh.shards[d].place][dg[d]["piv"].long()].reshape(-1)
+                            send[d][lead] = torch.cat([z, upd[d].reshape(-1)]) if add else z
+                    expect[lead][d] = ((sg.nf * (g.wp + g.rp * add),), self._dtype)
+            recv = mesh.all_to_all(send, expect)
+            for place in mesh.local_places:
+                lead = mesh.lead[place]
+                mesh.wait(lead, list(upd))
+                for d, sg in enumerate(g.shards):
+                    if sg is None:
+                        continue
+                    got = recv[lead][d]
+                    if got is None:  # a shard of this place
+                        red = dg[d]
+                        u = mesh.take(upd[d], d, lead, count=False) if add else None
+                    else:
+                        red = dg[lead]["far"][d]
+                        zn = sg.nf * g.wp
                         with mesh.on(lead):
-                            ys[dev][idx.long()] = z
-                    if forward and g.rp:
-                        u = mesh.take(upd[d], d, lead, count=mesh.shards[d].device != dev)
+                            ys[place][red["piv"].long()] = got[:zn].view(sg.nf, g.wp)
+                        u = got[zn:].view(sg.nf, g.rp) if add else None
+                    if add:
                         with mesh.on(lead):
-                            F.rows_reduce(ys[dev], u, *(mesh.take(t[k], d, lead, count=False)
-                                                        for k in ("red_rows", "red_ptr",
-                                                                  "red_src")), fl)
-            for s in mesh.shards:
-                mesh.wait(s.index, [mesh.lead[s.device]])
+                            F.rows_reduce(ys[place], u, red["red_rows"], red["red_ptr"],
+                                          red["red_src"], fl)
+            for d in mesh.local_shards:
+                mesh.wait(d, [mesh.lead[mesh.shards[d].place]])
 
         ng = len(plan.groups)
         for gi in range(ng):
@@ -533,15 +588,16 @@ class DistSubtreeLu(_OriginalSolves):
         for gi in range(ng - 1, -1, -1):
             sweep(gi, False)
         with mesh.on(first):
-            x = ys[mesh.devices[0]][:n]
+            x = ys[mesh.local_places[0]][:n]
         mesh.join()
         return x
 
     def solve_refined(self, b: np.ndarray, tol: float = 1e-12, max_iters: int = 30) -> np.ndarray:
         """Refinement around the sharded factor (``solve.solve_refined``:
-        fp64 residuals on K0 on the mesh's first device, the distributed
+        fp64 residuals on K0 at this rank's first place, the distributed
         solves as corrections, one host wait an iteration, GMRES-IR where
-        plain refinement stalls). Returns x; ``report`` holds its numbers."""
+        plain refinement stalls; over ranks, the same on every rank).
+        Returns x; ``report`` holds its numbers."""
         x, rep = solve_refined(self.a, b, fac=self, tol=tol, max_iters=max_iters)
         self.report.t_solve, self.report.iterations = rep.t_solve, rep.iterations
         self.report.residual, self.report.converged = rep.residual, rep.converged

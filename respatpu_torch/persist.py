@@ -267,7 +267,13 @@ def save_sparse_factorization(path: str, fac, compressed: bool = True) -> None:
     ``dr``, ``dc`` when matched: everything a solving process needs to
     rebuild the triangular solves without factoring again. ``compressed``
     False writes the arrays as they are (zlib takes most of the time of a
-    large factor's save; both load alike)."""
+    large factor's save; both load alike). A ``DistSubtreeLu`` whose mesh
+    spans ranks raises ``ValueError``: its pools lie in several processes."""
+    mesh = getattr(fac, "mesh", None)
+    if mesh is not None and mesh.ranks > 1:
+        raise ValueError(f"save_sparse_factorization: the factor's pools lie on {mesh.ranks} "
+                         "ranks (each holds its own shards'); saving a factor sharded over "
+                         "ranks is not supported")
     filled = fac.part.filled if hasattr(fac, "part") else fac._filled
     vals = np.asarray(fac.factor_values(), np.float64)
     # the type the factor holds its values in: a multifrontal pool's (fp32

@@ -336,16 +336,15 @@ def test_a_wide_front_sweep_calls_no_library_triangle(card, monkeypatch):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("kind", ["fem", "circuit"])
-def test_frontal_factor_and_solve_on_the_card(card, kind):
+def test_frontal_factor_and_solve_on_the_card(card):
     """The factorization on the card against the plain one on the CPU, twice
     bit for bit, and the solve against the plain solve from the same pool;
-    every instance."""
-    a = (synth.mesh_fem_3d(3000, seed=5) if kind == "fem"
-         else synth.circuit_like(2500, 5, seed=4, diag="dominant"))
-    plan = F.build_frontal_plan(snlu.analyze_supernodes(a))
-    for dtype, flush in FRONT_INST.values():
-        _check_factor_and_solve(card, a, plan, dtype, flush)
+    every instance, on a FEM and a circuit matrix."""
+    for a in (synth.mesh_fem_3d(3000, seed=5), synth.circuit_like(2500, 5, seed=4,
+                                                                  diag="dominant")):
+        plan = F.build_frontal_plan(snlu.analyze_supernodes(a))
+        for dtype, flush in FRONT_INST.values():
+            _check_factor_and_solve(card, a, plan, dtype, flush)
 
 
 def _check_factor_and_solve(card, a, plan, dtype, flush):

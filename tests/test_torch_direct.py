@@ -254,11 +254,16 @@ def mtx(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("refine", [True, False])
-def test_cli_lu(mtx, capsys, refine):
-    cli.main(["lu", mtx, "--device", "cpu"] + ([] if refine else ["--no-refine"]))
-    out = capsys.readouterr().out
-    assert "[method=band]" in out and "device=cpu" in out
+@pytest.mark.parametrize("flags", [[], ["--refine"], ["--no-refine"],
+                                   ["--refine", "--matching", "off"]])
+def test_cli_lu(mtx, capsys, flags):
+    """respatpu's flags: one direct solve unless ``--refine`` (``--no-refine``
+    says so too), and ``--matching``; no warning when a refined residual
+    meets the gate."""
+    cli.main(["lu", mtx, "--device", "cpu"] + flags)
+    out, err = capsys.readouterr()
+    refine = "--refine" in flags
+    assert "[method=band]" in out and "device=cpu" in out and "WARNING" not in err
     assert ("policy=fp32+ir_fp64" in out) == refine
     resid = float(out.split("rel_residual=")[1].split()[0])
     assert resid < (1e-10 if refine else 1e-4)
@@ -269,7 +274,7 @@ def test_cli_lu_refuses_without_a_card_and_unported_methods(mtx, monkeypatch, ca
     with pytest.raises(SystemExit, match="--device cpu"):
         cli.main(["lu", mtx])
     # the scheduled sparse LU, once unported, now serves
-    cli.main(["lu", mtx, "--device", "cpu", "--method", "sparse"])
+    cli.main(["lu", mtx, "--device", "cpu", "--method", "sparse", "--refine"])
     out = capsys.readouterr().out
     assert "[method=sparse]" in out and float(out.split("rel_residual=")[1].split()[0]) < 1e-10
 

@@ -172,9 +172,52 @@ def test_distributed_cli_commands(tmp_path, capsys, monkeypatch):
 
     mtx = str(tmp_path / "fem.mtx")
     write_mtx(mtx, csr_from_respatpu(jsynth.mesh_fem_3d(600, seed=4)).tocoo())
-    cli.main(["lu", mtx, "--method", "subtree", "--shards", "4", "--device", "cpu"])
+    cli.main(["lu", mtx, "--method", "subtree", "--shards", "4", "--device", "cpu", "--refine"])
     out = capsys.readouterr().out
     assert "method=subtree 4 shards on the CPU" in out and "policy=fp32" in out
     assert float(out.split("rel_residual=")[1].split()[0]) <= 1e-10
     with pytest.raises(NotImplementedError, match="n_devices=4"):
         ExperimentConfig(n_devices=4).run()
+
+
+def test_two_processes_match_one_process(tmp_path):
+    """Two ranks of a CPU process group (gloo), 1 and 2 shards each:
+    respatpu's psum check (1 + 2 = 3 on both ranks); a take from another
+    rank's shard; DistSpmv in fp32 and fp64, dist_cg, the block-Jacobi apply
+    and dist_bicgstab equal the
+    one-process mesh of as many shards bit for bit on both ranks, and are
+    within the tolerances above of respatpu's results on its CPU mesh; a
+    product moves the same bytes in all, between the ranks' shards and
+    across them."""
+    from torch_ranks import krylov, matrix_data, run_ranks
+    ja = CASES["laplacian_2d"](jsynth)
+    a = csr_from_respatpu(ja)
+    A = sp.csr_matrix((a.data, a.indices, a.indptr), shape=a.shape)
+    x = np.random.default_rng(1).standard_normal(a.nrows)
+    data = matrix_data(a, x=x, b=A @ np.ones(a.nrows))
+    for k in (1, 2):
+        ranks = run_ranks("krylov", data, tmp_path, k)
+        one = krylov(dist.make_mesh(2 * k, "cpu"), data)
+        assert float(ranks[0]["psum"]) == float(ranks[1]["psum"]) == 3.0 * k
+        assert one["take"] and all(bool(r["take"]) for r in ranks)
+        for r in ranks:
+            assert not r["jax_loaded"]
+            assert str(r["describe"]) == f"{2 * k} shards over 2 ranks on the CPU (gloo)"
+            for key in ("y_fp32", "y_fp64", "cg", "cg_iterations", "apply", "bicgstab",
+                        "bicgstab_iterations"):
+                np.testing.assert_array_equal(r[key], one[key], err_msg=f"{key}, {k} a rank")
+        for policy in ("fp32", "fp64"):
+            assert sum(int(r[f"bytes_{policy}"]) for r in ranks) == one[f"bytes_{policy}"] > 0
+    jm = jdist.make_mesh(4)
+    jop = jdist.DistSpmv(ja, jm)
+    assert _inf(one["y_fp32"], jop.unshard(jop(jop.shard_vector(x)))) <= 1e-5
+    jop64 = jdist.DistSpmv(ja, jm, policy="df64")
+    assert _inf(one["y_fp64"], jop64.unshard(jop64(jop64.shard_vector(x)))) <= 1e-12
+    xj, itj = jdist.dist_cg(ja, data["b"], mesh=jm, tol=1e-7, max_iters=2000)
+    assert abs(itj - int(one["cg_iterations"])) <= 2 and _inf(one["cg"], xj) <= 1e-4
+    jpre = jdist.BlockJacobiIlu(ja, jop.plan, jm)
+    rp = np.zeros(4 * jop.plan.n_loc)
+    rp[:x.size] = x
+    assert _inf(one["apply"], jpre.apply_host(rp)[:x.size]) <= 1e-5
+    xj, itj = jdist.dist_bicgstab(ja, data["b"], mesh=jm, op=jop, pre=jpre)
+    assert abs(itj - int(one["bicgstab_iterations"])) <= 2 and _inf(one["bicgstab"], xj) <= 1e-4

@@ -28,10 +28,11 @@ def _one_thread():
 
 def test_spike_matches_respatpu_and_scipy():
     """At P = 1, 3 and 8 (n not divisible by P, padded partitions, bandwidth
-    past one block): the solve within 2e-4 of respatpu's and of scipy's, one
-    and several right-hand sides; the factor's pivots and report; refined
-    solves of both packages at 1e-10 or below; the single-device band LU
-    agrees."""
+    past one block): respatpu's band (RCM by default, ml, mu, block rows a
+    partition, the reduced system's order); the solve within 2e-4 of
+    respatpu's and of scipy's, one and several right-hand sides; the
+    factor's pivots and report; refined solves of both packages at 1e-10 or
+    below; the single-device band LU agrees."""
     cases = [(lambda m: m.laplacian_2d(40, 30), 8, 32),
              (lambda m: m.random_banded(997, bandwidth=25, nnz_per_row=5, seed=7), 3, 32),
              (lambda m: m.random_banded(900, bandwidth=40, nnz_per_row=7, seed=3), 1, 16)]
@@ -45,7 +46,9 @@ def test_spike_matches_respatpu_and_scipy():
         jfac = jdl.DistBandLu(ja, mesh=jdist.make_mesh(p), p=blk)
         fac = dist_lu.DistBandLu(a, mesh=dist.make_mesh(p, "cpu"), p=blk)
         assert fac.report.policy == jfac.report.policy == f"fp32+spike{p}"
-        assert fac.reduced_order == p * (fac.ml + fac.mu) * blk
+        np.testing.assert_array_equal(fac.perm, jfac.perm)
+        assert (fac.ml, fac.mu, fac.nb_loc) == (jfac.ml, jfac.mu, jfac.nb_loc)
+        assert fac.reduced_order == p * (fac.ml + fac.mu) * blk == jfac._rlu.shape[0]
         assert fac.report.n_pivot_perturbed == jfac.report.n_pivot_perturbed == 0
         x, xj, ref = fac.solve(b), jfac.solve(b), spla.spsolve(A, b)
         scale = np.abs(ref).max()
@@ -61,3 +64,18 @@ def test_spike_matches_respatpu_and_scipy():
         _, jrep = jdl.dist_solve_refined(ja, b, fac=jfac)
         assert rep.residual <= 1e-10 and jrep.residual <= 1e-10, (rep.residual, jrep.residual)
         assert relative_residual(a, xr, b) <= 1e-10 and rep.policy == f"fp32+spike{p}+ir_fp64"
+
+
+def test_spike_on_two_processes_matches_one_process(tmp_path):
+    """SPIKE on two ranks of a CPU process group (gloo), 2 shards each: the
+    band, the pivots, one and three right-hand sides and the refined solve
+    equal the one-process mesh's of 4 shards bit for bit on both ranks."""
+    from torch_ranks import matrix_data, run_ranks, spike
+    a = csr_from_respatpu(jsynth.random_banded(997, bandwidth=25, nnz_per_row=5, seed=7))
+    data = matrix_data(a, b=np.random.default_rng(3).standard_normal(a.nrows), p=32)
+    one = spike(dist.make_mesh(4, "cpu"), data)
+    assert one["iterations"] >= 1
+    for r in run_ranks("spike", data, tmp_path, 2):
+        assert not r["jax_loaded"]
+        for key in one:
+            np.testing.assert_array_equal(r[key], one[key], err_msg=key)

@@ -76,3 +76,23 @@ def test_subtree_lu_matches_respatpu(tmp_path):
         loaded = persist.load_sparse_factorization(path, a, device="cpu")
         xs = fac.solve(b)
         assert np.abs(loaded.solve(b) - xs).max() <= 1e-5 * np.abs(xs).max()
+
+
+def test_subtree_lu_on_two_processes_matches_one_process(tmp_path):
+    """The subtree LU on two ranks of a CPU process group (gloo), 2 shards
+    each, on the FEM matrix above: every shard's pool, the pivots, a solve
+    and a refined solve equal the one-process mesh's of 4 shards bit for bit
+    on both ranks; corners cross between the ranks; the pools stay on their
+    ranks: ``factor_values`` and a save refuse."""
+    from torch_ranks import matrix_data, run_ranks, subtree
+    a = csr_from_respatpu(jsynth.mesh_fem_3d(800, seed=4))
+    data = matrix_data(a, b=np.random.default_rng(4).standard_normal(a.nrows))
+    one = subtree(dist.make_mesh(4, "cpu"), data)
+    ranks = run_ranks("subtree", data, tmp_path, 2)
+    for rank, r in enumerate(ranks):
+        assert not r["jax_loaded"] and int(r["sent"]) > 0
+        assert "factor_values" in r["refused"][0] and "save" in r["refused"][1]
+        for key in ("pivots", "x", "refined", "iterations"):
+            np.testing.assert_array_equal(r[key], one[key], err_msg=key)
+        for d in (2 * rank, 2 * rank + 1):
+            np.testing.assert_array_equal(r[f"pool_{d}"], one[f"pool_{d}"], err_msg=f"pool {d}")

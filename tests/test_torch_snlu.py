@@ -308,10 +308,23 @@ def mtx(tmp_path_factory):
 
 @pytest.mark.parametrize("method", ["snlu"])
 def test_cli_lu_method_snlu(mtx, capsys, method):
-    cli.main(["lu", mtx, "--device", "cpu", "--method", method])
+    cli.main(["lu", mtx, "--device", "cpu", "--method", method, "--refine"])
     out = capsys.readouterr().out
     assert "[method=snlu,matching+ruiz scaling" in out and "policy=fp32+ir_fp64" in out
     assert float(out.split("rel_residual=")[1].split()[0]) <= 1e-10
+
+
+def test_cli_lu_matching_on_and_off(mtx, capsys):
+    """``--matching on`` puts GESP matching and Ruiz scaling on the
+    multifrontal LU of the circuit (the notes say so), ``--matching off``
+    takes them off, and on the band LU, which takes none, the notes say it
+    is unavailable; each refines to the gate."""
+    for flags, note in ((["--method", "snlu", "--matching", "on"], "snlu,matching+ruiz scaling"),
+                        (["--method", "snlu", "--matching", "off"], "snlu,apply="),
+                        (["--matching", "on"], "band,matching=unavailable]")):
+        cli.main(["lu", mtx, "--device", "cpu", "--refine"] + flags)
+        out = capsys.readouterr().out
+        assert f"[method={note}" in out and float(out.split("rel_residual=")[1].split()[0]) <= 1e-10
 
 
 def test_sweep_lu_serves_the_circuit_row_by_snlu(tmp_path):

@@ -311,7 +311,7 @@ def test_ragged_guard_admits_what_the_padded_one_refuses():
 def test_cli_and_sweep_lu_serve_the_scheduled_lu(tmp_path, capsys):
     mtx = str(tmp_path / "pl.mtx")
     write_mtx(mtx, csr_from_respatpu(powerlaw(300, 5, seed=5)))
-    cli.main(["lu", mtx, "--device", "cpu", "--method", "sparse"])
+    cli.main(["lu", mtx, "--device", "cpu", "--method", "sparse", "--refine"])
     out = capsys.readouterr().out
     assert "[method=sparse" in out and float(out.split("rel_residual=")[1].split()[0]) < 1e-10
     row, = runner.sweep_lu(["2cubes_sphere"], max_synth_nnz=6000, method="sparse",
