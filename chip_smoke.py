@@ -30,19 +30,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    band and contiguous; fp32, fp32_ftz, fp64 and bf16 input), and the sweep
    kernel against ``band_sweep_plain`` on factored bands (one block row,
    ml != mu, n not a multiple of P, ml = nb, all four instances), each twice,
-   bitwise equal;
+   bitwise equal; the same bands through K10 (several right-hand sides, 37
+   of them, against ``band_sweep_plain``; from ``first_row`` bit for bit
+   with the sweep from row 0) and K11 (the transposed sweeps, against
+   ``band_sweep_t_plain``), each twice bit for bit;
 6. direct path at full width: ``factorize(a, "fp32", method="auto")`` and
    ``solve_refined`` on the 2cubes_sphere stand-in at catalogue size, with
    the launch counts of the block-LU, sweep and fp64 SpMV kernels, the host
    oracle's residual and the error against the known solution; then the fp64
    factorization and direct solve of the same matrix, bf16 and fp32_ftz with
-   refinement on a 300 x 300 grid Laplacian and the condition estimate; the
-   phase times, and both band kernels timed at the full-width shapes beside
-   bound, library and plain; the block-LU kernel beside its chain bound too,
-   128 pivots times one block barrier with a shared-memory hand-over (a probe
-   in ``bench/csrc/smoke_probes.cu``);
+   refinement on a 300 x 300 grid Laplacian; then, on each of these four
+   factors, a solve of 4 right-hand sides at once (K10) and ``condest``
+   (its transposed solves on K11); the phase times; beside the path each
+   estimate against the one the plain transposed solves give (within 2x),
+   the band kernels timed at the full-width shapes beside bound, library and
+   plain (K11 on the band of nb = 812 in every instance, held to plain and
+   beside the torch-op loop it replaced; K10 at SPIKE's tips' shape, one
+   partition of 2cubes_sphere with 2,304 right-hand sides, beside
+   ``solve_triangular`` on the dense partition); the block-LU kernel beside
+   its chain bound too, 128 pivots times one block barrier with a
+   shared-memory hand-over (a probe in ``bench/csrc/smoke_probes.cu``);
 7. frontal kernels vs plain: extend-add, the forward and backward frontal
-   sweep and the row reduction against their plain versions on synthetic
+   sweep, its transposed form (K12) and the row reduction against their
+   plain versions on synthetic
    groups in each of the sweep's regimes (one front; a parent with hundreds
    of children in one group; 2,000 fronts of pivot width 8 and 32; roots
    with no update rows; widths 24 and 128; a 6,144-row panel over many
@@ -54,13 +64,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    multifrontal LU serves with GESP matching) and ``solve_refined`` to a
    host-oracle residual <= 1e-10; 2cubes_sphere with ``method="snlu"`` in
    fp32 with refinement and in fp64 without; fp32_ftz on the grid Laplacian;
-   offshore through ``auto``; with the launch counts of the block-LU,
-   extend-add, sweep, reduction and fp64 SpMV kernels and twice-factored pools
-   compared bit for bit; then, beside the path, every group of the dc1 fp32,
-   2cubes_sphere fp64 and Laplacian fp32_ftz plans through each frontal
-   kernel and its plain version on the same inputs (the factored pool bit
-   for bit with the plain extend-add in the kernel's place; a solve walked
-   group by group), and the frontal kernels timed at the full-width group
+   offshore through ``auto``; ``condest`` of the dc1, 2cubes_sphere fp64 and
+   Laplacian factors (their transposed solves on K12); with the launch counts
+   of the block-LU, extend-add, sweep, transposed sweep, reduction and fp64
+   SpMV kernels and twice-factored pools compared bit for bit; then, beside
+   the path, each estimate against the plain transposed solves' (within 2x),
+   every group of the dc1 fp32, 2cubes_sphere fp64 and Laplacian fp32_ftz
+   plans through each frontal kernel and its plain version on the same
+   inputs (the factored pool bit for bit with the plain extend-add in the
+   kernel's place; a solve and a transposed solve walked group by group),
+   and the frontal kernels timed at the full-width group
    shapes (the most populous group, the tallest panel, the widest front)
    beside bound, library (the library route for a sweep) and plain; and two
    solves of dc1's plan on two streams at once against the sequential ones;
@@ -139,12 +152,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    calls bit for bit; the bytes exchanged a call), ``dist_cg`` on ecology2's
    stand-in, ``runner.sweep_ilu0_dist`` on ecology2 (must be ``ok`` at
    1e-10) and 2cubes_sphere (reported), SPIKE (``dist_lu.DistBandLu``,
-   natural order) on 2cubes_sphere factored twice bit for bit and refined to
-   1e-10, the subtree-sharded LU on 2cubes_sphere factored twice bit for bit,
+   natural order) on 2cubes_sphere factored twice bit for bit (its tips on
+   K10, their seconds printed), solved for one and for 4 right-hand sides
+   and refined to 1e-10, the subtree-sharded LU on 2cubes_sphere factored twice bit for bit,
    refined to 1e-10, saved, loaded and solved, its factor against the
    single-card pool of the same partition, and ``measure_scaling`` on
    offshore at 1, 2 and 4 shards (not a scaling: one card); any failed gate
-   or a kernel of the path (K0 f32 and f64, K1, K2, K3, K4, K5, K6) not
+   or a kernel of the path (K0 f32 and f64, K1, K2, K3, K4, K5, K6, K10) not
    launched fails the run; every result's SHA-256 is kept for phase 16;
 16. the distributed stack over processes: two workers of this script
    (``--rank-worker``), ranks of a process group (``dist.init_distributed``,
@@ -162,6 +176,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the device line last.
 
 Each phase prints its seconds on a line of its own (``[phase] k took``).
+Every ``*_plain`` function of the port is wrapped in a call counter
+(:func:`count_plain_calls`): the holds and comparisons beside a path may
+call plain versions (:func:`held`), a path may not, and each path's end, and
+each worker of phase 16, fails the run if one did.
 
 Four measurements run alone, each in processes of its own:
 ``python3 chip_smoke.py --ilu-times`` takes phase 9's timings at the path's
@@ -177,12 +195,15 @@ with its plan cut into runs of long entries of several sizes
 ``python3 chip_smoke.py --upload-times TREE ...`` times each tree's upload of
 the offshore and ecology2 stand-ins the same way (:func:`upload_times_in_turns`).
 ``python3 chip_smoke.py --dist`` builds the kernels and runs phase 15 alone;
+``python3 chip_smoke.py --band`` builds them and runs K10's and K11's checks
+and phase 6 alone;
 ``python3 chip_smoke.py --ranks`` builds them, runs phase 15's shared path
 on one process for the reference, and then phase 16.
 """
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -238,16 +259,26 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 # subnormals, none with bf16 values against an fp32 vector.
 HAS_LIBRARY = ("fp32", "fp64")
 # The band kernels (csrc/band_lu.cu): what each replaces, and the card's
-# published rates outside the tensor cores (NVIDIA's H100 SXM data sheet).
+# published peak for each type (NVIDIA's H100 SXM data sheet): fp32 outside
+# the tensor cores (no TF32), fp64 on its tensor cores (DMMA).
 BAND_SOURCE = "respatpu_torch/kernels/csrc/band_lu.cu"
 LU_REPLACES = "respatpu/kernels/dflinalg.py:43"
 SWEEP_REPLACES = "respatpu/kernels/bandlu.py:284"
-FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 33.5e12}
+FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
 INST = {"fp32": "f32", "fp32_ftz": "f32_ftz", "bf16": "bf16", "fp64": "f64"}
 # max|kernel - plain| / max|plain|: the block LU takes the plain version's
 # operations in the plain version's order; the sweep sums in another order
 LU_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-5, torch.float64: 1e-13}
 SWEEP_TOL = {"fp32": 2e-5, "fp32_ftz": 2e-5, "bf16": 2e-5, "fp64": 1e-12}
+# K10, several right-hand sides (csrc/band_multi.cu), and K11, the transposed
+# sweeps (csrc/band_lu.cu): what each replaces. respatpu's transposed band
+# solve is its band factor's CSR through two sptrsv triangles.
+MULTI_SOURCE = "respatpu_torch/kernels/csrc/band_multi.cu"
+T_REPLACES = "respatpu/solve.py:317"
+NEW_BAND = tuple(n for n in B.LAUNCHES if "_multi_" in n or "_sweep_t_" in n)
+NEW_FRONT = tuple(n for n in F.LAUNCHES if "_sweep_t_" in n)
+TIPS_NRHS = 2_304  # SPIKE's tips on 2cubes_sphere: mu * p = ml * p columns
+TIPS_NB = 203  # block rows a shard, 4 shards
 # The frontal kernels (csrc/frontal.cu) and what each replaces. The extend-add
 # and the reduction add in their plain versions' order; the sweeps' triangles
 # and panel products are summed in another order than the library's.
@@ -255,7 +286,9 @@ FRONTAL_SOURCE = "respatpu_torch/kernels/csrc/frontal.cu"
 FRONTAL_REPLACES = {"extend_add": "respatpu/kernels/snlu_device.py:373",
                     "front_sweep_fwd": "respatpu/kernels/snlu_device.py:467",
                     "front_sweep_bwd": "respatpu/kernels/snlu_device.py:490",
-                    "rows_reduce": "respatpu/kernels/snlu_device.py:486"}
+                    "rows_reduce": "respatpu/kernels/snlu_device.py:486",
+                    "front_sweep_t_fwd": "respatpu/kernels/snlu_device.py:513",
+                    "front_sweep_t_bwd": "respatpu/kernels/snlu_device.py:537"}
 FRONT_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 # where a front amplifies rounding past FRONT_TOL: the kernel's distance from
 # the fp64 result of the same inputs, in units of the plain version's
@@ -290,6 +323,56 @@ ILU_DESIGNS = ("body, evict-first", "body, plain loads", "first version",
 SWEEP_KERNELS = {("warp", True): "front_fwd_warp", ("warp", False): "front_bwd_warp",
                  ("block", True): "front_fwd_block", ("block", False): "front_bwd_block",
                  ("wide", True): "front_wide_kernel", ("wide", False): "front_wide_kernel"}
+
+
+# Calls of the port's plain versions outside the holds: none may happen. The
+# paths run on the card and must reach only kernels; a hold compares a kernel
+# with its plain version and is allowed to call it (``held``).
+PLAIN_CALLS = {}
+_HOLDING = [0]
+
+
+def count_plain_calls():
+    """Wrap every ``*_plain`` function of the port's kernel modules in a
+    counter of the calls made outside a :func:`held` function. The wrappers
+    reach their plain versions through their module, so the wrapped one is
+    what a path would run."""
+    for mod in (B, F, I, K, S, SP, DI):
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if not name.endswith("_plain") or not callable(fn) or hasattr(fn, "_counted"):
+                continue
+            key = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+            PLAIN_CALLS[key] = 0
+
+            def counted(*args, _fn=fn, _key=key, **kwargs):
+                if not _HOLDING[0]:
+                    PLAIN_CALLS[_key] += 1
+                return _fn(*args, **kwargs)
+
+            counted._counted = True
+            setattr(mod, name, functools.wraps(fn)(counted))
+
+
+def held(fn):
+    """A hold or comparison beside a path: its plain calls are not counted."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        _HOLDING[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _HOLDING[0] -= 1
+    return run
+
+
+def no_plain(where):
+    """Fails if a plain version of the port ran outside a hold."""
+    ran = {k: v for k, v in PLAIN_CALLS.items() if v}
+    if ran:
+        raise AssertionError(f"{where}: plain versions ran on the card: {ran}")
+    print(f"[plain] {where}: no plain version ran outside the holds "
+          f"({len(PLAIN_CALLS)} counted)", flush=True)
 
 
 def x_for(dev, x64: np.ndarray) -> torch.Tensor:
@@ -335,6 +418,7 @@ def edge_matrices():
     return out
 
 
+@held
 def check_kernel(name, a, policy, x64, errs):
     dev = K.to_device(a, policy, "cuda", fmt="csr")
     x = x_for(dev, x64)
@@ -358,6 +442,7 @@ def check_kernel(name, a, policy, x64, errs):
     return dev, x
 
 
+@held
 def check_ftz():
     """fp32_ftz on subnormal inputs: integer values and x with subnormal
     entries (sums exact in any order, so kernel == plain bitwise), and
@@ -405,6 +490,7 @@ def check_parser():
           flush=True)
 
 
+@held
 def timed_in_turns(dev, x):
     """Median seconds of the kernel, its plain version and the library call
     (None where PyTorch has none), timed in turns: plain, kernel, library,
@@ -485,6 +571,7 @@ def profile_sweep_row(name_limit):
         print(f"[profile]   {kind}: {len(v)} events, {sum(v) * 1e3:.3f} ms", flush=True)
 
 
+@held
 def check_block_lu(errs):
     """The block-LU kernel against its plain version; see the docstring."""
     rng = np.random.default_rng(11)
@@ -535,6 +622,7 @@ def sweep_cases():
             ("banded_p128", random_banded(1000, 300, 9, seed=5), 128)]
 
 
+@held
 def check_band_sweep(errs):
     """The sweep kernel against its plain version on factored bands."""
     rng = np.random.default_rng(12)
@@ -580,6 +668,7 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+@held
 def time_block_lu(name_limit, fac32, fac64, times):
     """The block-LU kernel at the main path's shape: one diagonal block of
     128 read in place from the uploaded band."""
@@ -615,6 +704,7 @@ def time_block_lu(name_limit, fac32, fac64, times):
               f"{fmt_ms(t['library_ms'])}; plain {fmt_ms(t['plain_ms'])}", flush=True)
 
 
+@held
 def time_band_sweep(name_limit, lu, policy, times):
     """Both sweeps of one factored band at the main path's shape."""
     lu = dataclasses.replace(lu, policy=get_policy(policy),
@@ -652,6 +742,407 @@ def time_band_sweep(name_limit, lu, policy, times):
               f"rel_err vs plain {err:.2e}", flush=True)
 
 
+def bits(t):
+    """A float tensor's bits, so that +0 and -0 differ."""
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def as_policy(lu, policy):
+    """A factored band read under ``policy``: its values cast to the
+    policy's type (fp32_ftz shares fp32's values)."""
+    pol = get_policy(policy)
+    return dataclasses.replace(lu, policy=pol, data=lu.data.to(pol.dtype))
+
+
+@held
+def check_band_multi(errs):
+    """K10 against ``band_sweep_plain`` on the sweep cases in every instance,
+    37 right-hand sides (a tile and a ragged one), forward and backward, each
+    twice bit for bit; a forward sweep from ``first_row`` equals the one from
+    row 0 bit for bit."""
+    for cname, a, p in sweep_cases():
+        for policy in SWEEP_TOL:
+            lu = B.band_lu(B.csr_to_device_band(a, policy, "cuda", p=p)).lu
+            acc = lu.policy.accum_dtype
+            rng = np.random.default_rng(13)
+            b = torch.from_numpy(rng.standard_normal((lu.nb * p, 37))).to(acc).cuda()
+            if policy == "fp32_ftz":
+                b[::7] = 1e-40  # subnormal right-hand-side entries, flushed on load
+            worst = 0.0
+            for fwd in (True, False):
+                name = f"respa_band_sweep_multi_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
+                y = B.band_sweep_multi(lu, b, fwd)
+                torch.cuda.synchronize()
+                ref = B.band_sweep_plain(lu, b, fwd)
+                err = float((y - ref).abs().max() / ref.abs().max())
+                if not (err <= SWEEP_TOL[policy]) or \
+                        not torch.equal(bits(y), bits(B.band_sweep_multi(lu, b, fwd))):
+                    raise AssertionError(f"{name} {cname}: err {err:.3e} or not reproducible")
+                errs[name] = max(errs.get(name, 0.0), float((y - ref).abs().max()))
+                worst = max(worst, err)
+            r0 = lu.nb // 2
+            bz = b.clone()
+            bz[:r0 * p] = 0
+            if not torch.equal(bits(B.band_sweep_multi(lu, bz, True, r0)),
+                               bits(B.band_sweep_multi(lu, bz, True))):
+                raise AssertionError(f"K10 {cname} {policy}: first_row {r0} != from row 0")
+            print(f"[kernel] band_sweep_multi {cname:14s} {policy:8s} n={a.nrows} P={p} "
+                  f"nb={lu.nb} ml={lu.ml} mu={lu.mu} nrhs=37: rel_err={worst:.3e} (tol "
+                  f"{SWEEP_TOL[policy]:.0e}) bitwise twice; from first_row {r0} == from row 0 "
+                  f"bit for bit", flush=True)
+
+
+@held
+def check_band_t(errs):
+    """K11 against ``band_sweep_t_plain`` on the sweep cases in every
+    instance, forward (U^T) and backward (L^T), each twice bit for bit."""
+    for cname, a, p in sweep_cases():
+        for policy in SWEEP_TOL:
+            lu = B.band_lu(B.csr_to_device_band(a, policy, "cuda", p=p)).lu
+            b = torch.from_numpy(np.random.default_rng(14).standard_normal(lu.nb * p))
+            b = b.to(lu.policy.accum_dtype).cuda()
+            if policy == "fp32_ftz":
+                b[::7] = 1e-40
+            worst = 0.0
+            for fwd in (True, False):
+                name = f"respa_band_sweep_t_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
+                y = B.band_sweep_t(lu, b, fwd)
+                torch.cuda.synchronize()
+                ref = B.band_sweep_t_plain(lu, b, fwd)
+                err = float((y - ref).abs().max() / ref.abs().max())
+                if not (err <= SWEEP_TOL[policy]) or \
+                        not torch.equal(bits(y), bits(B.band_sweep_t(lu, b, fwd))):
+                    raise AssertionError(f"{name} {cname}: err {err:.3e} or not reproducible")
+                errs[name] = max(errs.get(name, 0.0), float((y - ref).abs().max()))
+                worst = max(worst, err)
+            print(f"[kernel] band_sweep_t {cname:14s} {policy:8s} n={a.nrows} P={p} nb={lu.nb} "
+                  f"ml={lu.ml} mu={lu.mu}: rel_err={worst:.3e} (tol {SWEEP_TOL[policy]:.0e}) "
+                  f"bitwise twice", flush=True)
+
+
+@contextlib.contextmanager
+def recorded_multi():
+    """Every K10 sweep that runs inside the block, as the path ran it:
+    (band, a copy of b, forward, first_row, a copy of out), the copies taken
+    on the launch's stream just after it."""
+    calls = []
+    launch = B.band_sweep_multi
+
+    def record(lu, b, forward, first_row=0):
+        out = launch(lu, b, forward, first_row)
+        calls.append((lu, b.clone(), forward, first_row, out.clone()))
+        return out
+
+    B.band_sweep_multi = record
+    try:
+        yield calls
+    finally:
+        B.band_sweep_multi = launch
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block are taken back out of the counts."""
+    counters = (B.LAUNCHES, K.LAUNCHES, F.LAUNCHES, I.LAUNCHES, S.LAUNCHES, SP.LAUNCHES,
+                DI.LAUNCHES)
+    saved = [dict(c) for c in counters]
+    try:
+        yield
+    finally:
+        for c, v in zip(counters, saved):
+            c.update(v)
+
+
+@held
+def hold_recorded_multi(tag, what, calls, errs=None):
+    """K10's sweeps as a path ran them (:func:`recorded_multi`), on the
+    padded right-hand sides the path built, both directions: each output
+    against ``band_sweep_plain`` on the same inputs within ``SWEEP_TOL``, and
+    the kernel run twice more on them, bit for bit the path's output both
+    times. The launches of the hold are taken back out of the counts."""
+    with uncounted():
+        worst, shapes = 0.0, set()
+        for lu, b, fwd, r0, out in calls:
+            policy = lu.policy.name
+            name = f"respa_band_sweep_multi_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
+            ref = B.band_sweep_plain(lu, b, fwd, r0)
+            err = float((out - ref).abs().max() / max(float(ref.abs().max()), 1e-300))
+            again = [B.band_sweep_multi(lu, b, fwd, r0) for _ in range(2)]
+            if not err <= SWEEP_TOL[policy] or \
+                    not all(torch.equal(bits(out), bits(y)) for y in again):
+                raise AssertionError(f"{what}: {name} as the path ran it, err {err:.3e} or not "
+                                     "reproducible")
+            if errs is not None:
+                errs[name] = max(errs.get(name, 0.0), float((out - ref).abs().max()))
+            worst = max(worst, err)
+            shapes.add(f"{'fwd' if fwd else 'bwd'} {policy} [{b.shape[0]}, {b.shape[1]}] "
+                       f"nb={lu.nb} ml={lu.ml} mu={lu.mu}" + (f" from row {r0}" if r0 else ""))
+    if not calls:
+        raise AssertionError(f"{what}: the path ran no K10 sweep")
+    print(f"{tag} | {what}: the path's {len(calls)} K10 sweeps ({'; '.join(sorted(shapes))}) "
+          f"against band_sweep_plain on the right-hand sides the path built: rel_err "
+          f"{worst:.3e} (tol {SWEEP_TOL[policy]:.0e}), twice more bit for bit the path's",
+          flush=True)
+
+
+def several_rhs(name_limit, what, fac, a, k=4):
+    """A solve of ``k`` right-hand sides at once through the factor's
+    ``solve_original_device`` (K10 on the band path): finite, and its first
+    column, A's known-solution right-hand side, as close to it as the
+    one-column solve (K2) is. Returns the K10 sweeps it ran
+    (:func:`recorded_multi`)."""
+    bm = np.random.default_rng(17).standard_normal((a.nrows, k))
+    bm[:, 0] = slv.make_rhs_for_known_x(a)[0]
+    with recorded_multi() as calls:
+        xm, t_m = synced(lambda: fac.solve_original_device(torch.from_numpy(bm).cuda()))
+    x1, t_1 = synced(lambda: fac.solve_original_device(torch.from_numpy(bm[:, 0]).cuda()))
+    xm, x1 = xm.cpu().numpy(), x1.cpu().numpy()
+    res = [slv.relative_residual(a, xm[:, j], bm[:, j]) for j in range(k)]
+    one = slv.relative_residual(a, x1, bm[:, 0])
+    if not (np.isfinite(xm).all() and xm.shape == (a.nrows, k) and res[0] <= 10 * one + 1e-15):
+        raise AssertionError(f"{what}: {k} right-hand sides, residuals {res} against the "
+                             f"one-column solve's {one:.3e}")
+    print(f"[direct] {name_limit} | {what}: {k} right-hand sides in one solve {t_m * 1e3:.1f} ms "
+          f"(one column {t_1 * 1e3:.1f} ms; host clock to a synchronize), residuals "
+          f"{', '.join(f'{r:.3e}' for r in res)} (host oracle; the one-column solve {one:.3e})",
+          flush=True)
+    return calls
+
+
+def on_path_condest(what, fac):
+    """``condest`` on a path: (rcond, seconds); rcond must lie in (0, 1]."""
+    rcond, t = synced(fac.condest)
+    if not (np.isfinite(rcond) and 0 < rcond <= 1):
+        raise AssertionError(f"{what}: condest {rcond}")
+    return rcond, t
+
+
+@held
+def plain_rcond(fac):
+    """The Hager estimate of ``fac`` as ``condest`` takes it, but with its
+    transposed solves by the plain versions: two ``band_sweep_t_plain`` sweeps
+    (K11's) for a band factor, ``front_sweep_t_plain`` (K12's) group by group
+    for a frontal one."""
+    if isinstance(fac, slv.BandLuFactorization):
+        def plain_t(lu, v):
+            pad = torch.zeros(lu.nb * lu.p, dtype=v.dtype, device=v.device)
+            pad[:lu.n] = ftz(v, lu.policy.flush_to_zero)
+            return B.band_sweep_t_plain(lu, B.band_sweep_t_plain(lu, pad, True), False)[:lu.n]
+
+        inv = slv.condition_estimate(fac.a, fac.solve,
+                                     solve_t_fn=lambda s: fac._solve_host(s, plain_t))
+    else:
+        solver = fac._frontal
+
+        def sweep(gi, *args):
+            return F.front_sweep_t_plain(solver.pool, *args, solver.flush)
+
+        def t_permuted(sp):
+            y = solver._start(sp.to(solver.pool.dtype))
+            solver._run(y, sweep, True)
+            solver._run(y, sweep, False)
+            return y[:solver.n]
+
+        fac._solve_t_permuted = t_permuted  # shadows the method for this estimate
+        try:
+            inv = slv.condition_estimate(fac.a, fac.solve, solve_t_fn=fac.solve_transpose)
+        finally:
+            del fac._solve_t_permuted
+    return 1.0 / max(slv._norm1(fac.a) * inv, 1e-300)
+
+
+def rcond_pairs(name_limit, tag, rconds):
+    """Each factor's ``condest`` on the path beside the estimate its plain
+    transposed solves give: within a factor of 2."""
+    for what, (fac, rcond, t) in rconds.items():
+        rp = plain_rcond(fac)
+        ratio = max(rcond, rp) / min(rcond, rp)
+        print(f"[{tag}] {name_limit} | {what} condest (Hager, the transposed solves on the "
+              f"kernel): rcond {rcond:.6e} in {t:.3f} s; with the plain transposed solves "
+              f"{rp:.6e} (ratio {ratio:.4f}, at most 2)", flush=True)
+        if not ratio <= 2.0:
+            raise AssertionError(f"{what}: condest {rcond:.3e} against {rp:.3e} with the plain "
+                                 "transposed solves")
+
+
+@held
+def hold_band_t(name_limit, lu, policy, errs, times):
+    """K11 on a full-width factored band (2cubes_sphere, nb = 812) read
+    under ``policy``: each sweep against ``band_sweep_t_plain``, twice bit for
+    bit, timed by events and the profiler beside its byte bound (the blocks
+    it reads, each once, and b and out) and the plain version, a torch-op
+    loop of a TRSM and a product each block row as the port ran before K11."""
+    lu = as_policy(lu, policy)
+    acc = lu.policy.accum_dtype
+    vec = torch.empty(0, dtype=acc).element_size()
+    b = torch.from_numpy(np.random.default_rng(23).standard_normal(lu.nb * lu.p)).to(acc).cuda()
+    s = b[:lu.n].clone()
+    both = events_ms(lambda: B.band_solve_transpose(lu, s), 5)
+    for fwd in (True, False):
+        name = f"respa_band_sweep_t_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
+        m = lu.mu if fwd else lu.ml
+        blocks = sum(min(m, q) + 1 for q in range(lu.nb))
+        nbytes = blocks * lu.p * lu.p * lu.data.element_size() + 2 * lu.nb * lu.p * vec
+        flops = 2 * blocks * lu.p * lu.p
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[acc] * 1e3
+        y = B.band_sweep_t(lu, b, fwd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = B.band_sweep_t_plain(lu, b, fwd)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((y - ref).abs().max() / ref.abs().max())
+        again = B.band_sweep_t(lu, b, fwd)
+        if not err <= SWEEP_TOL[policy] or not torch.equal(bits(y), bits(again)):
+            raise AssertionError(f"{name} at full width: err {err:.3e} or not reproducible")
+        errs[name] = max(errs.get(name, 0.0), float((y - ref).abs().max()))
+        t = {"ms": events_ms(lambda: B.band_sweep_t(lu, b, fwd), 5), "plain_ms": plain_ms,
+             "library_ms": None,
+             "profiler_ms": profiler_ms(lambda: B.band_sweep_t(lu, b, fwd), "band_sweep_t_kernel",
+                                        5),
+             "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "shape": f"nb={lu.nb} P={lu.p} ml={lu.ml} mu={lu.mu}", "max_abs_err_full": err,
+             "transpose_solve_ms": both}
+        times[name] = t
+        print(f"[time] {name_limit} | {name} {t['shape']}: kernel {fmt_ms(t['ms'])} by events, "
+              f"{fmt_ms(t['profiler_ms'])} by the profiler; bound {t['bound_ms']:.4f} ms "
+              f"({nbytes} bytes at 3.35 TB/s; {flops} flops would take {by_ops:.4f} ms); "
+              f"library none; plain {plain_ms:.1f} ms (one run, synchronised host clock); "
+              f"rel_err vs plain {err:.2e}, bitwise twice; both sweeps by K11 {both:.4f} ms "
+              f"(band_solve_transpose)", flush=True)
+
+
+def leading_block(a, n):
+    """The leading n x n block of ``a``: in the natural order, one SPIKE
+    partition's band."""
+    end = int(a.indptr[n])
+    rows = np.repeat(np.arange(n, dtype=np.int32), np.diff(a.indptr[:n + 1]))
+    cols, vals = a.indices[:end], a.data[:end]
+    keep = cols < n
+    return coo_to_csr(COOMatrix((n, n), rows[keep], cols[keep].astype(np.int32), vals[keep]))
+
+
+def band_dense(lu, lower):
+    """The unit lower L (``lower``) or the upper U of a factored band as a
+    dense matrix on its device, in the accumulator type."""
+    p, ml, nb, w = lu.p, lu.ml, lu.nb, lu.width
+    n = nb * p
+    dense = torch.zeros(n, n, dtype=lu.policy.accum_dtype, device=lu.device)
+    for r in range(nb):
+        c0 = (r - ml) * p
+        lo, hi = max(c0, 0), min(c0 + w, n)
+        dense[r * p:(r + 1) * p, lo:hi] = lu.data[r][:, lo - c0:hi - c0]
+    if lower:
+        dense.tril_(-1)
+        dense.diagonal().fill_(1)
+    else:
+        dense.triu_()
+    return dense
+
+
+def multi_work(lu, nrhs, fwd, first_row=0):
+    """(flops, bytes) that one K10 sweep needs on these inputs: the panel
+    blocks it multiplies and the triangles it solves, each block read once,
+    the rows of b it reads and of out it writes."""
+    p, nb = lu.p, lu.nb
+    rows = range(first_row, nb)
+    m = [min(lu.ml, r - first_row) if fwd else min(lu.mu, nb - 1 - r) for r in rows]
+    tri = p * (p - 1) if fwd else p * p  # multiply-adds and, backward, the divisions
+    flops = sum(2 * p * p * k + tri for k in m) * nrhs
+    acc = torch.empty(0, dtype=lu.policy.accum_dtype).element_size()
+    nbytes = (sum(k + 1 for k in m) * p * p * lu.data.element_size()
+              + 2 * len(m) * p * nrhs * acc)
+    return flops, nbytes
+
+
+@held
+def hold_band_multi(name_limit, a, errs, times):
+    """K10 at SPIKE's tips' shapes: one partition of 2cubes_sphere in the
+    natural order (its leading ``TIPS_NB`` block rows, ml = mu = 18),
+    factored in fp32 (read as fp32, fp32_ftz and bf16) and in fp64, with
+    ``TIPS_NRHS`` right-hand sides: W's (the first ml block rows), forward
+    from row 0 and then backward, and V's (the last mu block rows), forward
+    from its first row. Each against ``band_sweep_plain``, twice bit for bit,
+    V's from ``first_row`` bit for bit with the sweep from row 0; timed by
+    events and the profiler beside the bound (flops at the card's rate for
+    the type), the plain version (the torch-op loop that ran before) and,
+    but for fp32_ftz (no library call flushes subnormals),
+    ``torch.linalg.solve_triangular`` on the dense partition's triangle in
+    the accumulator type (bf16's band widened to fp32, K10's function)."""
+    sub = leading_block(a, TIPS_NB * 128)
+    for fpol, policies in (("fp32", ("fp32", "fp32_ftz", "bf16")), ("fp64", ("fp64",))):
+        base = B.band_lu(B.csr_to_device_band(sub, fpol, "cuda")).lu
+        for policy in policies:
+            lu = as_policy(base, policy)
+            acc = lu.policy.accum_dtype
+            p, nb, ml, mu = lu.p, lu.nb, lu.ml, lu.mu
+            rng = np.random.default_rng(29)
+            w_rhs = torch.zeros((nb * p, TIPS_NRHS), dtype=acc, device="cuda")
+            w_rhs[:ml * p] = torch.from_numpy(rng.standard_normal((ml * p, TIPS_NRHS))).to(acc)
+            v_rhs = torch.zeros_like(w_rhs)
+            v_rhs[-mu * p:] = torch.from_numpy(rng.standard_normal((mu * p, TIPS_NRHS))).to(acc)
+            r0 = nb - mu
+            y = B.band_sweep_multi(lu, w_rhs, True)
+            dense = {}
+            for fwd, b in ((True, w_rhs), (False, y)):
+                name = f"respa_band_sweep_multi_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
+                got = B.band_sweep_multi(lu, b, fwd)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = B.band_sweep_plain(lu, b, fwd)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                err = float((got - ref).abs().max() / ref.abs().max())
+                if not err <= SWEEP_TOL[policy] or \
+                        not torch.equal(bits(got), bits(B.band_sweep_multi(lu, b, fwd))):
+                    raise AssertionError(f"{name} at the tips' shape: err {err:.3e} or not "
+                                         "reproducible")
+                errs[name] = max(errs.get(name, 0.0), float((got - ref).abs().max()))
+                del got, ref
+                flops, nbytes = multi_work(lu, TIPS_NRHS, fwd)
+                by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[acc] * 1e3
+                lib = None
+                if policy != "fp32_ftz":
+                    dense[fwd] = band_dense(lu, fwd)
+                    lib = events_ms(lambda: torch.linalg.solve_triangular(
+                        dense[fwd], b, upper=not fwd, unitriangular=fwd), 3)
+                    dense.pop(fwd)
+                t = {"ms": events_ms(lambda: B.band_sweep_multi(lu, b, fwd), 5),
+                     "plain_ms": plain_ms, "library_ms": lib,
+                     "profiler_ms": profiler_ms(lambda: B.band_sweep_multi(lu, b, fwd),
+                                                "band_multi_kernel", 3),
+                     "bound_ms": max(by_bytes, by_ops),
+                     "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                     "shape": f"nb={nb} P={p} ml={ml} mu={mu} nrhs={TIPS_NRHS}",
+                     "max_abs_err_full": err}
+                if fwd:  # V's forward sweep from its first nonzero block row
+                    yv = B.band_sweep_multi(lu, v_rhs, True, r0)
+                    if not torch.equal(bits(yv), bits(B.band_sweep_multi(lu, v_rhs, True))):
+                        raise AssertionError(f"{name}: first_row {r0} != from row 0")
+                    vflops, vbytes = multi_work(lu, TIPS_NRHS, True, r0)
+                    t["first_row"] = {
+                        "first_row": r0,
+                        "ms": events_ms(lambda: B.band_sweep_multi(lu, v_rhs, True, r0), 5),
+                        "bound_ms": max(vflops / FLOPS_PER_S[acc], vbytes / HBM_BYTES_PER_S) * 1e3}
+                    del yv
+                times[name] = t
+                v = t.get("first_row")
+                print(f"[time] {name_limit} | {name} {t['shape']}: kernel {fmt_ms(t['ms'])} by "
+                      f"events, {fmt_ms(t['profiler_ms'])} by the profiler; bound "
+                      f"{t['bound_ms']:.4f} ms ({flops:.4e} flops at "
+                      f"{FLOPS_PER_S[acc] / 1e12:.1f} TFLOP/s; {nbytes} bytes at 3.35 TB/s = "
+                      f"{by_bytes:.4f} ms); library solve_triangular on the dense partition "
+                      f"{fmt_ms(lib).replace('not measured', 'none')}; plain {plain_ms:.1f} ms "
+                      f"(one run, synchronised host clock); rel_err vs plain {err:.2e}, bitwise "
+                      f"twice" + (f"; V's sweep from block row {r0}: {v['ms']:.4f} ms (bound "
+                                  f"{v['bound_ms']:.4f} ms), == from row 0 bit for bit"
+                                  if v else ""), flush=True)
+            del y, w_rhs, v_rhs, lu
+        del base
+    torch.cuda.empty_cache()
+
+
 def factor_bound(band, acc):
     """Least milliseconds of one band factorization: its products' and
     TRSMs' flops at the card's rate for the type, or the band read and
@@ -672,9 +1163,12 @@ def reset_counts():
             counts[name] = 0
 
 
-def direct_path(name_limit, a, times):
+def direct_path(name_limit, a, times, errs):
     """Phase 6; returns the band kernels' launch counts on the direct path
-    and the fp64 SpMV's."""
+    and the fp64 SpMV's. The path ends with a solve of several right-hand
+    sides (K10) and ``condest`` (K11) on each of its four band factors; beside
+    it, each estimate against the one the plain transposed solves give, and
+    the kernels held and timed at the full-width shapes."""
     b, x_true = slv.make_rhs_for_known_x(a)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -719,46 +1213,68 @@ def direct_path(name_limit, a, times):
     flops, nbytes, bound64 = factor_bound(fac64._dev, torch.float64)
     print(f"[direct] {name_limit} | 2cubes_sphere fp64 [{r64.notes}] band "
           f"{r64.factor_bytes / 1e9:.2f} GB: analyze {r64.t_analyze:.3f} s, factor "
-          f"{r64.t_factorize * 1e3:.1f} ms (bound {bound64:.2f} ms at 33.5 TFLOP/s), solve "
+          f"{r64.t_factorize * 1e3:.1f} ms (bound {bound64:.2f} ms at "
+          f"{FLOPS_PER_S[torch.float64] / 1e12:.0f} TFLOP/s), solve "
           f"{r64.t_solve * 1e3:.1f} ms, residual {r64.residual:.3e}, pivots perturbed "
           f"{r64.n_pivot_perturbed}", flush=True)
 
     # bf16 and fp32_ftz with refinement on a grid Laplacian
     lap = laplacian_2d(300, 300)
     bl, _ = slv.make_rhs_for_known_x(lap)
+    lap_facs = {}
     for policy, tol in (("bf16", 1e-8), ("fp32_ftz", 1e-10)):
-        _, rl = slv.solve_refined(lap, bl, policy=policy, max_iters=60, device="cuda")
-        if not rl.residual <= tol:
+        lap_facs[policy] = slv.factorize(lap, policy, method="auto", device="cuda")
+        _, rl = slv.solve_refined(lap, bl, fac=lap_facs[policy], max_iters=60)
+        if not (rl.residual <= tol and rl.notes.startswith("method=band")):
             raise AssertionError(f"{policy} + IR on laplacian_2d(300, 300): {rl}")
         print(f"[direct] {name_limit} | laplacian_2d(300, 300) {rl.policy}: factor "
-              f"{rl.t_factorize * 1e3:.1f} ms, refined solve {rl.t_solve * 1e3:.1f} ms in "
-              f"{rl.iterations} iterations, residual {rl.residual:.3e} (tol {tol:.0e})", flush=True)
+              f"{lap_facs[policy].report.t_factorize * 1e3:.1f} ms, refined solve "
+              f"{rl.t_solve * 1e3:.1f} ms in {rl.iterations} iterations, residual "
+              f"{rl.residual:.3e} (tol {tol:.0e})", flush=True)
+    fp64_row = {"respa_block_lu_f64": nb, "respa_band_sweep_fwd_f64": 1,
+                "respa_band_sweep_bwd_f64": 1}
+    if any(B.LAUNCHES[k] != v for k, v in fp64_row.items()):
+        raise AssertionError(f"direct path launches {dict(B.LAUNCHES)}")
+
+    # several right-hand sides (K10) and the condition estimate (K11) of
+    # every factor of the path
+    facs = {"2cubes_sphere fp32": (fac, a), "2cubes_sphere fp64": (fac64, a),
+            "laplacian_2d(300, 300) bf16": (lap_facs["bf16"], lap),
+            "laplacian_2d(300, 300) fp32_ftz": (lap_facs["fp32_ftz"], lap)}
+    recorded = {what: several_rhs(name_limit, what, f, m) for what, (f, m) in facs.items()}
+    rconds = {what: (f, *on_path_condest(what, f)) for what, (f, _) in facs.items()}
 
     launches, spmv_direct = dict(B.LAUNCHES), K.LAUNCHES["fp64"]
     dia_direct = dict(DI.LAUNCHES)
-    fp64_row = {"respa_block_lu_f64": nb, "respa_band_sweep_fwd_f64": 1,
-                "respa_band_sweep_bwd_f64": 1}
-    if any(launches[k] != v for k, v in fp64_row.items()) or min(launches.values()) < 1:
+    if min(launches.values()) < 1:
         raise AssertionError(f"direct path launches {launches}")
+    no_plain("direct path")
     print(f"[direct] launches of the whole direct path {launches}, fp64 SpMV {spmv_direct} "
           f"(CSR kernel), DIA kernel (the Laplacian's residuals) {dia_direct}", flush=True)
 
     # beside the path, not counted: one unrefined solve, the condition
-    # estimate, and the kernels' times at the full-width shapes
+    # estimates against the plain transposed solves', and the kernels held
+    # and timed at the full-width shapes
     t0 = time.perf_counter()
     x1 = fac.solve(b)
     t_one = time.perf_counter() - t0
+    if not np.isfinite(x1).all():
+        raise AssertionError("one fp32 solve: not finite")
     print(f"[direct] {name_limit} | one fp32 solve without refinement {t_one * 1e3:.1f} ms, "
           f"residual {fac.report.residual:.3e}", flush=True)
-    rcond = fac.condest()
-    if not (np.isfinite(rcond) and 0 < rcond <= 1 and np.isfinite(x1).all()):
-        raise AssertionError(f"condest {rcond}")
-    print(f"[direct] condest (Hager, with transpose solves from the band): rcond {rcond:.3e}",
-          flush=True)
+    rcond_pairs(name_limit, "direct", rconds)
+    for what, calls in recorded.items():
+        hold_recorded_multi(f"[held] {name_limit}", f"{what}, 4 right-hand sides", calls, errs)
+    del lap_facs, rconds, facs, recorded
     time_block_lu(name_limit, fac, fac64, times)
     for policy in ("fp32", "fp32_ftz", "bf16"):
         time_band_sweep(name_limit, fac._lu, policy, times)
+        hold_band_t(name_limit, fac._lu, policy, errs, times)
     time_band_sweep(name_limit, fac64._lu, "fp64", times)
+    hold_band_t(name_limit, fac64._lu, "fp64", errs, times)
+    del fac, fac64
+    torch.cuda.empty_cache()
+    hold_band_multi(name_limit, a, errs, times)
     return launches, spmv_direct
 
 
@@ -783,9 +1299,11 @@ def no_subnormals(*tensors):
                for t in tensors)
 
 
+@held
 def check_frontal_kernels(errs):
-    """Extend-add, both frontal sweeps and the row reduction against their
-    plain versions on synthetic groups; see the docstring."""
+    """Extend-add, both frontal sweeps, both transposed ones (K12) and the row
+    reduction against their plain versions on synthetic groups; see the
+    docstring."""
     # (name, fronts, wp, rp, parents): the sweep's warp regime (up to 2,000
     # fronts of wp 8 and 32), its block regime (wp 24-128, a 6,144-row panel
     # over 96 tiles), its wide regime (wp 192-2,048, rp 0-384, 1-3 fronts)
@@ -808,6 +1326,7 @@ def check_frontal_kernels(errs):
             del t
 
 
+@held
 def check_frontal_group(errs, t, cname, nf, wp, rp, npar, dtype, flush, inst):
     """One synthetic group through every frontal kernel of one instance;
     returns the sweeps' worst error relative to plain."""
@@ -848,14 +1367,16 @@ def check_frontal_group(errs, t, cname, nf, wp, rp, npar, dtype, flush, inst):
         if flush and not no_subnormals(out[0][kids:]):
             raise AssertionError(f"{name} {cname}: a subnormal sum was not flushed")
         del out
-    for fwd in (True, False):
-        name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
+    for trans, fwd in ((False, True), (False, False), (True, True), (True, False)):
+        name = f"respa_front_sweep_{'t_' if trans else ''}{'fwd' if fwd else 'bwd'}_{inst}"
+        sweep = F.front_sweep_t if trans else F.front_sweep
         ys = [t["y"].clone() for _ in range(3)]
-        u0 = F.front_sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush,
-                           control=F.control_zeros(t["pool"], nf, wp, rp))
-        u1 = F.front_sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush,
-                           control=F.control_zeros(t["pool"], nf, wp, rp))
-        u2 = F.front_sweep_plain(t["pool"], ys[2], *grp, t["piv"], t["rsx"], fwd, flush)
+        u0 = sweep(t["pool"], ys[0], *grp, t["piv"], t["rsx"], fwd, flush,
+                   control=F.control_zeros(t["pool"], nf, wp, rp))
+        u1 = sweep(t["pool"], ys[1], *grp, t["piv"], t["rsx"], fwd, flush,
+                   control=F.control_zeros(t["pool"], nf, wp, rp))
+        u2 = (F.front_sweep_t_plain if trans else F.front_sweep_plain)(
+            t["pool"], ys[2], *grp, t["piv"], t["rsx"], fwd, flush)
         torch.cuda.synchronize()
         worst = max(worst, held(name, ys[0], ys[2], ys[1]))
         if float(ys[0][-1]) != 0.0:
@@ -881,15 +1402,17 @@ def check_frontal_group(errs, t, cname, nf, wp, rp, npar, dtype, flush, inst):
     return worst
 
 
+@held
 def hold_frontal_full(name_limit, name, fac, errs, full):
     """Every group of ``fac``'s plan, at the shapes and on the data the main
     path gave the kernels, against the plain versions on the same inputs.
 
     The factorization is run again with ``extend_add_plain`` in the kernel's
     place and its pool must equal ``fac``'s bit for bit (same operations in
-    the same order). Then one solve is walked group by group: each sweep and
-    each reduction runs on the state the kernels before it left and on a
-    clone of that state through the plain version. What they wrote must agree
+    the same order). Then one solve, and one solve of the transposed system
+    (K12), are walked group by group: each sweep and each reduction runs on
+    the state the kernels before it left and on a clone of that state
+    through the plain version. What they wrote must agree
     within ``FRONT_TOL`` of the largest entry written, with nothing else in
     y touched. A front whose triangle or panel amplifies rounding past that
     (a circuit's factor can be that ill-conditioned) is settled by a third
@@ -947,42 +1470,47 @@ def hold_frontal_full(name_limit, name, fac, errs, full):
     t_add = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    y = torch.randn(plan.part.n + 1, dtype=pool.dtype, device=pool.device,
-                    generator=torch.Generator(device=pool.device).manual_seed(7))
-    y[-1] = 0
-    idx = range(len(plan.groups))
-    for fwd in (True, False):
-        for gi in (idx if fwd else reversed(idx)):
-            g, d = plan.groups[gi], dgs[gi]
-            grp = (g.g0, g.nfronts, g.wp, g.rp)
-            y_in = y.clone()
-            yp = y.clone()
-            upd = F.front_sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush,
-                                control=F.control_zeros(pool, *grp[1:]))
-            updp = F.front_sweep_plain(pool, yp, *grp, d["piv"], d["rsx"], fwd, flush)
-            run64 = {}
-
-            def in64(key, g=g, d=d, y_in=y_in, fwd=fwd, run64=run64):
-                if not run64:  # the same inputs through the plain version in fp64
-                    fronts = pool[g.g0:g.g0 + g.nfronts * g.mp * g.mp].double()
-                    run64["y"] = y_in.double()
-                    run64["upd"] = F.front_sweep_plain(fronts, run64["y"], 0, g.nfronts, g.wp,
-                                                       g.rp, d["piv"], d["rsx"], fwd, False)
-                return run64[key]
-
-            held(names[fwd], y, yp, yp[d["piv"].long().reshape(-1)], g, lambda: in64("y"))
-            if fwd and g.rp:
-                held(names[fwd], upd, updp, updp, g, lambda: in64("upd"))
+    walks = ((F.front_sweep, F.front_sweep_plain, names, 7),
+             (F.front_sweep_t, F.front_sweep_t_plain,
+              {True: f"respa_front_sweep_t_fwd_{inst}", False: f"respa_front_sweep_t_bwd_{inst}",
+               "red": names["red"]}, 8))
+    for sweep, plain, knames, seed in walks:
+        y = torch.randn(plan.part.n + 1, dtype=pool.dtype, device=pool.device,
+                        generator=torch.Generator(device=pool.device).manual_seed(seed))
+        y[-1] = 0
+        idx = range(len(plan.groups))
+        for fwd in (True, False):
+            for gi in (idx if fwd else reversed(idx)):
+                g, d = plan.groups[gi], dgs[gi]
+                grp = (g.g0, g.nfronts, g.wp, g.rp)
+                y_in = y.clone()
                 yp = y.clone()
-                red = (d["red_rows"], d["red_ptr"], d["red_src"])
-                F.rows_reduce(y, upd, *red, flush)
-                F.rows_reduce_plain(yp, upd, *red, flush)
-                held(names["red"], y, yp, yp[d["red_rows"].long()], g)
-                if not torch.equal(y, yp):  # it sums in its plain version's order
-                    failed.append(f"{names['red']}: != plain bit for bit at B={g.nfronts} "
-                                  f"wp={g.wp} rp={g.rp} level={g.level}")
-    if float(y[-1]) != 0.0 or not bool(torch.isfinite(y).all()):
-        failed.append(f"{name}: the walked solve left y[n] != 0 or a non-finite entry")
+                upd = sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush,
+                            control=F.control_zeros(pool, *grp[1:]))
+                updp = plain(pool, yp, *grp, d["piv"], d["rsx"], fwd, flush)
+                run64 = {}
+
+                def in64(key, g=g, d=d, y_in=y_in, fwd=fwd, run64=run64, plain=plain):
+                    if not run64:  # the same inputs through the plain version in fp64
+                        fronts = pool[g.g0:g.g0 + g.nfronts * g.mp * g.mp].double()
+                        run64["y"] = y_in.double()
+                        run64["upd"] = plain(fronts, run64["y"], 0, g.nfronts, g.wp, g.rp,
+                                             d["piv"], d["rsx"], fwd, False)
+                    return run64[key]
+
+                held(knames[fwd], y, yp, yp[d["piv"].long().reshape(-1)], g, lambda: in64("y"))
+                if fwd and g.rp:
+                    held(knames[fwd], upd, updp, updp, g, lambda: in64("upd"))
+                    yp = y.clone()
+                    red = (d["red_rows"], d["red_ptr"], d["red_src"])
+                    F.rows_reduce(y, upd, *red, flush)
+                    F.rows_reduce_plain(yp, upd, *red, flush)
+                    held(knames["red"], y, yp, yp[d["red_rows"].long()], g)
+                    if not torch.equal(y, yp):  # it sums in its plain version's order
+                        failed.append(f"{knames['red']}: != plain bit for bit at B={g.nfronts} "
+                                      f"wp={g.wp} rp={g.rp} level={g.level}")
+        if float(y[-1]) != 0.0 or not bool(torch.isfinite(y).all()):
+            failed.append(f"{name}: the walked solve left y[n] != 0 or a non-finite entry")
     t_solve = time.perf_counter() - t0
 
     print(f"[kernel] {name_limit} | {name} at full width, {names['add']}: pool == the pool "
@@ -1009,12 +1537,13 @@ def hold_frontal_full(name_limit, name, fac, errs, full):
               f"the fp64 result of the same inputs the kernel is {ek:.3e} away, plain {ep:.3e} "
               f"(ratio {ratio:.2f}, at most {AMPLIFIED:.0f})", flush=True)
     print(f"[kernel] {name}: all {len(plan.groups)} groups held against the plain versions in "
-          f"{t_add:.1f} s (factorization) + {t_solve:.1f} s (solve walked group by group)",
-          flush=True)
+          f"{t_add:.1f} s (factorization) + {t_solve:.1f} s (a solve and a transposed solve "
+          f"walked group by group)", flush=True)
     if failed:
         raise AssertionError(f"{name} at full width: " + "; ".join(failed))
 
 
+@held
 def time_frontal(name_limit, fac, times):
     """The frontal kernels of ``fac``'s instance at three group shapes of its
     plan: the group with the most fronts among those with parents
@@ -1026,8 +1555,10 @@ def time_frontal(name_limit, fac, times):
     lies in, the panel, y's entries, the indices) at 3.35 TB/s. Beside it
     the plain version; for the extend-add and the reduction the one PyTorch
     call with the same function (``index_add_`` on materialised indices, on
-    ``rsx``); for a sweep the library route (``solve_triangular`` on the
-    triangle read in place, the panel by ``matmul``)."""
+    ``rsx``; for the extend-add also under deterministic algorithms, the
+    call that sums in a fixed order as K3 does); for a sweep the library
+    route (``solve_triangular`` on the triangle read in place, the panel by
+    ``matmul``)."""
     plan, pool, flush = fac._plan, fac._frontal.pool, fac._frontal.flush
     inst = F._INST[pool.dtype, flush]
     item = pool.element_size()
@@ -1098,38 +1629,48 @@ def time_frontal(name_limit, fac, times):
                    f"{int(np.diff(g.seg_ptr).max())}",
                    lambda: F.extend_add(scratch, *grp, *idx, flush),
                    lambda: F.extend_add_plain(scratch, *grp, *idx, flush),
-                   lambda: scratch.index_add_(0, dst, src), "extend_add_kernel", nbytes)
+                   lambda: scratch.index_add_(0, dst, src), "extend_add_kernel", nbytes,
+                   extra={"library_deterministic_ms": lambda: deterministic_ms(
+                       lambda: scratch.index_add_(0, dst, src))})
             del scratch, dst, src
         tri = wp * (wp + 1) // 2
         f3 = pool[g.g0:g.g0 + nf * mp * mp].view(nf, mp, mp)
         pv, rs = d["piv"].long(), d["rsx"].long()
-        for fwd in (True, False):
-            name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
+        for trans, fwd in ((False, True), (False, False), (True, True), (True, False)):
+            name = f"respa_front_sweep_{'t_' if trans else ''}{'fwd' if fwd else 'bwd'}_{inst}"
             kernel_name = SWEEP_KERNELS[g.regime, fwd]
             # the function: the triangle and the panel once, y[piv] read and
             # written, y[rsx] read (backward) or upd written (forward), indices
             need = nf * ((tri + rp * wp + 2 * wp + rp) * item + (wp if fwd else wp + rp) * 4)
 
-            def sweep(fwd=fwd):
-                return F.front_sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush,
-                                     control=F.control_zeros(pool, *grp[1:]))
+            def sweep(fwd=fwd, trans=trans):
+                return (F.front_sweep_t if trans else F.front_sweep)(
+                    pool, y, *grp, d["piv"], d["rsx"], fwd, flush,
+                    control=F.control_zeros(pool, *grp[1:]))
 
-            def plain(fwd=fwd):
-                return F.front_sweep_plain(pool, y, *grp, d["piv"], d["rsx"], fwd, flush)
+            def plain(fwd=fwd, trans=trans):
+                return (F.front_sweep_t_plain if trans else F.front_sweep_plain)(
+                    pool, y, *grp, d["piv"], d["rsx"], fwd, flush)
 
-            def library_route(fwd=fwd):
-                """The same function by the library: the triangle in place."""
+            def library_route(fwd=fwd, trans=trans):
+                """The same function by the library: the triangle in place
+                (transposed as a view for K12)."""
+                t11 = f3[:, :wp, :wp].mT if trans else f3[:, :wp, :wp]
+                lower = fwd  # L11 and U11^T forward, U11 and L11^T backward
+                unit = fwd != trans
                 if fwd:
                     z = ftz(torch.linalg.solve_triangular(
-                        f3[:, :wp, :wp], ftz(y[pv], flush)[..., None], upper=False,
-                        unitriangular=True), flush)
+                        t11, ftz(y[pv], flush)[..., None], upper=not lower,
+                        unitriangular=unit), flush)
                     y[pv.reshape(-1)] = z.reshape(-1)
-                    return ftz(-(f3[:, wp:, :wp] @ z), flush)
+                    panel = f3[:, :wp, wp:].mT if trans else f3[:, wp:, :wp]
+                    return ftz(-(panel @ z), flush)
                 rhs = ftz(y[pv], flush)[..., None]
                 if rp:
-                    rhs = ftz(rhs - ftz(f3[:, :wp, wp:] @ ftz(y[rs], flush)[..., None], flush),
-                              flush)
-                z = ftz(torch.linalg.solve_triangular(f3[:, :wp, :wp], rhs, upper=True), flush)
+                    panel = f3[:, wp:, :wp].mT if trans else f3[:, :wp, wp:]
+                    rhs = ftz(rhs - ftz(panel @ ftz(y[rs], flush)[..., None], flush), flush)
+                z = ftz(torch.linalg.solve_triangular(t11, rhs, upper=not lower,
+                                                      unitriangular=unit), flush)
                 y[pv.reshape(-1)] = z.reshape(-1)
                 return None
 
@@ -1149,6 +1690,19 @@ def time_frontal(name_limit, fac, times):
                    lambda: F.rows_reduce_plain(y, upd, *red, flush),
                    lambda: y.index_add_(0, rs.reshape(-1), upd.reshape(-1)),
                    "rows_reduce_kernel", nbytes, setup=reset)
+
+
+def deterministic_ms(fn, reps=10):
+    """``fn`` by events under ``torch.use_deterministic_algorithms(True)``:
+    ``index_add_`` on the card then sums in a fixed order, as K3 does."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        return events_ms(fn, reps)
+    except RuntimeError as e:  # no deterministic implementation: not measured
+        print(f"[time] deterministic index_add_: not measured ({e})", flush=True)
+        return float("nan")
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def frontal_counts(fac):
@@ -1296,12 +1850,20 @@ def multifrontal_path(name_limit, mats, errs, full, times):
               f"{ro.iterations} iterations, residual {ro.residual:.3e}, pivots perturbed "
               f"{ro.n_pivot_perturbed}", flush=True)
         del fac_o
+    # the condition estimate of three factors: the transposed solves on K12
+    rconds = {what: (f, *on_path_condest(what, f))
+              for what, f in (("dc1 fp32", fac), ("2cubes_sphere fp64", fac64),
+                              ("laplacian_2d(300, 300) fp32_ftz", fac_z))}
     launches = dict(F.LAUNCHES, **B.LAUNCHES, spmv_fp64=K.LAUNCHES["fp64"])
+    no_plain("multifrontal path")
     print(f"[frontal] launches of the whole multifrontal path {launches}", flush=True)
 
     # beside the path, not counted: one unrefined solve, the condition
-    # estimate, every group of three plans through the kernels and their
-    # plain versions, and the kernels' times
+    # estimates against the plain transposed solves', every group of three
+    # plans through the kernels and their plain versions, and the kernels'
+    # times
+    rcond_pairs(name_limit, "frontal", rconds)
+    del rconds
     b, _ = slv.make_rhs_for_known_x(a)
     t0 = time.perf_counter()
     fac.solve(b)
@@ -1312,12 +1874,8 @@ def multifrontal_path(name_limit, mats, errs, full, times):
     if not torch.equal(x1, again):
         raise AssertionError("dc1: two solves differ bit for bit")
     two_streams_frontal(name_limit, fac, bd)
-    rcond = fac.condest()
-    if not (np.isfinite(rcond) and 0 < rcond <= 1):
-        raise AssertionError(f"condest {rcond}")
     print(f"[frontal] {name_limit} | dc1 one fp32 solve without refinement {t_one * 1e3:.1f} ms, "
-          f"residual {r_one:.3e}, bitwise equal twice; condest (Hager, transpose "
-          f"solves from the pool): rcond {rcond:.3e}", flush=True)
+          f"residual {r_one:.3e}, bitwise equal twice", flush=True)
     for name, f in (("dc1 fp32", fac), ("2cubes_sphere fp64", fac64),
                     ("laplacian_2d(300, 300) fp32_ftz", fac_z)):
         hold_frontal_full(name_limit, name, f, errs, full)
@@ -1374,6 +1932,7 @@ def tri_synthetic(kind, n=100_000, hub=50_000, seed=22):
     return t
 
 
+@held
 def check_ilu_synthetic(errs):
     """K6 against ``ilu0_sweep_plain`` on the synthetic matrix, every
     instance, twice, bit for bit, the slot past the output untouched, with
@@ -1427,6 +1986,7 @@ def turned(t):
                                 (n - 1 - coo.col).astype(np.int32), coo.val))
 
 
+@held
 def check_tri_synthetic(name_limit, errs, latency):
     """K7 against ``tri_solve_plain`` (run on the host copy of the same
     inputs) on the synthetic triangles, lower and upper, with and without a
@@ -1581,6 +2141,7 @@ def upload_times_in_turns(trees):
         subprocess.run([sys.executable, "-c", code], cwd=tree, check=True, timeout=600)
 
 
+@held
 def time_ilu_alone(name_limit):
     """``python3 chip_smoke.py --ilu-times``: phase 9's measurements at the
     path's shapes alone, in a fresh process (the profiler drops records after
@@ -1717,6 +2278,7 @@ def design_sweep(lib, design, inst, s, av, old, eps, resid=None):
     return out
 
 
+@held
 def compare_ilu_designs(name_limit, lib, inst, s, av, old, eps, want, wres):
     """K6's designs at the path's input, each == plain bit for bit (with the
     residual too), then timed by the profiler in 3 rounds (the order turned
@@ -1756,6 +2318,7 @@ def compare_ilu_designs(name_limit, lib, inst, s, av, old, eps, want, wres):
     return out
 
 
+@held
 def hold_and_time_ilu(name_limit, a, errs, times, latency, designs):
     """Beside the path, not counted: K6 and K7 against their plain versions
     at the main path's shapes (one sweep of 2cubes_sphere's factorization in
@@ -2032,6 +2595,7 @@ def l2_read_rate(name_limit, probes, mib=16, rounds=64):
     return rate
 
 
+@held
 def hold_splu(what, d, values, eps, insts, errs):
     """K8 against its plain version on a plan and values (A's values on the
     pattern, fp64 on the host), twice, bit for bit, in each instance of
@@ -2060,6 +2624,7 @@ def hold_splu(what, d, values, eps, insts, errs):
     return out
 
 
+@held
 def hold_and_time_splu(name_limit, what, d, values, eps, insts, errs, latency, l2, reps=10):
     """K8 held against its plain version (:func:`hold_splu`) on the path's
     own plan and values, then timed by events and the profiler beside its
@@ -2139,6 +2704,7 @@ def splu_ilu_path(name_limit):
     return launches
 
 
+@held
 def hold_splu_ilu(name_limit, a, errs, times, latency, l2):
     """Beside phase 10, not counted: 2cubes_sphere's ILU(0) plan (entry
     levels and tasks, with their host time), K8 in every instance against
@@ -2243,6 +2809,7 @@ def splu_direct_path(name_limit):
     return launches, fac, fac64
 
 
+@held
 def hold_splu_direct(name_limit, fac, fac64, errs, latency, l2):
     """Beside phase 11, not counted: the condition estimate once, and K8
     against its plain version on the Laplacian's filled pattern (fp32 and
@@ -2339,6 +2906,7 @@ def dia_by_addend(lib, dev, rem_csr, x):
     return y
 
 
+@held
 def compare_dia_remainders(name_limit, designs, a):
     """ecology2 with 2,000 stragglers, fp32: the kept design (the remainder
     summed inside K9) against the other (K0 on the remainder, then K9 adding
@@ -2368,6 +2936,7 @@ def compare_dia_remainders(name_limit, designs, a):
     return {"events_ms": out, "kept_profiler_ms": prof}
 
 
+@held
 def hold_and_time_dia(name_limit, mats, errs, times, designs):
     """Beside phase 12, not counted: K9 against its plain version in every
     instance on both grids and on ecology2 with 2,000 stragglers (the
@@ -2589,7 +3158,8 @@ def offline():
         urllib.request.urlretrieve = old
 
 
-STUDY_KERNELS = (*B.LAUNCHES, *F.LAUNCHES, "respa_spmv_csr_f64")
+STUDY_KERNELS = (*(n for n in B.LAUNCHES if n not in NEW_BAND),
+                 *(n for n in F.LAUNCHES if n not in NEW_FRONT), "respa_spmv_csr_f64")
 # dc1 in phase 14: cut to this many entries (its analysis at catalogue size takes 38 s a row),
 # and by the multifrontal LU, which ``auto`` reaches at catalogue size (the band refuses: 72.8
 # GiB), while the cut matrix's band would fit
@@ -2646,7 +3216,9 @@ DIST_SHARDS = 4
 DIST_DEVICE = "cuda:0"  # all the shards on the first card
 # the kernels the distributed path must launch
 DIST_KERNELS = ("respa_spmv_csr_f32", "respa_spmv_csr_f64", "respa_block_lu_f32",
-                "respa_band_sweep_fwd_f32", "respa_band_sweep_bwd_f32", "respa_extend_add_f32",
+                "respa_band_sweep_fwd_f32", "respa_band_sweep_bwd_f32",
+                "respa_band_sweep_multi_fwd_f32", "respa_band_sweep_multi_bwd_f32",
+                "respa_extend_add_f32",
                 "respa_front_sweep_fwd_f32", "respa_front_sweep_bwd_f32", "respa_rows_reduce_f32",
                 "respa_ilu0_sweep_f32")
 DIST_SPMV_TOL = {"fp32": 1e-6, "fp64": 1e-14}
@@ -2726,14 +3298,114 @@ def pool_digests(sub, mesh):
     return {f"pool_{d}": digest(sub.pools[d].cpu().numpy()) for d in mesh.local_shards}
 
 
-def dist_core(tag, mesh, device, off, eco, cubes, refs=None):
+ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+
+
+def alloc_counts():
+    """The caching allocator's cudaMalloc and cudaFree calls and its retries
+    (a retry frees the cache, and a cudaFree waits for the whole card)."""
+    stats = torch.cuda.memory_stats()
+    return {k: stats.get(k) for k in ALLOC_KEYS}
+
+
+def alloc_delta(before):
+    after = alloc_counts()
+    return {k: None if before[k] is None else after[k] - before[k] for k in ALLOC_KEYS}
+
+
+def tips_trace(tag, mesh, build, tmp):
+    """One SPIKE construction (``build``) under the profiler, its tips phase
+    read from the trace: the card's records between the first shard's tips
+    and the reduced system's gather, by stream (K10's and the rest), K10's
+    busy time summed against the union of its records (the shards' sweeps
+    overlapping, or one after another), and the host's runtime calls in the
+    window (allocations, frees, launches, waits). Its launches are not
+    counted. Returns the host seconds of the phase as the construction
+    measured it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from respatpu_torch import dist_lu
+    tips_fn = dist_lu.DistBandLu._tips
+
+    def tips(self, j):
+        with record_function(f"spike tips shard {j}"):
+            return tips_fn(self, j)
+
+    def gathered(*args, _gather=mesh.all_gather, **kwargs):
+        with record_function("spike reduced"):
+            return _gather(*args, **kwargs)
+
+    dist_lu.DistBandLu._tips = tips
+    mesh.all_gather = gathered
+    try:
+        torch.cuda.synchronize()
+        with uncounted(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+            fac = build()
+            torch.cuda.synchronize()
+    finally:
+        dist_lu.DistBandLu._tips = tips_fn
+        del mesh.all_gather
+    path = os.path.join(tmp, "spike_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    os.remove(path)
+    ann = [e for e in events if e.get("cat") == "user_annotation"]
+    starts = [e["ts"] for e in ann if e["name"].startswith("spike tips")]
+    if not starts:
+        print(f"{tag} | SPIKE tips under the profiler: no annotation in the trace", flush=True)
+        return fac.phases["tips"]
+    t0 = min(starts)
+    t1 = min([e["ts"] for e in ann if e["name"] == "spike reduced" and e["ts"] > t0]
+             or [max(e["ts"] + e["dur"] for e in events)])
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and t0 <= e["ts"] < t1]
+    k10 = sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu if "band_multi_kernel" in e["name"])
+    union, end = 0.0, None
+    for a, b in k10:
+        if end is None or a > end:
+            union += b - a
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    by_stream = {}
+    for e in gpu:
+        st = by_stream.setdefault(e.get("args", {}).get("stream"), [0, 0.0, 0, 0.0, 1e30, 0.0])
+        i = 0 if "band_multi_kernel" in e["name"] else 2
+        st[i] += 1
+        st[i + 1] += e["dur"]
+        st[4], st[5] = min(st[4], e["ts"]), max(st[5], e["ts"] + e["dur"])
+    host = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and t0 <= e["ts"] < t1:
+            n, d = host.get(e["name"], (0, 0.0))
+            host[e["name"]] = (n + 1, d + e["dur"])
+    busy = sum(b - a for a, b in k10)
+    streams = "; ".join(
+        f"stream {s}: K10 {v[0]} x {v[1] / 1e3:.2f} ms, other {v[2]} x {v[3] / 1e3:.2f} ms, "
+        f"from {(v[4] - t0) / 1e3:.2f} to {(v[5] - t0) / 1e3:.2f} ms"
+        for s, v in sorted(by_stream.items(), key=lambda kv: str(kv[0])))
+    calls = ", ".join(f"{k} {n} x {d / 1e3:.3f} ms" for k, (n, d) in
+                      sorted(host.items(), key=lambda kv: -kv[1][1])[:8])
+    print(f"{tag} | SPIKE tips under the profiler (a third factorization): host "
+          f"{fac.phases['tips']:.3f} s; trace window {(t1 - t0) / 1e3:.2f} ms; {streams}; K10 "
+          f"busy {busy / 1e3:.2f} ms over a union of {union / 1e3:.2f} ms (overlap "
+          f"{busy / max(union, 1e-9):.2f}x); host runtime calls in the window: {calls}",
+          flush=True)
+    return fac.phases["tips"]
+
+
+def dist_core(tag, mesh, device, off, eco, cubes, refs=None, tmp=None):
     """The distributed path that phases 15 and 16 share, on ``mesh`` (this
     rank's part of it): ``DistSpmv`` on offshore (fp32, fp64); ``dist_cg`` on
     ecology2's stand-in; ``runner.sweep_ilu0_dist`` on ecology2 (``ok`` at
     1e-10), its mesh made on ``device`` (None: the rank's); SPIKE on 2cubes_sphere in the natural order, factored twice bit
     for bit, solved and refined to 1e-10; the subtree LU on 2cubes_sphere,
-    factored twice bit for bit, solved and refined to 1e-10. Returns (rows,
-    digests of every result, failed gates, the subtree factor)."""
+    factored twice bit for bit, solved and refined to 1e-10. With ``tmp``
+    (phase 15), SPIKE's tips are traced in a third factorization
+    (:func:`tips_trace`). Returns (rows, digests of every result, failed
+    gates, the subtree factor)."""
     from respatpu_torch import dist_lu, dist_snlu_sub
     digests, failed = {}, []
     rows = {"spmv": dist_spmv_rows(tag, mesh, off, refs, digests)}
@@ -2748,10 +3420,21 @@ def dist_core(tag, mesh, device, off, eco, cubes, refs=None):
         failed.append(f"sweep_ilu0_dist ecology2: {row}")
 
     b2 = slv.make_rhs_for_known_x(cubes)[0]
-    spike, t_f = synced(lambda: dist_lu.DistBandLu(cubes, mesh=mesh, order="natural",
-                                                   max_reduced=SPIKE_MAX_REDUCED))
-    again = dist_lu.DistBandLu(cubes, mesh=mesh, order="natural", max_reduced=SPIKE_MAX_REDUCED)
+
+    def build():
+        return dist_lu.DistBandLu(cubes, mesh=mesh, order="natural",
+                                  max_reduced=SPIKE_MAX_REDUCED)
+
+    before = alloc_counts()
+    spike, t_f = synced(build)
+    allocs = alloc_delta(before)
+    before = alloc_counts()
+    again = build()
     torch.cuda.synchronize()
+    allocs_again = alloc_delta(before)
+    print(f"{tag} | SPIKE tips on K10: {spike.phases['tips']:.3f} s in the first factorization "
+          f"(allocator {allocs}), {again.phases['tips']:.3f} s in the second "
+          f"({allocs_again}); host clock to a synchronize", flush=True)
     same = (all(torch.equal(spike._parts[j].lu.data, again._parts[j].lu.data)
                 for j in mesh.local_shards)
             and all(torch.equal(spike._rlu.values[pl][0], again._rlu.values[pl][0])
@@ -2759,22 +3442,40 @@ def dist_core(tag, mesh, device, off, eco, cubes, refs=None):
     del again
     if not same:
         failed.append("SPIKE: two factorizations differ")
+    if tmp is not None:
+        tips_trace(tag, mesh, build, tmp)
     x, t_s = synced(lambda: spike.solve(b2))
+    # four right-hand sides at once: the shards' solves on K10
+    bm = np.random.default_rng(31).standard_normal((cubes.nrows, 4))
+    bm[:, 0] = b2
+    with recorded_multi() as calls:
+        xm, t_m = synced(lambda: spike.solve(bm))
+    hold_recorded_multi(tag, "SPIKE's solve of 4 right-hand sides, every shard's", calls)
+    del calls
+    res_m = [slv.relative_residual(cubes, xm[:, j], bm[:, j]) for j in range(4)]
+    res_1 = slv.relative_residual(cubes, x, b2)
+    if not (np.isfinite(xm).all() and res_m[0] <= 10 * res_1 + 1e-15):
+        failed.append(f"SPIKE, 4 right-hand sides: residuals {res_m}, one column {res_1:.3e}")
     (xr, rep), t_r = synced(lambda: dist_lu.dist_solve_refined(cubes, b2, fac=spike))
     res = slv.relative_residual(cubes, xr, b2)
-    digests.update(spike_x=digest(x), spike_refined=[digest(xr), rep.iterations])
+    digests.update(spike_x=digest(x), spike_multi=digest(xm),
+                   spike_refined=[digest(xr), rep.iterations])
     rows["spike"] = dict(reduced_order=spike.reduced_order, reduced_bytes=spike.reduced_bytes,
                          ml=spike.ml, mu=spike.mu, nb_loc=spike.nb_loc,
                          analyze_s=spike.report.t_analyze, factor_s=t_f, phases=spike.phases,
                          solve_s=t_s, refined_s=t_r, iterations=rep.iterations, residual=res,
-                         pivots=spike.report.n_pivot_perturbed)
+                         pivots=spike.report.n_pivot_perturbed, solve4_s=t_m,
+                         solve4_residuals=res_m)
     print(f"{tag} | SPIKE 2cubes_sphere fp32 ({mesh.describe()}): ml = mu = {spike.mu} "
           f"blocks of {spike.p}, {spike.nb_loc} block rows a shard; reduced system order "
           f"{spike.reduced_order}, {spike.reduced_bytes} bytes once a place; analyze "
           f"{spike.report.t_analyze:.3f} s, construction {t_f:.3f} s (factor "
-          f"{spike.report.t_factorize:.3f}: band LU {spike.phases['band_lu']:.3f}, tips "
-          f"{spike.phases['tips']:.3f}, reduced {spike.phases['reduced']:.3f}), two "
-          f"factorizations bit for bit {same}; one solve {t_s * 1e3:.1f} ms; refined {t_r:.3f} s "
+          f"{spike.report.t_factorize:.3f}: band LU {spike.phases['band_lu']:.3f}, tips on K10 "
+          f"{spike.phases['tips']:.3f}, reduced {spike.phases['reduced']:.3f}; the tips were "
+          f"0.33 s as a torch-op loop on 4 shards in one process, the factor 0.75 s, and over 2 "
+          f"ranks the factor 1.55-1.56 s), two factorizations bit for bit {same}; one solve "
+          f"{t_s * 1e3:.1f} ms; 4 right-hand sides at once {t_m * 1e3:.1f} ms, residuals "
+          f"{', '.join(f'{r:.3e}' for r in res_m)}; refined {t_r:.3f} s "
           f"in {rep.iterations} iterations to {res:.3e} (host oracle; tol 1e-10); pivots "
           f"perturbed {spike.report.n_pivot_perturbed} (host clock to a synchronize)", flush=True)
     if not res <= 1e-10:
@@ -2840,7 +3541,7 @@ def dist_path(name_limit, mats, tmp):
         refs[policy] = K.spmv(one, xd).cpu().double()
     reset_counts()
     t_path = time.perf_counter()
-    rows, digests, failed, sub = dist_core(tag, mesh, DIST_DEVICE, off, eco, cubes, refs)
+    rows, digests, failed, sub = dist_core(tag, mesh, DIST_DEVICE, off, eco, cubes, refs, tmp)
     more = runner.sweep_ilu0_dist(["2cubes_sphere"], ndev=DIST_SHARDS, device=DIST_DEVICE,
                                   verbose=False)
     print(f"{tag} | sweep_ilu0_dist {json.dumps(more[0])}", flush=True)
@@ -2869,6 +3570,7 @@ def dist_path(name_limit, mats, tmp):
     rows["scaling"] = srows
     t_path = time.perf_counter() - t_path
     launches = all_counts()
+    no_plain("distributed path")
 
     # after the count: the single-card pool of the same partition
     plan1 = F.build_frontal_plan(sub.part)
@@ -2940,6 +3642,7 @@ def rank_worker(name_limit, argv):
             rows["cg"] = dist_cg_row(tag, mesh, eco, digests, failed)
             t_path = time.perf_counter() - t_path
             launches = all_counts()
+        failed += [f"{k} ran {v} times on the path" for k, v in PLAIN_CALLS.items() if v]
         result = dict(rows=rows, digests=digests, failed=failed, launches=launches,
                       mesh=mesh.describe(), path_s=t_path, seconds=time.perf_counter() - t0)
     finally:
@@ -2999,7 +3702,8 @@ def rank_times(rows):
             "dist_cg ms an iteration": rows["cg"]["ms_per_iteration"],
             "sweep_ilu0_dist ecology2 setup s": float(rows["ilu0dist"][0]["t_setup_s"]),
             "sweep_ilu0_dist ecology2 Krylov s": float(rows["ilu0dist"][0]["t_krylov_s"]),
-            "SPIKE factor s": sp["factor_s"], "SPIKE solve ms": sp["solve_s"] * 1e3,
+            "SPIKE factor s": sp["factor_s"], "SPIKE tips s": sp["phases"]["tips"],
+            "SPIKE solve ms": sp["solve_s"] * 1e3, "SPIKE 4-column solve ms": sp["solve4_s"] * 1e3,
             "SPIKE refined s": sp["refined_s"], "subtree analyze s": sub["analyze_s"],
             "subtree factor s": sub["factor_s"], "subtree factor again s": sub["factor_warm_s"],
             "subtree solve ms": sub["solve_s"] * 1e3, "subtree refined s": sub["refined_s"]}
@@ -3093,6 +3797,7 @@ def phase_done(k):
 SPLU_LONG_PAIRS = (1, 128, 256, 512)
 
 
+@held
 def time_splu_alone(name_limit):
     """``python3 chip_smoke.py --splu-times``: K8 at the path's two shapes
     (2cubes_sphere's ILU(0), laplacian_2d(300, 300)'s fill) in a fresh
@@ -3154,6 +3859,7 @@ def main():
     print(f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} torch={torch.__version__} "
           f"cuda={torch.version.cuda}", flush=True)
+    count_plain_calls()
 
     if sys.argv[1:2] == ["--ilu-rows"]:
         ilu_rows_in_turns(sys.argv[2:])
@@ -3171,6 +3877,13 @@ def main():
         _build.load()
         with tempfile.TemporaryDirectory() as tmp:
             dist_path(name_limit, {m: corpus.load_matrix(m)[0] for m in MAIN}, tmp)
+        return
+    if sys.argv[1:2] == ["--band"]:
+        _build.load()
+        band_errs, band_times = {}, {}
+        check_band_multi(band_errs)
+        check_band_t(band_errs)
+        direct_path(name_limit, corpus.load_matrix(MAIN[0])[0], band_times, band_errs)
         return
     if sys.argv[1:2] == ["--rank-worker"]:
         rank_worker(name_limit, sys.argv[2:])
@@ -3292,6 +4005,7 @@ def main():
                   f"{p} {float(row['t_lo_s']) * 1e6:.2f} us ({nnz / float(row['t_lo_s']) / 1e9:.2f} Gnnz/s) "
                   f"mean_abs_err={row['mean_abs_err']} "
                   f"gate_floor_lo={row['timing_lo'].floor_s * 1e6:.2f} us", flush=True)
+    no_plain("SpMV path")
     profile_sweep_row(name_limit)
     phase_done(4)
 
@@ -3299,10 +4013,12 @@ def main():
     band_errs, band_times = {}, {}
     check_block_lu(band_errs)
     check_band_sweep(band_errs)
+    check_band_multi(band_errs)
+    check_band_t(band_errs)
     phase_done(5)
 
     # 6. direct path at full width
-    band_launches, spmv_direct = direct_path(name_limit, mats[MAIN[0]], band_times)
+    band_launches, spmv_direct = direct_path(name_limit, mats[MAIN[0]], band_times, band_errs)
     for name, n in band_launches.items():
         if n < 1:
             raise AssertionError(f"{name} was not launched on the direct path")
@@ -3336,6 +4052,7 @@ def main():
     latency = link_probe(name_limit)
     check_tri_synthetic(name_limit, ilu_errs, latency)
     ilu_launches = ilu_path(name_limit, mats)
+    no_plain("ILU(0) path")
     # the grid Laplacian's products take the DIA kernel, 2cubes_sphere's the CSR one
     for name in (*I.LAUNCHES, *S.LAUNCHES, "spmv_fp32", "respa_dia_spmv_f32",
                  "respa_dia_spmv_f32_ftz", "respa_dia_spmv_bf16"):
@@ -3348,6 +4065,7 @@ def main():
     # 10. exact ILU(0) by the scheduled LU (K8)
     splu_errs, splu_times = {}, {}
     splu_ilu_launches = splu_ilu_path(name_limit)
+    no_plain("exact ILU(0) path")
     for name in ("respa_splu_factor_f32", "respa_splu_factor_f64", "respa_splu_factor_f32_ftz",
                  "respa_splu_factor_bf16", "respa_tri_solve_lower_f64"):
         if splu_ilu_launches[name] < 1:
@@ -3358,23 +4076,27 @@ def main():
 
     # 11. the direct scheduled LU at full width
     splu_direct_launches, fac_s, fac_s64 = splu_direct_path(name_limit)
+    no_plain("direct sparse path")
     splu_lu_times = hold_splu_direct(name_limit, fac_s, fac_s64, splu_errs, latency, l2)
     phase_done(11)
 
     # 12. the DIA path
     dia_errs, dia_times = {}, {}
     dia_launches, grids = dia_path(name_limit)
+    no_plain("DIA path")
     hold_and_time_dia(name_limit, grids, dia_errs, dia_times, probes.result())
     builder.shutdown()
     phase_done(12)
 
     # 13. persistence
     persist_launches = persistence_path(name_limit, fac_dc1, fac_s, fac_s64)
+    no_plain("persistence path")
     del fac_dc1, fac_s, fac_s64
     phase_done(13)
 
     # 14. the precision study
     study_launches = study_path(name_limit)
+    no_plain("study path")
     phase_done(14)
 
     # 15. the distributed stack
@@ -3401,8 +4123,10 @@ def main():
                             "launches_frontal_path": front_launches["spmv_fp64"]}
                            if p == "fp64" else {})})
     for name in B.LAUNCHES:
-        kernels.append({"name": name, "route": "cuda", "source": BAND_SOURCE,
-                        "replaces": LU_REPLACES if "block_lu" in name else SWEEP_REPLACES,
+        kernels.append({"name": name, "route": "cuda",
+                        "source": MULTI_SOURCE if "_multi_" in name else BAND_SOURCE,
+                        "replaces": (LU_REPLACES if "block_lu" in name else
+                                     T_REPLACES if "_sweep_t_" in name else SWEEP_REPLACES),
                         "launches": band_launches[name], "max_abs_err": band_errs[name],
                         **band_times[name],
                         **({"launches_frontal_path": front_launches[name]}

@@ -17,11 +17,12 @@ slot (job=4 analyze + factorize, test_mumps.c:121-128; job=3 solve,
    kernel K1 and cuBLAS TRSMs and products) and computes the tips, the top
    mu*p and bottom ml*p rows, of ``V_j = A_j^-1 [0; B_j]`` and ``W_j =
    A_j^-1 [C_j; 0]`` by multi-right-hand-side band solves (``band_solve``:
-   K2 takes one right-hand side, several go block row by block row through
-   torch ops, ROADMAP item f). One ``all_gather`` of
+   K10, the blocks of a tile of the tips' columns walking its rows; V's
+   forward sweep starts at its first nonzero block row). One ``all_gather`` of
    the tips assembles the reduced system R (identity plus the tips, of order
    P*(ml+mu)*p), LU-factored by ``torch.linalg`` once on every place;
-4. solve: g_j = A_j^-1 b_j (two launches of K2), an ``all_gather`` of g's
+4. solve: g_j = A_j^-1 b_j (two launches of K2, or of K10 for several
+   right-hand sides), an ``all_gather`` of g's
    tips, the reduced solve once a place, and each shard back-substitutes
    ``x_j = A_j^-1 (b_j - [0; B_j u_{j+1}] - [C_j d_{j-1}; 0])``; x is
    gathered onto every rank.
@@ -234,11 +235,11 @@ class DistBandLu:
                 out.append(torch.zeros((mu + ml) * p * width, dtype=acc, device=dev))
                 continue
             rhs = torch.zeros((nb * p, width), dtype=acc, device=dev)
-            if k == 0:  # V = A^-1 [0; B]
+            if k == 0:  # V = A^-1 [0; B]: the forward sweep starts at B's block rows
                 rhs[-mu * p:] = blk
             else:  # W = A^-1 [C; 0]
                 rhs[:ml * p] = blk
-            sol = bandlu.band_solve(part.lu, rhs)
+            sol = bandlu.band_solve(part.lu, rhs, max(nb - mu, 0) if k == 0 else 0)
             out.append(torch.cat([sol[:mu * p].reshape(-1), sol[-ml * p:].reshape(-1)]))
         return torch.cat(out)
 

@@ -16,20 +16,22 @@ from typing import Sequence
 from .._buildlib import CompileError, build_shared
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("spmv_csr.cu", "band_lu.cu", "frontal.cu", "ilu0.cu", "sptrsv.cu", "splu.cu",
-           "dia.cu")
+SOURCES = ("spmv_csr.cu", "band_lu.cu", "band_multi.cu", "frontal.cu", "ilu0.cu", "sptrsv.cu",
+           "splu.cu", "dia.cu")
 HEADERS = ("common.cuh",)  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 _ENTRIES = ("respa_spmv_csr_f32", "respa_spmv_csr_f32_ftz",
             "respa_spmv_csr_bf16", "respa_spmv_csr_f64")
 _BLOCK_LU = ("respa_block_lu_f32", "respa_block_lu_f32_ftz", "respa_block_lu_f64")
-_BAND_SWEEP = tuple(f"respa_band_sweep_{d}_{i}" for d in ("fwd", "bwd")
+_BAND_SWEEP = tuple(f"respa_band_sweep_{k}{d}_{i}" for k in ("", "t_") for d in ("fwd", "bwd")
+                    for i in ("f32", "f32_ftz", "bf16", "f64"))
+_BAND_MULTI = tuple(f"respa_band_sweep_multi_{d}_{i}" for d in ("fwd", "bwd")
                     for i in ("f32", "f32_ftz", "bf16", "f64"))
 _INSTANCES = ("f32", "f32_ftz", "f64")
 _EXTEND_ADD = tuple(f"respa_extend_add_{i}" for i in _INSTANCES)
-_FRONT_FWD = tuple(f"respa_front_sweep_fwd_{i}" for i in _INSTANCES)
-_FRONT_BWD = tuple(f"respa_front_sweep_bwd_{i}" for i in _INSTANCES)
+_FRONT_FWD = tuple(f"respa_front_sweep_{t}fwd_{i}" for t in ("", "t_") for i in _INSTANCES)
+_FRONT_BWD = tuple(f"respa_front_sweep_{t}bwd_{i}" for t in ("", "t_") for i in _INSTANCES)
 _ROWS_REDUCE = ("respa_rows_reduce_f32", "respa_rows_reduce_f64")
 _ILU_INSTANCES = ("f32", "f32_ftz", "bf16", "f64")
 _ILU0_SWEEP = tuple(f"respa_ilu0_sweep_{i}" for i in _ILU_INSTANCES)
@@ -80,6 +82,11 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
         fn = getattr(lib, name)
         # device, nb, p, ml, mu, then band, b, out, mail, stream
         fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+        fn.restype = ctypes.c_int
+    for name in _BAND_MULTI:
+        fn = getattr(lib, name)
+        # device, nb, p, ml, mu, nrhs, first_row, then band, b, out, ready, stream
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for name in _EXTEND_ADD:

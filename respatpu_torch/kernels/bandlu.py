@@ -23,20 +23,28 @@ No pivoting: like PARDISO's default, tiny pivots are perturbed
 (test_pardiso.c:144-148) and accuracy is recovered by mixed-precision
 iterative refinement (solve.py).
 
-Two hand-written CUDA kernels (``csrc/band_lu.cu``) take the two dependent
-chains that have no workable form in torch ops:
+Hand-written CUDA kernels take the dependent chains that have no workable
+form in torch ops:
 
-* ``block_lu``: the unpivoted LU of a P x P block with perturbation and its
-  count (respatpu's ``dflinalg.lu_unpivoted``), P dependent pivots;
-* ``band_sweep``: the forward or the backward block substitution for one
-  right-hand side (respatpu's ``_solve_core``), nb dependent block rows in
-  one launch.
+* ``block_lu`` (K1, ``csrc/band_lu.cu``): the unpivoted LU of a P x P block
+  with perturbation and its count (respatpu's ``dflinalg.lu_unpivoted``), P
+  dependent pivots;
+* ``band_sweep`` (K2, ``csrc/band_lu.cu``): the forward or the backward
+  block substitution for one right-hand side (respatpu's ``_solve_core``),
+  nb dependent block rows in one launch;
+* ``band_sweep_multi`` (K10, ``csrc/band_multi.cu``): the same for several
+  right-hand sides (``_solve_core`` with nrhs > 1: SPIKE's tips), the blocks
+  of a tile of columns walking its block rows;
+* ``band_sweep_t`` (K11, ``csrc/band_lu.cu``): the sweeps of the transposed
+  system, ``U^T`` forward and ``L^T`` backward, read straight from the band
+  (the condition estimate's transposed solves).
 
 Each has its plain PyTorch version beside it (``block_lu_plain``,
-``band_sweep_plain``). A wrapper launches its kernel for a CUDA tensor and
-runs the plain version for a CPU tensor; nothing else chooses. The TRSMs and
-the trailing product of the factorization are large dense operations and go
-to ``torch.linalg.solve_triangular`` and ``torch.baddbmm`` with TF32 off, as
+``band_sweep_plain`` for K2 and K10, ``band_sweep_t_plain``). A wrapper
+launches its kernel for a CUDA tensor and runs the plain version for a CPU
+tensor; nothing else chooses. The TRSMs and the trailing product of the
+factorization are large dense operations and go to
+``torch.linalg.solve_triangular`` and ``torch.baddbmm`` with TF32 off, as
 respatpu leaves them to XLA.
 
 Precisions: fp32, fp32_ftz and bf16 store the band in the policy's type and
@@ -59,8 +67,8 @@ from ..precision import Policy, ftz, get_policy
 __all__ = ["BandMatrix", "csr_to_band", "band_memory_bytes", "band_extent",
            "DeviceBand", "band_to_device", "csr_to_device_band", "band_lu",
            "band_solve", "band_solve_transpose", "BandLuResult", "block_lu",
-           "block_lu_plain", "band_sweep", "band_sweep_plain", "LAUNCHES",
-           "MAX_P"]
+           "block_lu_plain", "band_sweep", "band_sweep_plain", "band_sweep_multi",
+           "band_sweep_t", "band_sweep_t_plain", "LAUNCHES", "MAX_P"]
 
 MAX_P = 128  # largest block the kernels take (kMaxP of csrc/band_lu.cu)
 
@@ -69,10 +77,15 @@ _INST = {"fp32": "f32", "fp32_ftz": "f32_ftz", "bf16": "bf16", "fp64": "f64"}
 _LU_ENTRIES = ("respa_block_lu_f32", "respa_block_lu_f32_ftz", "respa_block_lu_f64")
 _SWEEP_ENTRY = {(d, p): f"respa_band_sweep_{d}_{i}"
                 for d in ("fwd", "bwd") for p, i in _INST.items()}
+_MULTI_ENTRY = {(d, p): f"respa_band_sweep_multi_{d}_{i}"
+                for d in ("fwd", "bwd") for p, i in _INST.items()}
+_T_ENTRY = {(d, p): f"respa_band_sweep_t_{d}_{i}"
+            for d in ("fwd", "bwd") for p, i in _INST.items()}
 
 # Kernel launches per entry point of the library, raised by the wrappers right
 # after each launch succeeds and nowhere else.
-LAUNCHES = {name: 0 for name in (*_LU_ENTRIES, *sorted(_SWEEP_ENTRY.values()))}
+LAUNCHES = {name: 0 for name in (*_LU_ENTRIES, *sorted(_SWEEP_ENTRY.values()),
+                                 *sorted(_MULTI_ENTRY.values()), *sorted(_T_ENTRY.values()))}
 
 
 @dataclasses.dataclass
@@ -364,22 +377,30 @@ def band_lu(band: DeviceBand, pivot_eps: Optional[float] = None) -> BandLuResult
 # ---------------------------------------------------------------------------
 
 
-def band_sweep_plain(lu: DeviceBand, b: torch.Tensor, forward: bool) -> torch.Tensor:
-    """The sweep kernel's function in plain torch ops, on any device.
+def band_sweep_plain(lu: DeviceBand, b: torch.Tensor, forward: bool,
+                     first_row: int = 0) -> torch.Tensor:
+    """The function of the sweep kernels (K2 for one right-hand side, K10
+    for several) in plain torch ops, on any device.
 
     ``b`` is padded, [nb*P] or [nb*P, nrhs], in the accumulator type.
     Forward: ``y[r] = L_D^-1 (b[r] - band[r][:, :ml*P] @ y[(r-ml)*P : r*P])``
     for r = 0..nb-1 with the unit lower triangle of the diagonal block
     (columns before the matrix start are skipped). Backward:
     ``x[r] = U_D^-1 (b[r] - band[r][:, (ml+1)*P:] @ x[(r+1)*P : ...])`` for
-    r = nb-1..0. Band values are read as the accumulator type."""
+    r = nb-1..0. Band values are read as the accumulator type.
+
+    ``first_row`` (forward only) says that b's block rows before it are
+    zero: the sweep starts there and y's rows before it are +0, as the sweep
+    from row 0 computes them, so the result is the same bit for bit."""
     p, ml, mu, nb = lu.p, lu.ml, lu.mu, lu.nb
     acc = lu.policy.accum_dtype
     fl = lu.policy.flush_to_zero
+    if first_row and not forward:
+        raise ValueError("first_row is for the forward sweep only")
     single = b.dim() == 1
     rhs = (b[:, None] if single else b).to(acc)
     out = torch.zeros_like(rhs)
-    for r in (range(nb) if forward else range(nb - 1, -1, -1)):
+    for r in (range(first_row, nb) if forward else range(nb - 1, -1, -1)):
         row = lu.data[r]
         if forward:
             k = min(ml, r)
@@ -435,59 +456,168 @@ def band_sweep(lu: DeviceBand, b: torch.Tensor, forward: bool) -> torch.Tensor:
     return out
 
 
-def band_solve(lu: DeviceBand, b: torch.Tensor) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# Kernel 10: banded block substitution for several right-hand sides
+# ---------------------------------------------------------------------------
+
+
+def _check_rhs(lu: DeviceBand, b: torch.Tensor, shape: Tuple[int, ...]) -> None:
+    """What K10 and K11 take, refused the same on every device: ``b`` of
+    ``shape`` in the band's accumulator type on the band's device,
+    contiguous, and blocks of at most ``MAX_P``."""
+    _check_band(lu)
+    acc = lu.policy.accum_dtype
+    if not 1 <= lu.p <= MAX_P:
+        raise ValueError(f"lu.p (the block size) must be in [1, {MAX_P}], got {lu.p}")
+    if b.dtype != acc:
+        raise TypeError(f"b must be {acc} for a {lu.policy.name} band, got {b.dtype}")
+    if b.device != lu.device:
+        raise ValueError(f"b is on {b.device}, the band on {lu.device}")
+    if tuple(b.shape) != shape or not b.is_contiguous():
+        raise ValueError(f"b must be contiguous of shape {shape}, got {tuple(b.shape)}"
+                         f"{'' if b.is_contiguous() else ', not contiguous'}")
+
+
+def band_sweep_multi(lu: DeviceBand, b: torch.Tensor, forward: bool,
+                     first_row: int = 0) -> torch.Tensor:
+    """One block substitution sweep over the factored band for several
+    padded right-hand sides ``b`` [nb*P, nrhs] (nrhs >= 1, row-major, in the
+    accumulator type); see :func:`band_sweep_plain` for the function and
+    ``first_row``.
+
+    On a CUDA device this is one launch of K10 on the current stream (the
+    blocks of a tile of 32 columns walk its rows; it raises if the inputs do
+    not fit it or the launch fails); on the CPU it runs the plain version.
+    Sums are taken in an order fixed by the shape, so a sweep repeats bit for
+    bit."""
+    nrhs = int(b.shape[1]) if b.dim() == 2 else 0
+    if nrhs < 1:
+        raise ValueError(f"b must be [nb*P, nrhs] with nrhs >= 1, got {tuple(b.shape)}")
+    _check_rhs(lu, b, (lu.nb * lu.p, nrhs))
+    if not 0 <= first_row < lu.nb or (first_row and not forward):
+        raise ValueError(f"first_row must be 0, or in [0, {lu.nb}) for a forward sweep; got "
+                         f"{first_row}")
+    if lu.device.type == "cpu":
+        return band_sweep_plain(lu, b, forward, first_row)
+    if lu.device.type != "cuda":
+        raise ValueError(f"no band sweep for device {lu.device}")
+    name = _MULTI_ENTRY["fwd" if forward else "bwd", lu.policy.name]
+    out = torch.empty_like(b)
+    out[:first_row * lu.p].zero_()  # rows the kernel does not reach
+    # a flag for each block row and tile of 32 columns: published when solved
+    ready = torch.zeros(lu.nb * -(-nrhs // 32), dtype=torch.int32, device=lu.device)
+    rc = getattr(_library(), name)(
+        lu.device.index, lu.nb, lu.p, lu.ml, lu.mu, nrhs, first_row, lu.data.data_ptr(),
+        b.data_ptr(), out.data_ptr(), ready.data_ptr(),
+        torch.cuda.current_stream(lu.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def band_solve(lu: DeviceBand, b: torch.Tensor, first_row: int = 0) -> torch.Tensor:
     """Solve A x = b given the factored band: ``b`` is (n,) or (n, nrhs) on
     the band's device; x comes back in the accumulator type.
 
-    One right-hand side goes through :func:`band_sweep` (the kernel on a
-    card). Several go through :func:`band_sweep_plain`: per block row one
-    ``[P, ml*P] @ [ml*P, nrhs]`` product and one TRSM, which are dense
-    products that respatpu leaves to XLA as well."""
+    One right-hand side goes through :func:`band_sweep` (K2 on a card),
+    several through :func:`band_sweep_multi` (K10 on a card). ``first_row``
+    (several right-hand sides only) is the first block row of b that is not
+    zero, which the forward sweep starts from (SPIKE's V: its right-hand
+    side fills the last mu block rows only)."""
     acc = lu.policy.accum_dtype
     if b.dim() not in (1, 2) or b.shape[0] != lu.n:
         raise ValueError(f"b must be ({lu.n},) or ({lu.n}, nrhs), got {tuple(b.shape)}")
     if b.device != lu.device:
         raise ValueError(f"b is on {b.device}, the band on {lu.device}")
+    if first_row and b.dim() == 1:
+        raise ValueError("first_row is for several right-hand sides")
     bp = torch.zeros((lu.nb * lu.p, *b.shape[1:]), dtype=acc, device=lu.device)
     bp[:lu.n] = ftz(b.to(acc), lu.policy.flush_to_zero)
-    sweep = band_sweep if b.dim() == 1 else band_sweep_plain
-    return sweep(lu, sweep(lu, bp, True), False)[:lu.n]
+    if b.dim() == 1:
+        return band_sweep(lu, band_sweep(lu, bp, True), False)[:lu.n]
+    y = band_sweep_multi(lu, bp, True, first_row)
+    return band_sweep_multi(lu, y, False)[:lu.n]
+
+
+# ---------------------------------------------------------------------------
+# Kernel 11: the transposed sweeps, one right-hand side
+# ---------------------------------------------------------------------------
+
+
+def band_sweep_t_plain(lu: DeviceBand, b: torch.Tensor, forward: bool) -> torch.Tensor:
+    """K11's function in plain torch ops, on any device: one sweep of the
+    transposed system ``A^T = U^T L^T`` for a padded ``b`` [nb*P] in the
+    accumulator type, left-looking, in K11's order of block rows.
+
+    Forward, ``U^T z = b`` (lower, non-unit): ``z[r] = U_rr^-T (b[r] -
+    sum_d band[r-d][:, (ml+d)P:(ml+d+1)P]^T z[r-d])``, d = 1..min(mu, r).
+    Backward, ``L^T x = b`` (unit upper): ``x[r] = L_rr^-T (b[r] - sum_d
+    band[r+d][:, (ml-d)P:(ml-d+1)P]^T x[r+d])``, d = 1..min(ml, nb-1-r).
+    The blocks a row takes lie one in each block row, as one strided view.
+    Under fp32_ftz b, every block's sum and every solved block are flushed."""
+    p, ml, mu, nb = lu.p, lu.ml, lu.mu, lu.nb
+    acc = lu.policy.accum_dtype
+    fl = lu.policy.flush_to_zero
+    w = (ml + mu + 1) * p
+    flat = lu.data.view(-1)
+    rhs = ftz(b.to(acc), fl)
+    out = torch.zeros_like(rhs)
+    for r in (range(nb) if forward else range(nb - 1, -1, -1)):
+        k = min(mu, r) if forward else min(ml, nb - 1 - r)
+        a = rhs[r * p:(r + 1) * p]
+        if k:
+            # the blocks in block row order, each one block row down and one
+            # block column left of the one before: forward band[r-d][:, (ml+d)P:]
+            # for d = k..1 against z[r-k .. r-1], backward band[r+d][:, (ml-d)P:]
+            # for d = 1..k against x[r+1 .. r+k]
+            if forward:
+                off, vec = (r - k) * p * w + (ml + k) * p, out[(r - k) * p:r * p]
+            else:
+                off, vec = (r + 1) * p * w + (ml - 1) * p, out[(r + 1) * p:(r + 1 + k) * p]
+            blocks = flat.as_strided((k, p, p), (p * w - p, w, 1), off)
+            a = ftz(a - ftz(blocks.to(acc).reshape(k * p, p).mT @ vec, fl), fl)
+        d = lu.data[r][:, ml * p:(ml + 1) * p].to(acc)
+        out[r * p:(r + 1) * p] = ftz(torch.linalg.solve_triangular(
+            d.mT, a[:, None], upper=not forward, unitriangular=not forward)[:, 0], fl)
+    return out
+
+
+def band_sweep_t(lu: DeviceBand, b: torch.Tensor, forward: bool) -> torch.Tensor:
+    """One sweep of the transposed system over the factored band for one
+    padded right-hand side ``b`` [nb*P] in the accumulator type, forward
+    ``U^T`` or backward ``L^T``; see :func:`band_sweep_t_plain`.
+
+    On a CUDA device this is one launch of K11 on the current stream (it
+    raises if the inputs do not fit it or the launch fails); on the CPU it
+    runs the plain version. A sweep repeats bit for bit."""
+    _check_rhs(lu, b, (lu.nb * lu.p,))
+    if lu.device.type == "cpu":
+        return band_sweep_t_plain(lu, b, forward)
+    if lu.device.type != "cuda":
+        raise ValueError(f"no band sweep for device {lu.device}")
+    name = _T_ENTRY["fwd" if forward else "bwd", lu.policy.name]
+    out = torch.empty_like(b)
+    # the kernel's mailbox: a (word, tag) pair for every 32-bit word of out
+    mail = torch.zeros(2 * lu.nb * lu.p * (b.element_size() // 4), dtype=torch.int32,
+                       device=lu.device)
+    rc = getattr(_library(), name)(
+        lu.device.index, lu.nb, lu.p, lu.ml, lu.mu, lu.data.data_ptr(), b.data_ptr(),
+        out.data_ptr(), mail.data_ptr(), torch.cuda.current_stream(lu.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    return out
 
 
 def band_solve_transpose(lu: DeviceBand, s: torch.Tensor) -> torch.Tensor:
     """Solve A^T z = s from the same factors: A^T = U^T L^T, forward with the
     lower triangular U^T, backward with the unit upper L^T, both read
-    straight from the band (right-looking: each solved block updates the
-    blocks it reaches through one contiguous panel). Under fp32_ftz s, every
-    block's update and every solved block is flushed to zero, as the forward
-    sweeps flush each partial sum. Torch ops on any device; a diagnostic (the
-    Hager condition estimate), not the hot path."""
+    straight from the band by :func:`band_sweep_t` (K11 on a card). Under
+    fp32_ftz s is flushed on entry. The Hager condition estimate's solves."""
     _check_band(lu)
-    p, ml, mu, nb = lu.p, lu.ml, lu.mu, lu.nb
-    acc = lu.policy.accum_dtype
-    fl = lu.policy.flush_to_zero
     if s.shape != (lu.n,) or s.device != lu.device:
         raise ValueError(f"s must be ({lu.n},) on {lu.device}")
-    v = torch.zeros((nb * p, 1), dtype=acc, device=lu.device)
-    v[:lu.n, 0] = ftz(s.to(acc), fl)
-    for r in range(nb):  # U^T z = s
-        row = lu.data[r]
-        d = row[:, ml * p:(ml + 1) * p].to(acc)
-        zr = ftz(torch.linalg.solve_triangular(d.mT, v[r * p:(r + 1) * p], upper=False), fl)
-        v[r * p:(r + 1) * p] = zr
-        k = min(mu, nb - 1 - r)
-        if k:
-            blk = v[(r + 1) * p:(r + 1 + k) * p]
-            blk.copy_(ftz(blk - ftz(row[:, (ml + 1) * p:(ml + 1 + k) * p].to(acc).mT @ zr, fl),
-                          fl))
-    for r in range(nb - 1, -1, -1):  # L^T x = z
-        row = lu.data[r]
-        d = row[:, ml * p:(ml + 1) * p].to(acc)
-        xr = ftz(torch.linalg.solve_triangular(d.mT, v[r * p:(r + 1) * p], upper=True,
-                                               unitriangular=True), fl)
-        v[r * p:(r + 1) * p] = xr
-        k = min(ml, r)
-        if k:
-            blk = v[(r - k) * p:r * p]
-            blk.copy_(ftz(blk - ftz(row[:, (ml - k) * p:ml * p].to(acc).mT @ xr, fl), fl))
-    return v[:lu.n, 0]
+    v = torch.zeros(lu.nb * lu.p, dtype=lu.policy.accum_dtype, device=lu.device)
+    v[:lu.n] = ftz(s.to(v.dtype), lu.policy.flush_to_zero)
+    return band_sweep_t(lu, band_sweep_t(lu, v, True), False)[:lu.n]

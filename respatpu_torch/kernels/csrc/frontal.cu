@@ -84,6 +84,19 @@
 //   Every sum has a fixed order (per-lane partials, fixed shuffle trees,
 //   partials of tiles in tile order): a sweep repeats bit for bit.
 //
+// front_sweep_t fwd / bwd (K12; replace `_fwd_group_t` :513-534 and
+//   `_bwd_group_t` :537-556, the transposed solves of the Hager condition
+//   estimate). Forward U^T z = y[piv] (lower, a zero diagonal read as one),
+//   y[piv] = z, upd = -U12^T z; backward y[piv] = L11^-T (y[piv] - L21^T
+//   y[rsx]) (unit upper). They are K4's kernels in each regime with the
+//   front read transposed (TRANS: entry (i, j) of a block is read at (j, i))
+//   and the unit diagonal moved from the forward to the backward sweep: the
+//   same blocks' bytes bound them, the same chain stands in the way, and K4's
+//   control words, tickets and mailbox serve them unchanged. The transposed
+//   reads run along a front's columns, so a warp's lanes that took one row's
+//   consecutive entries now take one column's; the wide regime swaps its
+//   staging loops' index order so that its block loads stay in rows.
+//
 // rows_reduce (the forward sweep's `y.at[rsx].add(upd)`, :486, as a gather).
 //   The plan holds, per group, the destination rows and for each the list of
 //   (front, local row) sources in plan order as a CSR over the flat upd, its
@@ -143,6 +156,20 @@ __device__ __forceinline__ float muladd(float a, float b, float c) {
 }
 template <bool FTZ>
 __device__ __forceinline__ double muladd(double a, double b, double c) { return fma(a, b, c); }
+
+// Offset of entry (row, col) of a front of size mp, or of (col, row) where the
+// front is read transposed (K12).
+template <bool TRANS>
+__device__ __forceinline__ int64_t at(int64_t row, int64_t col, int64_t mp) {
+    return TRANS ? col * mp + row : row * mp + col;
+}
+
+// A front's diagonal entry at row t, a zero read as one (t < wp).
+template <typename A>
+__device__ __forceinline__ A diag_or_one(const A* F, int t, int64_t mp) {
+    const A d = F[t * mp + t];
+    return d == A(0) ? A(1) : d;
+}
 
 // Lanes that share one row of a panel product: 8, 16 or 32 by its length.
 __device__ __forceinline__ int lanes_for(int len) { return len > 16 ? 32 : (len > 8 ? 16 : 8); }
@@ -207,7 +234,7 @@ extend_add_kernel(A* __restrict__ pool, int64_t g0, int wp, int rp,
 // frontal sweeps: the warp regime
 // ---------------------------------------------------------------------------
 
-template <typename A, bool FTZ>
+template <typename A, bool FTZ, bool TRANS>
 __global__ void __launch_bounds__(kWarpFronts * 32)
 front_fwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
                const int32_t* __restrict__ piv, A* __restrict__ y, int n, A* __restrict__ upd) {
@@ -218,25 +245,29 @@ front_fwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
     const A* F = pool + g0 + b * mp * mp;
     const int row = lane < wp ? piv[static_cast<int64_t>(b) * wp + lane] : n;
     A v = row < n ? fz<FTZ>(y[row]) : A(0);
-    A l[kWarpTri];  // lane i: row i of L11 left of the diagonal
+    A l[kWarpTri];  // lane i: row i of L11 (U11^T) left of the diagonal
 #pragma unroll
-    for (int c = 0; c < kWarpTri; ++c) l[c] = c < lane && lane < wp ? F[lane * mp + c] : A(0);
+    for (int c = 0; c < kWarpTri; ++c)
+        l[c] = c < lane && lane < wp ? F[at<TRANS>(lane, c, mp)] : A(0);
+    const A dl = TRANS && lane < wp ? diag_or_one(F, lane, mp) : A(1);
     // upd = -L21 z: g lanes a row on consecutive columns (g >= wp), 32 / g rows a
     // pass; the first kPre passes' values are asked for before the triangle
     constexpr int kPre = 4;
     const int g = lanes_for(wp), ln = lane % g, sub = lane / g, per = 32 / g;
-    const A* col = F + wp * mp + ln;
     A pre[kPre];
 #pragma unroll
     for (int q = 0; q < kPre; ++q) {
         const int i = q * per + sub;
-        pre[q] = i < rp && ln < wp ? col[i * mp] : A(0);
+        pre[q] = i < rp && ln < wp ? F[at<TRANS>(wp + i, ln, mp)] : A(0);
     }
 #pragma unroll
-    for (int c = 0; c + 1 < kWarpTri; ++c) {
-        if (c + 1 < wp) {  // z[c] is final here
-            const A zc = __shfl_sync(kFull, v, c);
-            if (lane > c) v = muladd<FTZ>(-l[c], zc, v);
+    for (int c = 0; c < kWarpTri; ++c) {
+        if (c < wp) {
+            if (TRANS && lane == c) v = fz<FTZ>(v / dl);  // U^T's diagonal
+            if (c + 1 < wp) {  // z[c] is final here
+                const A zc = __shfl_sync(kFull, v, c);
+                if (lane > c) v = muladd<FTZ>(-l[c], zc, v);
+            }
         }
     }
     if (row < n) y[row] = v;
@@ -254,13 +285,13 @@ front_fwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
     for (int i0 = kPre * per; i0 < rp; i0 += per) {
         const int i = i0 + sub;
         A s = A(0);
-        if (i < rp && ln < wp) s = muladd<FTZ>(col[i * mp], zc, s);
+        if (i < rp && ln < wp) s = muladd<FTZ>(F[at<TRANS>(wp + i, ln, mp)], zc, s);
         s = group_sum(s, g);
         if (i < rp && ln == 0) upd[static_cast<int64_t>(b) * rp + i] = fz<FTZ>(-s);
     }
 }
 
-template <typename A, bool FTZ>
+template <typename A, bool FTZ, bool TRANS>
 __global__ void __launch_bounds__(kWarpFronts * 32)
 front_bwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
                const int32_t* __restrict__ piv, const int32_t* __restrict__ rsx,
@@ -272,19 +303,19 @@ front_bwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
     const int64_t mp = wp + rp;
     const A* F = pool + g0 + b * mp * mp;
     const int32_t* rs = rsx + static_cast<int64_t>(b) * rp;
-    A u[kWarpTri];  // lane i: row i of U11 from the diagonal on, asked for first
+    A u[kWarpTri];  // lane i: row i of U11 (L11^T) from the diagonal on, asked for first
 #pragma unroll
-    for (int c = 0; c < kWarpTri; ++c) u[c] = c >= lane && c < wp ? F[lane * mp + c] : A(0);
+    for (int c = 0; c < kWarpTri; ++c)
+        u[c] = c >= lane && c < wp ? F[at<TRANS>(lane, c, mp)] : A(0);
     // U12 y[rsx]: g lanes a pivot row on consecutive update rows
     const int g = lanes_for(rp), ln = lane % g, sub = lane / g, per = 32 / g;
     for (int i0 = 0; i0 < wp; i0 += per) {
         const int i = i0 + sub;
         A s = A(0);
         if (i < wp) {
-            const A* ur = F + i * mp + wp;
             for (int r = ln; r < rp; r += g) {
                 const int row = rs[r];
-                if (row < n) s = muladd<FTZ>(ur[r], fz<FTZ>(y[row]), s);
+                if (row < n) s = muladd<FTZ>(F[at<TRANS>(i, wp + r, mp)], fz<FTZ>(y[row]), s);
             }
         }
         s = group_sum(s, g);
@@ -296,7 +327,7 @@ front_bwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
 #pragma unroll
     for (int c = kWarpTri - 1; c >= 0; --c) {
         if (c < wp) {
-            if (lane == c) {
+            if (!TRANS && lane == c) {  // L11^T has a unit diagonal
                 A d = u[c];
                 if (d == A(0)) d = A(1);
                 v = fz<FTZ>(v / d);
@@ -312,7 +343,7 @@ front_bwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
 // frontal sweeps: the block regime, a front's panel over gridDim.y tiles
 // ---------------------------------------------------------------------------
 
-template <typename A, bool FTZ>
+template <typename A, bool FTZ, bool TRANS>
 __global__ void __launch_bounds__(kSweepThreads)
 front_fwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
                 const int32_t* __restrict__ piv, A* __restrict__ y, int n, A* __restrict__ upd,
@@ -324,6 +355,8 @@ front_fwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
     const A* F = pool + g0 + b * mp * mp;
     const int row = t < wp ? piv[static_cast<int64_t>(b) * wp + t] : n;
     A v = row < n ? fz<FTZ>(y[row]) : A(0);
+    const A dt = TRANS && t < wp ? diag_or_one(F, t, mp) : A(1);  // U^T's diagonal
+    if (TRANS && t == 0) v = fz<FTZ>(v / dt);
     if (t < wp) z[t] = v;
     __syncthreads();
     if (tiles > 1) {
@@ -333,10 +366,12 @@ front_fwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
         }
         __syncthreads();
     }
-    const A* lrow = F + t * mp;
     for (int c = 0; c + 1 < wp; ++c) {  // z[c] is final here
-        if (t > c && t < wp) v = muladd<FTZ>(-lrow[c], z[c], v);
-        if (t == c + 1) z[t] = v;
+        if (t > c && t < wp) v = muladd<FTZ>(-F[at<TRANS>(t, c, mp)], z[c], v);
+        if (t == c + 1) {
+            if (TRANS) v = fz<FTZ>(v / dt);
+            z[t] = v;
+        }
         __syncthreads();
     }
     if (row < n && (tiles == 1 || last)) y[row] = v;
@@ -351,15 +386,14 @@ front_fwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
         const int i = base + sub;
         A s = A(0);
         if (i < i_end) {
-            const A* lr = F + (wp + i) * mp;
-            for (int w = ln; w < wp; w += g) s = muladd<FTZ>(lr[w], z[w], s);
+            for (int w = ln; w < wp; w += g) s = muladd<FTZ>(F[at<TRANS>(wp + i, w, mp)], z[w], s);
         }
         s = group_sum(s, g);
         if (i < i_end && ln == 0) upd[static_cast<int64_t>(b) * rp + i] = fz<FTZ>(-s);
     }
 }
 
-template <typename A, bool FTZ>
+template <typename A, bool FTZ, bool TRANS>
 __global__ void __launch_bounds__(kSweepThreads)
 front_bwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
                 const int32_t* __restrict__ piv, const int32_t* __restrict__ rsx,
@@ -381,10 +415,9 @@ front_bwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
         const int i = base + sub;
         A s = A(0);
         if (i < wp) {
-            const A* ur = F + i * mp + wp;
             for (int r = r0 + ln; r < r1; r += g) {
                 const int row = rs[r];
-                if (row < n) s = muladd<FTZ>(ur[r], fz<FTZ>(y[row]), s);
+                if (row < n) s = muladd<FTZ>(F[at<TRANS>(i, wp + r, mp)], fz<FTZ>(y[row]), s);
             }
         }
         s = group_sum(s, g);
@@ -417,16 +450,13 @@ front_bwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
     }
     __syncthreads();
     A v = t < wp ? z[t] : A(0);
-    const A* urow = F + t * mp;
     for (int c = wp - 1; c >= 0; --c) {
         if (t == c) {
-            A d = urow[c];
-            if (d == A(0)) d = A(1);
-            v = fz<FTZ>(v / d);
+            if (!TRANS) v = fz<FTZ>(v / diag_or_one(F, t, mp));  // L11^T: unit
             z[c] = v;
         }
         __syncthreads();
-        if (t < c) v = muladd<FTZ>(-urow[c], z[c], v);
+        if (t < c) v = muladd<FTZ>(-F[at<TRANS>(t, c, mp)], z[c], v);
     }
     if (t < wp) {
         const int row = pv[t];
@@ -558,13 +588,14 @@ __device__ __forceinline__ Acc quarter_dot(const M* m, const Z* x, int q) {
 // column, in Acc) and loads the two blocks beside it, so that once the z block
 // solved just before its own arrives, the block takes it through two 64 x 64
 // products in shared memory, four threads a row, and publishes.
-template <typename A, bool FTZ, bool FWD>
+template <typename A, bool FTZ, bool FWD, bool TRANS>
 __global__ void __launch_bounds__(kWideThreads)
 front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
                   const int32_t* __restrict__ piv, const int32_t* __restrict__ rsx,
                   A* __restrict__ y, int n, A* __restrict__ upd, int* __restrict__ ctl,
                   unsigned* __restrict__ mail, unsigned tag) {
     using Acc = WideAcc<A, FTZ>;
+    constexpr bool kUnit = FWD != TRANS;  // L11 forward, L11^T backward
     extern __shared__ __align__(16) unsigned char wide_smem[];
     Acc* X = reinterpret_cast<Acc*>(wide_smem);  // the diagonal block's inverse
     A* S1 = reinterpret_cast<A*>(X + kWideRows * kWidePad);  // the block solved just before
@@ -573,7 +604,7 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
     __shared__ A zn[kWideRows];         // a z block beside the diagonal
     __shared__ Acc acc[kWideRows];
     __shared__ Acc rhs[kWideRows];
-    __shared__ Acc rcp[kWideRows];      // backward: 1 / the diagonal (0 read as 1)
+    __shared__ Acc rcp[kWideRows];      // non-unit: 1 / the diagonal (0 read as 1)
     __shared__ A yp[kWideRows];
     __shared__ int task;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -597,18 +628,21 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
         if (t < kWideRows) {
             const int row = t < nrows ? piv[static_cast<int64_t>(b) * wp + r0 + t] : n;
             yp[t] = row < n ? fz<FTZ>(y[row]) : A(0);
-            if (!FWD) {
+            if (!kUnit) {
                 const A d = t < nrows ? F[static_cast<int64_t>(r0 + t) * mp + r0 + t] : A(0);
                 rcp[t] = Acc(1) / (d == A(0) ? Acc(1) : Acc(d));
             }
         }
         for (int e = t; e < kWideRows * kWideRows; e += kWideThreads) {
-            const int i = e / kWideRows, c = e % kWideRows;
-            const A* fr = F + static_cast<int64_t>(r0 + i) * mp;
+            // consecutive threads read along the front's rows either way
+            const int i = TRANS ? e % kWideRows : e / kWideRows;
+            const int c = TRANS ? e / kWideRows : e % kWideRows;
             const bool tri = FWD ? c < i : c > i;
-            S2[i * kWidePad + c] = i < nrows && c < nrows && tri ? fr[r0 + c] : A(0);
+            S2[i * kWidePad + c] =
+                i < nrows && c < nrows && tri ? F[at<TRANS>(r0 + i, r0 + c, mp)] : A(0);
             const int c1 = n1 * kWideRows + c;
-            S1[i * kWidePad + c] = i < nrows && has1 && c1 < wp ? fr[c1] : A(0);
+            S1[i * kWidePad + c] =
+                i < nrows && has1 && c1 < wp ? F[at<TRANS>(r0 + i, c1, mp)] : A(0);
         }
         __syncthreads();
         if (t < kWideRows) {  // column t of the inverse: unit lower, or upper times 1/d
@@ -618,15 +652,16 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
                 const int k0 = FWD ? t : i + 1, k1 = FWD ? i : t + 1;  // the solved rows
                 const Acc v = fz<FTZ>(Acc(i == t) - dot4<FTZ, Acc>(S2 + i * kWidePad, x,
                                                                   kWidePad, k0, k1));
-                x[i * kWidePad] = FWD ? v : fz<FTZ>(v * rcp[i]);
+                x[i * kWidePad] = kUnit ? v : fz<FTZ>(v * rcp[i]);
             }
         }
         __syncthreads();
         for (int e = t; e < kWideRows * kWideRows; e += kWideThreads) {
-            const int i = e / kWideRows, c = e % kWideRows;
+            const int i = TRANS ? e % kWideRows : e / kWideRows;
+            const int c = TRANS ? e / kWideRows : e % kWideRows;
             const int c2 = n2 * kWideRows + c;
             S2[i * kWidePad + c] =
-                i < nrows && has2 && c2 < wp ? F[static_cast<int64_t>(r0 + i) * mp + c2] : A(0);
+                i < nrows && has2 && c2 < wp ? F[at<TRANS>(r0 + i, c2, mp)] : A(0);
         }
     }
 
@@ -635,7 +670,7 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
 #pragma unroll
     for (int j = 0; j < kWideRowsPerWarp; ++j) part[j] = Acc(0);
     const int rw = warp * kWideRowsPerWarp;
-    const A* rows0 = F + static_cast<int64_t>(r0 + rw) * mp;
+    const int64_t rows0 = r0 + rw;  // this warp's first row
     if (!FWD) {  // U12 y[rsx], known from the start; kSpan columns' loads in flight at once
         constexpr int kSpan = sizeof(A) == 4 ? 8 : 4;  // columns a lane takes an iteration
         for (int c0 = 0; c0 < rp; c0 += 32 * kSpan) {
@@ -648,7 +683,8 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
                 x[h] = row < n ? Acc(fz<FTZ>(y[row])) : Acc(0);
 #pragma unroll
                 for (int j = 0; j < kWideRowsPerWarp; ++j)
-                    lv[j][h] = rw + j < nrows && c < rp ? rows0[j * mp + wp + c] : A(0);
+                    lv[j][h] =
+                        rw + j < nrows && c < rp ? F[at<TRANS>(rows0 + j, wp + c, mp)] : A(0);
             }
 #pragma unroll
             for (int j = 0; j < kWideRowsPerWarp; ++j) {
@@ -670,7 +706,7 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int c = c0 + lane + 32 * h;
-                lv[j][h] = rw + j < nrows && c < wp ? rows0[j * mp + c] : A(0);
+                lv[j][h] = rw + j < nrows && c < wp ? F[at<TRANS>(rows0 + j, c, mp)] : A(0);
             }
         }
         if (warp == 0) {
@@ -807,7 +843,7 @@ constexpr size_t wide_smem_bytes() {
     return kWideRows * kWidePad * (sizeof(WideAcc<A, FTZ>) + 2 * sizeof(A));
 }
 
-template <typename A, bool FTZ>
+template <typename A, bool FTZ, bool TRANS>
 int sweep_fwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, const int32_t* piv,
               A* y, int n, A* upd, int regime, int tiles, int* ctl, unsigned* mail,
               cudaStream_t stream) {
@@ -820,29 +856,29 @@ int sweep_fwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
         return static_cast<int>(cudaErrorInvalidValue);
     if (regime == kWarp) {
         const unsigned blocks = static_cast<unsigned>((nf + kWarpFronts - 1) / kWarpFronts);
-        front_fwd_warp<A, FTZ><<<blocks, kWarpFronts * 32, 0, stream>>>(pool, g0, nf, wp, rp,
-                                                                        piv, y, n, upd);
+        front_fwd_warp<A, FTZ, TRANS><<<blocks, kWarpFronts * 32, 0, stream>>>(
+            pool, g0, nf, wp, rp, piv, y, n, upd);
     } else if (regime == kBlock) {
         dim3 grid(static_cast<unsigned>(nf), static_cast<unsigned>(tiles));
-        front_fwd_block<A, FTZ><<<grid, kSweepThreads, 0, stream>>>(pool, g0, wp, rp, piv, y, n,
-                                                                   upd, ctl);
+        front_fwd_block<A, FTZ, TRANS><<<grid, kSweepThreads, 0, stream>>>(pool, g0, wp, rp, piv,
+                                                                          y, n, upd, ctl);
     } else {
         const size_t smem = wide_smem_bytes<A, FTZ>();
-        err = cudaFuncSetAttribute(front_wide_kernel<A, FTZ, true>,
+        err = cudaFuncSetAttribute(front_wide_kernel<A, FTZ, true, TRANS>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
         const int64_t tasks = static_cast<int64_t>(nf) *
             ((wp + kWideRows - 1) / kWideRows + (rp + kWideRows - 1) / kWideRows);
         if (tasks >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
-        front_wide_kernel<A, FTZ, true><<<static_cast<unsigned>(tasks), kWideThreads, smem,
-                                          stream>>>(pool, g0, nf, wp, rp, piv, nullptr, y, n,
-                                                    upd, ctl, mail, kTag);
+        front_wide_kernel<A, FTZ, true, TRANS><<<static_cast<unsigned>(tasks), kWideThreads, smem,
+                                                 stream>>>(pool, g0, nf, wp, rp, piv, nullptr, y,
+                                                           n, upd, ctl, mail, kTag);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename A, bool FTZ>
+template <typename A, bool FTZ, bool TRANS>
 int sweep_bwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, const int32_t* piv,
               const int32_t* rsx, A* y, int n, A* part, int regime, int tiles, int* ctl,
               unsigned* mail, cudaStream_t stream) {
@@ -855,23 +891,23 @@ int sweep_bwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
         return static_cast<int>(cudaErrorInvalidValue);
     if (regime == kWarp) {
         const unsigned blocks = static_cast<unsigned>((nf + kWarpFronts - 1) / kWarpFronts);
-        front_bwd_warp<A, FTZ><<<blocks, kWarpFronts * 32, 0, stream>>>(pool, g0, nf, wp, rp,
-                                                                        piv, rsx, y, n);
+        front_bwd_warp<A, FTZ, TRANS><<<blocks, kWarpFronts * 32, 0, stream>>>(
+            pool, g0, nf, wp, rp, piv, rsx, y, n);
     } else if (regime == kBlock) {
         dim3 grid(static_cast<unsigned>(nf), static_cast<unsigned>(tiles));
-        front_bwd_block<A, FTZ><<<grid, kSweepThreads, 0, stream>>>(pool, g0, wp, rp, piv, rsx,
-                                                                   y, n, part, ctl);
+        front_bwd_block<A, FTZ, TRANS><<<grid, kSweepThreads, 0, stream>>>(pool, g0, wp, rp, piv,
+                                                                          rsx, y, n, part, ctl);
     } else {
         const size_t smem = wide_smem_bytes<A, FTZ>();
-        err = cudaFuncSetAttribute(front_wide_kernel<A, FTZ, false>,
+        err = cudaFuncSetAttribute(front_wide_kernel<A, FTZ, false, TRANS>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
         const int64_t tasks = static_cast<int64_t>(nf) * ((wp + kWideRows - 1) / kWideRows);
         if (tasks >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
-        front_wide_kernel<A, FTZ, false><<<static_cast<unsigned>(tasks), kWideThreads, smem,
-                                           stream>>>(pool, g0, nf, wp, rp, piv, rsx, y, n,
-                                                     nullptr, ctl, mail, kTag);
+        front_wide_kernel<A, FTZ, false, TRANS><<<static_cast<unsigned>(tasks), kWideThreads,
+                                                  smem, stream>>>(pool, g0, nf, wp, rp, piv, rsx,
+                                                                  y, n, nullptr, ctl, mail, kTag);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -888,7 +924,8 @@ int sweep_bwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
 // pool offset and size, `seg_ptr` int32[nseg + 1] the runs of fronts with one
 // parent; `tiles` thread blocks share a parent's rows.
 //
-// respa_front_sweep_{fwd,bwd}_*: `piv` int32[B, wp] and `rsx` int32[B, rp]
+// respa_front_sweep_{fwd,bwd}_* and the transposed respa_front_sweep_t_{fwd,bwd}_*
+// (K12, the same arguments): `piv` int32[B, wp] and `rsx` int32[B, rp]
 // index y (A[n + 1]; an index >= n is padding: read as 0, never written;
 // forward does not read rsx); `regime` 0 (warp: wp <= 32, tiles 1), 1 (block:
 // wp <= respa_front_max_tri(), `tiles` blocks a front over its update rows)
@@ -923,23 +960,23 @@ RESPA_EXTEND_ADD(respa_extend_add_f32, float, false)
 RESPA_EXTEND_ADD(respa_extend_add_f32_ftz, float, true)
 RESPA_EXTEND_ADD(respa_extend_add_f64, double, false)
 
-#define RESPA_FRONT_SWEEP(SUFFIX, A, FTZ)                                                     \
-    int respa_front_sweep_fwd_##SUFFIX(int device, const void* pool, int64_t g0, int nfronts, \
-                                       int wp, int rp, const void* piv, const void* rsx,      \
-                                       void* y, int n, void* out, int regime, int tiles,      \
-                                       void* ctl, void* mail, void* stream) {                 \
+#define RESPA_FRONT_SWEEP(PREFIX, SUFFIX, A, FTZ, TRANS)                                      \
+    int PREFIX##_fwd_##SUFFIX(int device, const void* pool, int64_t g0, int nfronts,          \
+                              int wp, int rp, const void* piv, const void* rsx,               \
+                              void* y, int n, void* out, int regime, int tiles,               \
+                              void* ctl, void* mail, void* stream) {                          \
         (void)rsx;                                                                            \
-        return sweep_fwd<A, FTZ>(device, static_cast<const A*>(pool), g0, nfronts, wp, rp,    \
+        return sweep_fwd<A, FTZ, TRANS>(device, static_cast<const A*>(pool), g0, nfronts, wp, rp, \
                                  static_cast<const int32_t*>(piv), static_cast<A*>(y), n,     \
                                  static_cast<A*>(out), regime, tiles, static_cast<int*>(ctl), \
                                  static_cast<unsigned*>(mail),                                \
                                  static_cast<cudaStream_t>(stream));                          \
     }                                                                                         \
-    int respa_front_sweep_bwd_##SUFFIX(int device, const void* pool, int64_t g0, int nfronts, \
-                                       int wp, int rp, const void* piv, const void* rsx,      \
-                                       void* y, int n, void* out, int regime, int tiles,      \
-                                       void* ctl, void* mail, void* stream) {                 \
-        return sweep_bwd<A, FTZ>(device, static_cast<const A*>(pool), g0, nfronts, wp, rp,    \
+    int PREFIX##_bwd_##SUFFIX(int device, const void* pool, int64_t g0, int nfronts,          \
+                              int wp, int rp, const void* piv, const void* rsx,               \
+                              void* y, int n, void* out, int regime, int tiles,               \
+                              void* ctl, void* mail, void* stream) {                          \
+        return sweep_bwd<A, FTZ, TRANS>(device, static_cast<const A*>(pool), g0, nfronts, wp, rp, \
                                  static_cast<const int32_t*>(piv),                            \
                                  static_cast<const int32_t*>(rsx), static_cast<A*>(y), n,     \
                                  static_cast<A*>(out), regime, tiles, static_cast<int*>(ctl), \
@@ -947,9 +984,12 @@ RESPA_EXTEND_ADD(respa_extend_add_f64, double, false)
                                  static_cast<cudaStream_t>(stream));                          \
     }
 
-RESPA_FRONT_SWEEP(f32, float, false)
-RESPA_FRONT_SWEEP(f32_ftz, float, true)
-RESPA_FRONT_SWEEP(f64, double, false)
+RESPA_FRONT_SWEEP(respa_front_sweep, f32, float, false, false)
+RESPA_FRONT_SWEEP(respa_front_sweep, f32_ftz, float, true, false)
+RESPA_FRONT_SWEEP(respa_front_sweep, f64, double, false, false)
+RESPA_FRONT_SWEEP(respa_front_sweep_t, f32, float, false, true)
+RESPA_FRONT_SWEEP(respa_front_sweep_t, f32_ftz, float, true, true)
+RESPA_FRONT_SWEEP(respa_front_sweep_t, f64, double, false, true)
 
 #define RESPA_ROWS_REDUCE(NAME, A)                                                            \
     int NAME(int device, void* y, const void* upd, const void* rows, const void* ptr,         \

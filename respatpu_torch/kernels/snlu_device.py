@@ -39,12 +39,16 @@ take the data-dependent steps:
   over several blocks where it has many update rows) up to ``MAX_TRI``, and
   for wider fronts a blocked substitution that reads the triangle in place;
 * ``rows_reduce``: the forward sweep's updates summed into y per destination
-  row in plan order, no atomics, the rows binned by their number of sources.
+  row in plan order, no atomics, the rows binned by their number of sources;
+* ``front_sweep_t`` (K12): the transposed system's group solves (``U^T``
+  forward, ``L^T`` backward; the condition estimate's), the sweep kernel's
+  regimes reading the fronts transposed.
 
 Each has its plain PyTorch version beside it (``extend_add_plain``,
-``front_sweep_plain``, ``rows_reduce_plain``). A wrapper launches its kernel
-for a CUDA tensor and runs the plain version for a CPU tensor; nothing else
-chooses. The factored pool and every solve repeat bit for bit.
+``front_sweep_plain``, ``rows_reduce_plain``, ``front_sweep_t_plain``). A
+wrapper launches its kernel for a CUDA tensor and runs the plain version for
+a CPU tensor; nothing else chooses. The factored pool and every solve repeat
+bit for bit.
 """
 from __future__ import annotations
 
@@ -61,7 +65,7 @@ from .snlu import SupernodePartition
 __all__ = ["FrontalPlan", "build_frontal_plan", "frontal_factor_pool",
            "values_from_pool", "FrontalSolver", "factor_group", "reduction_csr",
            "assemble_pool", "default_pivot_eps", "extend_add",
-           "extend_add_plain", "front_sweep", "front_sweep_plain",
+           "extend_add_plain", "front_sweep", "front_sweep_plain", "front_sweep_t",
            "front_sweep_t_plain", "rows_reduce", "rows_reduce_plain",
            "launch_sweep", "control_words", "control_zeros", "sweep_regime", "warp_deal",
            "LAUNCHES", "MAX_TRI", "RED_BINS"]
@@ -78,7 +82,7 @@ _REGIMES = {"warp": 0, "block": 1, "wide": 2}
 _INST = {(torch.float32, False): "f32", (torch.float32, True): "f32_ftz",
          (torch.float64, False): "f64"}
 _EXTEND_ADD = tuple(f"respa_extend_add_{i}" for i in ("f32", "f32_ftz", "f64"))
-_FRONT_SWEEP = tuple(f"respa_front_sweep_{d}_{i}" for d in ("fwd", "bwd")
+_FRONT_SWEEP = tuple(f"respa_front_sweep_{t}{d}_{i}" for t in ("", "t_") for d in ("fwd", "bwd")
                      for i in ("f32", "f32_ftz", "f64"))
 _ROWS_REDUCE = ("respa_rows_reduce_f32", "respa_rows_reduce_f64")
 
@@ -512,6 +516,35 @@ def front_sweep_plain(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp:
     return None
 
 
+def _sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
+           piv: torch.Tensor, rsx: torch.Tensor, forward: bool, flush: bool,
+           control: torch.Tensor, transposed: bool) -> Optional[torch.Tensor]:
+    """:func:`front_sweep` (K4) or :func:`front_sweep_t` (K12): the checks,
+    the plain version on the CPU, one launch on a card."""
+    _check_group(pool, g0, nf, wp, rp, piv=(piv, (nf, wp), torch.int32),
+                 rsx=(rsx, (nf, rp), torch.int32))
+    if y.dim() != 1 or y.dtype != pool.dtype or y.device != pool.device or not y.is_contiguous():
+        raise ValueError(f"y must be a contiguous {pool.dtype} vector on {pool.device}")
+    words = control_words(nf, wp, rp, pool.element_size())
+    if (control.dtype != torch.int32 or control.device != pool.device
+            or control.numel() < words or not control.is_contiguous()):
+        raise ValueError(f"control must be {words} contiguous int32 words on {pool.device}")
+    if pool.device.type == "cpu":
+        plain = front_sweep_t_plain if transposed else front_sweep_plain
+        return plain(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush)
+    if pool.device.type != "cuda":
+        raise ValueError(f"no frontal sweep for device {pool.device}")
+    _, tiles = sweep_regime(nf, wp, rp)
+    if forward:
+        out = torch.empty((nf, rp), dtype=pool.dtype, device=pool.device)
+    else:  # the partials of a tiled front's panel
+        out = torch.empty((nf, tiles, wp) if tiles > 1 else (1,), dtype=pool.dtype,
+                          device=pool.device)
+    launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush, out, control,
+                 transposed=transposed)
+    return out if forward else None
+
+
 def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
                 piv: torch.Tensor, rsx: torch.Tensor, forward: bool, flush: bool = False, *,
                 control: torch.Tensor) -> Optional[torch.Tensor]:
@@ -525,26 +558,19 @@ def front_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, 
     (every width, the triangle read in place); it raises if the inputs do not
     fit the kernel or the launch fails. On the CPU it runs the plain
     version."""
-    _check_group(pool, g0, nf, wp, rp, piv=(piv, (nf, wp), torch.int32),
-                 rsx=(rsx, (nf, rp), torch.int32))
-    if y.dim() != 1 or y.dtype != pool.dtype or y.device != pool.device or not y.is_contiguous():
-        raise ValueError(f"y must be a contiguous {pool.dtype} vector on {pool.device}")
-    words = control_words(nf, wp, rp, pool.element_size())
-    if (control.dtype != torch.int32 or control.device != pool.device
-            or control.numel() < words or not control.is_contiguous()):
-        raise ValueError(f"control must be {words} contiguous int32 words on {pool.device}")
-    if pool.device.type == "cpu":
-        return front_sweep_plain(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush)
-    if pool.device.type != "cuda":
-        raise ValueError(f"no frontal sweep for device {pool.device}")
-    _, tiles = sweep_regime(nf, wp, rp)
-    if forward:
-        out = torch.empty((nf, rp), dtype=pool.dtype, device=pool.device)
-    else:  # the partials of a tiled front's panel
-        out = torch.empty((nf, tiles, wp) if tiles > 1 else (1,), dtype=pool.dtype,
-                          device=pool.device)
-    launch_sweep(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush, out, control)
-    return out if forward else None
+    return _sweep(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush, control, False)
+
+
+def front_sweep_t(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
+                  piv: torch.Tensor, rsx: torch.Tensor, forward: bool, flush: bool = False, *,
+                  control: torch.Tensor) -> Optional[torch.Tensor]:
+    """One group's substitution for the transposed system, in place in
+    ``y``: forward ``U^T`` (returns the updates for :func:`rows_reduce`),
+    backward ``L^T``; see :func:`front_sweep_t_plain`. As
+    :func:`front_sweep` in all else: on a CUDA device one launch of K12 in
+    the group's regime, with the same control words; on the CPU the plain
+    version."""
+    return _sweep(pool, y, g0, nf, wp, rp, piv, rsx, forward, flush, control, True)
 
 
 def control_words(nf: int, wp: int, rp: int, itemsize: int) -> int:
@@ -568,7 +594,7 @@ def control_zeros(pool: torch.Tensor, nf: int, wp: int, rp: int) -> torch.Tensor
 def launch_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
                  piv: torch.Tensor, rsx: torch.Tensor, forward: bool, flush: bool,
                  zbuf: torch.Tensor, control: torch.Tensor,
-                 upd: Optional[torch.Tensor] = None) -> None:
+                 upd: Optional[torch.Tensor] = None, transposed: bool = False) -> None:
     """One launch of the sweep kernel on the current stream and nothing
     beside it: the part of :func:`front_sweep` that is the kernel, for
     checked inputs on a card. ``zbuf`` is the output :func:`front_sweep`
@@ -579,12 +605,14 @@ def launch_sweep(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int,
 
     ``control`` is the launch's tickets and mailbox: int32 zeros of at least
     :func:`control_words`, for this launch alone, zeroed on the current
-    stream (a solve hands each launch its run of one zeroed buffer)."""
+    stream (a solve hands each launch its run of one zeroed buffer).
+    ``transposed`` launches K12, the transposed system's sweep, instead."""
     n = y.numel() - 1
     regime, tiles = sweep_regime(nf, wp, rp)
     out = upd if forward and upd is not None else zbuf
     tickets = nf + (nf & 1)
-    name = f"respa_front_sweep_{'fwd' if forward else 'bwd'}_{_instance(pool, flush)}"
+    name = (f"respa_front_sweep_{'t_' if transposed else ''}{'fwd' if forward else 'bwd'}_"
+            f"{_instance(pool, flush)}")
     rc = getattr(_library(), name)(
         pool.device.index, pool.data_ptr(), g0, nf, wp, rp, piv.data_ptr(), rsx.data_ptr(),
         y.data_ptr(), n, out.data_ptr(), _REGIMES[regime], tiles, control.data_ptr(),
@@ -668,9 +696,9 @@ def rows_reduce(y: torch.Tensor, upd: torch.Tensor, red_rows: torch.Tensor,
 def front_sweep_t_plain(pool: torch.Tensor, y: torch.Tensor, g0: int, nf: int, wp: int,
                         rp: int, piv: torch.Tensor, rsx: torch.Tensor,
                         forward: bool, flush: bool = False) -> Optional[torch.Tensor]:
-    """One group's substitution for the transposed system, in torch ops on
-    any device (the Hager condition estimate's solves; no kernel yet).
-    Forward, U^T z = s (U^T is lower, non-unit): ``z = U11^-T y[piv]``,
+    """K12's function in plain torch ops, on any device: one group's
+    substitution for the transposed system (the Hager condition estimate's
+    solves). Forward, U^T z = s (U^T is lower, non-unit): ``z = U11^-T y[piv]``,
     ``y[piv] = z``, returns ``upd = -U12^T z`` for :func:`rows_reduce`.
     Backward, L^T w = z (unit upper): ``y[piv] = L11^-T (y[piv] - L21^T
     y[rsx])``. Under ``flush`` y, every product's sum and every result is
@@ -849,34 +877,31 @@ class FrontalSolver:
             if forward and g.rp:
                 rows_reduce(y, upd, dg["red_rows"], dg["red_ptr"], dg["red_src"], self.flush)
 
-    def solve_device(self, bp: torch.Tensor) -> torch.Tensor:
-        """Solve L U x = bp in permuted coordinates; x in the pool's type.
-
-        On a card every sweep launch takes fresh control words: one buffer
-        for the whole solve, zeroed on the current stream, forward and
-        backward each in their own half, every group in its own run. Solves
-        on two streams, or a replayed CUDA graph of one, share no ticket and
-        no mailbox word."""
-        y = self._start(bp)
+    def _solve(self, b: torch.Tensor, group_sweep) -> torch.Tensor:
+        """Both sweeps of every group with ``group_sweep`` (K4's or K12's
+        wrapper). On a card every sweep launch takes fresh control words:
+        one buffer for the whole solve, zeroed on the current stream, forward
+        and backward each in their own half, every group in its own run.
+        Solves on two streams, or a replayed CUDA graph of one, share no
+        ticket and no mailbox word."""
+        y = self._start(b)
         ctl = torch.zeros(2 * self._ctl_off[-1], dtype=torch.int32, device=self.pool.device)
 
         def sweep(gi, *args):
             base = 0 if args[-1] else self._ctl_off[-1]
             control = ctl[base + self._ctl_off[gi]:base + self._ctl_off[gi + 1]]
-            return front_sweep(self.pool, *args, self.flush, control=control)
+            return group_sweep(self.pool, *args, self.flush, control=control)
 
         self._run(y, sweep, True)
         self._run(y, sweep, False)
         return y[:self.n]
+
+    def solve_device(self, bp: torch.Tensor) -> torch.Tensor:
+        """Solve L U x = bp in permuted coordinates; x in the pool's type
+        (K4 and K5 on a card)."""
+        return self._solve(bp, front_sweep)
 
     def solve_t_device(self, sp: torch.Tensor) -> torch.Tensor:
         """Solve (L U)^T w = sp in permuted coordinates: U^T then L^T, under
-        the factorization's flush-to-zero."""
-        y = self._start(sp)
-
-        def sweep(gi, *args):
-            return front_sweep_t_plain(self.pool, *args, self.flush)
-
-        self._run(y, sweep, True)
-        self._run(y, sweep, False)
-        return y[:self.n]
+        the factorization's flush-to-zero (K12 and K5 on a card)."""
+        return self._solve(sp, front_sweep_t)

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from respatpu import solve as jsolve
 from respatpu.bench.synth import circuit_like, laplacian_2d, mesh_fem_3d, random_banded
 from respatpu.kernels import bandlu as jband
 from respatpu.kernels import dflinalg
@@ -13,6 +14,7 @@ from respatpu.precision import df_from_f64, df_to_f64
 
 from respatpu_torch.interop import (band_from_respatpu, band_to_numpy, csr_from_respatpu,
                                     df_to_numpy)
+from respatpu_torch import solve as tsolve
 from respatpu_torch.kernels import bandlu
 from respatpu_torch.precision import FP32_MIN_NORMAL
 
@@ -184,10 +186,17 @@ def test_band_lu_counts_perturbed_pivots_like_respatpu():
 @pytest.mark.parametrize("p", [16, 32])
 @pytest.mark.parametrize("nrhs", [1, 5])
 def test_band_solve_fp32_matches_respatpu(nrhs, p):
-    a = random_banded(150, 6, 4, seed=15)
+    """The plain versions of K2 (one right-hand side) and K10 (several) on a
+    band of ml = mu = 3 (p = 16) or 2 (p = 32) blocks: fp32 against
+    respatpu's ``_solve_core`` on XLA:CPU and against the dense solve; fp64
+    against the dense solve. With several right-hand sides, a forward sweep
+    from the first block row that is not zero equals the one from row 0 bit
+    for bit."""
+    a = random_banded(150, 40, 6, seed=15)
     t = csr_from_respatpu(a)
     jres = jband.band_lu(jband.band_to_device(jband.csr_to_band(a, p=p), "fp32"))
     tres = bandlu.band_lu(bandlu.csr_to_device_band(t, "fp32", "cpu", p=p))
+    assert (tres.lu.ml, tres.lu.mu) == ((3, 3) if p == 16 else (2, 2))
     rng = np.random.default_rng(2)
     b = rng.standard_normal((150, nrhs) if nrhs > 1 else 150)
     xj = np.asarray(jband.band_solve(jres.lu, jnp.asarray(b, jnp.float32)), np.float64)
@@ -199,6 +208,19 @@ def test_band_solve_fp32_matches_respatpu(nrhs, p):
     # JAX tests' own 1e-3
     assert np.abs(xt - xj).max() <= 1e-5 * np.abs(xj).max()
     np.testing.assert_allclose(xt, ref, rtol=1e-3, atol=1e-3 * np.abs(ref).max())
+    lu64 = bandlu.band_lu(bandlu.csr_to_device_band(t, "fp64", "cpu", p=p)).lu
+    x64 = bandlu.band_solve(lu64, torch.from_numpy(b)).numpy()
+    assert np.abs(x64 - ref).max() <= 1e-12 * np.abs(ref).max()
+    if nrhs > 1:
+        for lu in (tres.lu, lu64):
+            r0 = lu.nb - lu.mu
+            bp = torch.zeros((lu.nb * p, nrhs), dtype=lu.policy.accum_dtype)
+            bp[r0 * p:] = torch.from_numpy(rng.standard_normal(((lu.nb - r0) * p, nrhs)))
+            bits = torch.int64 if bp.dtype == torch.float64 else torch.int32
+            full = bandlu.band_sweep_plain(lu, bp, True)
+            assert torch.equal(bandlu.band_sweep_multi(lu, bp, True, r0).view(bits),
+                               full.view(bits))
+            assert not full[:r0 * p].view(bits).any()  # +0, not -0
 
 
 def test_band_solve_fp64_matches_respatpu_df64():
@@ -247,13 +269,23 @@ def test_interop_band_roundtrip(direction):
 
 @pytest.mark.parametrize("policy", ["fp32", "fp32_ftz", "bf16", "fp64"])
 def test_band_solve_transpose(policy):
-    a = csr_from_respatpu(random_banded(130, 9, 5, seed=6))
+    """K11's plain version (``band_sweep_t_plain``, both sweeps) against the
+    dense A^T solve in every policy, against respatpu's own transposed band
+    route (its band factor's CSR through two ``sptrsv`` triangles) in fp32,
+    and a subnormal partial under fp32 and fp32_ftz."""
+    ra = random_banded(130, 40, 5, seed=6)
+    a = csr_from_respatpu(ra)
     lu = bandlu.band_lu(bandlu.csr_to_device_band(a, policy, "cpu", p=16)).lu
+    assert lu.ml >= 2 and lu.mu >= 2
     s = np.random.default_rng(7).standard_normal(130)
     z = bandlu.band_solve_transpose(lu, torch.from_numpy(s).to(lu.policy.accum_dtype))
     ref = np.linalg.solve(a.toarray().T, s)
     tol = {"fp64": 1e-10, "bf16": 5e-2}.get(policy, 1e-3)  # the stored factor's precision
     np.testing.assert_allclose(z.double().numpy(), ref, rtol=tol, atol=tol * np.abs(ref).max())
+    if policy == "fp32":
+        zj = jsolve.BandLuFactorization(ra, "fp32", p=16).solve_transpose(s)
+        zt = tsolve.BandLuFactorization(a, "fp32", p=16, device="cpu").solve_transpose(s)
+        assert np.abs(zt - zj).max() <= 1e-4 * np.abs(zj).max()
     if policy in ("fp32", "fp32_ftz"):
         # a planted subnormal partial: z0 = s0 / u00 lands at a quarter of the
         # smallest normal; fp32_ftz flushes it (and so all of z), fp32 keeps it
@@ -289,6 +321,10 @@ def test_fp32_ftz_flushes_band_and_rhs():
 
 
 def test_wrappers_refuse_what_does_not_fit():
+    """The band wrappers refuse on every device what their kernels do not
+    take, each error naming the argument; K10 (``band_sweep_multi``) and K11
+    (``band_sweep_t``) check b's shape, type, device and layout, the block
+    size and, for K10, nrhs and first_row."""
     a = csr_from_respatpu(laplacian_2d(8, 8))
     lu = bandlu.band_lu(bandlu.csr_to_device_band(a, "fp32", "cpu", p=16)).lu
     with pytest.raises(ValueError):
@@ -298,4 +334,37 @@ def test_wrappers_refuse_what_does_not_fit():
         bandlu.band_sweep(bad, torch.zeros(64), True)
     with pytest.raises(ValueError):
         bandlu.band_lu(bandlu.DeviceBand(lu.n, lu.p, lu.ml + 1, lu.mu, lu.policy, lu.data))
+    good = torch.zeros(64, 3)
+
+    def multi(b, forward=True, first_row=0):
+        return bandlu.band_sweep_multi(lu, b, forward, first_row)
+
+    def sweep_t(b):
+        return bandlu.band_sweep_t(lu, b, True)
+
+    for fn, b, err, match in (
+            (multi, good.double(), TypeError, "b must be torch.float32"),
+            (multi, good[:-1], ValueError, "b must be contiguous of shape"),
+            (multi, torch.zeros(64), ValueError, "nrhs >= 1"),
+            (multi, torch.zeros(64, 0), ValueError, "nrhs >= 1"),
+            (multi, torch.zeros(3, 64).T, ValueError, "not contiguous"),
+            (multi, torch.zeros(64, 3, device="meta"), ValueError, "b is on meta"),
+            (sweep_t, torch.zeros(64).double(), TypeError, "b must be torch.float32"),
+            (sweep_t, torch.zeros(65), ValueError, "b must be contiguous of shape"),
+            (sweep_t, torch.zeros(128)[::2], ValueError, "not contiguous"),
+            (sweep_t, torch.zeros(64, device="meta"), ValueError, "b is on meta")):
+        with pytest.raises(err, match=match):
+            fn(b)
+    with pytest.raises(ValueError, match="first_row"):
+        multi(good, first_row=lu.nb)
+    with pytest.raises(ValueError, match="first_row"):
+        multi(good, forward=False, first_row=1)
+    with pytest.raises(ValueError, match="first_row"):
+        bandlu.band_solve(lu, torch.zeros(64), first_row=1)
+    wide = csr_from_respatpu(random_banded(300, 150, 5, seed=3))
+    big = bandlu.band_lu(bandlu.csr_to_device_band(wide, "fp32", "cpu", p=144)).lu
+    with pytest.raises(ValueError, match="lu.p"):
+        bandlu.band_sweep_multi(big, torch.zeros(big.nb * 144, 2), True)
+    with pytest.raises(ValueError, match="lu.p"):
+        bandlu.band_solve_transpose(big, torch.zeros(300))
     assert set(bandlu.LAUNCHES.values()) == {0}  # nothing on the CPU counts as a launch

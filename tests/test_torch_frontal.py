@@ -261,7 +261,7 @@ JAX_SHAPES = [(6, 24, 32, 4), (3, 128, 48, 2)]
 def jax_group(request):
     """One synthetic group in fp32 and what respatpu computes from it: the
     factored fronts with their counts, and the forward and backward group
-    solves from those factors."""
+    solves from those factors, of the system and of its transpose."""
     shape = request.param
     nf, wp, rp = shape[:3]
     mp = wp + rp
@@ -277,8 +277,13 @@ def jax_group(request):
                          jnp.asarray(g["piv"]), jnp.asarray(g["rsx"]), wp=wp, mp=mp)
     yb = jdev._bwd_group(jnp.asarray(y0), jnp.asarray(pool), jnp.asarray(offs),
                          jnp.asarray(g["piv"]), jnp.asarray(g["rsx"]), wp=wp, mp=mp)
+    yft = jdev._fwd_group_t(jnp.asarray(y0), jnp.asarray(pool), jnp.asarray(offs),
+                            jnp.asarray(g["piv"]), jnp.asarray(g["rsx"]), wp=wp, mp=mp)
+    ybt = jdev._bwd_group_t(jnp.asarray(y0), jnp.asarray(pool), jnp.asarray(offs),
+                            jnp.asarray(g["piv"]), jnp.asarray(g["rsx"]), wp=wp, mp=mp)
     return dict(shape=shape, g=g, fronts=fronts, eps=float(eps), lu=lu, cnt=np.asarray(cnt),
-                pool=pool, y0=y0, yf=np.asarray(yf), yb=np.asarray(yb))
+                pool=pool, y0=y0, yf=np.asarray(yf), yb=np.asarray(yb), yft=np.asarray(yft),
+                ybt=np.asarray(ybt))
 
 
 def test_factor_group_matches_respatpus_factor_fronts(jax_group):
@@ -295,21 +300,26 @@ def test_factor_group_matches_respatpus_factor_fronts(jax_group):
     assert int(cnt.sum()) == 0
 
 
-@pytest.mark.parametrize("forward", [True, False], ids=["forward", "backward"])
-def test_group_sweeps_match_respatpus(jax_group, forward):
+@pytest.mark.parametrize("forward,transposed", [(True, False), (False, False), (True, True),
+                                               (False, True)],
+                         ids=["forward", "backward", "transposed_forward", "transposed_backward"])
+def test_group_sweeps_match_respatpus(jax_group, forward, transposed):
     """From respatpu's factored fronts the port's group solve gives
     respatpu's y (its scatter-add of the updates against the ordered
-    reduction: fp32 sums in another order, 2e-5)."""
+    reduction: fp32 sums in another order, 2e-5): ``front_sweep`` (K4's
+    plain version) against ``_fwd_group`` / ``_bwd_group``, and
+    ``front_sweep_t`` (K12's) against ``_fwd_group_t`` / ``_bwd_group_t``."""
     j = jax_group
     nf, wp, rp = j["shape"][:3]
     t = {k: torch.from_numpy(v) for k, v in j["g"].items() if isinstance(v, np.ndarray)}
     y = torch.from_numpy(j["y0"].copy())
     pool = torch.from_numpy(j["pool"])
-    upd = dev.front_sweep(pool, y, 0, nf, wp, rp, t["piv"], t["rsx"], forward,
-                          control=dev.control_zeros(pool, nf, wp, rp))
+    sweep = dev.front_sweep_t if transposed else dev.front_sweep
+    upd = sweep(pool, y, 0, nf, wp, rp, t["piv"], t["rsx"], forward,
+                control=dev.control_zeros(pool, nf, wp, rp))
     if forward:
         dev.rows_reduce(y, upd, t["red_rows"], t["red_ptr"], t["red_src"])
-    ref = j["yf"] if forward else j["yb"]
+    ref = j[("yf" if forward else "yb") + ("t" if transposed else "")]
     n = j["g"]["n"]
     assert np.abs(y.numpy()[:n] - ref[:n]).max() <= 2e-5 * np.abs(ref[:n]).max()
 
