@@ -24,15 +24,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    stand-ins with fp64 and each low precision, with the launch counts, the
    fp64 result against the host oracle and the rows' cross-precision error;
    then one sweep row under the profiler, for where its time goes;
-5. band kernels vs plain: the block-LU kernel against ``block_lu_plain`` on
-   diagonally dominant blocks and blocks with planted zero, tiny and
-   exactly-eps pivots (P in 16, 32, 128; 1 and 7 blocks; read in place from a
-   band and contiguous; fp32, fp32_ftz, fp64 and bf16 input), and the sweep
+5. band kernels vs plain: the block-LU kernel against ``block_lu_plain`` bit
+   for bit on diagonally dominant blocks and blocks with planted zero, tiny
+   and exactly-eps pivots, and blocks that send fp32's fast division back to
+   ``__fdiv_rn`` (numerators of 2^-70 and 2^70, a pivot of 2^65) (P in 5,
+   16, 32 (a warp a block), 100 and 128 (panels); 1 and 10 blocks; read in
+   place from a band and contiguous; fp32, fp32_ftz, fp64 and bf16 input),
+   and the sweep
    kernel against ``band_sweep_plain`` on factored bands (one block row,
    ml != mu, n not a multiple of P, ml = nb, all four instances), each twice,
    bitwise equal; the same bands through K10 (several right-hand sides, 37
-   of them, against ``band_sweep_plain``; from ``first_row`` bit for bit
-   with the sweep from row 0) and K11 (the transposed sweeps, against
+   of them, tiles of 32 columns, against ``band_sweep_plain``; from
+   ``first_row`` bit for bit with the sweep from row 0) and K11 (the
+   transposed sweeps, against
    ``band_sweep_t_plain``), each twice bit for bit;
 6. direct path at full width: ``factorize(a, "fp32", method="auto")`` and
    ``solve_refined`` on the 2cubes_sphere stand-in at catalogue size, with
@@ -46,10 +50,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the band kernels timed at the full-width shapes beside bound, library and
    plain (K11 on the band of nb = 812 in every instance, held to plain and
    beside the torch-op loop it replaced; K10 at SPIKE's tips' shape, one
-   partition of 2cubes_sphere with 2,304 right-hand sides, beside
-   ``solve_triangular`` on the dense partition); the block-LU kernel beside
-   its chain bound too, 128 pivots times one block barrier with a
-   shared-memory hand-over (a probe in ``bench/csrc/smoke_probes.cu``);
+   partition of 2cubes_sphere with 2,304 right-hand sides (tiles of 128
+   columns with row slots), beside ``solve_triangular`` on the dense
+   partition, and in its few-column regime, a 4-column solve on the band of
+   nb = 812 beside four one-column K2 solves in turns); the warm fp32
+   factorization under the profiler twice, with K1's first version in K1's
+   place and with K1 (wall, busy, K1's share, busy by kernel); the
+   block-LU kernel beside its first version in turns (``bench/csrc/
+   smoke_probes.cu``, bit for bit with plain too) and beside its chain bound,
+   128 pivots times one block barrier with a shared-memory hand-over (a probe
+   there), and a block's arithmetic at one SM's share of the peak;
 7. frontal kernels vs plain: extend-add, the forward and backward frontal
    sweep, its transposed form (K12) and the row reduction against their
    plain versions on synthetic
@@ -69,14 +79,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of the block-LU, extend-add, sweep, transposed sweep, reduction and fp64
    SpMV kernels and twice-factored pools compared bit for bit; then, beside
    the path, each estimate against the plain transposed solves' (within 2x),
-   every group of the dc1 fp32, 2cubes_sphere fp64 and Laplacian fp32_ftz
+   every group of the dc1 fp32,
+   2cubes_sphere fp64 and Laplacian fp32_ftz
    plans through each frontal kernel and its plain version on the same
    inputs (the factored pool bit for bit with the plain extend-add in the
    kernel's place; a solve and a transposed solve walked group by group),
    and the frontal kernels timed at the full-width group
    shapes (the most populous group, the tallest panel, the widest front)
-   beside bound, library (the library route for a sweep) and plain; and two
+   beside bound, library (the library route for a sweep) and plain, the
+   block LU at the populous group and the widest front beside its first
+   version; and two
    solves of dc1's plan on two streams at once against the sequential ones;
+   last the warm 2cubes_sphere fp64 and dc1 fp32 factorizations under the
+   profiler, each once with K1's first version in K1's place and once with
+   K1 (busy time and K1's share);
 9. ILU(0) path: the link probe (the card's one-way hand-over through L2,
    which times a triangle's levels gives its chain bound); the Chow-Patel
    sweep kernel and the one-launch triangular solve against their plain
@@ -195,8 +211,8 @@ with its plan cut into runs of long entries of several sizes
 ``python3 chip_smoke.py --upload-times TREE ...`` times each tree's upload of
 the offshore and ecology2 stand-ins the same way (:func:`upload_times_in_turns`).
 ``python3 chip_smoke.py --dist`` builds the kernels and runs phase 15 alone;
-``python3 chip_smoke.py --band`` builds them and runs K10's and K11's checks
-and phase 6 alone;
+``python3 chip_smoke.py --band`` builds them (and the probes) and runs K1's,
+K10's and K11's checks and phase 6 alone;
 ``python3 chip_smoke.py --ranks`` builds them, runs phase 15's shared path
 on one process for the reference, and then phase 16.
 """
@@ -573,7 +589,8 @@ def profile_sweep_row(name_limit):
 
 @held
 def check_block_lu(errs):
-    """The block-LU kernel against its plain version; see the docstring."""
+    """The block-LU kernel against its plain version, bit for bit; see the
+    docstring."""
     rng = np.random.default_rng(11)
     for dt, flush in ((torch.float32, False), (torch.float32, True), (torch.bfloat16, False),
                       (torch.float64, False)):
@@ -581,13 +598,17 @@ def check_block_lu(errs):
         plants = [0.0, eps, eps / 2, -eps / 2, -eps, 2 * eps, None]
         name = "respa_block_lu_" + ("f64" if dt == torch.float64 else "f32_ftz" if flush
                                     else "f32")
-        for p in (16, 32, 128):
-            for nblocks in (1, 7):
+        for p in (5, 16, 32, 100, 128):
+            for nblocks in (1, 10):
                 blk = rng.standard_normal((nblocks, p, 3 * p)) + np.tile(4 * np.sqrt(p) * np.eye(p), 3)
-                for i in range(nblocks):
+                for i in range(min(nblocks, len(plants))):
                     plant = plants[i if nblocks > 1 else 0]
                     if plant is not None:
                         blk[i, 0, p] = plant
+                if nblocks == 10:  # fp32's fast division refused: its retry by __fdiv_rn
+                    blk[7, p - 1, p] = 2.0 ** -70
+                    blk[8, p - 1, p] = 2.0 ** 70
+                    blk[9, p // 2, p + p // 2] = 2.0 ** 65
                 if flush:
                     blk[:, 1, p + 2] = 1e-40  # a subnormal entry, flushed on load
                 band = torch.from_numpy(blk).to(dt).cuda()
@@ -595,20 +616,20 @@ def check_block_lu(errs):
                     lu, cnt = B.block_lu(x, eps, flush)
                     torch.cuda.synchronize()
                     ref, rcnt = B.block_lu_plain(x, eps, flush)
-                    scale = float(ref.abs().max())
-                    err = float((lu - ref).abs().max()) / scale
                     again = B.block_lu(x, eps, flush)
                     planted = sum(pl is not None and abs(pl) <= eps
                                   for pl in plants[:nblocks if nblocks > 1 else 1])
-                    if (not np.isfinite(err) or err > LU_TOL[dt] or not torch.equal(cnt, rcnt)
+                    if (not torch.equal(bits(lu), bits(ref)) or not torch.equal(cnt, rcnt)
                             or int(cnt.sum()) < planted
                             or not (torch.equal(lu, again[0]) and torch.equal(cnt, again[1]))):
-                        raise AssertionError(f"{name} P={p} B={nblocks}: err {err:.3e}, counts "
-                                             f"{cnt.tolist()} vs plain {rcnt.tolist()}")
+                        err = float((lu - ref).abs().max()) / float(ref.abs().max())
+                        raise AssertionError(f"{name} P={p} B={nblocks}: not bit for bit with "
+                                             f"plain (rel err {err:.3e}), counts {cnt.tolist()} "
+                                             f"vs plain {rcnt.tolist()}")
                     errs[name] = max(errs.get(name, 0.0), float((lu - ref).abs().max()))
                 print(f"[kernel] {name:24s} {str(dt):15s} P={p:3d} B={nblocks} in-band and "
-                      f"contiguous: rel_err={err:.3e} (tol {LU_TOL[dt]:.0e}) perturbed="
-                      f"{int(cnt.sum())} bitwise twice", flush=True)
+                      f"contiguous: bit for bit with plain, perturbed={int(cnt.sum())}, "
+                      f"bitwise twice", flush=True)
 
 
 def sweep_cases():
@@ -668,10 +689,75 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def block_lu_direct(lib, name, x, eps, flush, out, count):
+    """One launch of a block-LU entry point of ``lib`` (the package's or the
+    probes' first version) on ``x`` into preallocated ``out`` and ``count``:
+    no allocation in the timed window."""
+    fn = getattr(lib, name)
+    stream = torch.cuda.current_stream().cuda_stream
+    sb, ld, _ = x.stride()
+
+    def call():
+        rc = fn(x.device.index, x.shape[0], x.shape[1], x.data_ptr(),
+                int(x.dtype == torch.bfloat16), ld, sb, float(eps), out.data_ptr(),
+                count.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return call
+
+
+def time_block_lu_at(name_limit, name, x, eps, flush, probes, what, library=True):
+    """K1 on ``x`` (a batch of blocks, read in place) beside its first
+    version (``respa_block_lu_before_*`` of the probes library) in turns:
+    both bit for bit with plain, each by direct calls into preallocated
+    outputs (events, median of 20), the package's by its wrapper too and by
+    the profiler; bounds: bytes and operations at the card's rates (the
+    contract's), and the operations at one SM's share of the peak (a block
+    is one thread block's work)."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    nb, p = x.shape[0], x.shape[1]
+    out = torch.empty((nb, p, p), dtype=acc, device=x.device)
+    count = torch.empty(nb, dtype=torch.int32, device=x.device)
+    new = block_lu_direct(_build.load(), name, x, eps, flush, out, count)
+    before = block_lu_direct(probes, name.replace("block_lu_", "block_lu_before_"), x, eps,
+                             flush, out, count)
+    ref, rcnt = B.block_lu_plain(x, eps, flush)
+    for fn in (new, before):
+        fn()
+        if not (torch.equal(bits(out), bits(ref)) and torch.equal(count, rcnt)):
+            raise AssertionError(f"{name} at {what}: not bit for bit with plain")
+    nbytes = nb * p * p * (x.element_size() + torch.empty(0, dtype=acc).element_size()) + 4 * nb
+    flops = nb * 2 * p ** 3 / 3
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[acc] * 1e3
+    with uncounted():
+        turns = [events_ms(fn, 20) for fn in (new, before, before, new)]
+        t = {"ms": events_ms(lambda: B.block_lu(x, eps, flush), 20),
+             "kernel_ms": min(turns[0], turns[3]), "before_ms": min(turns[1], turns[2]),
+             "profiler_ms": profiler_ms(lambda: B.block_lu(x, eps, flush), "block_lu", 10),
+             "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "sm_bound_ms": flops / nb / (FLOPS_PER_S[acc] / sms) * 1e3,
+             "shape": f"{what}: {nb} block(s) of {p} x {p}, row stride {x.stride(1)}"}
+        if library:
+            dense = x.contiguous()
+            t["library_ms"] = events_ms(lambda: torch.linalg.lu_factor(dense, pivot=False), 20)
+            t["plain_ms"] = events_ms(lambda: B.block_lu_plain(x, eps, flush), 2)
+    print(f"[time] {name_limit} | {name} {t['shape']}: kernel {fmt_ms(t['kernel_ms'])} by "
+          f"events (direct calls; first version {fmt_ms(t['before_ms'])} in turns, "
+          f"{t['before_ms'] / t['kernel_ms']:.2f}x), {fmt_ms(t['ms'])} through the wrapper, "
+          f"{fmt_ms(t['profiler_ms'])} by the profiler; bound {t['bound_ms'] * 1e3:.3f} us at "
+          f"the card's rates ({nbytes} bytes, {flops:.0f} flops), a block's operations at one "
+          f"SM's share {t['sm_bound_ms'] * 1e3:.3f} us"
+          + (f"; library lu_factor(pivot=False) {fmt_ms(t['library_ms'])}; plain "
+             f"{fmt_ms(t['plain_ms'])}" if library else ""), flush=True)
+    return t
+
+
 @held
-def time_block_lu(name_limit, fac32, fac64, times):
+def time_block_lu(name_limit, fac32, fac64, times, probes):
     """The block-LU kernel at the main path's shape: one diagonal block of
-    128 read in place from the uploaded band."""
+    128 read in place from the uploaded band, beside its first version."""
     for name, fac, flush in (("respa_block_lu_f32", fac32, False),
                              ("respa_block_lu_f32_ftz", fac32, True),
                              ("respa_block_lu_f64", fac64, False)):
@@ -679,29 +765,12 @@ def time_block_lu(name_limit, fac32, fac64, times):
         p, ml = band.p, band.ml
         x = band.data[band.nb // 2][None, :, ml * p:(ml + 1) * p]
         eps = 1e-6
-        acc = band.policy.accum_dtype
-        nbytes = p * p * (x.element_size() + torch.empty(0, dtype=acc).element_size()) + 4
-        flops = 2 * p ** 3 / 3
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[acc] * 1e3
-        dense = x[0].contiguous()
-        lib_lu = torch.linalg.lu_factor(dense, pivot=False)[0]
+        lib_lu = torch.linalg.lu_factor(x[0].contiguous(), pivot=False)[0]
         ours = B.block_lu(x, eps, flush)[0][0]
         if float((lib_lu - ours).abs().max() / ours.abs().max()) > LU_TOL[x.dtype] * 50:
             raise AssertionError(f"{name}: lu_factor(pivot=False) disagrees with the kernel")
-        t = {"ms": events_ms(lambda: B.block_lu(x, eps, flush), 20),
-             "plain_ms": events_ms(lambda: B.block_lu_plain(x, eps, flush), 2),
-             "library_ms": events_ms(lambda: torch.linalg.lu_factor(dense, pivot=False), 20),
-             "profiler_ms": profiler_ms(lambda: B.block_lu(x, eps, flush), "block_lu_kernel", 10),
-             "bound_ms": max(by_bytes, by_ops),
-             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-             "shape": f"1 block of {p} x {p}, row stride {band.width}"}
-        times[name] = t
-        print(f"[time] {name_limit} | {name} {t['shape']}: kernel {fmt_ms(t['ms'])} by events, "
-              f"{fmt_ms(t['profiler_ms'])} by the profiler; bound {t['bound_ms'] * 1e3:.3f} us "
-              f"({nbytes} bytes at 3.35 TB/s = {by_bytes * 1e3:.3f} us, {flops:.0f} flops at "
-              f"{FLOPS_PER_S[acc] / 1e12:.1f} TFLOP/s = {by_ops * 1e3:.3f} us); what it sits at is "
-              f"the chain of {p} dependent pivots; library lu_factor(pivot=False) "
-              f"{fmt_ms(t['library_ms'])}; plain {fmt_ms(t['plain_ms'])}", flush=True)
+        times[name] = time_block_lu_at(name_limit, name, x, eps, flush, probes,
+                                       "the band's diagonal block")
 
 
 @held
@@ -1126,7 +1195,7 @@ def hold_band_multi(name_limit, a, errs, times):
                         "ms": events_ms(lambda: B.band_sweep_multi(lu, v_rhs, True, r0), 5),
                         "bound_ms": max(vflops / FLOPS_PER_S[acc], vbytes / HBM_BYTES_PER_S) * 1e3}
                     del yv
-                times[name] = t
+                times[name] = {**times.get(name, {}), **t}
                 v = t.get("first_row")
                 print(f"[time] {name_limit} | {name} {t['shape']}: kernel {fmt_ms(t['ms'])} by "
                       f"events, {fmt_ms(t['profiler_ms'])} by the profiler; bound "
@@ -1156,6 +1225,104 @@ def factor_bound(band, acc):
     return flops, nbytes, max(flops / FLOPS_PER_S[acc], nbytes / HBM_BYTES_PER_S) * 1e3
 
 
+@contextlib.contextmanager
+def first_k1(probes):
+    """K1's wrapper launches K1's first version (the probes'
+    ``respa_block_lu_before_*``, the same C entry) in place of the package's
+    inside the block; every other kernel is the package's."""
+    lib, saved = B._library(), B._library
+
+    class Swapped:
+        def __getattr__(self, name):
+            if name.startswith("respa_block_lu_"):
+                name = name.replace("respa_block_lu_", "respa_block_lu_before_")
+                return getattr(probes, name)
+            return getattr(lib, name)
+
+    B._library = Swapped
+    try:
+        yield
+    finally:
+        B._library = saved
+
+
+def factor_busy(name_limit, tag, what, refactor, probes):
+    """Two warm factorizations (``refactor``, timed on the host to a
+    synchronize) under the profiler, the first with K1's first version, the
+    second with K1 (both bit for bit with plain, so each leaves the same
+    factor): for each its wall time, the card's busy time and K1's share of
+    it; for K1's the busy time by kernel name."""
+    wall = [0.0]
+
+    def run():
+        wall[0] = refactor()
+
+    got = {}
+    for version in ("first version", "K1"):
+        try:
+            with first_k1(probes) if version != "K1" else contextlib.nullcontext():
+                events = device_events(run)
+        except ProfilerUnavailable as e:
+            print(f"{tag} {name_limit} | {what} warm factorization busy time not measured ({e})",
+                  flush=True)
+            return
+        busy = sum(t for _, t in events)
+        k1 = [t for name, t in events if "block_lu" in name]
+        got[version] = (busy, sum(k1))
+        print(f"{tag} {name_limit} | {what} warm factorization under the profiler with "
+              f"{version}: wall {wall[0] * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms in "
+              f"{len(events)} records, K1 {sum(k1) * 1e3:.2f} ms ({len(k1)} x "
+              f"{sum(k1) / max(len(k1), 1) * 1e6:.1f} us)", flush=True)
+    for key, n, tot in busy_by_name(events, top=6):
+        print(f"{tag}   {key}: {n} x {tot / n * 1e6:.1f} us = {tot * 1e3:.2f} ms", flush=True)
+    (b1, k1), (b0, k0) = got["K1"], got["first version"]
+    print(f"{tag} {name_limit} | {what}: busy {b1 * 1e3:.1f} ms with K1 against "
+          f"{b0 * 1e3:.1f} ms with its first version, K1's share {k1 * 1e3:.2f} against "
+          f"{k0 * 1e3:.2f} ms: {(b1 - b0) * 1e3:+.1f} ms busy", flush=True)
+
+
+@held
+def time_few_columns(name_limit, lu, times):
+    """K10's few-column regime on the band of phase 6 (2cubes_sphere fp32,
+    nb = 812): a solve of 4 right-hand sides (``band_solve``, both sweeps on
+    K10) beside four one-column solves (K2) of the same run, in turns; the
+    4-column sweeps held to ``band_sweep_plain`` within ``SWEEP_TOL`` and
+    twice bit for bit."""
+    acc = lu.policy.accum_dtype
+    rng = np.random.default_rng(31)
+    b4 = torch.from_numpy(rng.standard_normal((lu.n, 4))).to(acc).cuda()
+    cols = [b4[:, j].contiguous() for j in range(4)]
+    bp = torch.zeros((lu.nb * lu.p, 4), dtype=acc, device="cuda")
+    bp[:lu.n] = b4
+    with uncounted():
+        worst = 0.0
+        for fwd, b in ((True, bp), (False, B.band_sweep_multi(lu, bp, True))):
+            y = B.band_sweep_multi(lu, b, fwd)
+            ref = B.band_sweep_plain(lu, b, fwd)
+            err = float((y - ref).abs().max() / ref.abs().max())
+            if not err <= SWEEP_TOL[lu.policy.name] or \
+                    not torch.equal(bits(y), bits(B.band_sweep_multi(lu, b, fwd))):
+                raise AssertionError(f"K10 4 columns at nb={lu.nb}: err {err:.3e} or not "
+                                     "reproducible")
+            worst = max(worst, err)
+
+        def four():
+            return B.band_solve(lu, b4)
+
+        def ones():
+            return [B.band_solve(lu, c) for c in cols]
+
+        turns = [events_ms(fn, 5) for fn in (four, ones, ones, four)]
+    t = {"nrhs": 4, "ms": min(turns[0], turns[3]), "one_column_solves_ms": min(turns[1], turns[2]),
+         "shape": f"nb={lu.nb} P={lu.p} ml={lu.ml} mu={lu.mu} {lu.policy.name}"}
+    name = f"respa_band_sweep_multi_fwd_{INST[lu.policy.name]}"
+    times.setdefault(name, {})["few_columns"] = t
+    print(f"[time] {name_limit} | K10 few-column regime, {t['shape']}: a 4-column band_solve "
+          f"(two K10 sweeps) {t['ms']:.3f} ms against four 1-column band_solves (K2) "
+          f"{t['one_column_solves_ms']:.3f} ms, by events in turns; sweeps within {worst:.2e} of "
+          f"plain, bitwise twice", flush=True)
+
+
 def reset_counts():
     for counts in (B.LAUNCHES, K.LAUNCHES, F.LAUNCHES, I.LAUNCHES, S.LAUNCHES, SP.LAUNCHES,
                    DI.LAUNCHES):
@@ -1163,12 +1330,13 @@ def reset_counts():
             counts[name] = 0
 
 
-def direct_path(name_limit, a, times, errs):
+def direct_path(name_limit, a, times, errs, probes):
     """Phase 6; returns the band kernels' launch counts on the direct path
     and the fp64 SpMV's. The path ends with a solve of several right-hand
     sides (K10) and ``condest`` (K11) on each of its four band factors; beside
-    it, each estimate against the one the plain transposed solves give, and
-    the kernels held and timed at the full-width shapes."""
+    it, each estimate against the one the plain transposed solves give, the
+    warm factorization's busy time, and the kernels held and timed at the
+    full-width shapes."""
     b, x_true = slv.make_rhs_for_known_x(a)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1266,12 +1434,16 @@ def direct_path(name_limit, a, times, errs):
     for what, calls in recorded.items():
         hold_recorded_multi(f"[held] {name_limit}", f"{what}, 4 right-hand sides", calls, errs)
     del lap_facs, rconds, facs, recorded
-    time_block_lu(name_limit, fac, fac64, times)
+    time_block_lu(name_limit, fac, fac64, times, probes)
+    time_few_columns(name_limit, fac._lu, times)
     for policy in ("fp32", "fp32_ftz", "bf16"):
         time_band_sweep(name_limit, fac._lu, policy, times)
         hold_band_t(name_limit, fac._lu, policy, errs, times)
     time_band_sweep(name_limit, fac64._lu, "fp64", times)
     hold_band_t(name_limit, fac64._lu, "fp64", errs, times)
+    with uncounted():
+        factor_busy(name_limit, "[direct]", "2cubes_sphere fp32 band", fac.refactorize_timed,
+                    probes)
     del fac, fac64
     torch.cuda.empty_cache()
     hold_band_multi(name_limit, a, errs, times)
@@ -1544,7 +1716,7 @@ def hold_frontal_full(name_limit, name, fac, errs, full):
 
 
 @held
-def time_frontal(name_limit, fac, times):
+def time_frontal(name_limit, fac, times, probes):
     """The frontal kernels of ``fac``'s instance at three group shapes of its
     plan: the group with the most fronts among those with parents
     (populous), the one with the most update rows among those a warp or a
@@ -1558,7 +1730,8 @@ def time_frontal(name_limit, fac, times):
     ``rsx``; for the extend-add also under deterministic algorithms, the
     call that sums in a fixed order as K3 does); for a sweep the library
     route (``solve_triangular`` on the triangle read in place, the panel by
-    ``matmul``)."""
+    ``matmul``). K1 at two of the groups beside its first version, from
+    ``probes``."""
     plan, pool, flush = fac._plan, fac._frontal.pool, fac._frontal.flush
     inst = F._INST[pool.dtype, flush]
     item = pool.element_size()
@@ -1572,6 +1745,18 @@ def time_frontal(name_limit, fac, times):
     y0 = torch.randn(plan.part.n + 1, dtype=pool.dtype, device=pool.device)
     y0[-1] = 0
     y = y0.clone()
+    # K1 (the block LU, one launch for each 128 pivots of a group) at the
+    # populous group and the widest front: their first diagonal blocks, read
+    # in place from the factored pool, beside K1's first version
+    for tag in ("populous", "widest"):
+        g = groups[picks[tag]]
+        w = min(g.wp, B.MAX_P)
+        d = F._fronts(pool, g.g0, g.nfronts, g.mp)[:, :w, :w]
+        name = f"respa_block_lu_{inst}"
+        times.setdefault("block_lu_groups", {})[f"{name} {tag}"] = time_block_lu_at(
+            name_limit, name, d, 1e-6, flush, probes,
+            f"{tag} group (B={g.nfronts} wp={g.wp} rp={g.rp}, {-(-g.wp // B.MAX_P)} launches "
+            "a factorization)", library=False)
 
     def reset():
         y.copy_(y0)
@@ -1809,7 +1994,7 @@ def two_streams_frontal(name_limit, fac, bd):
           f"{fmt_ms(busy)}", flush=True)
 
 
-def multifrontal_path(name_limit, mats, errs, full, times):
+def multifrontal_path(name_limit, mats, errs, full, times, probes):
     """Phase 8; returns the launch counts of the frontal, block-LU and fp64
     SpMV kernels on the multifrontal path, and dc1's fp32 factorization
     (phase 13 saves it)."""
@@ -1879,10 +2064,16 @@ def multifrontal_path(name_limit, mats, errs, full, times):
     for name, f in (("dc1 fp32", fac), ("2cubes_sphere fp64", fac64),
                     ("laplacian_2d(300, 300) fp32_ftz", fac_z)):
         hold_frontal_full(name_limit, name, f, errs, full)
-    time_frontal(name_limit, fac, times)
-    time_frontal(name_limit, fac64, times)
+    time_frontal(name_limit, fac, times, probes)
+    time_frontal(name_limit, fac64, times, probes)
+    with uncounted():  # does K1 fp64's time on the dense fronts show in the factor?
+        factor_busy(name_limit, "[frontal]", "2cubes_sphere fp64 multifrontal",
+                    fac64.refactorize_timed, probes)
     del fac64
-    time_frontal(name_limit, fac_z, times)
+    time_frontal(name_limit, fac_z, times, probes)
+    with uncounted():
+        factor_busy(name_limit, "[frontal]", "dc1 fp32 multifrontal", fac.refactorize_timed,
+                    probes)
     return launches, fac
 
 
@@ -2871,8 +3062,8 @@ def dia_path(name_limit):
 
 def build_probes():
     """``bench/csrc/smoke_probes.cu`` (K9's other remainder design, which
-    includes the package's kernel source, and the L2 read probe) in a
-    library of its own, bound by ctypes."""
+    includes the package's kernel source, the L2 read and barrier probes, and
+    K1's first version) in a library of its own, bound by ctypes."""
     here = os.path.dirname(os.path.abspath(__file__))
     csrc = os.path.join(here, "respatpu_torch", "kernels", "csrc")
     path = build_shared("librespa_smoke_probes.so", [os.path.join(here, PROBES_SOURCE)],
@@ -2889,6 +3080,12 @@ def build_probes():
     # device, rounds, out, stream
     lib.respa_barrier_probe.argtypes = [i32, i32, ptr, ptr]
     lib.respa_barrier_probe.restype = i32
+    for inst in ("f32", "f32_ftz", "f64"):
+        # K1's first version: device, nblocks, p, in, in_is_bf16, ld, batch_stride, eps, lu,
+        # n_perturbed, stream
+        fn = getattr(lib, f"respa_block_lu_before_{inst}")
+        fn.argtypes = [i32, i32, i32, ptr, i32, i64, i64, ctypes.c_double, ptr, ptr, ptr]
+        fn.restype = i32
     return lib
 
 
@@ -3879,11 +4076,15 @@ def main():
             dist_path(name_limit, {m: corpus.load_matrix(m)[0] for m in MAIN}, tmp)
         return
     if sys.argv[1:2] == ["--band"]:
-        _build.load()
+        with ThreadPoolExecutor(1) as builder:
+            probes = builder.submit(build_probes)
+            _build.load()
+            probes = probes.result()
         band_errs, band_times = {}, {}
+        check_block_lu(band_errs)
         check_band_multi(band_errs)
         check_band_t(band_errs)
-        direct_path(name_limit, corpus.load_matrix(MAIN[0])[0], band_times, band_errs)
+        direct_path(name_limit, corpus.load_matrix(MAIN[0])[0], band_times, band_errs, probes)
         return
     if sys.argv[1:2] == ["--rank-worker"]:
         rank_worker(name_limit, sys.argv[2:])
@@ -4018,18 +4219,23 @@ def main():
     phase_done(5)
 
     # 6. direct path at full width
-    band_launches, spmv_direct = direct_path(name_limit, mats[MAIN[0]], band_times, band_errs)
+    band_launches, spmv_direct = direct_path(name_limit, mats[MAIN[0]], band_times, band_errs,
+                                             probes.result())
     for name, n in band_launches.items():
         if n < 1:
             raise AssertionError(f"{name} was not launched on the direct path")
     barrier = block_barrier(name_limit, probes.result())
     for name in ("respa_block_lu_f32", "respa_block_lu_f32_ftz", "respa_block_lu_f64"):
         t = band_times[name]
-        t["chain_bound_ms"] = B.MAX_P * barrier * 1e3  # a pivot of 128 waits at one barrier
+        # the chain: 128 pivots, each handed on at least once through shared
+        # memory past a barrier (the first version's step) or a shuffle
+        t["chain_bound_ms"] = B.MAX_P * barrier * 1e3
         print(f"[time] {name_limit} | {name}: chain bound {t['chain_bound_ms'] * 1e3:.3f} us "
-              f"({B.MAX_P} pivots x the barrier probe); the kernel "
-              f"{fmt_ms(t['profiler_ms'] or t['ms'])} is "
-              f"{(t['profiler_ms'] or t['ms']) / t['chain_bound_ms']:.1f}x it", flush=True)
+              f"({B.MAX_P} pivots x the barrier-and-broadcast probe), a block's arithmetic on "
+              f"one SM {t['sm_bound_ms'] * 1e3:.3f} us; the kernel "
+              f"{fmt_ms(t['profiler_ms'] or t['kernel_ms'])} is "
+              f"{(t['profiler_ms'] or t['kernel_ms']) / t['chain_bound_ms']:.1f}x the chain "
+              f"(first version {fmt_ms(t['before_ms'])})", flush=True)
     phase_done(6)
 
     # 7. frontal kernels vs plain
@@ -4039,7 +4245,7 @@ def main():
 
     # 8. multifrontal path at full width
     front_launches, fac_dc1 = multifrontal_path(name_limit, mats, front_errs, front_full,
-                                                front_times)
+                                                front_times, probes.result())
     for name in (*F.LAUNCHES, "respa_block_lu_f32", "respa_block_lu_f32_ftz",
                  "respa_block_lu_f64", "spmv_fp64"):
         if front_launches[name] < 1:
@@ -4129,7 +4335,10 @@ def main():
                                      T_REPLACES if "_sweep_t_" in name else SWEEP_REPLACES),
                         "launches": band_launches[name], "max_abs_err": band_errs[name],
                         **band_times[name],
-                        **({"launches_frontal_path": front_launches[name]}
+                        **({"launches_frontal_path": front_launches[name],
+                            "frontal_groups": {k.split()[-1]: v for k, v in
+                                               front_times.get("block_lu_groups", {}).items()
+                                               if k.split()[0] == name}}
                            if "block_lu" in name else {})})
     for name in F.LAUNCHES:
         kernels.append({"name": name, "route": "cuda", "source": FRONTAL_SOURCE,

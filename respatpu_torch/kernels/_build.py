@@ -85,8 +85,8 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in _BAND_MULTI:
         fn = getattr(lib, name)
-        # device, nb, p, ml, mu, nrhs, first_row, then band, b, out, ready, stream
-        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+        # device, nb, p, ml, mu, nrhs, first_row, cols, slots, then band, b, out, ready, stream
+        fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for name in _EXTEND_ADD:
@@ -138,7 +138,7 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     lib.respa_link_probe.argtypes = [i32, i32, ptr, ptr, ptr]
     lib.respa_link_probe.restype = ctypes.c_int
     for name in ("respa_spmv_csr_cap", "respa_spmv_csr_max_rows", "respa_band_max_p",
-                 "respa_front_max_tri"):
+                 "respa_band_multi_few_cols", "respa_front_max_tri"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     return lib

@@ -33,8 +33,9 @@ form in torch ops:
   block substitution for one right-hand side (respatpu's ``_solve_core``),
   nb dependent block rows in one launch;
 * ``band_sweep_multi`` (K10, ``csrc/band_multi.cu``): the same for several
-  right-hand sides (``_solve_core`` with nrhs > 1: SPIKE's tips), the blocks
-  of a tile of columns walking its block rows;
+  right-hand sides (``_solve_core`` with nrhs > 1: SPIKE's tips): tiles of
+  32 or 128 columns whose row slots walk the block rows, or, for at most
+  ``FEW_COLS`` columns, K2's pipeline carrying them all (:func:`multi_plan`);
 * ``band_sweep_t`` (K11, ``csrc/band_lu.cu``): the sweeps of the transposed
   system, ``U^T`` forward and ``L^T`` backward, read straight from the band
   (the condition estimate's transposed solves).
@@ -68,9 +69,12 @@ __all__ = ["BandMatrix", "csr_to_band", "band_memory_bytes", "band_extent",
            "DeviceBand", "band_to_device", "csr_to_device_band", "band_lu",
            "band_solve", "band_solve_transpose", "BandLuResult", "block_lu",
            "block_lu_plain", "band_sweep", "band_sweep_plain", "band_sweep_multi",
-           "band_sweep_t", "band_sweep_t_plain", "LAUNCHES", "MAX_P"]
+           "band_sweep_t", "band_sweep_t_plain", "multi_plan", "LAUNCHES", "MAX_P",
+           "FEW_COLS"]
 
 MAX_P = 128  # largest block the kernels take (kMaxP of csrc/band_lu.cu)
+FEW_COLS = 4  # K10's few-column regime (kFewCols of csrc/band_multi.cu)
+TILE_COLS = (32, 128)  # K10's tile widths for more columns
 
 _INST = {"fp32": "f32", "fp32_ftz": "f32_ftz", "bf16": "bf16", "fp64": "f64"}
 # bf16 blocks are read as fp32, so the fp32 instances factor them
@@ -216,6 +220,9 @@ def _library():
     if lib.respa_band_max_p() != MAX_P:
         raise RuntimeError(f"band_lu.cu was built for blocks up to "
                            f"{lib.respa_band_max_p()}, the wrappers expect {MAX_P}")
+    if lib.respa_band_multi_few_cols() != FEW_COLS:
+        raise RuntimeError(f"band_multi.cu carries {lib.respa_band_multi_few_cols()} columns "
+                           f"in its few-column regime, the wrapper expects {FEW_COLS}")
     return lib
 
 
@@ -478,6 +485,43 @@ def _check_rhs(lu: DeviceBand, b: torch.Tensor, shape: Tuple[int, ...]) -> None:
                          f"{'' if b.is_contiguous() else ', not contiguous'}")
 
 
+def multi_plan(nb: int, m: int, nrhs: int, first_row: int, sms: int) -> Tuple[int, int, int]:
+    """K10's launch for a sweep of ``nrhs`` columns over ``nb - first_row``
+    block rows with ``m`` panels a row (ml forward, mu backward) on a card of
+    ``sms`` SMs: ``(cols, tiles, slots)``.
+
+    At most ``FEW_COLS`` columns take the few-column regime (``cols`` =
+    ``FEW_COLS``, one tile, ``slots`` blocks taking the rows in turn, one an
+    SM, at most one a panel and the diagonal). More take tiles of 32 or 128
+    columns, each tile's rows spread over ``slots`` blocks as long as the
+    tiles leave SMs free; the width is the one whose slowest block has the
+    least to do: its tile's columns times the rows it walks (no fewer than a
+    row's near panel and triangle, about 3 / (m + 1) of the rows, which lie
+    on the chain whatever the slots), times the waves of tiles. Ties go to the
+    wider tile, which reads the band fewer times."""
+    rows = nb - first_row
+    if nrhs <= FEW_COLS:
+        return FEW_COLS, 1, max(1, min(m + 1, rows, sms))
+    best = None
+    for cols in TILE_COLS:
+        tiles = -(-nrhs // cols)
+        slots = max(1, min(sms // tiles, m + 1, rows))
+        walk = max(-(-rows // slots), -(-3 * rows // (m + 1)))
+        cost = cols * walk * -(-tiles // sms)
+        if best is None or cost <= best[0]:
+            best = (cost, cols, tiles, slots)
+    return best[1:]
+
+
+_SMS = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device.index]
+
+
 def band_sweep_multi(lu: DeviceBand, b: torch.Tensor, forward: bool,
                      first_row: int = 0) -> torch.Tensor:
     """One block substitution sweep over the factored band for several
@@ -485,11 +529,10 @@ def band_sweep_multi(lu: DeviceBand, b: torch.Tensor, forward: bool,
     accumulator type); see :func:`band_sweep_plain` for the function and
     ``first_row``.
 
-    On a CUDA device this is one launch of K10 on the current stream (the
-    blocks of a tile of 32 columns walk its rows; it raises if the inputs do
-    not fit it or the launch fails); on the CPU it runs the plain version.
-    Sums are taken in an order fixed by the shape, so a sweep repeats bit for
-    bit."""
+    On a CUDA device this is one launch of K10 on the current stream in the
+    regime :func:`multi_plan` picks (it raises if the inputs do not fit it or
+    the launch fails); on the CPU it runs the plain version. Sums are taken
+    in an order fixed by the shape, so a sweep repeats bit for bit."""
     nrhs = int(b.shape[1]) if b.dim() == 2 else 0
     if nrhs < 1:
         raise ValueError(f"b must be [nb*P, nrhs] with nrhs >= 1, got {tuple(b.shape)}")
@@ -502,13 +545,19 @@ def band_sweep_multi(lu: DeviceBand, b: torch.Tensor, forward: bool,
     if lu.device.type != "cuda":
         raise ValueError(f"no band sweep for device {lu.device}")
     name = _MULTI_ENTRY["fwd" if forward else "bwd", lu.policy.name]
+    cols, tiles, slots = multi_plan(lu.nb, lu.ml if forward else lu.mu, nrhs, first_row,
+                                    _sm_count(lu.device))
     out = torch.empty_like(b)
     out[:first_row * lu.p].zero_()  # rows the kernel does not reach
-    # a flag for each block row and tile of 32 columns: published when solved
-    ready = torch.zeros(lu.nb * -(-nrhs // 32), dtype=torch.int32, device=lu.device)
+    if cols == FEW_COLS:
+        # the mailbox: a (word, tag) pair for every 32-bit word of nb x p x FEW_COLS values
+        words = 2 * lu.nb * lu.p * FEW_COLS * (b.element_size() // 4)
+    else:
+        words = lu.nb * tiles  # a flag for each block row and tile: published when solved
+    ready = torch.zeros(words, dtype=torch.int32, device=lu.device)
     rc = getattr(_library(), name)(
-        lu.device.index, lu.nb, lu.p, lu.ml, lu.mu, nrhs, first_row, lu.data.data_ptr(),
-        b.data_ptr(), out.data_ptr(), ready.data_ptr(),
+        lu.device.index, lu.nb, lu.p, lu.ml, lu.mu, nrhs, first_row, cols, slots,
+        lu.data.data_ptr(), b.data_ptr(), out.data_ptr(), ready.data_ptr(),
         torch.cuda.current_stream(lu.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

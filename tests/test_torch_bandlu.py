@@ -212,6 +212,19 @@ def test_band_solve_fp32_matches_respatpu(nrhs, p):
     x64 = bandlu.band_solve(lu64, torch.from_numpy(b)).numpy()
     assert np.abs(x64 - ref).max() <= 1e-12 * np.abs(ref).max()
     if nrhs > 1:
+        # K10's launch plan: SPIKE's tips on an H100 (132 SMs) take 18 tiles
+        # of 128 columns with 7 row slots each, V's sweep from its first row
+        # too; at most FEW_COLS columns the few-column regime, a slot an SM
+        # up to ml + 1; a narrow band 32-column tiles; slots never more than
+        # a row's panels and the diagonal, or the rows
+        assert bandlu.multi_plan(203, 18, 2304, 0, 132) == (128, 18, 7)
+        assert bandlu.multi_plan(203, 18, 2304, 185, 132) == (128, 18, 7)
+        assert bandlu.multi_plan(812, 18, 4, 0, 132) == (bandlu.FEW_COLS, 1, 19)
+        assert bandlu.multi_plan(812, 18, 1, 0, 132)[0] == bandlu.FEW_COLS
+        assert bandlu.multi_plan(8, 3, 300, 0, 132)[0] == 32
+        for nb, m, k, r0, sms in ((5, 1, 37, 0, 132), (60, 19, 2304, 30, 80), (3, 9, 9, 2, 4)):
+            cols, tiles, slots = bandlu.multi_plan(nb, m, k, r0, sms)
+            assert tiles == -(-k // cols) and 1 <= slots <= min(m + 1, nb - r0)
         for lu in (tres.lu, lu64):
             r0 = lu.nb - lu.mu
             bp = torch.zeros((lu.nb * p, nrhs), dtype=lu.policy.accum_dtype)

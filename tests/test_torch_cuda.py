@@ -114,13 +114,18 @@ SWEEP_TOL = {"fp32": 2e-5, "fp32_ftz": 2e-5, "bf16": 2e-5, "fp64": 1e-12}
                          ids=["fp32", "fp32_ftz", "bf16", "fp64"])
 def test_block_lu_matches_plain(card, dtype, flush):
     """Blocks whose first pivot is planted: zero, exactly eps, eps / 2,
-    negative tiny, exactly -eps, twice eps (kept), and an ordinary one; for
-    every block size (16, 32, 128), count (1, 7) and layout (read in place
-    from a band, contiguous), each case named in its message."""
+    negative tiny, exactly -eps, twice eps (kept), and an ordinary one; then
+    three blocks that send fp32's fast division back to ``__fdiv_rn`` (a
+    numerator of 2^-70 and one of 2^70 in the last row, below every pivot
+    and, in a panel, in one warp's rows alone; a pivot of 2^65); for every
+    block size (5, 16 and 32: a warp a block; 100, not a multiple of the
+    16-pivot panel, and 128: panels), count (1, 10) and layout (read in
+    place from a band, contiguous), each case named in its message; the
+    factors bit for bit the plain version's."""
     eps = 1e-13 if dtype == torch.float64 else 2.0 ** -13
     name = "respa_block_lu_" + ("f64" if dtype == torch.float64 else "f32_ftz" if flush else "f32")
-    for p in (16, 32, 128):
-        for nblocks in (1, 7):
+    for p in (5, 16, 32, 100, 128):
+        for nblocks in (1, 10):
             for layout in ("in_band", "contiguous"):
                 case = f"p={p} nblocks={nblocks} layout={layout}"
                 rng = np.random.default_rng(p)
@@ -128,6 +133,10 @@ def test_block_lu_matches_plain(card, dtype, flush):
                                                                           3)
                 for i, plant in enumerate([0.0, eps, eps / 2, -eps / 2, -eps, 2 * eps][:nblocks]):
                     blk[i, 0, p] = plant
+                if nblocks == 10:
+                    blk[7, p - 1, p] = 2.0 ** -70
+                    blk[8, p - 1, p] = 2.0 ** 70
+                    blk[9, p // 2, p + p // 2] = 2.0 ** 65
                 x = torch.from_numpy(blk).to(dtype).to(card)[:, :, p:2 * p]
                 if layout == "contiguous":
                     x = x.contiguous()
@@ -137,7 +146,7 @@ def test_block_lu_matches_plain(card, dtype, flush):
                 assert B.LAUNCHES[name] == before + 1, case
                 ref, rcnt = B.block_lu_plain(x, eps, flush)
                 assert torch.equal(cnt, rcnt) and int(cnt.sum()) >= min(nblocks, 5), case
-                assert float((lu - ref).abs().max() / ref.abs().max()) <= LU_TOL[dtype], case
+                assert torch.equal(_bits(lu), _bits(ref)), case
                 again = B.block_lu(x, eps, flush)
                 assert torch.equal(lu, again[0]) and torch.equal(cnt, again[1]), case
 
@@ -204,16 +213,26 @@ def _bits(t):
 
 def test_band_sweep_multi_matches_plain(card):
     """K10 against ``band_sweep_plain`` on every sweep case, policy and
-    direction, at 1, 37 and 64 right-hand sides, twice bit for bit, each
-    launch counted; a forward sweep from ``first_row`` equals the one from
-    row 0 bit for bit where b's rows before it are zero."""
-    for name in SWEEP_CASES:
-        a, p = _sweep_matrix(name)
+    direction, at 1, 3 and 4 right-hand sides (the few-column regime) and
+    37, 64 and 300 (tiles of 32 columns), and on a band of 19 panels a side
+    with 2,304 (tiles of 128 columns with row slots, on a card of 132 SMs),
+    twice bit for bit, each launch counted; a forward sweep from
+    ``first_row`` equals the one from row 0 bit for bit where b's rows before
+    it are zero."""
+    wide = synth.random_banded(1000, 300, 9, seed=5)
+    cases = [(name, *_sweep_matrix(name), (1, 3, 4, 37, 64, 300)) for name in SWEEP_CASES]
+    cases.append(("wide_band_p16", wide, 16, (2304,)))
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for name, a, p, widths in cases:
         for policy in SWEEP_TOL:
             lu = B.band_lu(B.csr_to_device_band(a, policy, card, p=p)).lu
             acc = lu.policy.accum_dtype
-            for nrhs in (1, 37, 64):
+            for nrhs in widths:
                 case = f"{name} {policy} nrhs={nrhs}"
+                if sms == 132:  # an H100 SXM: the regime each width is there for
+                    cols = B.multi_plan(lu.nb, lu.ml, nrhs, 0, sms)[0]
+                    assert cols == (B.FEW_COLS if nrhs <= B.FEW_COLS else
+                                    128 if nrhs == 2304 else 32), (case, cols)
                 rng = np.random.default_rng(nrhs)
                 b = torch.from_numpy(rng.standard_normal((lu.nb * p, nrhs))).to(acc).to(card)
                 for fwd in (True, False):
