@@ -32,7 +32,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    place from a band and contiguous; fp32, fp32_ftz, fp64 and bf16 input),
    and the sweep
    kernel against ``band_sweep_plain`` on factored bands (one block row,
-   ml != mu, n not a multiple of P, ml = nb, all four instances), each twice,
+   ml != mu, n not a multiple of P, ml = nb, all four instances), and on each
+   with perturbed pivots planted in its diagonal blocks, each twice,
    bitwise equal; the same bands through K10 (several right-hand sides, 37
    of them, tiles of 32 columns, against ``band_sweep_plain``; from
    ``first_row`` bit for bit with the sweep from row 0) and K11 (the
@@ -54,8 +55,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    columns with row slots), beside ``solve_triangular`` on the dense
    partition, and in its few-column regime, a 4-column solve on the band of
    nb = 812 beside four one-column K2 solves in turns); the warm fp32
-   factorization under the profiler twice, with K1's first version in K1's
-   place and with K1 (wall, busy, K1's share, busy by kernel); the
+   factorization under the profiler (wall, busy, K1's share, busy by
+   kernel); the
    block-LU kernel beside its first version in turns (``bench/csrc/
    smoke_probes.cu``, bit for bit with plain too) and beside its chain bound,
    128 pivots times one block barrier with a shared-memory hand-over (a probe
@@ -68,7 +69,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with no update rows; widths 24 and 128; a 6,144-row panel over many
    blocks; widths 192 to 2,048 with 0 to 384 update rows; fp32, fp32_ftz
    with subnormal inputs, fp64), each twice, bitwise equal, y's spare slot
-   untouched; the extend-add and the reduction bit for bit with plain;
+   untouched; the extend-add (in both of its regimes, and on a hub parent of
+   300 children) and the reduction bit for bit with plain;
 8. multifrontal path at full width: the dc1 stand-in at catalogue size
    through ``factorize(a, "fp32", method="auto")`` (band refuses, the
    multifrontal LU serves with GESP matching) and ``solve_refined`` to a
@@ -83,16 +85,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    2cubes_sphere fp64 and Laplacian fp32_ftz
    plans through each frontal kernel and its plain version on the same
    inputs (the factored pool bit for bit with the plain extend-add in the
-   kernel's place; a solve and a transposed solve walked group by group),
+   kernel's place, and with the extend-add's row regime in every group; a
+   solve and a transposed solve walked group by group),
    and the frontal kernels timed at the full-width group
    shapes (the most populous group, the tallest panel, the widest front)
    beside bound, library (the library route for a sweep) and plain, the
+   extend-add in its other regime too, the
    block LU at the populous group and the widest front beside its first
    version; and two
    solves of dc1's plan on two streams at once against the sequential ones;
    last the warm 2cubes_sphere fp64 and dc1 fp32 factorizations under the
-   profiler, each once with K1's first version in K1's place and once with
-   K1 (busy time and K1's share);
+   profiler (busy time, K1's and K3's shares);
 9. ILU(0) path: the link probe (the card's one-way hand-over through L2,
    which times a triangle's levels gives its chain bound); the Chow-Patel
    sweep kernel and the one-launch triangular solve against their plain
@@ -214,7 +217,11 @@ the offshore and ecology2 stand-ins the same way (:func:`upload_times_in_turns`)
 ``python3 chip_smoke.py --band`` builds them (and the probes) and runs K1's,
 K10's and K11's checks and phase 6 alone;
 ``python3 chip_smoke.py --ranks`` builds them, runs phase 15's shared path
-on one process for the reference, and then phase 16.
+on one process for the reference, and then phase 16;
+``python3 chip_smoke.py --before`` builds them and the probes and times K2
+and K3 beside their first versions in turns (:func:`before_path`), and
+traces each warm factorization with the first versions of K1 and K3 in
+their place and with the package's.
 """
 import contextlib
 import ctypes
@@ -643,9 +650,24 @@ def sweep_cases():
             ("banded_p128", random_banded(1000, 300, 9, seed=5), 128)]
 
 
+def planted_pivots(lu):
+    """``lu`` with three of its diagonal blocks' pivots set to +-eps (1e-4
+    times the largest entry, 1e-13 in fp64), as ``band_lu`` leaves a pivot it
+    perturbs, and the inverses made anew: K2 applies inverses with large
+    entries."""
+    data = lu.data.clone()
+    p = lu.p
+    eps = (1e-13 if lu.policy.name == "fp64" else 1e-4) * float(lu.data.abs().max())
+    for k, (r, i) in enumerate(((0, 1), (lu.nb // 2, p // 2), (lu.nb - 1, p - 3))):
+        data[r, i, lu.ml * p + i] = eps if k % 2 else -eps
+    return B.with_inverses(dataclasses.replace(lu, data=data))
+
+
 @held
 def check_band_sweep(errs):
-    """The sweep kernel against its plain version on factored bands."""
+    """The sweep kernel against its plain version on factored bands, and on
+    each with perturbed pivots planted in its diagonal blocks
+    (``planted_pivots``)."""
     rng = np.random.default_rng(12)
     for cname, a, p in sweep_cases():
         for policy in SWEEP_TOL:
@@ -655,20 +677,25 @@ def check_band_sweep(errs):
             b = torch.from_numpy(rng.standard_normal(lu.nb * p)).to(lu.policy.accum_dtype).cuda()
             if policy == "fp32_ftz":
                 b[::7] = 1e-40  # subnormal right-hand-side entries, flushed on load
-            worst = 0.0
-            for fwd in (True, False):
-                name = f"respa_band_sweep_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
-                y = B.band_sweep(lu, b, fwd)
-                torch.cuda.synchronize()
-                ref = B.band_sweep_plain(lu, b, fwd)
-                err = float((y - ref).abs().max() / ref.abs().max())
-                if not (err <= SWEEP_TOL[policy]) or not torch.equal(y, B.band_sweep(lu, b, fwd)):
-                    raise AssertionError(f"{name} {cname}: err {err:.3e} or not reproducible")
-                errs[name] = max(errs.get(name, 0.0), float((y - ref).abs().max()))
-                worst = max(worst, err)
+            worst = {}
+            for what, band in (("factor", lu), ("perturbed pivots", planted_pivots(lu))):
+                for fwd in (True, False):
+                    name = f"respa_band_sweep_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
+                    y = B.band_sweep(band, b, fwd)
+                    torch.cuda.synchronize()
+                    ref = B.band_sweep_plain(band, b, fwd)
+                    err = float((y - ref).abs().max() / ref.abs().max())
+                    if not (err <= SWEEP_TOL[policy]) or \
+                            not torch.equal(bits(y), bits(B.band_sweep(band, b, fwd))):
+                        raise AssertionError(f"{name} {cname} {what}: err {err:.3e} or not "
+                                             "reproducible")
+                    if what == "factor":
+                        errs[name] = max(errs.get(name, 0.0), float((y - ref).abs().max()))
+                    worst[what] = max(worst.get(what, 0.0), err)
             print(f"[kernel] band_sweep {cname:14s} {policy:8s} n={a.nrows} P={p} nb={lu.nb} "
-                  f"ml={lu.ml} mu={lu.mu}: rel_err={worst:.3e} (tol {SWEEP_TOL[policy]:.0e}) "
-                  f"bitwise twice", flush=True)
+                  f"ml={lu.ml} mu={lu.mu}: rel_err={worst['factor']:.3e}, with perturbed pivots "
+                  f"{worst['perturbed pivots']:.3e} (tol {SWEEP_TOL[policy]:.0e}), bitwise twice",
+                  flush=True)
 
 
 def events_ms(fn, reps, setup=None):
@@ -776,8 +803,7 @@ def time_block_lu(name_limit, fac32, fac64, times, probes):
 @held
 def time_band_sweep(name_limit, lu, policy, times):
     """Both sweeps of one factored band at the main path's shape."""
-    lu = dataclasses.replace(lu, policy=get_policy(policy),
-                             data=lu.data.to(get_policy(policy).dtype))
+    lu = as_policy(lu, policy)
     acc = lu.policy.accum_dtype
     b = torch.ones(lu.nb * lu.p, dtype=acc, device="cuda")
     vec = torch.empty(0, dtype=acc).element_size()
@@ -802,11 +828,15 @@ def time_band_sweep(name_limit, lu, policy, times):
              "profiler_ms": profiler_ms(lambda: B.band_sweep(lu, b, fwd), "band_sweep_kernel", 5),
              "bound_ms": max(by_bytes, by_ops),
              "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-             "shape": f"nb={lu.nb} P={lu.p} ml={lu.ml} mu={lu.mu}", "max_abs_err_full": err}
+             "shape": f"nb={lu.nb} P={lu.p} ml={lu.ml} mu={lu.mu}", "max_abs_err_full": err,
+             "inverse_bytes": lu.inv.numel() * lu.inv.element_size(),
+             "band_bytes": lu.data.numel() * lu.data.element_size()}
         times[name] = t
         print(f"[time] {name_limit} | {name} {t['shape']}: kernel {fmt_ms(t['ms'])} by events, "
               f"{fmt_ms(t['profiler_ms'])} by the profiler; bound {t['bound_ms']:.4f} ms "
-              f"({nbytes} bytes at 3.35 TB/s; {flops} flops would take {by_ops:.4f} ms); "
+              f"({nbytes} bytes at 3.35 TB/s, the function's: the diagonal blocks, not the "
+              f"inverses K2 reads in their place, {t['inverse_bytes']} bytes of both directions "
+              f"beside the band's {t['band_bytes']}; {flops} flops would take {by_ops:.4f} ms); "
               f"library none; plain {plain_ms:.1f} ms (one run, synchronised host clock); "
               f"rel_err vs plain {err:.2e}", flush=True)
 
@@ -818,9 +848,10 @@ def bits(t):
 
 def as_policy(lu, policy):
     """A factored band read under ``policy``: its values cast to the
-    policy's type (fp32_ftz shares fp32's values)."""
+    policy's type (fp32_ftz shares fp32's values), and the inverses of its
+    diagonal triangles, which K2 applies, made anew in that type."""
     pol = get_policy(policy)
-    return dataclasses.replace(lu, policy=pol, data=lu.data.to(pol.dtype))
+    return B.with_inverses(dataclasses.replace(lu, policy=pol, data=lu.data.to(pol.dtype)))
 
 
 @held
@@ -1226,59 +1257,76 @@ def factor_bound(band, acc):
 
 
 @contextlib.contextmanager
-def first_k1(probes):
-    """K1's wrapper launches K1's first version (the probes'
-    ``respa_block_lu_before_*``, the same C entry) in place of the package's
-    inside the block; every other kernel is the package's."""
-    lib, saved = B._library(), B._library
+def first_versions(probes):
+    """K1's and K3's wrappers launch their first versions (the probes'
+    ``respa_block_lu_before_*`` and ``respa_extend_add_before_*``; K3's
+    takes no regime and no lists) in place of the package's inside the
+    block; every other kernel is the package's. Both first versions give the
+    package's bits, so a factorization leaves the same factor."""
+    saved = B._library, F._library
+    libs = (B._library(), F._library())
 
-    class Swapped:
-        def __getattr__(self, name):
-            if name.startswith("respa_block_lu_"):
-                name = name.replace("respa_block_lu_", "respa_block_lu_before_")
-                return getattr(probes, name)
-            return getattr(lib, name)
+    def swapped(lib):
+        class Swapped:
+            def __getattr__(self, name):
+                if name.startswith("respa_block_lu_"):
+                    return getattr(probes, name.replace("respa_block_lu_",
+                                                        "respa_block_lu_before_"))
+                if name.startswith("respa_extend_add_"):
+                    before = getattr(probes, name.replace("respa_extend_add_",
+                                                          "respa_extend_add_before_"))
+                    return lambda *args: before(*args[:12], args[-1])  # no regime, no lists
+                return getattr(lib, name)
+        return Swapped
 
-    B._library = Swapped
+    B._library, F._library = (swapped(lib) for lib in libs)
     try:
         yield
     finally:
-        B._library = saved
+        B._library, F._library = saved
 
 
-def factor_busy(name_limit, tag, what, refactor, probes):
-    """Two warm factorizations (``refactor``, timed on the host to a
-    synchronize) under the profiler, the first with K1's first version, the
-    second with K1 (both bit for bit with plain, so each leaves the same
-    factor): for each its wall time, the card's busy time and K1's share of
-    it; for K1's the busy time by kernel name."""
+def factor_busy(name_limit, tag, what, refactor, probes=None):
+    """One warm factorization (``refactor``, timed on the host to a
+    synchronize) under the profiler: its wall time, the card's busy time,
+    K1's and K3's shares of it and the busy time by kernel name. With
+    ``probes`` (``--before``) the same factorization first with the first
+    versions of K1 and K3 swapped into their wrappers (``first_versions``),
+    then with the package's, in one run."""
     wall = [0.0]
 
     def run():
         wall[0] = refactor()
 
     got = {}
-    for version in ("first version", "K1"):
+    versions = ((("first versions", lambda: first_versions(probes)),) if probes else ()) + \
+        (("the package's kernels", contextlib.nullcontext),)
+    for version, ctx in versions:
         try:
-            with first_k1(probes) if version != "K1" else contextlib.nullcontext():
+            with ctx():
                 events = device_events(run)
         except ProfilerUnavailable as e:
             print(f"{tag} {name_limit} | {what} warm factorization busy time not measured ({e})",
                   flush=True)
-            return
+            return None
         busy = sum(t for _, t in events)
         k1 = [t for name, t in events if "block_lu" in name]
-        got[version] = (busy, sum(k1))
+        k3 = [t for name, t in events if "extend_add" in name]
+        got[version] = (busy, sum(k1), sum(k3))
         print(f"{tag} {name_limit} | {what} warm factorization under the profiler with "
               f"{version}: wall {wall[0] * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms in "
               f"{len(events)} records, K1 {sum(k1) * 1e3:.2f} ms ({len(k1)} x "
-              f"{sum(k1) / max(len(k1), 1) * 1e6:.1f} us)", flush=True)
-    for key, n, tot in busy_by_name(events, top=6):
+              f"{sum(k1) / max(len(k1), 1) * 1e6:.1f} us), K3 {sum(k3) * 1e3:.3f} ms ({len(k3)} "
+              f"x {sum(k3) / max(len(k3), 1) * 1e6:.1f} us)", flush=True)
+    for key, n, tot in busy_by_name(events, top=8):
         print(f"{tag}   {key}: {n} x {tot / n * 1e6:.1f} us = {tot * 1e3:.2f} ms", flush=True)
-    (b1, k1), (b0, k0) = got["K1"], got["first version"]
-    print(f"{tag} {name_limit} | {what}: busy {b1 * 1e3:.1f} ms with K1 against "
-          f"{b0 * 1e3:.1f} ms with its first version, K1's share {k1 * 1e3:.2f} against "
-          f"{k0 * 1e3:.2f} ms: {(b1 - b0) * 1e3:+.1f} ms busy", flush=True)
+    if probes:
+        (b1, k1, k3), (b0, k10, k30) = got["the package's kernels"], got["first versions"]
+        print(f"{tag} {name_limit} | {what}: busy {b1 * 1e3:.1f} ms with the package's K1 and K3 "
+              f"against {b0 * 1e3:.1f} ms with their first versions ({(b1 - b0) * 1e3:+.1f} ms); "
+              f"K1 {k1 * 1e3:.2f} against {k10 * 1e3:.2f} ms, K3 {k3 * 1e3:.3f} against "
+              f"{k30 * 1e3:.3f} ms", flush=True)
+    return got
 
 
 @held
@@ -1441,9 +1489,8 @@ def direct_path(name_limit, a, times, errs, probes):
         hold_band_t(name_limit, fac._lu, policy, errs, times)
     time_band_sweep(name_limit, fac64._lu, "fp64", times)
     hold_band_t(name_limit, fac64._lu, "fp64", errs, times)
-    with uncounted():
-        factor_busy(name_limit, "[direct]", "2cubes_sphere fp32 band", fac.refactorize_timed,
-                    probes)
+    with uncounted():  # K1's first version beside it: --before
+        factor_busy(name_limit, "[direct]", "2cubes_sphere fp32 band", fac.refactorize_timed)
     del fac, fac64
     torch.cuda.empty_cache()
     hold_band_multi(name_limit, a, errs, times)
@@ -1463,6 +1510,7 @@ def group_on_card(g, dtype):
     ``dtype``."""
     t = {k: torch.from_numpy(v).cuda() for k, v in g.items() if isinstance(v, np.ndarray)}
     t["pool"], t["y"] = t["pool"].to(dtype), t["y"].to(dtype)
+    t["ga_base"] = g.get("ga_base", 0)
     return t
 
 
@@ -1476,10 +1524,11 @@ def check_frontal_kernels(errs):
     """Extend-add, both frontal sweeps, both transposed ones (K12) and the row
     reduction against their plain versions on synthetic groups; see the
     docstring."""
-    # (name, fronts, wp, rp, parents): the sweep's warp regime (up to 2,000
+    # (name, fronts, wp, rp, parents): a hub parent of 300 children for the
+    # extend-add, the sweep's warp regime (up to 2,000
     # fronts of wp 8 and 32), its block regime (wp 24-128, a 6,144-row panel
     # over 96 tiles), its wide regime (wp 192-2,048, rp 0-384, 1-3 fronts)
-    shapes = [("one_front", 1, 8, 8, 1), ("many_children", 700, 8, 16, 2),
+    shapes = [("one_front", 1, 8, 8, 1), ("many_children", 700, 8, 16, 2), ("hub", 300, 8, 16, 1),
               ("warp_wp8", 2000, 8, 16, 40), ("warp_wp32", 2000, 32, 32, 40),
               ("roots_rp0", 3, 24, 0, 0), ("wp24", 6, 24, 32, 4), ("wp128", 5, 128, 48, 3),
               ("tall_wp64", 1, 64, 6144, 1), ("wide192", 2, 192, 96, 1),
@@ -1492,7 +1541,8 @@ def check_frontal_kernels(errs):
             t = group_on_card(host, dtype)
             worst = check_frontal_group(errs, t, cname, nf, wp, rp, npar, dtype, flush, inst)
             print(f"[kernel] frontal {cname:14s} {inst:8s} B={nf} wp={wp} rp={rp} parents={npar} "
-                  f"sweep regime {regime} x{tiles}: extend-add and reduction == plain bitwise, "
+                  f"sweep regime {regime} x{tiles}: extend-add ({'both regimes' if 'add' in host else 'rows'}"
+                  f"; the plan would pick {host.get('add', 'rows')}) and reduction == plain bitwise, "
                   f"sweeps rel_err={worst:.3e} (tol {FRONT_TOL[dtype]:.0e}), all bitwise twice, "
                   f"y[n] untouched", flush=True)
             del t
@@ -1526,19 +1576,25 @@ def check_frontal_group(errs, t, cname, nf, wp, rp, npar, dtype, flush, inst):
     idx = (t["lp"], t["poff"], t["pmp"], t["seg_ptr"])
     grp = (0, nf, wp, rp)
     worst = 0.0
-    if npar:
+    if npar:  # both regimes where the group has gather lists, else the rows
         name = f"respa_extend_add_{inst}"
-        out = [t["pool"].clone() for _ in range(3)]
-        F.extend_add(out[0], *grp, *idx, flush)
-        F.extend_add(out[1], *grp, *idx, flush)
-        F.extend_add_plain(out[2], *grp, *idx, flush)
-        torch.cuda.synchronize()
-        held(name, out[0], out[2], out[1])
-        if not torch.equal(out[0], out[2]):  # same operations in the same order
-            raise AssertionError(f"{name} {cname}: kernel != plain bit for bit")
-        if flush and not no_subnormals(out[0][kids:]):
-            raise AssertionError(f"{name} {cname}: a subnormal sum was not flushed")
-        del out
+        ref = t["pool"].clone()
+        F.extend_add_plain(ref, *grp, *idx, flush)
+        regimes = [("rows", None)]
+        if "ga_dst" in t:  # corners of at most GATHER_RP rows
+            regimes.insert(0, ("gather", (t["ga_base"], t["ga_dst"], t["ga_src"], t["ga_ptr"])))
+        for regime, lists in regimes:
+            out = [t["pool"].clone() for _ in range(2)]
+            F.extend_add(out[0], *grp, *idx, flush, lists)
+            F.extend_add(out[1], *grp, *idx, flush, lists)
+            torch.cuda.synchronize()
+            held(name, out[0], ref, out[1])
+            if not torch.equal(out[0], ref):  # same operations in the same order
+                raise AssertionError(f"{name} {cname} {regime}: kernel != plain bit for bit")
+            if flush and not no_subnormals(out[0][kids:]):
+                raise AssertionError(f"{name} {cname} {regime}: a subnormal sum was not flushed")
+            del out
+        del ref
     for trans, fwd in ((False, True), (False, False), (True, True), (True, False)):
         name = f"respa_front_sweep_{'t_' if trans else ''}{'fwd' if fwd else 'bwd'}_{inst}"
         sweep = F.front_sweep_t if trans else F.front_sweep
@@ -1639,7 +1695,19 @@ def hold_frontal_full(name_limit, name, fac, errs, full):
         failed.append(f"{names['add']}: the pool factored with the plain extend-add differs "
                       f"(max abs {add_err:.3e})")
     del ref
+    # the other regime: every group through the row kernel, the gather groups too
+    rows = F.assemble_pool(plan, pool.dtype, pool.device, fac._pivot_eps, flush)
+    for g, d in zip(plan.groups, dgs):
+        grp = (g.g0, g.nfronts, g.wp, g.rp)
+        F.factor_group(rows, *grp, fac._pivot_eps, flush)
+        F.extend_add(rows, *grp, d["lp"], d["poff"], d["pmp"], d["seg_ptr"], flush)
+    rows_equal = torch.equal(rows, pool)
+    if not rows_equal:
+        failed.append(f"{names['add']}: the pool factored with the row regime in every group "
+                      f"differs (max abs {dist(rows, pool):.3e})")
+    del rows
     t_add = time.perf_counter() - t0
+    n_gather = sum(g.add == "gather" for g in plan.groups)
 
     t0 = time.perf_counter()
     walks = ((F.front_sweep, F.front_sweep_plain, names, 7),
@@ -1686,8 +1754,9 @@ def hold_frontal_full(name_limit, name, fac, errs, full):
     t_solve = time.perf_counter() - t0
 
     print(f"[kernel] {name_limit} | {name} at full width, {names['add']}: pool == the pool "
-          f"factored with the plain extend-add, bit for bit over {len(plan.groups)} groups: "
-          f"{add_err == 0.0}", flush=True)
+          f"factored with the plain extend-add, bit for bit over {len(plan.groups)} groups "
+          f"({n_gather} in the gather regime): {add_err == 0.0}; == the pool factored with the "
+          f"row regime in every group: {rows_equal}", flush=True)
     errs[names["add"]] = max(errs.get(names["add"], 0.0), add_err)
     full.setdefault(names["add"], {"max_rel_err_full": 0.0, "max_abs_err_full": add_err,
                                    "worst_group": f"all {len(plan.groups)} groups",
@@ -1762,7 +1831,7 @@ def time_frontal(name_limit, fac, times, probes):
         y.copy_(y0)
 
     def record(name, tag, shape, fn, plain_fn, lib_fn, kernel_name, nbytes, setup=None,
-               extra=None, reps=10):
+               extra=None, reps=10, regime=None):
         setup = setup or (lambda: None)
         torch.cuda.synchronize()
         setup()
@@ -1780,6 +1849,8 @@ def time_frontal(name_limit, fac, times, probes):
              "profiler_ms": profiler_ms(traced, kernel_name, 5),
              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "shape": shape}
         t.update({k: f() for k, f in (extra or {}).items()})
+        if regime:
+            t["regime"] = regime
         more = "".join(f"; {k.replace('_', ' ')} {t[k]:.4f} ms" for k in (extra or {}))
         print(f"[time] {name_limit} | {name} {tag} {shape}: {fmt_ms(t['ms'])} by events, "
               f"{fmt_ms(t['profiler_ms'])} the kernel alone by the profiler; bound "
@@ -1809,15 +1880,28 @@ def time_frontal(name_limit, fac, times, probes):
             nbytes = (src.numel() + 2 * touched) * item + nf * (rp * 4 + 12)
             scratch = pool.clone()  # the extend-add accumulates: time it on a copy
             idx = (d["lp"], d["poff"], d["pmp"], d["seg_ptr"])
+            # beside the plan's regime, the other one: the rows, or lists made
+            # here (up to 8 GATHER_RP rows: a wider corner's lists take seconds)
+            other = None
+            if d["gather"] is None and rp <= 8 * F.GATHER_RP:
+                lists = F.gather_lists(g.lp, g.poff, g.pmp, g.seg_ptr, wp, rp)
+                other = lists and (lists[0], *(torch.from_numpy(x).cuda() for x in lists[1:]))
+            words = sum(int(x.numel()) for x in (d["gather"] or other)[1:]) if (
+                d["gather"] or other) else 0
             record(f"respa_extend_add_{inst}", tag,
                    f"{shape}, {g.seg_ptr.size - 1} parents, most children "
-                   f"{int(np.diff(g.seg_ptr).max())}",
-                   lambda: F.extend_add(scratch, *grp, *idx, flush),
+                   f"{int(np.diff(g.seg_ptr).max())}, {g.add} regime (gather lists "
+                   f"{4 * words} bytes)",
+                   lambda: F.extend_add(scratch, *grp, *idx, flush, d["gather"]),
                    lambda: F.extend_add_plain(scratch, *grp, *idx, flush),
-                   lambda: scratch.index_add_(0, dst, src), "extend_add_kernel", nbytes,
+                   lambda: scratch.index_add_(0, dst, src), "extend_add", nbytes,
                    extra={"library_deterministic_ms": lambda: deterministic_ms(
-                       lambda: scratch.index_add_(0, dst, src))})
-            del scratch, dst, src
+                       lambda: scratch.index_add_(0, dst, src)),
+                       **({"other_regime_ms": lambda: events_ms(
+                           lambda: F.extend_add(scratch, *grp, *idx, flush, other), 10)}
+                          if d["gather"] is not None or other is not None else {})},
+                   regime=g.add)
+            del scratch, dst, src, other
         tri = wp * (wp + 1) // 2
         f3 = pool[g.g0:g.g0 + nf * mp * mp].view(nf, mp, mp)
         pv, rs = d["piv"].long(), d["rsx"].long()
@@ -1875,6 +1959,139 @@ def time_frontal(name_limit, fac, times, probes):
                    lambda: F.rows_reduce_plain(y, upd, *red, flush),
                    lambda: y.index_add_(0, rs.reshape(-1), upd.reshape(-1)),
                    "rows_reduce_kernel", nbytes, setup=reset)
+
+
+@held
+def k2_against_first(name_limit, lu, policy, probes):
+    """``--before``: K2 beside its first version (the probes'
+    ``respa_band_sweep_before_*``, substitution in place of the inverses) on
+    one factored band, both sweeps, in turns: each call with its output
+    allocated and its mailbox zeroed in its window, as the wrapper does, by
+    events and by the profiler; both held within ``SWEEP_TOL`` of plain."""
+    lu = as_policy(lu, policy)
+    b = torch.ones(lu.nb * lu.p, dtype=lu.policy.accum_dtype, device="cuda")
+    for fwd in (True, False):
+        d = "fwd" if fwd else "bwd"
+        first = getattr(probes, f"respa_band_sweep_before_{d}_{INST[policy]}")
+
+        def old(first=first):
+            out = torch.empty_like(b)
+            mail = torch.zeros(2 * lu.nb * lu.p * (b.element_size() // 4), dtype=torch.int32,
+                               device="cuda")
+            rc = first(lu.device.index, lu.nb, lu.p, lu.ml, lu.mu, lu.data.data_ptr(),
+                       b.data_ptr(), out.data_ptr(), mail.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"K2's first version launch failed: cudaError {rc}")
+            return out
+
+        def new(fwd=fwd):
+            return B.band_sweep(lu, b, fwd)
+
+        ref = B.band_sweep_plain(lu, b, fwd)
+        errs = {}
+        with uncounted():
+            for who, fn in (("K2", new), ("first version", old)):
+                y = fn()
+                errs[who] = float((y - ref).abs().max() / ref.abs().max())
+                if not errs[who] <= SWEEP_TOL[policy] or not torch.equal(bits(y), bits(fn())):
+                    raise AssertionError(f"{who} {d} {policy}: err {errs[who]:.3e} or not "
+                                         "reproducible")
+            turns = [events_ms(fn, 5) for fn in (new, old, old, new)]
+            prof = (profiler_ms(new, "band_sweep_kernel", 5), profiler_ms(old, "first_k2", 5))
+        print(f"[before] {name_limit} | respa_band_sweep_{d}_{INST[policy]} nb={lu.nb} P={lu.p} "
+              f"ml={lu.ml} mu={lu.mu}: K2 {min(turns[0], turns[3]):.4f} ms by events "
+              f"({fmt_ms(prof[0])} by the profiler) against its first version "
+              f"{min(turns[1], turns[2]):.4f} ms ({fmt_ms(prof[1])}), in turns "
+              f"{', '.join(f'{t:.4f}' for t in turns)}; rel_err vs plain {errs['K2']:.2e} "
+              f"against {errs['first version']:.2e}", flush=True)
+
+
+@held
+def k3_against_first(name_limit, what, fac, probes):
+    """``--before``: K3 (each group in its plan's regime) beside its first
+    version (the probes' ``respa_extend_add_before_*``) at the groups
+    ``time_frontal`` times, in turns, by events (10 calls, on a copy of the
+    factored pool) and by the profiler; both bit for bit with plain."""
+    plan, pool, flush = fac._plan, fac._frontal.pool, fac._frontal.flush
+    inst = F._INST[pool.dtype, flush]
+    first = getattr(probes, f"respa_extend_add_before_{inst}")
+    dgs = plan.on_device(pool.device)
+    groups = plan.groups
+    with_parents = [i for i, g in enumerate(groups) if g.seg_ptr.size > 1 and g.rp]
+    narrow = [i for i in with_parents if groups[i].wp <= F.MAX_TRI]
+    picks = {"populous": max(with_parents, key=lambda i: groups[i].nfronts),
+             "tallest": max(narrow, key=lambda i: (groups[i].rp, groups[i].nfronts)),
+             "widest": max(with_parents, key=lambda i: groups[i].wp)}
+    for tag, gi in picks.items():
+        g, d = groups[gi], dgs[gi]
+        grp = (g.g0, g.nfronts, g.wp, g.rp)
+        idx = (d["lp"], d["poff"], d["pmp"], d["seg_ptr"])
+        scratch = pool.clone()
+
+        def old(target=scratch):
+            rc = first(pool.device.index, target.data_ptr(), g.g0, g.nfronts, g.wp, g.rp,
+                       d["lp"].data_ptr(), d["poff"].data_ptr(), d["pmp"].data_ptr(),
+                       d["seg_ptr"].data_ptr(), g.seg_ptr.size - 1, max(1, min(512, g.rp // 8)),
+                       torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"K3's first version launch failed: cudaError {rc}")
+
+        def new(target=scratch):
+            F.extend_add(target, *grp, *idx, flush, d["gather"])
+
+        ref = pool.clone()
+        F.extend_add_plain(ref, *grp, *idx, flush)
+        with uncounted():
+            for fn in (new, old):
+                got = pool.clone()
+                fn(got)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"K3 {what} {tag}: not bit for bit with plain")
+            del got, ref
+            turns = [events_ms(fn, 10) for fn in (new, old, old, new)]
+            prof = (profiler_ms(new, "extend_add", 5), profiler_ms(old, "first_k3", 5))
+        lists = (f"{g.ga_dst.size} entries from {g.ga_src.size} sources, at most "
+                 f"{g.ga_ptr.size - 1} an entry, {np.diff(g.ga_ptr)[:4].tolist()} entries with more "
+                 f"than 0-3" if g.add == "gather" else "")
+        print(f"[before] {name_limit} | respa_extend_add_{inst} {what} {tag} (B={g.nfronts} "
+              f"wp={g.wp} rp={g.rp}, {g.seg_ptr.size - 1} parents, most children "
+              f"{int(np.diff(g.seg_ptr).max())}, {g.add} regime{': ' if lists else ''}{lists}): K3 "
+              f"{min(turns[0], turns[3]):.4f} ms by events ({fmt_ms(prof[0])} by the profiler) "
+              f"against its first version {min(turns[1], turns[2]):.4f} ms ({fmt_ms(prof[1])}), "
+              f"in turns {', '.join(f'{t:.4f}' for t in turns)}; both bit for bit with plain",
+              flush=True)
+        del scratch
+
+
+def before_path(name_limit, probes):
+    """``--before``: K2 and K3 beside their first versions, in turns, at the
+    main paths' shapes (2cubes_sphere's band factor in every instance; dc1
+    fp32, 2cubes_sphere fp64 and the Laplacian fp32_ftz by snlu), and each
+    warm factorization traced with the first versions of K1 and K3 and with
+    the package's, in one run."""
+    cubes = corpus.load_matrix("2cubes_sphere")[0]
+    fac = slv.factorize(cubes, "fp32", method="auto", device="cuda")
+    fac64 = slv.factorize(cubes, "fp64", method="auto", device="cuda")
+    for policy in ("fp32", "fp32_ftz", "bf16"):
+        k2_against_first(name_limit, fac._lu, policy, probes)
+    k2_against_first(name_limit, fac64._lu, "fp64", probes)
+    with uncounted():
+        factor_busy(name_limit, "[before]", "2cubes_sphere fp32 band", fac.refactorize_timed,
+                    probes)
+    del fac, fac64
+    torch.cuda.empty_cache()
+    for what, a, policy, method in (
+            ("dc1 fp32", corpus.load_matrix("dc1")[0], "fp32", "auto"),
+            ("2cubes_sphere fp64", cubes, "fp64", "snlu"),
+            ("laplacian_2d(300, 300) fp32_ftz", laplacian_2d(300, 300), "fp32_ftz", "snlu")):
+        f = slv.factorize(a, policy, method=method, device="cuda")
+        k3_against_first(name_limit, what, f, probes)
+        with uncounted():
+            factor_busy(name_limit, "[before]", f"{what} multifrontal", f.refactorize_timed,
+                        probes)
+        del f
+        torch.cuda.empty_cache()
 
 
 def deterministic_ms(fn, reps=10):
@@ -1954,6 +2171,15 @@ def frontal_row(name_limit, name, a, policy, method, refine, inst, want_matching
           f"{rep.n_pivot_perturbed}, pivot growth {fac.report.pivot_growth:.3e}, both "
           f"factorizations bitwise equal", flush=True)
     print(f"[frontal] launches of this row {got}", flush=True)
+    adds = [g for g in plan.groups if g.seg_ptr.size > 1 and g.rp > 0]
+    gat = [g for g in adds if g.add == "gather"]
+    words = sum(g.ga_dst.size + g.ga_src.size + g.ga_ptr.size for g in gat)
+    item = fac._frontal.pool.element_size()
+    print(f"[frontal] {name_limit} | {name} K3's plan: {len(gat)} of {len(adds)} groups with "
+          f"parents in the gather regime (rp {sorted({g.rp for g in gat})}), their lists "
+          f"{4 * words} bytes against their padded corners' {item * sum(g.nfronts * g.rp ** 2 for g in gat)} "
+          f"bytes and the pool's {fac.report.factor_bytes}; {len(adds) - len(gat)} in the row "
+          f"regime (rp {sorted({g.rp for g in adds if g.add == 'rows'})})", flush=True)
     return fac, x, rep
 
 
@@ -2066,14 +2292,13 @@ def multifrontal_path(name_limit, mats, errs, full, times, probes):
         hold_frontal_full(name_limit, name, f, errs, full)
     time_frontal(name_limit, fac, times, probes)
     time_frontal(name_limit, fac64, times, probes)
-    with uncounted():  # does K1 fp64's time on the dense fronts show in the factor?
+    with uncounted():  # K1's and K3's shares; their first versions beside them: --before
         factor_busy(name_limit, "[frontal]", "2cubes_sphere fp64 multifrontal",
-                    fac64.refactorize_timed, probes)
+                    fac64.refactorize_timed)
     del fac64
     time_frontal(name_limit, fac_z, times, probes)
     with uncounted():
-        factor_busy(name_limit, "[frontal]", "dc1 fp32 multifrontal", fac.refactorize_timed,
-                    probes)
+        factor_busy(name_limit, "[frontal]", "dc1 fp32 multifrontal", fac.refactorize_timed)
     return launches, fac
 
 
@@ -3063,7 +3288,8 @@ def dia_path(name_limit):
 def build_probes():
     """``bench/csrc/smoke_probes.cu`` (K9's other remainder design, which
     includes the package's kernel source, the L2 read and barrier probes, and
-    K1's first version) in a library of its own, bound by ctypes."""
+    the first versions of K1, K2 and K3) in a library of its own, bound by
+    ctypes."""
     here = os.path.dirname(os.path.abspath(__file__))
     csrc = os.path.join(here, "respatpu_torch", "kernels", "csrc")
     path = build_shared("librespa_smoke_probes.so", [os.path.join(here, PROBES_SOURCE)],
@@ -3086,6 +3312,17 @@ def build_probes():
         fn = getattr(lib, f"respa_block_lu_before_{inst}")
         fn.argtypes = [i32, i32, i32, ptr, i32, i64, i64, ctypes.c_double, ptr, ptr, ptr]
         fn.restype = i32
+        # K3's first version: device, pool, g0, nfronts, wp, rp, lp, poff, pmp, seg_ptr, nseg,
+        # tiles, stream
+        fn = getattr(lib, f"respa_extend_add_before_{inst}")
+        fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr]
+        fn.restype = i32
+    for d in ("fwd", "bwd"):
+        for inst in ("f32", "f32_ftz", "bf16", "f64"):
+            # K2's first version: device, nb, p, ml, mu, band, b, out, mail, stream
+            fn = getattr(lib, f"respa_band_sweep_before_{d}_{inst}")
+            fn.argtypes = [i32] * 5 + [ptr] * 5
+            fn.restype = i32
     return lib
 
 
@@ -4085,6 +4322,13 @@ def main():
         check_band_multi(band_errs)
         check_band_t(band_errs)
         direct_path(name_limit, corpus.load_matrix(MAIN[0])[0], band_times, band_errs, probes)
+        return
+    if sys.argv[1:2] == ["--before"]:
+        with ThreadPoolExecutor(1) as builder:
+            probes = builder.submit(build_probes)
+            _build.load()
+            probes = probes.result()
+        before_path(name_limit, probes)
         return
     if sys.argv[1:2] == ["--rank-worker"]:
         rank_worker(name_limit, sys.argv[2:])

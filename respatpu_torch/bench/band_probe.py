@@ -47,7 +47,8 @@ def synthetic_factor(nb, m, p, policy, seed=0) -> B.DeviceBand:
     w = (2 * m + 1) * p
     data = torch.randn((nb, p, w), generator=g, device="cuda", dtype=torch.float32) * (0.5 / w)
     data[:, :, m * p:(m + 1) * p] += torch.eye(p, device="cuda")
-    return B.DeviceBand(n=nb * p, p=p, ml=m, mu=m, policy=policy, data=data.to(policy.dtype))
+    return B.with_inverses(B.DeviceBand(n=nb * p, p=p, ml=m, mu=m, policy=policy,
+                                        data=data.to(policy.dtype)))
 
 
 def main(argv=None):
@@ -127,7 +128,9 @@ def main(argv=None):
         del lu
 
     # what the parts of a sweep cost: builds that leave one part out (their
-    # results are wrong; only their times are read)
+    # results are wrong; only their times are read): NO_TRI the product with
+    # the inverse block, NO_DIAG the inverse block's load, NEAR_ONLY every
+    # panel but the nearest
     lu = synthetic_factor(args.nb, args.m, p, "fp32")
     b = torch.ones(lu.nb * p, device="cuda")
     out = torch.empty_like(b)
@@ -139,7 +142,8 @@ def main(argv=None):
         def call():
             mail = torch.zeros(2 * lu.nb * p, dtype=torch.int32, device="cuda")
             rc = lib.respa_band_sweep_fwd_f32(0, lu.nb, p, lu.ml, lu.mu, lu.data.data_ptr(),
-                                              b.data_ptr(), out.data_ptr(), mail.data_ptr(),
+                                              lu.inv.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                              mail.data_ptr(),
                                               torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"launch failed: cudaError {rc}")

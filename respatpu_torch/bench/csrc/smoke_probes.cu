@@ -10,7 +10,11 @@
 //   respa_block_lu_before_*      K1 as it was before its panel design (a
 //                                16 x 16 thread grid, the block in registers,
 //                                one barrier a pivot), timed beside the
-//                                package's K1 in the same run (phase 6).
+//                                package's K1 in the same run (phase 6);
+//   respa_band_sweep_before_*    K2 before it took the inverses of the
+//                                diagonal triangles, and
+//   respa_extend_add_before_*    K3 before its two regimes, timed beside the
+//                                package's in turns (`chip_smoke.py --before`).
 //
 // K9: the package's kernel sums each remainder row inside K9. Here the remainder's
 // product comes from the CSR kernel K0 (a DeviceCsr over all n rows) and this
@@ -295,3 +299,412 @@ cudaError_t launch_block_lu(int nblocks, int p, const void* in, int64_t ld, int6
 RESPA_BLOCK_LU_BEFORE(respa_block_lu_before_f32, float, false)
 RESPA_BLOCK_LU_BEFORE(respa_block_lu_before_f32_ftz, float, true)
 RESPA_BLOCK_LU_BEFORE(respa_block_lu_before_f64, double, false)
+
+// K2 before it took the inverses of the diagonal triangles (its first design:
+// the diagonal block in shared memory, solved by substitution, 32 unknowns a
+// warp through shuffles and a barrier between warps; the row sums by a
+// shuffle tree a row), kept only to be timed beside K2. The same mailbox,
+// panels and launch as K2; within the sweep tolerance of K2's plain version.
+namespace first_k2 {
+
+constexpr int kMaxP = 128;
+constexpr int kSweepThreads = 256;
+constexpr int kSweepWarps = kSweepThreads / 32;
+constexpr int kRowsPerWarp = kMaxP / kSweepWarps;
+constexpr int kColsPerLane = kMaxP / 32;
+
+__device__ __forceinline__ float flush(float v) { return fabsf(v) < FLT_MIN ? 0.0f : v; }
+
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+
+// Separately rounded operations (no contraction into a fused multiply-add),
+// flushed under FTZ.
+template <bool FTZ>
+__device__ __forceinline__ float mul(float a, float b) {
+    const float r = __fmul_rn(a, b);
+    return FTZ ? flush(r) : r;
+}
+template <bool FTZ>
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+template <bool FTZ>
+__device__ __forceinline__ float sub(float a, float b) {
+    const float r = __fsub_rn(a, b);
+    return FTZ ? flush(r) : r;
+}
+template <bool FTZ>
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+template <bool FTZ>
+__device__ __forceinline__ float add(float a, float b) {
+    const float r = __fadd_rn(a, b);
+    return FTZ ? flush(r) : r;
+}
+template <bool FTZ>
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+template <bool FTZ>
+__device__ __forceinline__ float quot(float a, float b) {
+    const float r = __fdiv_rn(a, b);
+    return FTZ ? flush(r) : r;
+}
+template <bool FTZ>
+__device__ __forceinline__ double quot(double a, double b) { return __ddiv_rn(a, b); }
+
+// t - l * u: one fused multiply-add; under FTZ the product and the
+// difference are rounded, and flushed, one after the other.
+template <bool FTZ>
+__device__ __forceinline__ float nmuladd(float t, float l, float u) {
+    if constexpr (FTZ) {
+        return sub<true>(t, mul<true>(l, u));
+    } else {
+        return __fmaf_rn(-l, u, t);
+    }
+}
+template <bool FTZ>
+__device__ __forceinline__ double nmuladd(double t, double l, double u) {
+    return __fma_rn(-l, u, t);
+}
+
+// Mailbox of the sweeps: every 32-bit word of a solved vector block travels
+// with a tag in one 8-byte store, which the card performs as a whole, so a
+// reader that sees the tag has the word, with no fence and no second trip to
+// memory (the low-latency protocol of collective libraries). A double is two
+// such pairs. A reader that spins for seconds traps instead of hanging.
+constexpr unsigned kSpinLimit = 1u << 26;
+
+__device__ __forceinline__ void mail_put(unsigned* slot, unsigned word, unsigned tag) {
+    asm volatile("st.volatile.global.v2.u32 [%0], {%1, %2};" ::"l"(slot), "r"(word), "r"(tag)
+                 : "memory");
+}
+
+__device__ __forceinline__ unsigned mail_get(const unsigned* slot, unsigned tag) {
+    unsigned word, seen, spins = 0;
+    do {
+        asm volatile("ld.volatile.global.v2.u32 {%0, %1}, [%2];"
+                     : "=r"(word), "=r"(seen)
+                     : "l"(slot)
+                     : "memory");
+        if (++spins > kSpinLimit) __trap();
+    } while (seen != tag);
+    return word;
+}
+
+__device__ __forceinline__ void mail_send(unsigned* mail, int64_t e, float v, unsigned tag) {
+    mail_put(mail + 2 * e, __float_as_uint(v), tag);
+}
+__device__ __forceinline__ void mail_send(unsigned* mail, int64_t e, double v, unsigned tag) {
+    const unsigned long long bits = static_cast<unsigned long long>(__double_as_longlong(v));
+    mail_put(mail + 4 * e, static_cast<unsigned>(bits), tag);
+    mail_put(mail + 4 * e + 2, static_cast<unsigned>(bits >> 32), tag);
+}
+__device__ __forceinline__ void mail_recv(const unsigned* mail, int64_t e, unsigned tag, float* v) {
+    *v = __uint_as_float(mail_get(mail + 2 * e, tag));
+}
+__device__ __forceinline__ void mail_recv(const unsigned* mail, int64_t e, unsigned tag,
+                                          double* v) {
+    const unsigned long long lo = mail_get(mail + 4 * e, tag);
+    const unsigned long long hi = mail_get(mail + 4 * e + 2, tag);
+    *v = __longlong_as_double(static_cast<long long>(lo | (hi << 32)));
+}
+
+// Solve the P x P triangular system held in shared memory (`dblk`, row stride
+// p + 1) against `acc` in place. In the solve's own order t = 0..P-1 (t = i
+// for a lower system, t = P-1-i for an upper one) the system is lower
+// triangular; a unit diagonal is not read, otherwise each row is first
+// scaled by the reciprocal of its diagonal entry, so that no division or
+// product sits on the chain. K2 solves lower unit forward and upper non-unit
+// backward, K11 lower non-unit forward and upper unit backward.
+// Warp k owns the unknowns 32 k .. 32 k + 31, one a lane, and keeps its rows
+// of the 32 x 32 diagonal block in registers. Warp 0 solves its 32 unknowns
+// through shuffles and puts them into shared memory; behind one barrier the
+// later warps subtract their contribution from their own unknowns, and
+// warp 1 goes on to solve, and so on: one barrier for 32 unknowns, and only
+// the chain of shuffles and the next warp's 32 updates between two solves.
+template <typename A, bool FTZ, bool LOWER, bool UNIT>
+__device__ __forceinline__ void tri_solve(const A* dblk, A* acc, int p) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int lds = p + 1;
+    const int nblk = (p + 31) / 32;
+    const int t = 32 * warp + lane;
+    const bool live = warp < nblk && t < p;
+    const int i = LOWER ? t : p - 1 - t;
+    A drow[32];
+    A mine = A(0);
+    if (warp < nblk) {
+        A rinv = A(1);
+        if (!UNIT && live) rinv = quot<FTZ>(A(1), dblk[i * lds + i]);
+#pragma unroll
+        for (int s = 0; s < 32; ++s) {
+            const int ts = 32 * warp + s;
+            const int js = LOWER ? ts : p - 1 - ts;
+            drow[s] = (live && s < lane) ? dblk[i * lds + js] : A(0);
+            if (!UNIT) drow[s] = mul<FTZ>(drow[s], rinv);
+        }
+        if (live) mine = UNIT ? acc[i] : mul<FTZ>(acc[i], rinv);
+        for (int k = 0; k < nblk; ++k) {
+            if (warp == k) {
+#pragma unroll
+                for (int s = 0; s < 32; ++s) {
+                    const A xs = __shfl_sync(0xffffffffu, mine, s);
+                    if (lane > s) mine = nmuladd<FTZ>(mine, drow[s], xs);
+                }
+                if (live) acc[i] = mine;
+            }
+            __syncthreads();
+            if (warp > k && live) {
+                A sum = A(0);
+#pragma unroll 8
+                for (int s = 0; s < 32; ++s) {
+                    const int ts = 32 * k + s;
+                    const int js = LOWER ? ts : p - 1 - ts;
+                    sum = nmuladd<FTZ>(sum, -dblk[i * lds + js], acc[js]);
+                }
+                mine = UNIT ? sub<FTZ>(mine, sum) : nmuladd<FTZ>(mine, rinv, sum);
+            }
+        }
+    } else {
+        for (int k = 0; k < nblk; ++k) __syncthreads();
+    }
+    __syncthreads();
+}
+
+template <typename V, typename A, bool FTZ, bool FWD>
+__global__ void __launch_bounds__(kSweepThreads)
+band_sweep_kernel(int nb, int p, int ml, int mu, const V* __restrict__ band,
+                  const A* __restrict__ b, A* __restrict__ out, unsigned* mail) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    A* dblk = reinterpret_cast<A*>(smem_raw);  // p x (p + 1)
+    A* acc = dblk + p * (p + 1);               // p
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int64_t w = static_cast<int64_t>(ml + mu + 1) * p;
+    const int m = FWD ? ml : mu;
+
+    for (int q = blockIdx.x; q < nb; q += gridDim.x) {
+        const int r = FWD ? q : nb - 1 - q;
+        const V* row = band + static_cast<int64_t>(r) * p * w;
+
+#ifndef RESPA_SWEEP_NO_DIAG
+        // (a measurement build of bench/band_probe.py leaves this load out)
+        for (int e = tid; e < p * p; e += kSweepThreads) {
+            const int i = e / p, k = e % p;
+            dblk[i * (p + 1) + k] = to_acc(row[i * w + static_cast<int64_t>(ml) * p + k]);
+        }
+#endif
+
+        A part[kRowsPerWarp];
+#pragma unroll
+        for (int ii = 0; ii < kRowsPerWarp; ++ii) part[ii] = A(0);
+
+#ifdef RESPA_SWEEP_NEAR_ONLY
+        // Measurement build of bench/band_probe.py, never the package's: only
+        // the nearest panel, so that the far panels' share shows as a difference.
+        for (int d = min(1, q); d >= 1; --d) {
+#else
+        for (int d = min(m, q); d >= 1; --d) {
+#endif
+            const int64_t c0 = static_cast<int64_t>(FWD ? ml - d : ml + d) * p;
+            // the panel's values are asked for before the wait for its vector
+            V pv[kRowsPerWarp][kColsPerLane];
+#pragma unroll
+            for (int ii = 0; ii < kRowsPerWarp; ++ii) {
+                const int i = warp + kSweepWarps * ii;
+                const V* src = row + i * w + c0;
+#pragma unroll
+                for (int k = 0; k < kColsPerLane; ++k) {
+                    const int col = lane + 32 * k;
+                    if (i < p && col < p) pv[ii][k] = src[col];
+                }
+            }
+            // every lane takes its own words of the vector block from the
+            // mailbox, waiting until the block that solves row q - d has sent them
+            A v[kColsPerLane];
+#pragma unroll
+            for (int k = 0; k < kColsPerLane; ++k) {
+                const int col = lane + 32 * k;
+                A x = A(0);
+                if (col < p) mail_recv(mail, static_cast<int64_t>(q - d) * p + col, q - d + 1, &x);
+                if constexpr (FTZ) x = flush(x);
+                v[k] = x;
+            }
+#pragma unroll
+            for (int ii = 0; ii < kRowsPerWarp; ++ii) {
+                const int i = warp + kSweepWarps * ii;
+#pragma unroll
+                for (int k = 0; k < kColsPerLane; ++k) {
+                    const int col = lane + 32 * k;
+                    if (i < p && col < p)
+                        part[ii] = nmuladd<FTZ>(part[ii], -to_acc(pv[ii][k]), v[k]);
+                }
+            }
+        }
+
+#pragma unroll
+        for (int ii = 0; ii < kRowsPerWarp; ++ii) {
+            A sum = part[ii];
+            for (int off = 16; off > 0; off >>= 1)
+                sum = add<FTZ>(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+            const int i = warp + kSweepWarps * ii;
+            if (lane == 0 && i < p) {
+                A rhs = b[static_cast<int64_t>(r) * p + i];
+                if constexpr (FTZ) rhs = flush(rhs);
+                acc[i] = sub<FTZ>(rhs, sum);
+            }
+        }
+        __syncthreads();  // dblk and acc are complete
+
+#ifndef RESPA_SWEEP_NO_TRI
+        // (a measurement build of bench/band_probe.py leaves the solve out)
+        tri_solve<A, FTZ, FWD, FWD>(dblk, acc, p);
+#endif
+
+        if (tid < p) {
+            const int64_t e = static_cast<int64_t>(q) * p + tid;
+            mail_send(mail, e, acc[tid], q + 1);  // first: the next row waits for it
+            out[static_cast<int64_t>(r) * p + tid] = acc[tid];
+        }
+        __syncthreads();  // acc is rewritten in the next row
+    }
+}
+
+template <typename A>
+size_t sweep_smem(int p) { return (static_cast<size_t>(p) * (p + 1) + p) * sizeof(A); }
+
+template <typename V, typename A, bool FTZ, bool FWD>
+cudaError_t launch_band_sweep(int device, int nb, int p, int ml, int mu, const void* band,
+                              const void* b, void* out, void* mail, cudaStream_t stream) {
+    auto kernel = band_sweep_kernel<V, A, FTZ, FWD>;
+    const size_t smem = sweep_smem<A>(p);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSweepThreads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    // one block an SM: a block's panel reads want an SM's whole load path
+    int grid = (FWD ? ml : mu) + 1;
+    if (grid > nb) grid = nb;
+    if (grid > sms) grid = sms;
+    const V* band_v = static_cast<const V*>(band);
+    const A* b_a = static_cast<const A*>(b);
+    A* out_a = static_cast<A*>(out);
+    unsigned* mail_u = static_cast<unsigned*>(mail);
+    void* args[] = {&nb, &p, &ml, &mu, &band_v, &b_a, &out_a, &mail_u};
+    // cooperative: the launch fails unless all `grid` blocks are resident
+    // together, which the mailbox waits rely on
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                      dim3(kSweepThreads), args, smem, stream);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
+}  // namespace first_k2
+
+// device, nb, p, ml, mu, band, b, out, mail, stream: as respa_band_sweep_*
+// (kernels/csrc/band_lu.cu) before it took `inv`
+#define RESPA_BAND_SWEEP_BEFORE(NAME, V, A, FTZ, FWD)                                         \
+    extern "C" int NAME(int device, int nb, int p, int ml, int mu, const void* band,         \
+                        const void* b, void* out, void* mail, void* stream) {                 \
+        cudaError_t err = cudaSetDevice(device);                                              \
+        if (err != cudaSuccess) return static_cast<int>(err);                                 \
+        if (nb < 1 || p < 1 || p > first_k2::kMaxP || ml < 1 || mu < 1)                        \
+            return static_cast<int>(cudaErrorInvalidValue);                                   \
+        return static_cast<int>(first_k2::launch_band_sweep<V, A, FTZ, FWD>(                  \
+            device, nb, p, ml, mu, band, b, out, mail, static_cast<cudaStream_t>(stream)));    \
+    }
+
+RESPA_BAND_SWEEP_BEFORE(respa_band_sweep_before_fwd_f32, float, float, false, true)
+RESPA_BAND_SWEEP_BEFORE(respa_band_sweep_before_bwd_f32, float, float, false, false)
+RESPA_BAND_SWEEP_BEFORE(respa_band_sweep_before_fwd_f32_ftz, float, float, true, true)
+RESPA_BAND_SWEEP_BEFORE(respa_band_sweep_before_bwd_f32_ftz, float, float, true, false)
+RESPA_BAND_SWEEP_BEFORE(respa_band_sweep_before_fwd_bf16, __nv_bfloat16, float, false, true)
+RESPA_BAND_SWEEP_BEFORE(respa_band_sweep_before_bwd_bf16, __nv_bfloat16, float, false, false)
+RESPA_BAND_SWEEP_BEFORE(respa_band_sweep_before_fwd_f64, double, double, false, true)
+RESPA_BAND_SWEEP_BEFORE(respa_band_sweep_before_bwd_f64, double, double, false, false)
+
+// K3 before its two regimes (its first design): a thread block a parent, every
+// warp walking every child of it in plan order, a row's 32-entry runs one
+// after the other. Kept only to be timed beside K3; the same bits.
+namespace first_k3 {
+
+constexpr int kAddThreads = 256;
+
+template <bool FTZ, typename A>
+__device__ __forceinline__ A fz(A v) {
+    if constexpr (FTZ) return ::flush(v);
+    return v;
+}
+
+template <typename A, bool FTZ>
+__global__ void __launch_bounds__(kAddThreads)
+extend_add_kernel(A* __restrict__ pool, int64_t g0, int wp, int rp,
+                  const int32_t* __restrict__ lp, const int64_t* __restrict__ poff,
+                  const int32_t* __restrict__ pmp, const int32_t* __restrict__ seg_ptr) {
+    const int b0 = seg_ptr[blockIdx.x], b1 = seg_ptr[blockIdx.x + 1];
+    const int warps = blockDim.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int owners = gridDim.y * warps;
+    const int me = blockIdx.y * warps + (threadIdx.x >> 5);
+    const int64_t mp = wp + rp;
+    A* parent = pool + poff[b0];
+    const int64_t pm = pmp[b0];
+    // the first 32 positions of the next child are fetched while this one is
+    // added, so a hub parent's many small children cost one memory trip each
+    int ahead = lane < rp ? lp[static_cast<int64_t>(b0) * rp + lane] : -1;
+    for (int b = b0; b < b1; ++b) {
+        const A* child = pool + g0 + b * mp * mp;
+        const int32_t* l = lp + static_cast<int64_t>(b) * rp;
+        int di = ahead;
+        if (b + 1 < b1) ahead = lane < rp ? l[rp + lane] : -1;
+        for (int i0 = 0; i0 < rp; i0 += 32) {
+            if (i0) di = i0 + lane < rp ? l[i0 + lane] : -1;
+            // the rows of this 32 that this warp owns; the rows in use come first
+            unsigned mine = __ballot_sync(0xffffffffu, di >= 0 && di % owners == me);
+            const bool more = __all_sync(0xffffffffu, di >= 0);
+            while (mine) {
+                const int k = __ffs(mine) - 1;
+                mine &= mine - 1;
+                const int drow_at = __shfl_sync(0xffffffffu, di, k);
+                const A* srow = child + (wp + i0 + k) * mp + wp;
+                A* drow = parent + drow_at * pm;
+                for (int j = lane; j < rp; j += 32) {
+                    const int dj = l[j];
+                    if (dj < 0) break;
+                    drow[dj] = fz<FTZ>(drow[dj] + srow[j]);
+                }
+            }
+            if (!more) break;
+        }
+        __syncwarp();  // the next child may reach the same entries from other lanes
+    }
+}
+
+}  // namespace first_k3
+
+// device, pool, g0, nfronts, wp, rp, lp, poff, pmp, seg_ptr, nseg, tiles,
+// stream: as respa_extend_add_* (kernels/csrc/frontal.cu) before its regimes
+#define RESPA_EXTEND_ADD_BEFORE(NAME, A, FTZ)                                                 \
+    extern "C" int NAME(int device, void* pool, int64_t g0, int nfronts, int wp, int rp,     \
+                        const void* lp, const void* poff, const void* pmp,                    \
+                        const void* seg_ptr, int nseg, int tiles, void* stream) {             \
+        cudaError_t err = cudaSetDevice(device);                                              \
+        if (err != cudaSuccess) return static_cast<int>(err);                                 \
+        if (nfronts < 1 || wp < 1 || rp < 1 || nseg < 1 || tiles < 1 || tiles > 65535)       \
+            return static_cast<int>(cudaErrorInvalidValue);                                   \
+        dim3 grid(static_cast<unsigned>(nseg), static_cast<unsigned>(tiles));                 \
+        first_k3::extend_add_kernel<A, FTZ><<<grid, first_k3::kAddThreads, 0,                 \
+                                              static_cast<cudaStream_t>(stream)>>>(           \
+            static_cast<A*>(pool), g0, wp, rp, static_cast<const int32_t*>(lp),               \
+            static_cast<const int64_t*>(poff), static_cast<const int32_t*>(pmp),              \
+            static_cast<const int32_t*>(seg_ptr));                                            \
+        return static_cast<int>(cudaGetLastError());                                          \
+    }
+
+RESPA_EXTEND_ADD_BEFORE(respa_extend_add_before_f32, float, false)
+RESPA_EXTEND_ADD_BEFORE(respa_extend_add_before_f32_ftz, float, true)
+RESPA_EXTEND_ADD_BEFORE(respa_extend_add_before_f64, double, false)

@@ -315,7 +315,10 @@ def frontal_group(nf: int, wp: int, rp: int, nparents: int, seed: int = 0) -> di
     Returns host arrays named as ``kernels.snlu_device._Group``'s, plus
     ``pool`` (float64: children first, then the parents, diagonally dominant
     pivot blocks so both triangles solve stably), ``g0``, ``n`` and ``y``
-    (float64[n + 1], its last slot 0).
+    (float64[n + 1], its last slot 0). With parents and at most
+    ``GATHER_RP`` update rows, the extend-add's gather lists (``ga_base``,
+    ``ga_dst``, ``ga_src``, ``ga_ptr``, whatever regime ``add_regime`` would
+    pick) and ``add``, that regime.
     """
     rng = np.random.default_rng(seed)
     mp = wp + rp
@@ -355,9 +358,15 @@ def frontal_group(nf: int, wp: int, rp: int, nparents: int, seed: int = 0) -> di
         seg_ptr = np.r_[cut, nf].astype(np.int32)
     else:
         seg_ptr = np.zeros(1, np.int32)
-    from ..kernels.snlu_device import reduction_csr
+    from ..kernels.snlu_device import GATHER_RP, add_regime, gather_lists, reduction_csr
     red_rows, red_ptr, red_src, red_bins = reduction_csr(rsx, n)
     y = np.r_[rng.standard_normal(n), 0.0]
+    lists = {}
+    if nparents and rp <= GATHER_RP:  # wider corners take the row regime alone
+        base, dst, src, ptr = gather_lists(lp, poff, pmp, seg_ptr, wp, rp)
+        lists = dict(ga_base=base, ga_dst=dst, ga_src=src, ga_ptr=ptr,
+                     add=add_regime(nf, rp, int(np.diff(seg_ptr).max()),
+                                    dst.size + src.size + ptr.size))
     return dict(pool=pool, g0=0, nf=nf, wp=wp, rp=rp, n=n, y=y, piv=piv, rsx=rsx, lp=lp,
                 poff=poff, pmp=pmp, seg_ptr=seg_ptr, red_rows=red_rows, red_ptr=red_ptr,
-                red_src=red_src, red_bins=red_bins)
+                red_src=red_src, red_bins=red_bins, **lists)

@@ -199,7 +199,7 @@ def build_sharded_plan(part: SupernodePartition, ndev: int,
     front): past it this raises ``MemoryError``. The pool is sharded, so a
     problem whose whole pool passes the cap factors as long as every shard's
     part fits."""
-    base = F.build_frontal_plan(part)
+    base = F.build_frontal_plan(part, gather=False)  # a shard's extend-adds take the row regime
     nsn = part.nsn
     mp = base.wp + base.rp
     area = mp * mp

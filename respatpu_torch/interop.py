@@ -11,7 +11,7 @@ import torch
 
 from .analysis import IluSchedule
 from .formats import COOMatrix, CSRMatrix, coo_to_csr
-from .kernels.bandlu import DeviceBand
+from .kernels.bandlu import DeviceBand, with_inverses
 from .kernels.snlu import SupernodePartition
 from .kernels.snlu_device import FrontalPlan, build_frontal_plan
 from .kernels.splu import ScheduledLuPlan, plan_from_schedule
@@ -43,16 +43,17 @@ def band_from_respatpu(obj, device: Union[str, torch.device] = "cuda") -> Device
     (``n``, ``p``, ``ml``, ``mu``, ``policy_name`` and ``data``, a tuple of
     arrays: one in the policy's type, or the double-float ``(hi, lo)``,
     which becomes fp64 by ``hi + lo``). A band factored by respatpu can then
-    be solved by the port."""
+    be solved by the port: the inverses of its diagonal triangles, which the
+    port's sweep applies, are made here (``bandlu.with_inverses``)."""
     policy = get_policy(obj.policy_name)
     if len(obj.data) == 2:
         data = torch.from_numpy(df_to_numpy(*obj.data))
     else:
         # through fp32: numpy has no bfloat16, and every stored type widens exactly
         data = torch.from_numpy(np.asarray(obj.data[0], np.float32).copy())
-    return DeviceBand(n=int(obj.n), p=int(obj.p), ml=int(obj.ml), mu=int(obj.mu),
-                      policy=policy,
-                      data=data.to(policy.dtype).contiguous().to(torch.device(device)))
+    return with_inverses(DeviceBand(
+        n=int(obj.n), p=int(obj.p), ml=int(obj.ml), mu=int(obj.mu), policy=policy,
+        data=data.to(policy.dtype).contiguous().to(torch.device(device))))
 
 
 def band_to_numpy(band: DeviceBand):

@@ -24,8 +24,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _ENTRIES = ("respa_spmv_csr_f32", "respa_spmv_csr_f32_ftz",
             "respa_spmv_csr_bf16", "respa_spmv_csr_f64")
 _BLOCK_LU = ("respa_block_lu_f32", "respa_block_lu_f32_ftz", "respa_block_lu_f64")
-_BAND_SWEEP = tuple(f"respa_band_sweep_{k}{d}_{i}" for k in ("", "t_") for d in ("fwd", "bwd")
+_BAND_SWEEP = tuple(f"respa_band_sweep_{d}_{i}" for d in ("fwd", "bwd")
                     for i in ("f32", "f32_ftz", "bf16", "f64"))
+_BAND_SWEEP_T = tuple(f"respa_band_sweep_t_{d}_{i}" for d in ("fwd", "bwd")
+                      for i in ("f32", "f32_ftz", "bf16", "f64"))
 _BAND_MULTI = tuple(f"respa_band_sweep_multi_{d}_{i}" for d in ("fwd", "bwd")
                     for i in ("f32", "f32_ftz", "bf16", "f64"))
 _INSTANCES = ("f32", "f32_ftz", "f64")
@@ -80,6 +82,11 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in _BAND_SWEEP:
         fn = getattr(lib, name)
+        # device, nb, p, ml, mu, then band, inv, b, out, mail, stream
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+        fn.restype = ctypes.c_int
+    for name in _BAND_SWEEP_T:
+        fn = getattr(lib, name)
         # device, nb, p, ml, mu, then band, b, out, mail, stream
         fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
@@ -91,8 +98,10 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for name in _EXTEND_ADD:
         fn = getattr(lib, name)
-        # device, pool, g0, nfronts, wp, rp, lp, poff, pmp, seg_ptr, nseg, tiles, stream
-        fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr]
+        # device, pool, g0, nfronts, wp, rp, lp, poff, pmp, seg_ptr, nseg, tiles, regime,
+        # base, nd, kmax, dst, src, ptr, stream
+        fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i64, i32,
+                       i32, ptr, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
     for name in (*_FRONT_FWD, *_FRONT_BWD):
         fn = getattr(lib, name)

@@ -31,7 +31,9 @@ form in torch ops:
   dependent pivots;
 * ``band_sweep`` (K2, ``csrc/band_lu.cu``): the forward or the backward
   block substitution for one right-hand side (respatpu's ``_solve_core``),
-  nb dependent block rows in one launch;
+  nb dependent block rows in one launch; it applies the inverses of the
+  diagonal blocks' triangles that :func:`band_lu` makes once a factorization
+  (:func:`with_inverses`), as a product with no dependent chain;
 * ``band_sweep_multi`` (K10, ``csrc/band_multi.cu``): the same for several
   right-hand sides (``_solve_core`` with nrhs > 1: SPIKE's tips): tiles of
   32 or 128 columns whose row slots walk the block rows, or, for at most
@@ -69,8 +71,8 @@ __all__ = ["BandMatrix", "csr_to_band", "band_memory_bytes", "band_extent",
            "DeviceBand", "band_to_device", "csr_to_device_band", "band_lu",
            "band_solve", "band_solve_transpose", "BandLuResult", "block_lu",
            "block_lu_plain", "band_sweep", "band_sweep_plain", "band_sweep_multi",
-           "band_sweep_t", "band_sweep_t_plain", "multi_plan", "LAUNCHES", "MAX_P",
-           "FEW_COLS"]
+           "band_sweep_t", "band_sweep_t_plain", "multi_plan", "with_inverses", "LAUNCHES",
+           "MAX_P", "FEW_COLS"]
 
 MAX_P = 128  # largest block the kernels take (kMaxP of csrc/band_lu.cu)
 FEW_COLS = 4  # K10's few-column regime (kFewCols of csrc/band_multi.cu)
@@ -152,7 +154,14 @@ def csr_to_band(a: CSRMatrix, p: int = 128) -> BandMatrix:
 
 @dataclasses.dataclass
 class DeviceBand:
-    """A band (or its LU factors) on one device under a precision policy."""
+    """A band (or its LU factors) on one device under a precision policy.
+
+    ``inv`` is None until :func:`with_inverses` makes it (:func:`band_lu`
+    does for every factor): the inverses of the diagonal blocks' triangles,
+    unit lower ``L_rr^-1`` and upper ``U_rr^-1``, which K2 applies.
+    ``dataclasses.replace`` with other ``data`` keeps the old inverses; K2
+    refuses them if their type no longer fits, and :func:`with_inverses`
+    makes them anew."""
 
     n: int
     p: int
@@ -160,6 +169,7 @@ class DeviceBand:
     mu: int
     policy: Policy
     data: torch.Tensor  # policy.dtype[nb, p, (ml+mu+1)*p], contiguous
+    inv: Optional[torch.Tensor] = None  # accum_dtype[nb, 2, p, p], contiguous
 
     @property
     def nb(self) -> int:
@@ -376,7 +386,42 @@ def band_lu(band: DeviceBand, pivot_eps: Optional[float] = None) -> BandLuResult
             c.copy_(ftz(torch.baddbmm(c.to(acc), x.view(k, p, p),
                                       y.expand(k, p, mu * p), alpha=-1.0), fl))
     nbad = int(torch.stack(counts).sum()) if counts else 0
-    return BandLuResult(dataclasses.replace(band, data=data), nbad)
+    return BandLuResult(with_inverses(dataclasses.replace(band, data=data)), nbad)
+
+
+def with_inverses(lu: DeviceBand) -> DeviceBand:
+    """``lu`` with the inverses of its diagonal triangles made anew from its
+    data: ``inv[:, 0]`` the unit lower ``L_rr^-1`` (the forward sweep's),
+    ``inv[:, 1]`` the upper ``U_rr^-1`` (the backward sweep's), in the
+    accumulator type, flushed under fp32_ftz. One batched triangular solve of
+    the nb diagonal blocks (read as the accumulator type, so bf16 blocks as
+    fp32) against the identity for each, in fp64 and then rounded once, so
+    that an inverse is as close to the exact one as its type allows.
+    :func:`band_lu` calls it; so does whatever builds a factored band
+    otherwise (a loaded or converted factor, or one re-typed by
+    ``dataclasses.replace``)."""
+    _check_band(lu)
+    p, ml = lu.p, lu.ml
+    d = lu.data[:, :, ml * p:(ml + 1) * p].to(lu.policy.accum_dtype).double()
+    eye = torch.eye(p, dtype=torch.float64, device=lu.device).expand_as(d)
+    inv = torch.empty((lu.nb, 2, p, p), dtype=lu.policy.accum_dtype, device=lu.device)
+    for k, upper in enumerate((False, True)):
+        inv[:, k] = torch.linalg.solve_triangular(d, eye, upper=upper, unitriangular=not upper)
+    return dataclasses.replace(lu, inv=ftz(inv, lu.policy.flush_to_zero))
+
+
+def _check_inverses(lu: DeviceBand) -> None:
+    """What K2 takes of ``lu.inv``, refused the same on every device."""
+    inv, acc = lu.inv, lu.policy.accum_dtype
+    if inv is None:
+        raise ValueError("the band carries no inverses of its diagonal triangles; band_lu makes "
+                         "them, with_inverses makes them for a band from elsewhere")
+    if inv.dtype != acc:
+        raise TypeError(f"the inverses must be {acc} for a {lu.policy.name} band, got {inv.dtype}")
+    want = (lu.nb, 2, lu.p, lu.p)
+    if tuple(inv.shape) != want or not inv.is_contiguous() or inv.device != lu.device:
+        raise ValueError(f"the inverses must be contiguous {list(want)} on {lu.device}, got "
+                         f"{list(inv.shape)} on {inv.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -429,11 +474,15 @@ def band_sweep(lu: DeviceBand, b: torch.Tensor, forward: bool) -> torch.Tensor:
     right-hand side ``b`` [nb*P] in the accumulator type; see
     :func:`band_sweep_plain` for the function.
 
-    On a CUDA device this is one launch of the sweep kernel on the current
-    stream (it raises if the inputs do not fit it or the launch fails); on
-    the CPU it runs the plain version. Sums are taken in an order fixed by
-    the shape, so a sweep repeats bit for bit."""
+    ``lu`` must carry the inverses of its diagonal triangles (``lu.inv``,
+    :func:`band_lu` makes them); a band without them, or with inverses of
+    another type or shape, is refused on every device. On a CUDA device this
+    is one launch of the sweep kernel on the current stream, which applies
+    the inverses (it raises if the inputs do not fit it or the launch
+    fails); on the CPU it runs the plain version. Sums are taken in an order
+    fixed by the shape, so a sweep repeats bit for bit."""
     _check_band(lu)
+    _check_inverses(lu)
     if lu.device.type == "cpu":
         return band_sweep_plain(lu, b, forward)
     if lu.device.type != "cuda":
@@ -454,8 +503,8 @@ def band_sweep(lu: DeviceBand, b: torch.Tensor, forward: bool) -> torch.Tensor:
     mail = torch.zeros(2 * nb * p * (b.element_size() // 4), dtype=torch.int32,
                        device=lu.device)
     rc = getattr(_library(), name)(
-        lu.device.index, nb, p, lu.ml, lu.mu, lu.data.data_ptr(), b.data_ptr(),
-        out.data_ptr(), mail.data_ptr(),
+        lu.device.index, nb, p, lu.ml, lu.mu, lu.data.data_ptr(), lu.inv.data_ptr(),
+        b.data_ptr(), out.data_ptr(), mail.data_ptr(),
         torch.cuda.current_stream(lu.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

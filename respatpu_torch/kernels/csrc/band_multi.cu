@@ -43,22 +43,24 @@
 // triangle, pivot j handed from its row group to the 15 others; backward the
 // upper one, the owner scaling by the reciprocal of the diagonal first.
 //
-// Few columns (nrhs <= kFewCols = 4): K2's pipeline (band_lu.cu) carrying
-// kFewCols values a row. slots = min(ml + 1 or mu + 1, rows, SMs) blocks,
+// Few columns (nrhs <= kFewCols = 4): K2's pipeline (band_lu.cu) as it was
+// before K2 took the inverse of the diagonal triangle, carrying kFewCols
+// values a row. slots = min(ml + 1 or mu + 1, rows, SMs) blocks,
 // launched cooperatively, take the rows in turn; a row's block loads its
 // diagonal block into shared memory, then for each panel from the farthest
 // asks for its values (lane l keeps rows l, l + 32, .. of the panel, warp w
 // its columns 16 w .. 16 w + 15) before it waits for the solved vector block
 // in a mailbox of (word, tag) pairs, the way K2 does: the band is read once,
 // and a row costs one trip through L2. The warps' partial sums are added in
-// warp order through shared memory, and the triangle is K2's (32 unknowns a
-// warp, shuffles inside it, one barrier a warp), kFewCols columns at a time.
+// warp order through shared memory, and the triangle is solved by
+// substitution as K11 solves it (32 unknowns a warp, shuffles inside it, one
+// barrier a warp), kFewCols columns at a time.
 //
 // Every sum has an order fixed by the shape (the panels from the farthest
 // to the nearest, a chunk's columns in order, the warps in order), so a
 // sweep repeats bit for bit. A column's sums do not depend on the tile width
 // or the slots, so the many-column regime gives the same bits on any card;
-// the few-column regime sums in another order (by warps, and K2's triangle),
+// the few-column regime sums in another order (by warps, and its triangle),
 // so its bits depend on nrhs <= kFewCols alone. Products stay in full fp32
 // (no TF32), as respatpu's front products (snlu_device.py:288-292); fp64 in
 // plain fp64 FMAs.
@@ -269,7 +271,7 @@ __device__ __forceinline__ void read_rows(const A* tile, int kk, int group, A (&
 // The triangle's columns jc * kChunk .. of the diagonal block, staged in
 // `tile`: forward pivot j is final in its row group's registers and goes to
 // the 15 other groups of the half-warp by shuffles, one a column; backward the
-// owner first scales by the reciprocal of the diagonal (as K2's triangle). A
+// owner first scales by the reciprocal of the diagonal (as tri_solve). A
 // row group's 8 pivots are unrolled,
 // so the register of pivot j, j % 8, is named statically.
 template <typename A, bool FTZ, bool FWD, int TN>
@@ -470,8 +472,8 @@ __device__ __forceinline__ double mail_recv(const unsigned* mail, int64_t e, uns
 }
 
 // Solve the P x P triangle held in shared memory (`dblk`, row stride p + 1)
-// against the kFewCols columns of `acc` ([p][kFewCols]) in place: K2's
-// tri_solve (band_lu.cu), its `mine` a value a column. In the solve's own
+// against the kFewCols columns of `acc` ([p][kFewCols]) in place:
+// band_lu.cu's tri_solve (K11's), its `mine` a value a column. In the solve's own
 // order t = 0..P-1 (t = i for a lower system, t = P-1-i for an upper one)
 // the system is lower; a non-unit row is first scaled by the reciprocal of
 // its diagonal entry. Warp k owns the unknowns 32 k .. 32 k + 31, solves them

@@ -14,17 +14,35 @@
 //   front carries only lp[rp], the position of each of its update rows in the
 //   parent front, and the kernel forms dst = lp[i]*pmp + lp[j]. Siblings
 //   collide in the parent, and a sum with atomics would change from run to
-//   run. So the group's fronts are sorted by parent, a thread block takes one
-//   parent (blockIdx.x) and a share of its rows (blockIdx.y), and every warp
-//   owns the destination rows with lp[i] % (warps in the grid row) == its
-//   number: an entry of the parent is only ever touched by one warp, which
-//   walks the parent's children in plan order with a warp barrier between two
-//   children. No atomics, a fixed order, a factor that repeats bit for bit.
-//   A warp reads 32 positions at once and finds its rows by a ballot. Bound
-//   by bytes (each corner read once, each parent entry read and written
-//   once); what keeps it from that bound is the serial walk over a hub
-//   parent's hundreds of children (a memory trip each), and for one large
-//   child the rows a warp takes one after the other.
+//   run. What fixes the bits is the order in which the children's values
+//   reach each parent entry: plan order, ((p + c1) + c2) + ... for every
+//   entry, whatever else runs at once. An entry's chain is the number of
+//   children that touch it, not the number of children of its parent. Two
+//   regimes, picked from the group's shape at plan time
+//   (snlu_device.add_regime), one launch a group either way:
+//   * gather (many small children under a parent, e.g. a circuit's hub with
+//     167 children of 16 rows): the plan lists, for every parent entry the
+//     group touches, its sources in child order (offsets into the group,
+//     int32), the entries ordered by their number of sources so that rank
+//     k's sources are one contiguous run over the first entries. A thread
+//     takes an entry, adds its sources in rank order (asking for the next
+//     one's position before it reads the current one), then stores once;
+//     most entries have one source, and a thread keeps few registers. The
+//     lists cost bytes beside the function's; the plan caps them
+//     (snlu_device.GATHER_CAP).
+//   * rows (the other groups, e.g. the few large children of the top levels,
+//     and every group of the distributed path): the group's fronts are
+//     sorted by parent, a thread block takes one parent (blockIdx.x) and a
+//     share of its rows (blockIdx.y). A parent with one child in the group
+//     splits it into (row, piece) units over all its warps; with several,
+//     every warp owns the destination rows with lp[i] % (warps in the grid
+//     row) == its number and walks the children in plan order with a warp
+//     barrier between two. A row is added piece by piece: kAddPiece runs of
+//     32 positions asked for at once (one for corners of at most 32 rows),
+//     then all their source and destination values, then the stores.
+//   No atomics, a fixed order, a factor that repeats bit for bit. Bound by
+//   bytes (each corner read once, each parent entry read and written once,
+//   lp).
 //
 // front_sweep fwd / bwd (replace `_fwd_group` :467-487 and `_bwd_group`
 //   :490-509). Forward: z = L11^-1 y[piv] (unit lower, wp x wp), y[piv] = z,
@@ -132,6 +150,7 @@ constexpr int kWideThreads = kWideWarps * 32;
 constexpr int kWideRowsPerWarp = kWideRows / kWideWarps;
 constexpr int kWidePad = kWideRows + 1;  // shared rows, padded against bank conflicts
 constexpr int kAddThreads = 256;
+constexpr int kAddPiece = 8;       // extend-add rows past 32: 32-entry runs a warp has in flight
 constexpr int kReduceThreads = 256;
 constexpr int kThreadRow = 8;      // rows_reduce: most sources a lane sums alone
 constexpr int kGroupRow = 64;      // most sources a lane group sums
@@ -186,11 +205,46 @@ __device__ __forceinline__ A group_sum(A s, int g) {
 // extend-add
 // ---------------------------------------------------------------------------
 
-template <typename A, bool FTZ>
+// A piece of one child row added into its parent row: R 32-entry runs of
+// the row (those that reach rp), all positions first, then all source and
+// destination values, then the stores, so that a warp has the whole piece in
+// flight. R = 1 for corners of at most 32 rows, which keeps a thread's
+// registers, and so the warps the card holds, at what one run needs.
+template <typename A, bool FTZ, int R>
+__device__ __forceinline__ void add_piece(const A* __restrict__ srow, A* __restrict__ drow,
+                                          const int32_t* __restrict__ l, int j0, int rp,
+                                          int lane) {
+    int dj[R];
+    A s[R], d[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+        const int j = j0 + 32 * u + lane;
+        dj[u] = j < rp ? l[j] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+        if (dj[u] >= 0) {
+            s[u] = srow[j0 + 32 * u + lane];
+            d[u] = drow[dj[u]];
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+        if (dj[u] >= 0) drow[dj[u]] = fz<FTZ>(d[u] + s[u]);
+}
+
+// The row regime: a thread block takes a parent (blockIdx.x) with `tiles`
+// others (blockIdx.y). A parent with one child in the group shares it with no
+// other launch's work, so every warp of the grid row takes (row, piece) units
+// of it. A parent with several children: a warp owns the parent rows with
+// lp[i] % (warps in the grid row) == its number, walks the children in plan
+// order with a warp barrier between two, and adds each of its rows piece by
+// piece; a warp reads 32 positions at once and finds its rows by a ballot.
+template <typename A, bool FTZ, int R>
 __global__ void __launch_bounds__(kAddThreads)
-extend_add_kernel(A* __restrict__ pool, int64_t g0, int wp, int rp,
-                  const int32_t* __restrict__ lp, const int64_t* __restrict__ poff,
-                  const int32_t* __restrict__ pmp, const int32_t* __restrict__ seg_ptr) {
+extend_add_rows(A* __restrict__ pool, int64_t g0, int wp, int rp,
+                const int32_t* __restrict__ lp, const int64_t* __restrict__ poff,
+                const int32_t* __restrict__ pmp, const int32_t* __restrict__ seg_ptr) {
     const int b0 = seg_ptr[blockIdx.x], b1 = seg_ptr[blockIdx.x + 1];
     const int warps = blockDim.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -199,8 +253,22 @@ extend_add_kernel(A* __restrict__ pool, int64_t g0, int wp, int rp,
     const int64_t mp = wp + rp;
     A* parent = pool + poff[b0];
     const int64_t pm = pmp[b0];
+    constexpr int kSpan = 32 * R;
+    const int pieces = (rp + kSpan - 1) / kSpan;
+    if (b1 - b0 == 1) {
+        const A* child = pool + g0 + b0 * mp * mp;
+        const int32_t* l = lp + static_cast<int64_t>(b0) * rp;
+        for (int u = me; u < rp * pieces; u += owners) {
+            const int i = u / pieces, c = u % pieces;
+            const int di = l[i];
+            if (di < 0) break;  // the rows in use come first, and u only grows
+            add_piece<A, FTZ, R>(child + (wp + i) * mp + wp, parent + di * pm, l, c * kSpan,
+                                 rp, lane);
+        }
+        return;
+    }
     // the first 32 positions of the next child are fetched while this one is
-    // added, so a hub parent's many small children cost one memory trip each
+    // added, so a parent's many small children cost one memory trip each
     int ahead = lane < rp ? lp[static_cast<int64_t>(b0) * rp + lane] : -1;
     for (int b = b0; b < b1; ++b) {
         const A* child = pool + g0 + b * mp * mp;
@@ -210,24 +278,54 @@ extend_add_kernel(A* __restrict__ pool, int64_t g0, int wp, int rp,
         for (int i0 = 0; i0 < rp; i0 += 32) {
             if (i0) di = i0 + lane < rp ? l[i0 + lane] : -1;
             // the rows of this 32 that this warp owns; the rows in use come first
-            unsigned mine = __ballot_sync(0xffffffffu, di >= 0 && di % owners == me);
-            const bool more = __all_sync(0xffffffffu, di >= 0);
+            unsigned mine = __ballot_sync(kFull, di >= 0 && di % owners == me);
+            const bool more = __all_sync(kFull, di >= 0);
             while (mine) {
                 const int k = __ffs(mine) - 1;
                 mine &= mine - 1;
-                const int drow_at = __shfl_sync(0xffffffffu, di, k);
-                const A* srow = child + (wp + i0 + k) * mp + wp;
-                A* drow = parent + drow_at * pm;
-                for (int j = lane; j < rp; j += 32) {
-                    const int dj = l[j];
-                    if (dj < 0) break;
-                    drow[dj] = fz<FTZ>(drow[dj] + srow[j]);
-                }
+                const int drow_at = __shfl_sync(kFull, di, k);
+                for (int c = 0; c < pieces; ++c)
+                    add_piece<A, FTZ, R>(child + (wp + i0 + k) * mp + wp, parent + drow_at * pm,
+                                         l, c * kSpan, rp, lane);
             }
             if (!more) break;
         }
         __syncwarp();  // the next child may reach the same entries from other lanes
     }
+}
+
+// The gather regime: a thread an entry of the parents that the group
+// touches, dst[d] its offset from `base`; its sources, offsets from g0 of
+// corner entries in the children's plan order, are src[ptr[k] + d] for the
+// ranks k with d < ptr[k + 1] - ptr[k] (the entries ordered by their number
+// of sources, most first). A thread adds them to the parent's entry in rank
+// order, the plain version's ((p + c1) + c2) + ..., and stores once; it asks
+// for the next source's position before it reads the current source, so a
+// source costs one memory trip. Most entries have one source: a thread keeps
+// few registers, so that the card holds as many of them as it can.
+template <typename A, bool FTZ>
+__global__ void __launch_bounds__(kAddThreads)
+extend_add_gather(A* __restrict__ pool, int64_t g0, int64_t base, int nd, int kmax,
+                  const int32_t* __restrict__ dst, const int32_t* __restrict__ src,
+                  const int32_t* __restrict__ ptr) {
+    const int d = blockIdx.x * kAddThreads + threadIdx.x;
+    if (d >= nd) return;
+    A* to = pool + base + dst[d];
+    const A* from = pool + g0;
+    int at = src[d];  // rank 0's run starts at 0 and holds every entry
+    A v = *to;
+    int k = 1, lo = __ldg(ptr + 1);
+    while (true) {
+        // rank k's run, if it reaches this entry: its position, asked for now
+        const int hi = k < kmax ? __ldg(ptr + k + 1) : lo;
+        const int next = d < hi - lo ? src[lo + d] : -1;
+        v = fz<FTZ>(v + from[at]);
+        if (next < 0) break;
+        at = next;
+        lo = hi;
+        ++k;
+    }
+    *to = v;
 }
 
 // ---------------------------------------------------------------------------
@@ -922,7 +1020,10 @@ int sweep_bwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
 // pool[g0 + b*mp*mp ...], b < B, mp = wp + rp; `lp` int32[B, rp] (the rows in
 // use first, then -1), `poff` int64[B] and `pmp` int32[B] the parent front's
 // pool offset and size, `seg_ptr` int32[nseg + 1] the runs of fronts with one
-// parent; `tiles` thread blocks share a parent's rows.
+// parent; `tiles` thread blocks share a parent's rows. `regime` 0 (rows) reads
+// those; 1 (gather) reads the group's lists instead: `dst` int32[nd] (parent
+// entries, offsets from `base`), `src` int32 and `ptr` int32[kmax + 1] (rank
+// k's sources src[ptr[k] + d] for d < ptr[k + 1] - ptr[k], offsets from g0).
 //
 // respa_front_sweep_{fwd,bwd}_* and the transposed respa_front_sweep_t_{fwd,bwd}_*
 // (K12, the same arguments): `piv` int32[B, wp] and `rsx` int32[B, rp]
@@ -943,13 +1044,26 @@ int respa_front_max_tri() { return kMaxTri; }
 #define RESPA_EXTEND_ADD(NAME, A, FTZ)                                                        \
     int NAME(int device, void* pool, int64_t g0, int nfronts, int wp, int rp, const void* lp, \
              const void* poff, const void* pmp, const void* seg_ptr, int nseg, int tiles,     \
-             void* stream) {                                                                  \
+             int regime, int64_t base, int nd, int kmax, const void* dst, const void* src,    \
+             const void* ptr, void* stream) {                                                 \
         cudaError_t err = cudaSetDevice(device);                                              \
         if (err != cudaSuccess) return static_cast<int>(err);                                 \
         if (bad_group(nfronts, wp, rp) || rp < 1 || nseg < 1 || tiles < 1 || tiles > 65535)   \
             return static_cast<int>(cudaErrorInvalidValue);                                   \
+        cudaStream_t s = static_cast<cudaStream_t>(stream);                                   \
+        if (regime == 1) {                                                                    \
+            if (nd < 1 || kmax < 1) return static_cast<int>(cudaErrorInvalidValue);           \
+            extend_add_gather<A, FTZ><<<static_cast<unsigned>((nd + kAddThreads - 1) /        \
+                                                              kAddThreads),                   \
+                                        kAddThreads, 0, s>>>(                                 \
+                static_cast<A*>(pool), g0, base, nd, kmax, static_cast<const int32_t*>(dst),  \
+                static_cast<const int32_t*>(src), static_cast<const int32_t*>(ptr));          \
+            return static_cast<int>(cudaGetLastError());                                      \
+        }                                                                                     \
+        if (regime != 0) return static_cast<int>(cudaErrorInvalidValue);                      \
         dim3 grid(static_cast<unsigned>(nseg), static_cast<unsigned>(tiles));                 \
-        extend_add_kernel<A, FTZ><<<grid, kAddThreads, 0, static_cast<cudaStream_t>(stream)>>>( \
+        auto rows = rp <= 32 ? extend_add_rows<A, FTZ, 1> : extend_add_rows<A, FTZ, kAddPiece>; \
+        rows<<<grid, kAddThreads, 0, s>>>(                                                    \
             static_cast<A*>(pool), g0, wp, rp, static_cast<const int32_t*>(lp),               \
             static_cast<const int64_t*>(poff), static_cast<const int32_t*>(pmp),              \
             static_cast<const int32_t*>(seg_ptr));                                            \

@@ -32,7 +32,10 @@ leaves them to XLA. Three hand-written CUDA kernels (``csrc/frontal.cu``)
 take the data-dependent steps:
 
 * ``extend_add``: each front's Schur corner into its parent front, the
-  parent's children in plan order, no atomics;
+  parent's children in plan order, no atomics, by a regime picked from the
+  group's shape at plan time (``add_regime``): a thread a parent entry over
+  the plan's lists of its sources where parents have many small children
+  (``gather_lists``), the parents' rows piece by piece elsewhere;
 * ``front_sweep``: one group's forward or backward substitution in one launch,
   by a regime picked from the group's shape at plan time (``sweep_regime``):
   a warp a front for pivot blocks up to 32, a thread block a front (its panel
@@ -68,7 +71,8 @@ __all__ = ["FrontalPlan", "build_frontal_plan", "frontal_factor_pool",
            "extend_add_plain", "front_sweep", "front_sweep_plain", "front_sweep_t",
            "front_sweep_t_plain", "rows_reduce", "rows_reduce_plain",
            "launch_sweep", "control_words", "control_zeros", "sweep_regime", "warp_deal",
-           "LAUNCHES", "MAX_TRI", "RED_BINS"]
+           "add_regime", "gather_lists", "LAUNCHES", "MAX_TRI", "RED_BINS", "GATHER_KIDS",
+           "GATHER_RP", "GATHER_CAP"]
 
 MAX_TRI = 128  # widest pivot block a thread block solves (kMaxTri of csrc/frontal.cu)
 WARP_TRI = 32  # widest pivot block a warp solves in registers (kWarpTri)
@@ -78,6 +82,13 @@ FILL_BLOCKS = 264  # thread blocks that fill the card twice over (132 SMs)
 # lanes each), more (a warp each): kThreadRow, kGroupRow, kGroupLanes
 RED_BINS = ((8, 1), (64, 8), (None, 32))
 _REGIMES = {"warp": 0, "block": 1, "wide": 2}
+# extend-add: the gather regime takes groups with GATHER_KIDS or more children
+# under a parent, corners of at most GATHER_RP update rows, and lists that fit
+# in GATHER_CAP 4-byte words a corner entry (padding included)
+GATHER_KIDS = 8
+GATHER_RP = 128
+GATHER_CAP = 2
+_ADD_REGIMES = {"rows": 0, "gather": 1}
 
 _INST = {(torch.float32, False): "f32", (torch.float32, True): "f32_ftz",
          (torch.float64, False): "f64"}
@@ -136,6 +147,14 @@ class _Group:
     red_bins: np.ndarray  # int64[len(RED_BINS)] rows in each bin of RED_BINS
     regime: str  # the sweep kernel's regime for this shape (sweep_regime)
     tiles: int  # thread blocks a front in the block regime, else 1
+    add: str = "rows"  # the extend-add kernel's regime (add_regime)
+    ga_base: int = 0  # gather regime: pool offset that ga_dst counts from
+    ga_dst: np.ndarray = dataclasses.field(  # int32[nd] parent entries the group touches
+        default_factory=lambda: np.empty(0, np.int32))
+    ga_src: np.ndarray = dataclasses.field(  # int32: their sources, offsets from g0, by rank
+        default_factory=lambda: np.empty(0, np.int32))
+    ga_ptr: np.ndarray = dataclasses.field(  # int32[kmax + 1]: rank k's run of ga_src
+        default_factory=lambda: np.empty(0, np.int32))
 
     @property
     def mp(self) -> int:
@@ -171,10 +190,13 @@ class FrontalPlan:
         device = torch.device(device)
         if device not in self._device:
             names = ("piv", "rsx", "lp", "poff", "pmp", "seg_ptr", "red_rows",
-                     "red_ptr", "red_src")
+                     "red_ptr", "red_src", "ga_dst", "ga_src", "ga_ptr")
             self._device[device] = [
                 {k: torch.from_numpy(getattr(g, k)).to(device) for k in names}
                 for g in self.groups]
+            for g, d in zip(self.groups, self._device[device]):
+                d["gather"] = ((g.ga_base, d["ga_dst"], d["ga_src"], d["ga_ptr"])
+                               if g.add == "gather" else None)
         return self._device[device]
 
 
@@ -242,13 +264,88 @@ def sweep_regime(nf: int, wp: int, rp: int) -> Tuple[str, int]:
     return "block", tiles
 
 
+def gather_lists(lp: np.ndarray, poff: np.ndarray, pmp: np.ndarray, seg_ptr: np.ndarray,
+                 wp: int, rp: int):
+    """The extend-add's gather lists for one group of ``lp.shape[0]`` fronts
+    (``_Group``'s arrays): ``(base, dst, src, ptr)``, or None where an offset
+    would not fit 32 bits.
+
+    Every parent entry that a corner entry in use reaches gets one place in
+    ``dst`` (int32, its pool offset less ``base``), the entries ordered by
+    their number of sources, most first (so that the entries with more than
+    k sources are the first ones), then by offset, so that neighbouring
+    threads of the kernel write neighbouring parent entries. Its k-th source
+    in plan order (the children in pool order) is ``src[ptr[k] + d]``
+    (int32, the corner entry's offset from the group's first front) for
+    ``d < ptr[k + 1] - ptr[k]``."""
+    nf = lp.shape[0]
+    mp = wp + rp
+    first = int(seg_ptr[0]) if seg_ptr.size > 1 else nf
+    if first >= nf or rp == 0:
+        return 0, np.empty(0, np.int32), np.empty(0, np.int32), np.zeros(1, np.int32)
+    l = lp[first:].astype(np.int64)
+    cnt = (l >= 0).sum(1)
+    sq = cnt * cnt
+    b = np.repeat(np.arange(cnt.size), sq)
+    within = np.arange(int(sq.sum()), dtype=np.int64) - (np.cumsum(sq) - sq)[b]
+    i, j = np.divmod(within, cnt[b])
+    flat = l.ravel()
+    row = b * rp
+    dst = poff[first:][b] + flat[row + i] * pmp[first:].astype(np.int64)[b] + flat[row + j]
+    src = (b + first) * (mp * mp) + (wp + i) * mp + (wp + j)
+    del b, within, i, j, row
+    # by entry (a stable sort keeps the children's order), rank within the entry
+    order = np.argsort(dst, kind="stable")
+    dst, src = dst[order], src[order]
+    heads = np.flatnonzero(np.r_[True, dst[1:] != dst[:-1]])
+    count = np.diff(np.r_[heads, dst.size])
+    rank = np.arange(dst.size) - np.repeat(heads, count)
+    # most sources first: the few entries with several, then the rest in order
+    many = np.flatnonzero(count > 1)
+    by = np.r_[many[np.argsort(-count[many], kind="stable")], np.flatnonzero(count == 1)]
+    place = np.empty(heads.size, np.int64)
+    place[by] = np.arange(heads.size)
+    kmax = int(count.max())
+    longer = heads.size - np.r_[0, np.cumsum(np.bincount(count, minlength=kmax + 1))[1:kmax]]
+    ptr = np.r_[0, np.cumsum(longer)]
+    out_dst = np.empty(heads.size, np.int64)
+    out_dst[place] = dst[heads]
+    out_src = np.empty(src.size, np.int64)
+    out_src[ptr[rank] + np.repeat(place, count)] = src
+    base = int(out_dst.min())
+    if int(out_dst.max()) - base >= 2**31 or nf * mp * mp >= 2**31 or out_src.size >= 2**31:
+        return None
+    return (base, (out_dst - base).astype(np.int32), out_src.astype(np.int32),
+            ptr.astype(np.int32))
+
+
+def add_regime(nf: int, rp: int, most_children: int, list_words: Optional[int]) -> str:
+    """The extend-add kernel's regime for a group of ``nf`` fronts with
+    ``rp`` update rows, at most ``most_children`` of them under one parent,
+    whose gather lists take ``list_words`` 4-byte words (None: not made, or
+    past 32-bit offsets): ``gather`` where the row regime would walk
+    ``GATHER_KIDS`` or more children of a parent one after the other, for
+    corners of at most ``GATHER_RP`` rows whose lists fit in ``GATHER_CAP``
+    words a corner entry (the padded corners' ``nf * rp^2``); else ``rows``.
+    The lists cost host time at analysis and device memory beside the pool,
+    so the groups whose rows the row regime adds well keep it."""
+    if (list_words is not None and 0 < rp <= GATHER_RP and most_children >= GATHER_KIDS
+            and list_words <= GATHER_CAP * nf * rp * rp):
+        return "gather"
+    return "rows"
+
+
 def build_frontal_plan(part: SupernodePartition, itemsize: int = 4,
-                       max_pool_bytes: Optional[int] = None) -> FrontalPlan:
+                       max_pool_bytes: Optional[int] = None,
+                       gather: bool = True) -> FrontalPlan:
     """Vectorized host analysis: pool layout, assembly scatter, extend-add
-    positions, level/bucket grouping, the solves' index arrays.
+    positions and regimes (with the gather lists), level/bucket grouping,
+    the solves' index arrays.
 
     ``max_pool_bytes`` caps the flat pool of ``itemsize``-byte values; a pool
-    past it raises ``MemoryError`` naming the size needed (None: no cap)."""
+    past it raises ``MemoryError`` naming the size needed (None: no cap).
+    ``gather=False`` makes no gather lists: every group's extend-add takes
+    the row regime (the subtree-sharded plan, which splits the groups)."""
     n, nsn = part.n, part.nsn
     sp = part.snode_ptr
     w = np.diff(sp).astype(np.int64)
@@ -358,11 +455,21 @@ def build_frontal_plan(part: SupernodePartition, itemsize: int = 4,
         seg_ptr = np.r_[cut, nf].astype(np.int32) if cut.size else np.zeros(1, np.int32)
         red_rows, red_ptr, red_src, red_bins = reduction_csr(rsx, n)
         regime, tiles = sweep_regime(nf, gwp, grp_)
+        lists, add = None, "rows"
+        most = int(np.diff(seg_ptr).max(initial=0))
+        if gather and add_regime(nf, grp_, most, 0) == "gather":  # the lists could pay
+            used = (lp[nroot:] >= 0).sum(1).astype(np.int64)
+            if int((used * used).sum()) < GATHER_CAP * nf * grp_ * grp_:  # can fit at all
+                lists = gather_lists(lp, poff, pmp, seg_ptr, gwp, grp_)
+                if lists is not None:
+                    add = add_regime(nf, grp_, most, sum(int(x.size) for x in lists[1:]))
         groups.append(_Group(
             level=int(level[sel[0]]), wp=gwp, rp=grp_, snodes=sel, g0=int(off[sel[0]]),
             piv=piv, rsx=rsx, lp=lp, poff=poff, pmp=pmp, seg_ptr=seg_ptr,
             red_rows=red_rows, red_ptr=red_ptr, red_src=red_src, red_bins=red_bins,
-            regime=regime, tiles=tiles))
+            regime=regime, tiles=tiles, add=add,
+            **(dict(zip(("ga_base", "ga_dst", "ga_src", "ga_ptr"), lists))
+               if add == "gather" else {})))
 
     return FrontalPlan(part=part, pool_size=pool_size, off=off, wp=wp, rp=rp,
                        asm_dst=asm_dst, asm_nz=np.flatnonzero(f.data), ones_dst=ones_dst,
@@ -423,7 +530,7 @@ def extend_add_plain(pool: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
     ``parent[lp[b, i], lp[b, j]] += F_b[wp + i, wp + j]`` over the update rows
     in use, flushed under ``flush``. Round k adds the k-th child of every
     parent: no two fronts of a round share a destination, and a parent gets
-    its children in the kernel's order."""
+    its children in the kernel's order (in either of its regimes)."""
     if seg_ptr.numel() < 2 or rp == 0:
         return
     mp = wp + rp
@@ -445,19 +552,31 @@ def extend_add_plain(pool: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
 
 def extend_add(pool: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
                lp: torch.Tensor, poff: torch.Tensor, pmp: torch.Tensor,
-               seg_ptr: torch.Tensor, flush: bool = False) -> None:
+               seg_ptr: torch.Tensor, flush: bool = False, gather=None) -> None:
     """Add the Schur corners of one group's fronts into their parent fronts,
     in place in ``pool``; see :func:`extend_add_plain` for the function and
     :class:`_Group` for the index arrays.
 
-    On a CUDA device this is one launch of the extend-add kernel on the
-    current stream (none for a group without parents); it raises if the
-    inputs do not fit the kernel or the launch fails. On the CPU it runs the
-    plain version. Either way a parent's children are added in pool order."""
+    ``gather`` is the group's ``(base, dst, src, ptr)`` from
+    :func:`gather_lists` as tensors on the pool's device (the plan's
+    ``on_device(...)[g]["gather"]``), or None. On a CUDA device this is one
+    launch of the extend-add kernel on the current stream (none for a group
+    without parents): its gather regime over the lists where they are given,
+    else its row regime; it raises if the inputs do not fit the kernel or
+    the launch fails. On the CPU it runs the plain version. Either way a
+    parent's entries get their children's values in pool order, so the two
+    regimes give the same bits."""
     nseg = int(seg_ptr.numel()) - 1
     _check_group(pool, g0, nf, wp, rp, lp=(lp, (nf, rp), torch.int32),
                  poff=(poff, (nf,), torch.int64), pmp=(pmp, (nf,), torch.int32),
                  seg_ptr=(seg_ptr, (nseg + 1,), torch.int32))
+    if gather is not None:
+        base, dst, src, ptr = gather
+        _check_group(pool, g0, nf, wp, rp, dst=(dst, (dst.numel(),), torch.int32),
+                     src=(src, (src.numel(),), torch.int32),
+                     ptr=(ptr, (ptr.numel(),), torch.int32))
+        if ptr.numel() < 2 or dst.numel() < 1 or int(base) < 0:
+            raise ValueError("gather lists need at least one entry and one rank, and base >= 0")
     if pool.device.type == "cpu":
         return extend_add_plain(pool, g0, nf, wp, rp, lp, poff, pmp, seg_ptr, flush)
     if pool.device.type != "cuda":
@@ -466,9 +585,13 @@ def extend_add(pool: torch.Tensor, g0: int, nf: int, wp: int, rp: int,
         return
     name = f"respa_extend_add_{_instance(pool, flush)}"
     tiles = max(1, min(512, rp // 8))  # 8 warps a block: one row a warp up to rp = 4096
+    lists = (0, 0, 0, None, None, None) if gather is None else (
+        int(gather[0]), int(gather[1].numel()), int(gather[3].numel()) - 1,
+        gather[1].data_ptr(), gather[2].data_ptr(), gather[3].data_ptr())
     rc = getattr(_library(), name)(
         pool.device.index, pool.data_ptr(), g0, nf, wp, rp, lp.data_ptr(),
         poff.data_ptr(), pmp.data_ptr(), seg_ptr.data_ptr(), nseg, tiles,
+        _ADD_REGIMES["rows" if gather is None else "gather"], *lists,
         torch.cuda.current_stream(pool.device).cuda_stream)
     _launched(name, rc)
 
@@ -817,7 +940,7 @@ def frontal_factor_pool(plan: FrontalPlan, dtype: torch.dtype = torch.float32,
     for g, dg in zip(plan.groups, plan.on_device(device)):
         counts.append(factor_group(pool, g.g0, g.nfronts, g.wp, g.rp, pivot_eps, flush).sum())
         extend_add(pool, g.g0, g.nfronts, g.wp, g.rp, dg["lp"], dg["poff"], dg["pmp"],
-                   dg["seg_ptr"], flush)
+                   dg["seg_ptr"], flush, dg["gather"])
     nbad = int(torch.stack(counts).sum()) if counts else 0
     return pool, nbad
 

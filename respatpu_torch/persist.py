@@ -33,7 +33,7 @@ import torch
 from . import solve as slv
 from .analysis import apply_matching_scaling, permute_csr
 from .formats import CSRMatrix
-from .kernels.bandlu import DeviceBand
+from .kernels.bandlu import DeviceBand, with_inverses
 from .kernels.snlu import analyze_supernodes
 from .kernels.snlu_device import FrontalSolver, build_frontal_plan
 from .precision import FP32, Policy, get_policy
@@ -164,8 +164,10 @@ def load_band_factorization(path: str, a: CSRMatrix,
     _check_matrix_binding(meta, a, path)
     policy = get_policy(meta["policy"])
     data = torch.from_numpy(z["band0"]).to(policy.dtype).contiguous().to(torch.device(device))
-    lu = DeviceBand(n=int(meta["n"]), p=int(meta["p"]), ml=int(meta["ml"]), mu=int(meta["mu"]),
-                    policy=policy, data=data)
+    # the inverses of the diagonal triangles K2 applies are not in the file:
+    # they are made anew from the loaded factor
+    lu = with_inverses(DeviceBand(n=int(meta["n"]), p=int(meta["p"]), ml=int(meta["ml"]),
+                                  mu=int(meta["mu"]), policy=policy, data=data))
     return LoadedBandLu(a, np.asarray(z["perm"]), lu, _report(meta, path))
 
 

@@ -1,6 +1,8 @@
 """The port's band LU (``respatpu_torch.kernels.bandlu``) against respatpu's
 on the same inputs, on the CPU: the wrappers run their kernels' plain
 versions here, respatpu runs under CPU JAX as ``tests/test_bandlu.py`` does."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,8 +17,9 @@ from respatpu.precision import df_from_f64, df_to_f64
 from respatpu_torch.interop import (band_from_respatpu, band_to_numpy, csr_from_respatpu,
                                     df_to_numpy)
 from respatpu_torch import solve as tsolve
+from respatpu_torch.bench import synth
 from respatpu_torch.kernels import bandlu
-from respatpu_torch.precision import FP32_MIN_NORMAL
+from respatpu_torch.precision import FP32_MIN_NORMAL, get_policy
 
 PACK = {"random_banded": lambda: random_banded(100, 6, 4, seed=1),
         "laplacian_2d": lambda: laplacian_2d(16, 12),
@@ -374,6 +377,18 @@ def test_wrappers_refuse_what_does_not_fit():
         multi(good, forward=False, first_row=1)
     with pytest.raises(ValueError, match="first_row"):
         bandlu.band_solve(lu, torch.zeros(64), first_row=1)
+    # K2 applies the inverses of the diagonal triangles: a band without them,
+    # or with inverses of another type or shape, is refused, never solved by
+    # substitution
+    for inv, err, match in ((None, ValueError, "no inverses"),
+                            (lu.inv.double(), TypeError, "inverses must be torch.float32"),
+                            (lu.inv[:-1].contiguous(), ValueError, "inverses must be contiguous"),
+                            (lu.inv.transpose(2, 3), ValueError, "inverses must be contiguous")):
+        with pytest.raises(err, match=match):
+            bandlu.band_sweep(dataclasses.replace(lu, inv=inv), torch.zeros(64), True)
+    with pytest.raises(TypeError, match="inverses must be torch.float64"):  # re-typed, not remade
+        bandlu.band_solve(dataclasses.replace(lu, policy=get_policy("fp64"),
+                                              data=lu.data.double()), torch.zeros(64).double())
     wide = csr_from_respatpu(random_banded(300, 150, 5, seed=3))
     big = bandlu.band_lu(bandlu.csr_to_device_band(wide, "fp32", "cpu", p=144)).lu
     with pytest.raises(ValueError, match="lu.p"):
@@ -381,3 +396,59 @@ def test_wrappers_refuse_what_does_not_fit():
     with pytest.raises(ValueError, match="lu.p"):
         bandlu.band_solve_transpose(big, torch.zeros(300))
     assert set(bandlu.LAUNCHES.values()) == {0}  # nothing on the CPU counts as a launch
+
+
+SWEEP_TOL = {"fp32": 2e-5, "fp32_ftz": 2e-5, "bf16": 2e-5, "fp64": 1e-12}
+
+
+def test_band_lu_inverses_are_the_diagonal_triangles_inverses():
+    """``band_lu`` keeps the inverses of every block row's diagonal
+    triangles (``lu.inv``: unit lower ``L_rr^-1``, upper ``U_rr^-1``) in the
+    accumulator type, flushed under fp32_ftz: each times its triangle is the
+    identity, and the sweeps K2 makes of them (``out[r] = D_r^-1 acc``, here
+    in torch ops) reproduce ``band_sweep_plain``'s substitution within the
+    sweep tolerance, on the card tests' sweep cases in every policy;
+    ``with_inverses`` makes the same inverses anew, bit for bit."""
+    cases = [(synth.random_banded(100, 30, 6, seed=1), 128),
+             (synth.skew_banded(500, 70, 20, 7, seed=2), 16),
+             (synth.random_banded(100, 99, 10, seed=4), 16),
+             (synth.laplacian_2d(40, 23), 32),
+             (synth.random_banded(1000, 300, 9, seed=5), 128)]
+    rng = np.random.default_rng(3)
+    for a, p in cases:
+        for policy, tol in SWEEP_TOL.items():
+            lu = bandlu.band_lu(bandlu.csr_to_device_band(a, policy, "cpu", p=p)).lu
+            acc = lu.policy.accum_dtype
+            assert lu.inv.dtype == acc and lu.inv.shape == (lu.nb, 2, p, p)
+            assert lu.inv.is_contiguous()
+            assert torch.equal(bandlu.with_inverses(lu).inv, lu.inv)
+            d = lu.data[:, :, lu.ml * p:(lu.ml + 1) * p].double()
+            lower = torch.tril(d, -1) + torch.eye(p, dtype=torch.float64)
+            upper = torch.triu(d)
+            eye = torch.eye(p, dtype=torch.float64).expand_as(d)
+            ident = 1e-12 if policy == "fp64" else 1e-5
+            for k, tri in ((0, lower), (1, upper)):
+                got = lu.inv[:, k].double() @ tri
+                scale = lu.inv[:, k].double().abs().amax((1, 2)) * tri.abs().amax((1, 2))
+                assert bool(((got - eye).abs().amax((1, 2)) <= ident * p * scale).all()), \
+                    (policy, p, k)
+            if lu.policy.flush_to_zero:
+                tiny = torch.finfo(torch.float32).tiny
+                assert not bool(((lu.inv != 0) & (lu.inv.abs() < tiny)).any())
+            b = torch.from_numpy(rng.standard_normal(lu.nb * p)).to(acc)
+            for fwd in (True, False):
+                out = torch.zeros_like(b)
+                w = lu.ml if fwd else lu.mu
+                for r in (range(lu.nb) if fwd else range(lu.nb - 1, -1, -1)):
+                    k = min(w, r) if fwd else min(w, lu.nb - 1 - r)
+                    row = lu.data[r].to(acc)
+                    if fwd:
+                        panel, prev = row[:, (lu.ml - k) * p:lu.ml * p], out[(r - k) * p:r * p]
+                    else:
+                        panel = row[:, (lu.ml + 1) * p:(lu.ml + 1 + k) * p]
+                        prev = out[(r + 1) * p:(r + 1 + k) * p]
+                    rhs = b[r * p:(r + 1) * p] - (panel @ prev if k else 0)
+                    out[r * p:(r + 1) * p] = lu.inv[r, 0 if fwd else 1] @ rhs
+                ref = bandlu.band_sweep_plain(lu, b, fwd)
+                err = float((out - ref).abs().max() / ref.abs().max())
+                assert err <= tol, (policy, p, fwd, err)

@@ -166,20 +166,29 @@ SWEEP_CASES = ["one_block_row", "ml_ne_mu", "ml_eq_nb", "laplacian_2d", "banded_
 @pytest.mark.parametrize("name", SWEEP_CASES)
 def test_band_sweep_matches_plain(card, name, policy):
     """The forward and the backward sweep, each direction named in its
-    message."""
+    message; on the factor, and on the factor with perturbed pivots planted
+    in its diagonal blocks (``U_rr``'s diagonal at +-eps, as ``band_lu``
+    leaves a pivot it perturbs, the inverses made anew)."""
     a, p = _sweep_matrix(name)
     lu = B.band_lu(B.csr_to_device_band(a, policy, card, p=p)).lu
+    planted = lu.data.clone()
+    eps = (1e-13 if policy == "fp64" else 1e-4) * float(lu.data.abs().max())
+    for k, (r, i) in enumerate(((0, 1), (lu.nb // 2, p // 2), (lu.nb - 1, p - 3))):
+        planted[r, i, lu.ml * p + i] = eps if k % 2 else -eps
+    bands = (lu, B.with_inverses(dataclasses.replace(lu, data=planted)))
     b = torch.from_numpy(np.random.default_rng(3).standard_normal(lu.nb * p))
     b = b.to(lu.policy.accum_dtype).to(card)
-    for fwd in (True, False):
-        key = f"respa_band_sweep_{'fwd' if fwd else 'bwd'}_{TOL_INST[policy]}"
-        before = B.LAUNCHES[key]
-        y = B.band_sweep(lu, b, fwd)
-        torch.cuda.synchronize()
-        assert B.LAUNCHES[key] == before + 1, key
-        ref = B.band_sweep_plain(lu, b, fwd)
-        assert float((y - ref).abs().max() / ref.abs().max()) <= SWEEP_TOL[policy], key
-        assert torch.equal(y, B.band_sweep(lu, b, fwd)), key
+    for band, what in zip(bands, ("factor", "perturbed pivots")):
+        for fwd in (True, False):
+            key = f"respa_band_sweep_{'fwd' if fwd else 'bwd'}_{TOL_INST[policy]}"
+            before = B.LAUNCHES[key]
+            y = B.band_sweep(band, b, fwd)
+            torch.cuda.synchronize()
+            assert B.LAUNCHES[key] == before + 1, key
+            ref = B.band_sweep_plain(band, b, fwd)
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err <= SWEEP_TOL[policy], (key, what, err)
+            assert torch.equal(y, B.band_sweep(band, b, fwd)), (key, what)
 
 
 @pytest.mark.parametrize("name", SWEEP_CASES)
@@ -321,6 +330,12 @@ def test_band_wrappers_reject_bad_input(card):
         B.band_sweep(lu, torch.zeros(2 * lu.nb * 16, device=card)[::2], True)
     with pytest.raises(ValueError):  # the band's type must be the policy's
         B.band_sweep(dataclasses.replace(lu, data=lu.data.double()), good, True)
+    with pytest.raises(ValueError, match="no inverses"):  # never substitution instead
+        B.band_sweep(dataclasses.replace(lu, inv=None), good, True)
+    with pytest.raises(TypeError, match="inverses must be"):
+        B.band_sweep(dataclasses.replace(lu, inv=lu.inv.double()), good, True)
+    with pytest.raises(ValueError, match="inverses must be"):
+        B.band_sweep(dataclasses.replace(lu, inv=lu.inv[:, :1].contiguous()), good, True)
     blocks = torch.eye(16, device=card).repeat(2, 1, 1)
     with pytest.raises(ValueError):  # last stride must be 1
         B.block_lu(blocks.transpose(1, 2).contiguous().transpose(1, 2), 1e-4)
@@ -357,13 +372,14 @@ FRONT_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 # solves; a panel over 10 tiles; wide fronts, without update rows too
 FRONT_SHAPES = [(1, 8, 8, 1), (700, 8, 16, 2), (3, 24, 0, 0), (6, 24, 32, 4),
                 (5, 128, 48, 3), (2, 48, 640, 1), (2, 192, 96, 1), (1, 200, 0, 0),
-                (3, 300, 70, 2)]
+                (3, 300, 70, 2), (180, 8, 16, 1)]  # the last a hub: 180 children of one parent
 
 
 def _front_group(shape, dtype, card):
     g = synth.frontal_group(*shape, seed=sum(shape))
     t = {k: torch.from_numpy(v).to(card) for k, v in g.items() if isinstance(v, np.ndarray)}
     t["pool"], t["y"] = t["pool"].to(dtype), t["y"].to(dtype)
+    t["ga_base"] = torch.tensor(g.get("ga_base", 0))  # a host scalar
     return t
 
 
@@ -386,15 +402,21 @@ def _check_frontal_kernels(card, shape, inst):
     t = _front_group(shape, dtype, card)
     grp = (0, nf, wp, rp)
     before = dict(F.LAUNCHES)
-    if npar:
+    if npar:  # both regimes (the gather lists up to GATHER_RP rows) and the rows
         idx = (t["lp"], t["poff"], t["pmp"], t["seg_ptr"])
-        out = [t["pool"].clone() for _ in range(3)]
-        F.extend_add(out[0], *grp, *idx, flush)
-        F.extend_add(out[1], *grp, *idx, flush)
-        F.extend_add_plain(out[2], *grp, *idx, flush)
-        torch.cuda.synchronize()
-        assert torch.equal(out[0], out[1]) and torch.equal(out[0], out[2])
-        assert F.LAUNCHES[f"respa_extend_add_{inst}"] == before[f"respa_extend_add_{inst}"] + 2
+        ref = t["pool"].clone()
+        F.extend_add_plain(ref, *grp, *idx, flush)
+        regimes = [None]
+        if "ga_dst" in t:
+            regimes.insert(0, (t["ga_base"], t["ga_dst"], t["ga_src"], t["ga_ptr"]))
+        for lists in regimes:
+            out = [t["pool"].clone() for _ in range(2)]
+            F.extend_add(out[0], *grp, *idx, flush, lists)
+            F.extend_add(out[1], *grp, *idx, flush, lists)
+            torch.cuda.synchronize()
+            assert torch.equal(out[0], out[1]) and torch.equal(out[0], ref), lists is None
+        assert F.LAUNCHES[f"respa_extend_add_{inst}"] == \
+            before[f"respa_extend_add_{inst}"] + 2 * len(regimes)
     for fwd in (True, False):
         name = f"respa_front_sweep_{'fwd' if fwd else 'bwd'}_{inst}"
         ys = [t["y"].clone() for _ in range(3)]

@@ -23,7 +23,9 @@ from respatpu_torch.precision import FP32_MIN_NORMAL
 # without update rows; wp = 24; the widest a sweep block solves; wider
 SHAPES = [(1, 8, 8, 1), (40, 8, 16, 2), (3, 24, 0, 0), (6, 24, 32, 4), (5, 128, 48, 3),
           (2, 192, 96, 1)]
-WITH_PARENTS = [s for s in SHAPES if s[3]]
+# a hub: 120 children of 16 update rows under one parent of 40, sharing entries
+HUB = (120, 8, 16, 1)
+WITH_PARENTS = [s for s in SHAPES if s[3]] + [HUB]
 DTYPES = [torch.float32, torch.float64]
 # kernel arithmetic in fp32 against numpy in fp64; fp64 against fp64
 TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
@@ -53,7 +55,8 @@ def test_extend_add_is_the_dense_scatter(shape, dtype):
     g, t = _group(shape, dtype)
     nf, wp, rp = shape[:3]
     pool = t["pool"].clone()
-    dev.extend_add(pool, 0, nf, wp, rp, t["lp"], t["poff"], t["pmp"], t["seg_ptr"])
+    dev.extend_add(pool, 0, nf, wp, rp, t["lp"], t["poff"], t["pmp"], t["seg_ptr"],
+                   gather=(g["ga_base"], t["ga_dst"], t["ga_src"], t["ga_ptr"]))
     ref = t["pool"].numpy().copy()
     for b in range(nf):
         lp = g["lp"][b][g["lp"][b] >= 0]
@@ -175,6 +178,74 @@ def test_sweep_regime_and_tiles_follow_the_group_shape():
             assert (g.regime == "wide") == (g.wp > dev.MAX_TRI)
             assert g.regime != "warp" or (g.wp <= 32 and g.tiles == 1)
             assert g.tiles == 1 or g.rp >= g.tiles * dev.TILE_ROWS
+
+
+def test_gather_lists_cover_every_corner_entry_once_in_child_order():
+    """The extend-add's gather lists, made at plan time: every corner entry
+    in use of a front with a parent is one source, once, of the parent entry
+    it adds into; an entry's sources come in plan order (rank k is its k-th
+    child), the entries ordered by their number of sources, most first.
+    Walking the lists as the kernel does (an entry's sources added one after
+    the other, in rank order) gives the plain version's pool bit for bit.
+    The regime follows the group's shape: gather where a parent has
+    ``GATHER_KIDS`` or more children in the group, for corners of at most
+    ``GATHER_RP`` rows whose lists fit ``GATHER_CAP`` words a corner entry,
+    rows otherwise; every group of a plan carries it."""
+    for shape in WITH_PARENTS:
+        g = frontal_group(*shape, seed=2)
+        nf, wp, rp = shape[:3]
+        mp = wp + rp
+        base, dst, src, ptr = g["ga_base"], g["ga_dst"], g["ga_src"], g["ga_ptr"]
+        lens = np.diff(ptr)
+        assert (lens[:-1] >= lens[1:]).all() and lens[0] == dst.size == np.unique(dst).size
+        want = {}
+        for b in range(nf):
+            l = g["lp"][b][g["lp"][b] >= 0]
+            for i, li in enumerate(l):
+                for j, lj in enumerate(l):
+                    at = int(g["poff"][b] + li * g["pmp"][b] + lj)
+                    want.setdefault(at, []).append(b * mp * mp + (wp + i) * mp + wp + j)
+        got = {}
+        for k in range(lens.size):
+            for d in range(lens[k]):
+                got.setdefault(int(base + dst[d]), []).append(int(src[ptr[k] + d]))
+        assert got == want, shape  # each source once, in the children's order
+        assert src.size == sum(len(v) for v in want.values())
+        pool = g["pool"].astype(np.float32)
+        ref = torch.from_numpy(pool.copy())
+        t = {k: torch.from_numpy(v) for k, v in g.items() if isinstance(v, np.ndarray)}
+        dev.extend_add_plain(ref, 0, nf, wp, rp, t["lp"], t["poff"], t["pmp"], t["seg_ptr"])
+        walked = pool.copy()
+        for at, sources in got.items():
+            v = walked[at]
+            for s_ in sources:
+                v = np.float32(v + pool[s_])
+            walked[at] = v
+        assert walked.tobytes() == ref.numpy().tobytes(), shape
+    # dc1's populous group: 10,681 fronts, at most 167 children a parent
+    assert dev.add_regime(10681, 16, 167, 2 * 10681 * 256) == "gather"
+    assert dev.add_regime(10681, 16, 167, 2 * 10681 * 256 + 1) == "rows"
+    assert dev.add_regime(10681, 16, dev.GATHER_KIDS - 1, 10) == "rows"
+    assert dev.add_regime(2, dev.GATHER_RP * 2, 10, 10) == "rows"
+    assert dev.add_regime(5, 8, 10, None) == "rows"
+    regimes = set()
+    # the test plans, and a circuit whose lowest level has parents of 17-40 children
+    for make in (*MATRICES.values(), lambda: circuit_like(3000, 6, seed=2)):
+        plan = dev.build_frontal_plan(snlu.analyze_supernodes(csr_from_respatpu(make())))
+        for g in plan.groups:
+            regimes.add(g.add)
+            lists = (dev.gather_lists(g.lp, g.poff, g.pmp, g.seg_ptr, g.wp, g.rp)
+                     if g.seg_ptr.size > 1 and g.rp else None)
+            words = None if lists is None else sum(int(x.size) for x in lists[1:])
+            most = int(np.diff(g.seg_ptr).max(initial=0))
+            assert g.add == (dev.add_regime(g.nfronts, g.rp, most, words) if lists else "rows")
+            kept = (g.ga_base, g.ga_dst, g.ga_src, g.ga_ptr)
+            if g.add == "gather":
+                assert kept[0] == lists[0]
+                assert all(np.array_equal(x, y) for x, y in zip(kept[1:], lists[1:]))
+            else:
+                assert g.ga_dst.size == g.ga_src.size == g.ga_ptr.size == 0
+    assert regimes == {"gather", "rows"}
 
 
 def test_reduction_bins_cover_every_row_once_in_plan_order():
