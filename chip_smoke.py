@@ -37,8 +37,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bitwise equal; the same bands through K10 (several right-hand sides, 37
    of them, tiles of 32 columns, against ``band_sweep_plain``; from
    ``first_row`` bit for bit with the sweep from row 0) and K11 (the
-   transposed sweeps, against
-   ``band_sweep_t_plain``), each twice bit for bit;
+   transposed sweeps, against ``band_sweep_t_plain``, on each band and with
+   the perturbed pivots), each twice bit for bit;
 6. direct path at full width: ``factorize(a, "fp32", method="auto")`` and
    ``solve_refined`` on the 2cubes_sphere stand-in at catalogue size, with
    the launch counts of the block-LU, sweep and fp64 SpMV kernels, the host
@@ -138,8 +138,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and in fp64, its phase times, fill, pairs, levels, pivots and the ragged
    against the padded pair lists; ``auto`` reaching its third step on a grid
    that band and the multifrontal LU are made to refuse; beside the path,
-   ``condest`` once and K8 bit for bit with plain on the filled pattern,
-   timed;
+   ``condest`` once and K8 bit for bit with plain on the filled pattern in
+   every instance, timed beside its byte and chain bounds and in us a level;
 12. the DIA path: ``sweep_spmv`` on the ecology2 and tmt_unsym stand-ins at
    catalogue size through ``fmt="auto"`` (DIA, K9 in ``kernels/csrc/dia.cu``)
    with fp64 and each low precision, past the DIA byte gate, with the launch
@@ -206,21 +206,23 @@ shapes, with K6 beside its other designs (``bench/csrc/ilu0_designs.cu``:
 evict-first or plain loads, the first version, warp-cooperative gathers;
 each == plain bit for bit) in 3 rounds (:func:`time_ilu_alone`);
 ``python3 chip_smoke.py --splu-times`` times K8 at the path's two shapes
-with its plan cut into runs of long entries of several sizes
-(:func:`time_splu_alone`);
+with its plan cut at several pair budgets (:func:`time_splu_alone`);
 ``python3 chip_smoke.py --ilu-rows TREE ...`` runs only the 2cubes_sphere
 ``sweep_ilu0`` rows at 30 sweeps of each tree in turn
 (:func:`ilu_rows_in_turns`), to compare two commits on one card in one call;
 ``python3 chip_smoke.py --upload-times TREE ...`` times each tree's upload of
-the offshore and ecology2 stand-ins the same way (:func:`upload_times_in_turns`).
+the offshore and ecology2 stand-ins the same way (:func:`upload_times_in_turns`);
+``python3 chip_smoke.py --phase-times TREE ...`` times phases 6, 10 and 11 of
+each tree the same way (:func:`phase_times_in_turns`).
 ``python3 chip_smoke.py --dist`` builds the kernels and runs phase 15 alone;
 ``python3 chip_smoke.py --band`` builds them (and the probes) and runs K1's,
 K10's and K11's checks and phase 6 alone;
 ``python3 chip_smoke.py --ranks`` builds them, runs phase 15's shared path
 on one process for the reference, and then phase 16;
-``python3 chip_smoke.py --before`` builds them and the probes and times K2
-and K3 beside their first versions in turns (:func:`before_path`), and
-traces each warm factorization with the first versions of K1 and K3 in
+``python3 chip_smoke.py --before`` builds them and the probes and times K8
+beside its first version at the Laplacian's fill and 2cubes_sphere's ILU(0),
+and K2, K11 and K3 beside their first versions, in turns (:func:`before_path`),
+and traces each warm factorization with the first versions of K1 and K3 in
 their place and with the package's.
 """
 import contextlib
@@ -228,6 +230,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -895,7 +898,9 @@ def check_band_multi(errs):
 @held
 def check_band_t(errs):
     """K11 against ``band_sweep_t_plain`` on the sweep cases in every
-    instance, forward (U^T) and backward (L^T), each twice bit for bit."""
+    instance, forward (U^T) and backward (L^T), each twice bit for bit, on
+    each factored band and on it with perturbed pivots planted in its
+    diagonal blocks (``planted_pivots``: K11 applies their inverses too)."""
     for cname, a, p in sweep_cases():
         for policy in SWEEP_TOL:
             lu = B.band_lu(B.csr_to_device_band(a, policy, "cuda", p=p)).lu
@@ -903,21 +908,25 @@ def check_band_t(errs):
             b = b.to(lu.policy.accum_dtype).cuda()
             if policy == "fp32_ftz":
                 b[::7] = 1e-40
-            worst = 0.0
-            for fwd in (True, False):
-                name = f"respa_band_sweep_t_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
-                y = B.band_sweep_t(lu, b, fwd)
-                torch.cuda.synchronize()
-                ref = B.band_sweep_t_plain(lu, b, fwd)
-                err = float((y - ref).abs().max() / ref.abs().max())
-                if not (err <= SWEEP_TOL[policy]) or \
-                        not torch.equal(bits(y), bits(B.band_sweep_t(lu, b, fwd))):
-                    raise AssertionError(f"{name} {cname}: err {err:.3e} or not reproducible")
-                errs[name] = max(errs.get(name, 0.0), float((y - ref).abs().max()))
-                worst = max(worst, err)
+            worst = {}
+            for what, band in (("factor", lu), ("perturbed pivots", planted_pivots(lu))):
+                for fwd in (True, False):
+                    name = f"respa_band_sweep_t_{'fwd' if fwd else 'bwd'}_{INST[policy]}"
+                    y = B.band_sweep_t(band, b, fwd)
+                    torch.cuda.synchronize()
+                    ref = B.band_sweep_t_plain(band, b, fwd)
+                    err = float((y - ref).abs().max() / ref.abs().max())
+                    if not (err <= SWEEP_TOL[policy]) or \
+                            not torch.equal(bits(y), bits(B.band_sweep_t(band, b, fwd))):
+                        raise AssertionError(f"{name} {cname} {what}: err {err:.3e} or not "
+                                             "reproducible")
+                    if what == "factor":
+                        errs[name] = max(errs.get(name, 0.0), float((y - ref).abs().max()))
+                    worst[what] = max(worst.get(what, 0.0), err)
             print(f"[kernel] band_sweep_t {cname:14s} {policy:8s} n={a.nrows} P={p} nb={lu.nb} "
-                  f"ml={lu.ml} mu={lu.mu}: rel_err={worst:.3e} (tol {SWEEP_TOL[policy]:.0e}) "
-                  f"bitwise twice", flush=True)
+                  f"ml={lu.ml} mu={lu.mu}: rel_err={worst['factor']:.3e}, with perturbed pivots "
+                  f"{worst['perturbed pivots']:.3e} (tol {SWEEP_TOL[policy]:.0e}), bitwise twice",
+                  flush=True)
 
 
 @contextlib.contextmanager
@@ -2008,6 +2017,129 @@ def k2_against_first(name_limit, lu, policy, probes):
 
 
 @held
+def k11_against_first(name_limit, lu, policy, probes):
+    """``--before``: K11 beside its first version (the probes'
+    ``respa_band_sweep_t_before_*``, substitution in place of the inverses)
+    on one factored band, both sweeps, in turns, as :func:`k2_against_first`
+    times K2; both held within ``SWEEP_TOL`` of plain."""
+    lu = as_policy(lu, policy)
+    b = torch.ones(lu.nb * lu.p, dtype=lu.policy.accum_dtype, device="cuda")
+    for fwd in (True, False):
+        d = "fwd" if fwd else "bwd"
+        first = getattr(probes, f"respa_band_sweep_t_before_{d}_{INST[policy]}")
+
+        def old(first=first):
+            out = torch.empty_like(b)
+            mail = torch.zeros(2 * lu.nb * lu.p * (b.element_size() // 4), dtype=torch.int32,
+                               device="cuda")
+            rc = first(lu.device.index, lu.nb, lu.p, lu.ml, lu.mu, lu.data.data_ptr(),
+                       b.data_ptr(), out.data_ptr(), mail.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"K11's first version launch failed: cudaError {rc}")
+            return out
+
+        def new(fwd=fwd):
+            return B.band_sweep_t(lu, b, fwd)
+
+        ref = B.band_sweep_t_plain(lu, b, fwd)
+        errs = {}
+        with uncounted():
+            for who, fn in (("K11", new), ("first version", old)):
+                y = fn()
+                errs[who] = float((y - ref).abs().max() / ref.abs().max())
+                if not errs[who] <= SWEEP_TOL[policy] or not torch.equal(bits(y), bits(fn())):
+                    raise AssertionError(f"{who} {d} {policy}: err {errs[who]:.3e} or not "
+                                         "reproducible")
+            turns = [events_ms(fn, 5) for fn in (new, old, old, new)]
+            prof = (profiler_ms(new, "band_sweep_t_kernel", 5),
+                    profiler_ms(old, "first_k2::band_sweep_t", 5))
+        print(f"[before] {name_limit} | respa_band_sweep_t_{d}_{INST[policy]} nb={lu.nb} "
+              f"P={lu.p} ml={lu.ml} mu={lu.mu}: K11 {min(turns[0], turns[3]):.4f} ms by events "
+              f"({fmt_ms(prof[0])} by the profiler) against its first version "
+              f"{min(turns[1], turns[2]):.4f} ms ({fmt_ms(prof[1])}), in turns "
+              f"{', '.join(f'{t:.4f}' for t in turns)}; rel_err vs plain {errs['K11']:.2e} "
+              f"against {errs['first version']:.2e}", flush=True)
+
+
+def first_k8_tasks(plan):
+    """K8's first plan of the same positions: up to TASK_ENTRIES short
+    entries of a level from its start, and runs of a level's long entries cut
+    where the pairs of the long entries before them pass a multiple of 256;
+    its tasks (int32 [ntasks, 4]) and warps (LOOKAHEAD levels' worth)."""
+    lens = np.diff(plan.sched.ptr)
+    long = lens > SP.SHORT
+    level, perm, level_ptr, nlev = plan.levels.astype(np.int64), plan.perm, plan.level_ptr, \
+        plan.nlevels
+    ns = np.bincount(level[~long], minlength=nlev)
+    k = -(-ns // SP.TASK_ENTRIES)
+    lev_s = np.repeat(np.arange(nlev), k)
+    first = np.zeros(nlev + 1, np.int64)
+    np.cumsum(k, out=first[1:])
+    q0s = level_ptr[lev_s] + SP.TASK_ENTRIES * (np.arange(lev_s.size) - first[lev_s])
+    q1s = np.minimum(q0s + SP.TASK_ENTRIES, level_ptr[lev_s] + ns[lev_s])
+    q_long = np.flatnonzero(long[perm])
+    lev_l = level[perm[q_long]]
+    c = lens[perm[q_long]]
+    before = np.cumsum(c) - c
+    before -= before[np.searchsorted(lev_l, lev_l)]
+    cut = before // 256
+    starts = np.flatnonzero(np.r_[q_long.size > 0, (np.diff(lev_l) != 0) | (np.diff(cut) != 0)])
+    ends = np.r_[starts[1:], q_long.size][:starts.size] - 1
+    tasks = np.concatenate([np.stack([q0s, q1s, lev_s, lev_s], 1),
+                            np.stack([q_long[starts], q_long[ends] + 1, lev_l[starts],
+                                      np.full(starts.size, -1)], 1)])
+    tasks = tasks[np.argsort(tasks[:, 0], kind="stable")].astype(np.int32)
+    return tasks, max(32, -(-SP.LOOKAHEAD * len(tasks) // max(nlev, 1)))
+
+
+@held
+def k8_against_first(name_limit, what, plan, d, values, eps, insts, probes):
+    """``--before``: K8 beside its first version (the probes'
+    ``respa_splu_factor_before_*`` on its own plan, :func:`first_k8_tasks`),
+    in turns, on one pattern's plan and values: both bit for bit with plain
+    twice, by events (medians of 5) and the profiler, in ms and in us a
+    level."""
+    old_tasks, old_warps = first_k8_tasks(plan)
+    old_t = torch.from_numpy(old_tasks).cuda()
+    for inst in insts:
+        p = get_policy(ILU_POLICIES[inst])
+        av = p.cast_host(values).cuda()
+
+        def first(fn=getattr(probes, f"respa_splu_factor_before_{inst}")):
+            out = torch.empty_like(av)
+            ctl = torch.zeros(d.levels + 1, dtype=torch.int32, device="cuda")
+            rc = fn(d.device.index, old_t.shape[0], old_warps, old_t.data_ptr(),
+                    d.level_ptr.data_ptr(), d.perm.data_ptr(), d.ptr.data_ptr(),
+                    d.pairs_a.data_ptr(), d.pairs_b.data_ptr(), d.is_lower.data_ptr(),
+                    d.diag_pos_col.data_ptr(), av.data_ptr(), out.data_ptr(), float(eps),
+                    ctl.data_ptr(), ctl.numel(), torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"K8's first version: cudaError {rc}")
+            return out
+
+        fns = {"K8": lambda: SP.splu_factor(d, av, eps, p.flush_to_zero),
+               "first version": first}
+        want = SP.splu_factor_plain(d, av, eps, p.flush_to_zero)
+        with uncounted():
+            for who, fn in fns.items():
+                if not (torch.equal(fn(), want) and torch.equal(fn(), want)):
+                    raise AssertionError(f"K8 {inst} {what}: {who} != plain")
+            order = (*fns, *reversed(fns))
+            turns = [(who, events_ms(fns[who], 5)) for who in order]
+            prof = {who: profiler_ms(fn, "splu_factor_kernel", 5) for who, fn in fns.items()}
+        best = {who: min(t for w, t in turns if w == who) for who in fns}
+        print(f"[before] {name_limit} | respa_splu_factor_{inst} {what} nnz={d.nnz} "
+              f"pairs={d.pairs_a.numel()} levels={d.levels} tasks={d.tasks.shape[0]} (first "
+              f"plan {len(old_tasks)}), budget {plan.budget}: "
+              + "; ".join(f"{who} {best[who]:.4f} ms by events ({fmt_ms(prof[who])} by the "
+                          f"profiler), {best[who] * 1e3 / max(d.levels, 1):.3f} us a level"
+                          for who in fns)
+              + f"; in turns {', '.join(f'{w} {t:.4f}' for w, t in turns)}; all == plain bit "
+              f"for bit twice", flush=True)
+
+
+@held
 def k3_against_first(name_limit, what, fac, probes):
     """``--before``: K3 (each group in its plan's regime) beside its first
     version (the probes' ``respa_extend_add_before_*``) at the groups
@@ -2065,17 +2197,31 @@ def k3_against_first(name_limit, what, fac, probes):
 
 
 def before_path(name_limit, probes):
-    """``--before``: K2 and K3 beside their first versions, in turns, at the
-    main paths' shapes (2cubes_sphere's band factor in every instance; dc1
-    fp32, 2cubes_sphere fp64 and the Laplacian fp32_ftz by snlu), and each
-    warm factorization traced with the first versions of K1 and K3 and with
-    the package's, in one run."""
+    """``--before``: K8 beside its first version at the Laplacian's fill in every instance and at
+    2cubes_sphere's ILU(0) in fp32; K2, K11 and K3 beside their first
+    versions, in turns, at the main paths' shapes (2cubes_sphere's band factor
+    in every instance; dc1 fp32, 2cubes_sphere fp64 and the Laplacian
+    fp32_ftz by snlu), and each warm factorization traced with the first
+    versions of K1 and K3 and with the package's, in one run."""
+    lap = laplacian_2d(300, 300)
+    fill = analysis.symbolic_fill_lu(analysis.permute_csr(lap, analysis.ordering(lap, "fillauto")))
     cubes = corpus.load_matrix("2cubes_sphere")[0]
+    for what, f, insts in (("laplacian_2d(300, 300) fill", fill, tuple(ILU_POLICIES)),
+                           ("2cubes_sphere ILU(0)", cubes, ("f32",))):
+        plan = SP.build_scheduled_lu(f)
+        d = SP.splu_to_device(plan, "cuda")
+        k8_against_first(name_limit, what, plan, d, f.data,
+                         1e-4 * float(np.abs(f.data).max()), insts, probes)
+        del plan, d
+    del fill
+    torch.cuda.empty_cache()
     fac = slv.factorize(cubes, "fp32", method="auto", device="cuda")
     fac64 = slv.factorize(cubes, "fp64", method="auto", device="cuda")
     for policy in ("fp32", "fp32_ftz", "bf16"):
         k2_against_first(name_limit, fac._lu, policy, probes)
+        k11_against_first(name_limit, fac._lu, policy, probes)
     k2_against_first(name_limit, fac64._lu, "fp64", probes)
+    k11_against_first(name_limit, fac64._lu, "fp64", probes)
     with uncounted():
         factor_busy(name_limit, "[before]", "2cubes_sphere fp32 band", fac.refactorize_timed,
                     probes)
@@ -2516,45 +2662,92 @@ def ilu_row(name_limit, name, policy, sweeps, must_converge):
     return row
 
 
+def in_turns(trees, code, timeout, tag=None):
+    """Run ``code`` (``python -c``) in each tree, a process each, in the
+    order given (e.g. parent, this tree, this tree, parent), so that two
+    commits are compared on one card in one call. With ``tag``, a process's
+    output goes to ``output/<tag>_<k>.txt`` and only its lines that
+    start with ``[tag]`` are printed."""
+    for k, tree in enumerate(trees):
+        print(f"[turn] {os.path.abspath(tree)}", flush=True)
+        run = functools.partial(subprocess.run, [sys.executable, "-c", code], cwd=tree,
+                                check=True, timeout=timeout)
+        if tag is None:
+            run()
+            continue
+        os.makedirs("output", exist_ok=True)
+        log = os.path.abspath(os.path.join("output", f"{tag}_{k}.txt"))
+        with open(log, "w") as f:
+            run(stdout=f, stderr=subprocess.STDOUT)
+        with open(log) as f:
+            print("".join(line for line in f if line.startswith(f"[{tag}]")), end="", flush=True)
+
+
 def ilu_rows_in_turns(trees):
     """``python3 chip_smoke.py --ilu-rows TREE ...``: the sweep_ilu0 rows of
     2cubes_sphere at 30 sweeps (fp64 with exact applies, fp32 with Jacobi
-    applies), run by each tree's own ``ilu_row`` in a process of its own, in
-    the order given (e.g. parent, this tree, this tree, parent), each after
+    applies) by each tree's own ``ilu_row``, :func:`in_turns`, each after
     that tree's kernels and host library are built and one preconditioner
     of each policy has been made (first launches and first allocations out
-    of the rows), so that two commits are compared on one card in one
-    call."""
-    code = ("import chip_smoke as c, torch; name = c.card_line(); c._build.load(); "
-            "c.check_parser(); a = c.corpus.load_matrix('2cubes_sphere')[0]; "
-            "[c.slv.Ilu0Preconditioner(a, p, sweeps=1, device='cuda') for p in ('fp64', 'fp32')]; "
-            "torch.cuda.synchronize(); "
-            "[c.ilu_row(name, '2cubes_sphere', p, 30, True) for p in ('fp64', 'fp32')]")
-    for tree in trees:
-        print(f"[rows] {os.path.abspath(tree)}", flush=True)
-        subprocess.run([sys.executable, "-c", code], cwd=tree, check=True, timeout=900)
+    of the rows)."""
+    in_turns(trees, "import chip_smoke as c, torch; name = c.card_line(); c._build.load(); "
+             "c.check_parser(); a = c.corpus.load_matrix('2cubes_sphere')[0]; "
+             "[c.slv.Ilu0Preconditioner(a, p, sweeps=1, device='cuda') for p in ('fp64', 'fp32')]; "
+             "torch.cuda.synchronize(); "
+             "[c.ilu_row(name, '2cubes_sphere', p, 30, True) for p in ('fp64', 'fp32')]", 900)
+
+
+# phases 6, 10 and 11 in a tree: this file's band_phase and splu_phases,
+# defined on the tree's own chip_smoke module (its paths, holds and probes)
+PHASE_TIMES = """
+import time, chip_smoke as c
+exec(SOURCE, vars(c))
+c.count_plain_calls()
+name = c.card_line()
+probes = c.build_probes()
+c._build.load()
+a = c.corpus.load_matrix('2cubes_sphere')[0]
+latency = c.link_probe(name)
+took, mark = {}, [time.perf_counter()]
+
+
+def done(k):
+    took[k], mark[0] = time.perf_counter() - mark[0], time.perf_counter()
+
+
+c.band_phase(name, a, {}, {}, probes)
+done(6)
+c.splu_phases(name, a, latency, probes, done)
+print('[phases] ' + ', '.join(f'phase {k} {v:.1f} s' for k, v in took.items()), flush=True)
+"""
+
+
+def phase_times_in_turns(trees):
+    """``python3 chip_smoke.py --phase-times TREE ...``: phases 6, 10 and 11
+    as :func:`main` runs them (:func:`band_phase`, :func:`splu_phases`) on
+    each tree's own functions, :func:`in_turns`, with their seconds on one
+    line; the other lines go to ``output/phases_<k>.txt``. A tree
+    builds its kernels in its first process."""
+    source = "\n\n".join(inspect.getsource(f) for f in (band_phase, splu_phases))
+    in_turns(trees, f"SOURCE = {source!r}\n{PHASE_TIMES}", 1500, "phases")
 
 
 def upload_times_in_turns(trees):
     """``python3 chip_smoke.py --upload-times TREE ...``: one upload of the
     offshore (CSR) and ecology2 (DIA, where the tree has it) stand-ins by
     each tree's own ``to_device(a, "fp32", "cuda")`` with its default
-    format, in a process of its own, in the order given (e.g. parent, this
-    tree, this tree, parent): host clock to a device synchronize, after one
+    format, :func:`in_turns`: host clock to a device synchronize, after one
     warm upload, 5 times; one JSON line a tree."""
-    code = ("import json, time, torch; from respatpu_torch.bench import corpus; "
-            "from respatpu_torch.kernels.spmv import to_device; out = {}\n"
-            "for m in ('offshore', 'ecology2'):\n"
-            "    a = corpus.load_matrix(m)[0]; to_device(a, 'fp32', 'cuda'); "
-            "torch.cuda.synchronize(); ts = []\n"
-            "    for _ in range(5):\n"
-            "        t0 = time.perf_counter(); d = to_device(a, 'fp32', 'cuda'); "
-            "torch.cuda.synchronize(); ts.append((time.perf_counter() - t0) * 1e3)\n"
-            "    out[m] = {'format': type(d).__name__, 'nnz': a.nnz, 'ms': ts}\n"
-            "print('[upload] ' + json.dumps(out), flush=True)")
-    for tree in trees:
-        print(f"[upload] {os.path.abspath(tree)}", flush=True)
-        subprocess.run([sys.executable, "-c", code], cwd=tree, check=True, timeout=600)
+    in_turns(trees, "import json, time, torch; from respatpu_torch.bench import corpus; "
+             "from respatpu_torch.kernels.spmv import to_device; out = {}\n"
+             "for m in ('offshore', 'ecology2'):\n"
+             "    a = corpus.load_matrix(m)[0]; to_device(a, 'fp32', 'cuda'); "
+             "torch.cuda.synchronize(); ts = []\n"
+             "    for _ in range(5):\n"
+             "        t0 = time.perf_counter(); d = to_device(a, 'fp32', 'cuda'); "
+             "torch.cuda.synchronize(); ts.append((time.perf_counter() - t0) * 1e3)\n"
+             "    out[m] = {'format': type(d).__name__, 'nnz': a.nnz, 'ms': ts}\n"
+             "print('[upload] ' + json.dumps(out), flush=True)", 600)
 
 
 @held
@@ -2945,13 +3138,13 @@ def splu_counts():
 def splu_bytes(d, itemsize):
     """Bytes one factorization must move through device memory: the pair
     positions once (two int32 a pair) and each entry's own words (A's value
-    read, its value written, its offset, kind, diagonal position and place in
-    the plan), the tasks and level offsets. The values a pair gathers are
+    read, its value written, its first pair and count, kind, diagonal
+    position and place in the plan), the tasks and level offsets. The values a pair gathers are
     the factor's own, written by this launch and read back through L2, which
     holds them (at most 40 MB on the path, of 50): each is counted once, in
     its write; the gathers are set against L2 on their own
     (:func:`splu_gather_bytes`)."""
-    return (d.pairs_a.numel() * 8 + d.nnz * (2 * itemsize + 8 + 1 + 4 + 4) + 8
+    return (d.pairs_a.numel() * 8 + d.nnz * (2 * itemsize + 8 + 4 + 1 + 4 + 4)
             + d.tasks.numel() * 4 + d.level_ptr.numel() * 4)
 
 
@@ -3065,13 +3258,15 @@ def hold_and_time_splu(name_limit, what, d, values, eps, insts, errs, latency, l
              "library_ms": None,
              "library": "none: PyTorch has no sparse LU on the card",
              "shape": f"{what} nnz={d.nnz} pairs={d.pairs_a.numel()} levels={d.levels} "
-                      f"tasks={d.tasks.shape[0]}",
+                      f"tasks={d.tasks.shape[0]} budget={SP.PAIR_BUDGET}",
              "l2_gather_ms": gather / l2 * 1e3, "l2_read_bytes_per_s": l2,
              "chain_bound": {"bound_ms": chain, "bound_by": "chain", "levels": d.levels,
                              "hand_overs": max(d.levels - 1, 0), "link_us": latency * 1e6}}
         out[name] = t
-        print(f"[time] {name_limit} | K8 {inst} {t['shape']}: events {fmt_ms(t['ms'])}, "
-              f"profiler {fmt_ms(t['profiler_ms'])}; byte bound {by_bytes:.4f} ms ({nbytes} "
+        t["us_a_level"] = t["ms"] * 1e3 / max(d.levels, 1)
+        print(f"[time] {name_limit} | K8 {inst} {t['shape']}: events {fmt_ms(t['ms'])} "
+              f"({t['us_a_level']:.3f} us a level), profiler {fmt_ms(t['profiler_ms'])}; byte "
+              f"bound {by_bytes:.4f} ms ({nbytes} "
               f"bytes at 3.35 TB/s; {ops} operations {by_ops:.4f} ms); value gathers "
               f"{t['l2_gather_ms']:.4f} ms ({gather} bytes at the L2 read rate {l2 / 1e12:.3f} "
               f"TB/s); chain bound {chain:.4f} ms ({d.levels - 1} hand-overs x "
@@ -3228,8 +3423,9 @@ def splu_direct_path(name_limit):
 @held
 def hold_splu_direct(name_limit, fac, fac64, errs, latency, l2):
     """Beside phase 11, not counted: the condition estimate once, and K8
-    against its plain version on the Laplacian's filled pattern (fp32 and
-    fp64, the path's instances), timed."""
+    against its plain version on the Laplacian's filled pattern in every
+    instance (fp32 and fp64, the path's, and fp32_ftz and bf16 on the fp32
+    factor's plan), timed."""
     t0 = time.perf_counter()
     rcond = fac.condest()
     if not (np.isfinite(rcond) and 0 < rcond <= 1):
@@ -3237,9 +3433,9 @@ def hold_splu_direct(name_limit, fac, fac64, errs, latency, l2):
     print(f"[splu] {name_limit} | laplacian_2d(300, 300) condest (Hager, transpose solves of the "
           f"scheduled factor): rcond {rcond:.3e} in {time.perf_counter() - t0:.2f} s", flush=True)
     out = {}
-    for f, inst in ((fac, "f32"), (fac64, "f64")):
+    for f, insts in ((fac, ("f32", "f32_ftz", "bf16")), (fac64, ("f64",))):
         out.update(hold_and_time_splu(name_limit, "laplacian_2d(300, 300) fill", f._dev,
-                                      f._filled.data, f._pivot_eps, (inst,), errs, latency, l2,
+                                      f._filled.data, f._pivot_eps, insts, errs, latency, l2,
                                       reps=5))
     return out
 
@@ -3319,10 +3515,16 @@ def build_probes():
         fn.restype = i32
     for d in ("fwd", "bwd"):
         for inst in ("f32", "f32_ftz", "bf16", "f64"):
-            # K2's first version: device, nb, p, ml, mu, band, b, out, mail, stream
-            fn = getattr(lib, f"respa_band_sweep_before_{d}_{inst}")
-            fn.argtypes = [i32] * 5 + [ptr] * 5
-            fn.restype = i32
+            # K2's and K11's first versions: device, nb, p, ml, mu, band, b, out, mail, stream
+            for kind in ("sweep", "sweep_t"):
+                fn = getattr(lib, f"respa_band_{kind}_before_{d}_{inst}")
+                fn.argtypes = [i32] * 5 + [ptr] * 5
+                fn.restype = i32
+    for inst in ("f32", "f32_ftz", "bf16", "f64"):
+        # K8's first version: as respa_splu_factor_*
+        fn = getattr(lib, f"respa_splu_factor_before_{inst}")
+        fn.argtypes = [i32, i32, i32, *[ptr] * 10, ctypes.c_double, ptr, i32, ptr]
+        fn.restype = i32
     return lib
 
 
@@ -4228,15 +4430,15 @@ def phase_done(k):
     _PHASE[0] = now
 
 
-SPLU_LONG_PAIRS = (1, 128, 256, 512)
+SPLU_BUDGETS = (SP.SHORT, 128, 256, SP.MAX_BUDGET)
 
 
 @held
 def time_splu_alone(name_limit):
     """``python3 chip_smoke.py --splu-times``: K8 at the path's two shapes
     (2cubes_sphere's ILU(0), laplacian_2d(300, 300)'s fill) in a fresh
-    process, the plan cut into runs of long entries at each of
-    ``SPLU_LONG_PAIRS`` (1: a long entry a task), fp32 and fp64: each
+    process, the plan cut at each pair budget of ``SPLU_BUDGETS`` (the
+    smallest: every long entry a task of its own), fp32 and fp64: each
     plan's factor bit for bit with the first plan's (and that one with the
     plain version), timed by events and the profiler in 3 rounds; the times
     as one JSON line."""
@@ -4249,8 +4451,17 @@ def time_splu_alone(name_limit):
     out = {}
     for what, f in (("2cubes_sphere ILU(0)", a), ("laplacian_2d(300, 300) fill", fill)):
         sched = analysis.chow_patel_schedule(f)
+        # the levels' census: a level costs its longest entry's chain at least
+        lev, lens = SP.entry_levels(sched), np.diff(sched.ptr)
+        longest = np.zeros(int(lev.max()) + 1, np.int64)
+        np.maximum.at(longest, lev, lens)
+        print(f"[splu] {name_limit} | {what}: {longest.size} levels; the longest entry of a level "
+              f"at the 10th / 50th / 90th percentile and the most: "
+              f"{np.percentile(longest, [10, 50, 90]).tolist()} / {int(longest.max())} pairs; "
+              f"levels whose longest entry passes {SP.MAX_BUDGET} pairs: "
+              f"{int((longest > SP.MAX_BUDGET).sum())}", flush=True)
         first = {}
-        for lp in SPLU_LONG_PAIRS:
+        for lp in SPLU_BUDGETS:
             plan = SP._plan_cut(f.nrows, sched, lp)
             d = SP.splu_to_device(plan, "cuda")
             for policy in ("fp32", "fp64"):
@@ -4263,13 +4474,13 @@ def time_splu_alone(name_limit):
                         raise AssertionError(f"K8 {policy} on {what}: kernel != plain")
                     first[policy] = got
                 elif not torch.equal(got, first[policy]):
-                    raise AssertionError(f"K8 {policy} on {what}, long_pairs {lp}: another result")
+                    raise AssertionError(f"K8 {policy} on {what}, budget {lp}: another result")
                 ev, prof = [], []
                 for _ in range(3):
                     ev.append(events_ms(lambda: SP.splu_factor(d, av, eps), 5))
                     prof.append(profiler_ms(lambda: SP.splu_factor(d, av, eps),
                                             "splu_factor_kernel", 5))
-                key = f"{what} {policy} long_pairs={lp}"
+                key = f"{what} {policy} budget={lp}"
                 out[key] = {"events_ms": ev, "profiler_ms": prof, "tasks": len(plan.tasks),
                             "levels": plan.nlevels}
                 print(f"[time] {name_limit} | K8 {key}: {len(plan.tasks)} tasks, {plan.nlevels} "
@@ -4279,6 +4490,52 @@ def time_splu_alone(name_limit):
                       f"bit", flush=True)
             del d
     print(json.dumps(out))
+
+
+def band_phase(name_limit, a, band_times, band_errs, probes):
+    """Phase 6: the direct path at full width (:func:`direct_path`) on
+    ``a``, and K1's chain bound; returns the path's launches and its
+    products'. ``--phase-times`` runs this source in another tree."""
+    band_launches, spmv_direct = direct_path(name_limit, a, band_times, band_errs, probes)
+    for name, n in band_launches.items():
+        if n < 1:
+            raise AssertionError(f"{name} was not launched on the direct path")
+    barrier = block_barrier(name_limit, probes)
+    for name in ("respa_block_lu_f32", "respa_block_lu_f32_ftz", "respa_block_lu_f64"):
+        t = band_times[name]
+        # the chain: 128 pivots, each handed on at least once through shared
+        # memory past a barrier (the first version's step) or a shuffle
+        t["chain_bound_ms"] = B.MAX_P * barrier * 1e3
+        print(f"[time] {name_limit} | {name}: chain bound {t['chain_bound_ms'] * 1e3:.3f} us "
+              f"({B.MAX_P} pivots x the barrier-and-broadcast probe), a block's arithmetic on "
+              f"one SM {t['sm_bound_ms'] * 1e3:.3f} us; the kernel "
+              f"{fmt_ms(t['profiler_ms'] or t['kernel_ms'])} is "
+              f"{(t['profiler_ms'] or t['kernel_ms']) / t['chain_bound_ms']:.1f}x the chain "
+              f"(first version {fmt_ms(t['before_ms'])})", flush=True)
+    return band_launches, spmv_direct
+
+
+def splu_phases(name_limit, a, latency, probes, done):
+    """Phases 10 (exact ILU(0) of ``a`` by K8, :func:`splu_ilu_path`) and 11
+    (the direct scheduled LU, :func:`splu_direct_path`), each with its
+    holds; ``done(k)`` ends phase k. Returns their launches, K8's errors,
+    its times on each, and phase 11's fp32 and fp64 factorizations.
+    ``--phase-times`` runs this source in another tree."""
+    errs, times = {}, {}
+    ilu_launches = splu_ilu_path(name_limit)
+    no_plain("exact ILU(0) path")
+    for name in ("respa_splu_factor_f32", "respa_splu_factor_f64", "respa_splu_factor_f32_ftz",
+                 "respa_splu_factor_bf16", "respa_tri_solve_lower_f64"):
+        if ilu_launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the exact ILU(0) path")
+    l2 = l2_read_rate(name_limit, probes)
+    hold_splu_ilu(name_limit, a, errs, times, latency, l2)
+    done(10)
+    direct_launches, fac, fac64 = splu_direct_path(name_limit)
+    no_plain("direct sparse path")
+    lu_times = hold_splu_direct(name_limit, fac, fac64, errs, latency, l2)
+    done(11)
+    return ilu_launches, direct_launches, errs, times, lu_times, fac, fac64
 
 
 def main():
@@ -4303,6 +4560,9 @@ def main():
         return
     if sys.argv[1:2] == ["--upload-times"]:
         upload_times_in_turns(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--phase-times"]:
+        phase_times_in_turns(sys.argv[2:])
         return
     if sys.argv[1:2] == ["--splu-times"]:
         time_splu_alone(name_limit)
@@ -4463,23 +4723,8 @@ def main():
     phase_done(5)
 
     # 6. direct path at full width
-    band_launches, spmv_direct = direct_path(name_limit, mats[MAIN[0]], band_times, band_errs,
-                                             probes.result())
-    for name, n in band_launches.items():
-        if n < 1:
-            raise AssertionError(f"{name} was not launched on the direct path")
-    barrier = block_barrier(name_limit, probes.result())
-    for name in ("respa_block_lu_f32", "respa_block_lu_f32_ftz", "respa_block_lu_f64"):
-        t = band_times[name]
-        # the chain: 128 pivots, each handed on at least once through shared
-        # memory past a barrier (the first version's step) or a shuffle
-        t["chain_bound_ms"] = B.MAX_P * barrier * 1e3
-        print(f"[time] {name_limit} | {name}: chain bound {t['chain_bound_ms'] * 1e3:.3f} us "
-              f"({B.MAX_P} pivots x the barrier-and-broadcast probe), a block's arithmetic on "
-              f"one SM {t['sm_bound_ms'] * 1e3:.3f} us; the kernel "
-              f"{fmt_ms(t['profiler_ms'] or t['kernel_ms'])} is "
-              f"{(t['profiler_ms'] or t['kernel_ms']) / t['chain_bound_ms']:.1f}x the chain "
-              f"(first version {fmt_ms(t['before_ms'])})", flush=True)
+    band_launches, spmv_direct = band_phase(name_limit, mats[MAIN[0]], band_times, band_errs,
+                                            probes.result())
     phase_done(6)
 
     # 7. frontal kernels vs plain
@@ -4512,23 +4757,10 @@ def main():
     hold_and_time_ilu(name_limit, mats["2cubes_sphere"], ilu_errs, ilu_times, latency, None)
     phase_done(9)
 
-    # 10. exact ILU(0) by the scheduled LU (K8)
-    splu_errs, splu_times = {}, {}
-    splu_ilu_launches = splu_ilu_path(name_limit)
-    no_plain("exact ILU(0) path")
-    for name in ("respa_splu_factor_f32", "respa_splu_factor_f64", "respa_splu_factor_f32_ftz",
-                 "respa_splu_factor_bf16", "respa_tri_solve_lower_f64"):
-        if splu_ilu_launches[name] < 1:
-            raise AssertionError(f"{name} was not launched on the exact ILU(0) path")
-    l2 = l2_read_rate(name_limit, probes.result())
-    hold_splu_ilu(name_limit, mats["2cubes_sphere"], splu_errs, splu_times, latency, l2)
-    phase_done(10)
-
-    # 11. the direct scheduled LU at full width
-    splu_direct_launches, fac_s, fac_s64 = splu_direct_path(name_limit)
-    no_plain("direct sparse path")
-    splu_lu_times = hold_splu_direct(name_limit, fac_s, fac_s64, splu_errs, latency, l2)
-    phase_done(11)
+    # 10. exact ILU(0) by the scheduled LU (K8); 11. the direct scheduled LU
+    (splu_ilu_launches, splu_direct_launches, splu_errs, splu_times, splu_lu_times, fac_s,
+     fac_s64) = splu_phases(name_limit, mats["2cubes_sphere"], latency, probes.result(),
+                            phase_done)
 
     # 12. the DIA path
     dia_errs, dia_times = {}, {}

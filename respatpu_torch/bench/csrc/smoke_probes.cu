@@ -12,9 +12,14 @@
 //                                one barrier a pivot), timed beside the
 //                                package's K1 in the same run (phase 6);
 //   respa_band_sweep_before_*    K2 before it took the inverses of the
-//                                diagonal triangles, and
-//   respa_extend_add_before_*    K3 before its two regimes, timed beside the
-//                                package's in turns (`chip_smoke.py --before`).
+//                                diagonal triangles,
+//   respa_extend_add_before_*    K3 before its two regimes,
+//   respa_splu_factor_before_*   K8 before it staged a task's pair
+//                                positions (on its own plan, cut at runs of
+//                                256 pairs), and
+//   respa_band_sweep_t_before_*  K11 before it took the inverses, each timed
+//                                beside the package's in turns
+//                                (`chip_smoke.py --before`).
 //
 // K9: the package's kernel sums each remainder row inside K9. Here the remainder's
 // product comes from the CSR kernel K0 (a DeviceCsr over all n rows) and this
@@ -708,3 +713,351 @@ extend_add_kernel(A* __restrict__ pool, int64_t g0, int wp, int rp,
 RESPA_EXTEND_ADD_BEFORE(respa_extend_add_before_f32, float, false)
 RESPA_EXTEND_ADD_BEFORE(respa_extend_add_before_f32_ftz, float, true)
 RESPA_EXTEND_ADD_BEFORE(respa_extend_add_before_f64, double, false)
+
+// K8 before it staged a task's pair positions (its first design: a lane
+// loads its entry's first two pairs' positions before the wait, then four
+// pairs' positions and values at a time; a long entry's words loaded after
+// the wait, one entry after the other; K7's hand-over). Kept only to be
+// timed beside K8; the same bits on a plan whose long runs it takes whole.
+namespace first_k8 {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlocksPerSm = 8;
+constexpr int kShort = 32;
+
+template <typename V, typename A, bool FTZ>
+__device__ __forceinline__ A product(const V* vals, int32_t i, int32_t j) {
+    return fz<FTZ>(mul(fz<FTZ>(widen(load_value(vals + i))), fz<FTZ>(widen(load_value(vals + j)))));
+}
+
+// s + the products of pairs e, e + step, e + 2 step, e + 3 step, added in that
+// order: the four pairs' positions and then their eight values are loaded
+// together, so a chain of pairs waits one round trip for four of them
+template <typename V, typename A, bool FTZ>
+__device__ __forceinline__ A add_four(A s, const V* vals, const int32_t* __restrict__ pa,
+                                      const int32_t* __restrict__ pb, int64_t e, int step) {
+    int32_t i[4], j[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+        i[u] = pa[e + u * step];
+        j[u] = pb[e + u * step];
+    }
+    V x[4], y[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+        x[u] = load_value(vals + i[u]);
+        y[u] = load_value(vals + j[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+        s = fz<FTZ>(add(s, fz<FTZ>(mul(fz<FTZ>(widen(x[u])), fz<FTZ>(widen(y[u]))))));
+    return s;
+}
+
+// v = a - s, divided by u_jj for an L entry (d, read when has_d), clamped:
+// |d| <= eps (or no u_jj) -> -eps if d is negative, else +eps; rounded to V
+template <typename V, typename A, bool FTZ>
+__device__ __forceinline__ V finish(A av, A s, bool lower, bool has_d, A d, A eps) {
+    A v = fz<FTZ>(sub(av, s));
+    if (lower) {
+        if (!has_d || fabs(d) <= eps) d = d < A(0) ? -eps : eps;
+        v = fz<FTZ>(div(v, d));
+    }
+    return narrow<V>(v);
+}
+
+// an L entry's divisor as read after the wait (0 where it is missing)
+template <typename V, typename A, bool FTZ>
+__device__ __forceinline__ A divisor(const V* vals, bool lower, int32_t dc) {
+    return lower && dc >= 0 ? fz<FTZ>(widen(load_value(vals + dc))) : A(0);
+}
+
+// tasks: int4 {q0, q1, v, w}: positions q0 .. q1 - 1 of level v; w == v: up
+// to 32 short entries, a lane an entry; w < 0: a run of long entries, a warp
+// over each one's pairs in turn.
+template <typename V, typename A, bool FTZ>
+__global__ void __launch_bounds__(kThreads)
+splu_factor_kernel(int ntasks, const int4* __restrict__ tasks, const int32_t* __restrict__ level_ptr,
+                   const int32_t* __restrict__ perm, const int64_t* __restrict__ ptr,
+                   const int32_t* __restrict__ pa, const int32_t* __restrict__ pb,
+                   const int8_t* __restrict__ is_lower, const int32_t* __restrict__ diag_col,
+                   const V* __restrict__ a, V* vals, V eps_v, int* ctl, int* ticket) {
+    const int lane = threadIdx.x & 31;
+    const A eps = widen(eps_v);
+    while (true) {
+        int k = 0;
+        if (lane == 0) k = atomicAdd(ticket, 1);
+        k = __shfl_sync(kFull, k, 0);
+        if (k >= ntasks) return;
+        const int4 t = tasks[k];
+        const int q0 = t.x, q1 = t.y, v0 = t.z;
+        const int need = v0 > 0 ? level_ptr[v0] - level_ptr[v0 - 1] : 0;
+        if (t.w == v0) {
+            // up to 32 short entries of one level, a lane an entry; its words
+            // and its first two pairs' positions loaded before the wait
+            const int q = q0 + lane;
+            const bool live = q < q1;
+            int32_t p = 0, dc = -1, a0 = 0, b0 = 0, a1 = 0, b1 = 0;
+            int64_t e0 = 0, e1 = 0;
+            bool lower = false;
+            A av = A(0);
+            if (live) {
+                p = perm[q];
+                e0 = ptr[p];
+                e1 = ptr[p + 1];
+                av = fz<FTZ>(widen(a[p]));
+                lower = is_lower[p] != 0;
+                dc = diag_col[p];
+                if (e1 > e0) {
+                    a0 = pa[e0];
+                    b0 = pb[e0];
+                }
+                if (e1 > e0 + 1) {
+                    a1 = pa[e0 + 1];
+                    b1 = pb[e0 + 1];
+                }
+            }
+            wait_level(ctl, v0, need, lane);
+            if (live) {
+                const A d = divisor<V, A, FTZ>(vals, lower, dc);  // beside the pairs' loads
+                A s = A(0);
+                if (e1 > e0) s = fz<FTZ>(add(s, product<V, A, FTZ>(vals, a0, b0)));
+                if (e1 > e0 + 1) s = fz<FTZ>(add(s, product<V, A, FTZ>(vals, a1, b1)));
+                int64_t e = e0 + 2;
+                for (; e + 3 < e1; e += 4) s = add_four<V, A, FTZ>(s, vals, pa, pb, e, 1);
+                for (; e < e1; ++e) s = fz<FTZ>(add(s, product<V, A, FTZ>(vals, pa[e], pb[e])));
+                store_value(vals + p, finish<V, A, FTZ>(av, s, lower, dc >= 0, d, eps));
+            }
+            post_level(ctl, v0, q1 - q0, lane);
+        } else {
+            // a run of long entries of one level: for each, lane l over the
+            // pairs l, l + 32, ..., then a halving tree; the run's first
+            // entry's words loaded before the wait
+            int32_t p = perm[q0];
+            int64_t e0 = ptr[p], e1 = ptr[p + 1];
+            A av = fz<FTZ>(widen(a[p]));
+            bool lower = is_lower[p] != 0;
+            int32_t dc = diag_col[p];
+            wait_level(ctl, v0, need, lane);
+            for (int q = q0; q < q1; ++q) {
+                if (q > q0) {
+                    p = perm[q];
+                    e0 = ptr[p];
+                    e1 = ptr[p + 1];
+                    av = fz<FTZ>(widen(a[p]));
+                    lower = is_lower[p] != 0;
+                    dc = diag_col[p];
+                }
+                const A d = lane == 0 ? divisor<V, A, FTZ>(vals, lower, dc) : A(0);
+                A s = A(0);
+                int64_t e = e0 + lane;
+                for (; e + 96 < e1; e += 128) s = add_four<V, A, FTZ>(s, vals, pa, pb, e, 32);
+                for (; e < e1; e += 32) s = fz<FTZ>(add(s, product<V, A, FTZ>(vals, pa[e], pb[e])));
+#pragma unroll
+                for (int off = 16; off; off >>= 1)
+                    s = fz<FTZ>(add(s, __shfl_xor_sync(kFull, s, off)));
+                if (lane == 0)
+                    store_value(vals + p, finish<V, A, FTZ>(av, s, lower, dc >= 0, d, eps));
+            }
+            post_level(ctl, v0, q1 - q0, lane);
+        }
+    }
+}
+
+template <typename V, typename A, bool FTZ>
+int launch(int device, int ntasks, int warps, const void* tasks, const void* level_ptr,
+           const void* perm, const void* ptr, const void* pa, const void* pb,
+           const void* is_lower, const void* diag_col, const void* a, void* vals, double eps,
+           void* ctl, int nctl, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (ntasks < 1 || warps < 1 || nctl < 1) return static_cast<int>(cudaErrorInvalidValue);
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int want = (warps + kWarps - 1) / kWarps;
+    const unsigned blocks = static_cast<unsigned>(want < kBlocksPerSm * sms ? want
+                                                                            : kBlocksPerSm * sms);
+    int* words = static_cast<int*>(ctl);
+    splu_factor_kernel<V, A, FTZ><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        ntasks, static_cast<const int4*>(tasks), static_cast<const int32_t*>(level_ptr),
+        static_cast<const int32_t*>(perm), static_cast<const int64_t*>(ptr),
+        static_cast<const int32_t*>(pa), static_cast<const int32_t*>(pb),
+        static_cast<const int8_t*>(is_lower), static_cast<const int32_t*>(diag_col),
+        static_cast<const V*>(a), static_cast<V*>(vals), narrow<V>(static_cast<A>(eps)), words,
+        words + nctl - 1);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace first_k8
+
+// device, ntasks, warps, tasks, level_ptr, perm, ptr, pairs_a, pairs_b,
+// is_lower, diag_col, a, vals, eps, ctl, nctl, stream: as respa_splu_factor_*
+// (kernels/csrc/splu.cu) before it staged the positions
+#define RESPA_SPLU_FACTOR_BEFORE(SUFFIX, V, A, FTZ)                                              \
+    extern "C" int respa_splu_factor_before_##SUFFIX(                                           \
+        int device, int ntasks, int warps, const void* tasks, const void* level_ptr,            \
+        const void* perm, const void* ptr, const void* pa, const void* pb, const void* is_lower, \
+        const void* diag_col, const void* a, void* vals, double eps, void* ctl, int nctl,       \
+        void* stream) {                                                                         \
+        return first_k8::launch<V, A, FTZ>(device, ntasks, warps, tasks, level_ptr, perm, ptr,  \
+                                           pa, pb, is_lower, diag_col, a, vals, eps, ctl, nctl, \
+                                           stream);                                             \
+    }
+
+RESPA_SPLU_FACTOR_BEFORE(f32, float, float, false)
+RESPA_SPLU_FACTOR_BEFORE(f32_ftz, float, float, true)
+RESPA_SPLU_FACTOR_BEFORE(bf16, __nv_bfloat16, float, false)
+RESPA_SPLU_FACTOR_BEFORE(f64, double, double, false)
+
+// K11 before it took the inverses (its first design: the diagonal block
+// staged transposed in shared memory and solved by first_k2's substitution,
+// the panels' partial sums of the eight warps added through shared memory
+// between two barriers, the mailbox read a word after the other). Kept only to
+// be timed beside K11; within the sweep tolerance of its plain version.
+namespace first_k2 {  // beside K2's first version, with its helpers
+
+template <typename V, typename A, bool FTZ, bool FWD>
+__global__ void __launch_bounds__(kSweepThreads)
+band_sweep_t_kernel(int nb, int p, int ml, int mu, const V* __restrict__ band,
+                    const A* __restrict__ b, A* __restrict__ out, unsigned* mail) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    A* dblk = reinterpret_cast<A*>(smem_raw);  // the diagonal block transposed, p x (p + 1)
+    A* acc = dblk + p * (p + 1);               // p
+    A* red = acc + p;                          // the warps' partial sums, kSweepWarps x p
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int64_t w = static_cast<int64_t>(ml + mu + 1) * p;
+    const int m = FWD ? mu : ml;  // U^T reaches mu block rows back, L^T ml ahead
+
+    for (int q = blockIdx.x; q < nb; q += gridDim.x) {
+        const int r = FWD ? q : nb - 1 - q;
+        const V* row = band + static_cast<int64_t>(r) * p * w;
+        // dblk[i][k] = D[k][i]: consecutive threads read consecutive i of row k
+        for (int e = tid; e < p * p; e += kSweepThreads) {
+            const int k = e / p, i = e % p;
+            dblk[i * (p + 1) + k] = to_acc(row[k * w + static_cast<int64_t>(ml) * p + i]);
+        }
+
+        A part[kColsPerLane];  // entries i = lane + 32 c, over this warp's panel rows
+#pragma unroll
+        for (int c = 0; c < kColsPerLane; ++c) part[c] = A(0);
+        for (int d = min(m, q); d >= 1; --d) {
+            // the block of band row r -/+ d in this row's column, read transposed
+            const V* prow = band + static_cast<int64_t>(FWD ? r - d : r + d) * p * w +
+                            static_cast<int64_t>(FWD ? ml + d : ml - d) * p;
+            V pv[kRowsPerWarp][kColsPerLane];  // asked for before the wait for the vector
+#pragma unroll
+            for (int kk = 0; kk < kRowsPerWarp; ++kk) {
+                const int k = warp + kSweepWarps * kk;
+#pragma unroll
+                for (int c = 0; c < kColsPerLane; ++c) {
+                    const int i = lane + 32 * c;
+                    if (k < p && i < p) pv[kk][c] = prow[k * w + i];
+                }
+            }
+            // lane l takes the vector's words l + 32 j; a warp's panel row k comes by a shuffle
+            A vv[kColsPerLane];
+#pragma unroll
+            for (int j = 0; j < kColsPerLane; ++j) {
+                const int k = lane + 32 * j;
+                A x = A(0);
+                if (k < p) mail_recv(mail, static_cast<int64_t>(q - d) * p + k, q - d + 1, &x);
+                if constexpr (FTZ) x = flush(x);
+                vv[j] = x;
+            }
+#pragma unroll
+            for (int kk = 0; kk < kRowsPerWarp; ++kk) {
+                const int k = warp + kSweepWarps * kk;  // lane k % 32 holds it in vv[k / 32]
+                const A v = __shfl_sync(0xffffffffu, vv[kk / 4], warp + kSweepWarps * (kk % 4));
+#pragma unroll
+                for (int c = 0; c < kColsPerLane; ++c) {
+                    const int i = lane + 32 * c;
+                    if (k < p && i < p) part[c] = nmuladd<FTZ>(part[c], -to_acc(pv[kk][c]), v);
+                }
+            }
+        }
+#pragma unroll
+        for (int c = 0; c < kColsPerLane; ++c) {
+            const int i = lane + 32 * c;
+            if (i < p) red[warp * p + i] = part[c];
+        }
+        __syncthreads();  // dblk and the partials are complete
+        if (tid < p) {
+            A sum = A(0);
+            for (int k = 0; k < kSweepWarps; ++k) sum = add<FTZ>(sum, red[k * p + tid]);
+            A rhs = b[static_cast<int64_t>(r) * p + tid];
+            if constexpr (FTZ) rhs = flush(rhs);
+            acc[tid] = sub<FTZ>(rhs, sum);
+        }
+        __syncthreads();
+        tri_solve<A, FTZ, FWD, !FWD>(dblk, acc, p);
+        if (tid < p) {
+            const int64_t e = static_cast<int64_t>(q) * p + tid;
+            mail_send(mail, e, acc[tid], q + 1);  // first: the next row waits for it
+            out[static_cast<int64_t>(r) * p + tid] = acc[tid];
+        }
+        __syncthreads();  // acc and red are rewritten in the next row
+    }
+}
+
+template <typename A>
+size_t sweep_t_smem(int p) {
+    return (static_cast<size_t>(p) * (p + 1) + p + static_cast<size_t>(kSweepWarps) * p) *
+           sizeof(A);
+}
+
+template <typename V, typename A, bool FTZ, bool FWD>
+cudaError_t launch_band_sweep_t(int device, int nb, int p, int ml, int mu, const void* band,
+                                const void* b, void* out, void* mail, cudaStream_t stream) {
+    auto kernel = band_sweep_t_kernel<V, A, FTZ, FWD>;
+    const size_t smem = sweep_t_smem<A>(p);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSweepThreads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    int grid = (FWD ? mu : ml) + 1;
+    if (grid > nb) grid = nb;
+    if (grid > sms) grid = sms;
+    const V* band_v = static_cast<const V*>(band);
+    const A* b_a = static_cast<const A*>(b);
+    A* out_a = static_cast<A*>(out);
+    unsigned* mail_u = static_cast<unsigned*>(mail);
+    void* args[] = {&nb, &p, &ml, &mu, &band_v, &b_a, &out_a, &mail_u};
+    // cooperative, as K2: the mailbox waits need every block resident
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                      dim3(kSweepThreads), args, smem, stream);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
+}  // namespace first_k2
+
+// device, nb, p, ml, mu, band, b, out, mail, stream: as respa_band_sweep_t_*
+// (kernels/csrc/band_lu.cu) before it took `inv`
+#define RESPA_BAND_SWEEP_T_BEFORE(NAME, V, A, FTZ, FWD)                                       \
+    extern "C" int NAME(int device, int nb, int p, int ml, int mu, const void* band,         \
+                        const void* b, void* out, void* mail, void* stream) {                 \
+        cudaError_t err = cudaSetDevice(device);                                              \
+        if (err != cudaSuccess) return static_cast<int>(err);                                 \
+        if (nb < 1 || p < 1 || p > first_k2::kMaxP || ml < 1 || mu < 1)                        \
+            return static_cast<int>(cudaErrorInvalidValue);                                   \
+        return static_cast<int>(first_k2::launch_band_sweep_t<V, A, FTZ, FWD>(               \
+            device, nb, p, ml, mu, band, b, out, mail, static_cast<cudaStream_t>(stream)));    \
+    }
+
+RESPA_BAND_SWEEP_T_BEFORE(respa_band_sweep_t_before_fwd_f32, float, float, false, true)
+RESPA_BAND_SWEEP_T_BEFORE(respa_band_sweep_t_before_bwd_f32, float, float, false, false)
+RESPA_BAND_SWEEP_T_BEFORE(respa_band_sweep_t_before_fwd_f32_ftz, float, float, true, true)
+RESPA_BAND_SWEEP_T_BEFORE(respa_band_sweep_t_before_bwd_f32_ftz, float, float, true, false)
+RESPA_BAND_SWEEP_T_BEFORE(respa_band_sweep_t_before_fwd_bf16, __nv_bfloat16, float, false, true)
+RESPA_BAND_SWEEP_T_BEFORE(respa_band_sweep_t_before_bwd_bf16, __nv_bfloat16, float, false, false)
+RESPA_BAND_SWEEP_T_BEFORE(respa_band_sweep_t_before_fwd_f64, double, double, false, true)
+RESPA_BAND_SWEEP_T_BEFORE(respa_band_sweep_t_before_bwd_f64, double, double, false, false)

@@ -80,15 +80,10 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name in _BAND_SWEEP:
+    for name in (*_BAND_SWEEP, *_BAND_SWEEP_T):
         fn = getattr(lib, name)
         # device, nb, p, ml, mu, then band, inv, b, out, mail, stream
         fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
-        fn.restype = ctypes.c_int
-    for name in _BAND_SWEEP_T:
-        fn = getattr(lib, name)
-        # device, nb, p, ml, mu, then band, b, out, mail, stream
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
     for name in _BAND_MULTI:
         fn = getattr(lib, name)
@@ -131,9 +126,9 @@ def build(extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     lib.respa_tri_solve_limit.restype = ctypes.c_int
     for name in _SPLU_FACTOR:
         fn = getattr(lib, name)
-        # device, ntasks, warps, tasks, level_ptr, perm, ptr, pairs_a, pairs_b, is_lower,
-        # diag_col, a, vals, eps, ctl, nctl, stream
-        fn.argtypes = [i32, i32, i32, *[ptr] * 10, ctypes.c_double, ptr, i32, ptr]
+        # device, ntasks, warps, tasks, level_ptr, perm, first, count, pairs_a, pairs_b,
+        # is_lower, diag_col, a, vals, eps, ctl, nctl, stream
+        fn.argtypes = [i32, i32, i32, *[ptr] * 11, ctypes.c_double, ptr, i32, ptr]
         fn.restype = ctypes.c_int
     lib.respa_splu_limit.argtypes = [i32]
     lib.respa_splu_limit.restype = ctypes.c_int

@@ -40,7 +40,8 @@ form in torch ops:
   ``FEW_COLS`` columns, K2's pipeline carrying them all (:func:`multi_plan`);
 * ``band_sweep_t`` (K11, ``csrc/band_lu.cu``): the sweeps of the transposed
   system, ``U^T`` forward and ``L^T`` backward, read straight from the band
-  (the condition estimate's transposed solves).
+  (the condition estimate's transposed solves); it applies the same inverses
+  transposed.
 
 Each has its plain PyTorch version beside it (``block_lu_plain``,
 ``band_sweep_plain`` for K2 and K10, ``band_sweep_t_plain``). A wrapper
@@ -411,7 +412,7 @@ def with_inverses(lu: DeviceBand) -> DeviceBand:
 
 
 def _check_inverses(lu: DeviceBand) -> None:
-    """What K2 takes of ``lu.inv``, refused the same on every device."""
+    """What K2 and K11 take of ``lu.inv``, refused the same on every device."""
     inv, acc = lu.inv, lu.policy.accum_dtype
     if inv is None:
         raise ValueError("the band carries no inverses of its diagonal triangles; band_lu makes "
@@ -686,10 +687,16 @@ def band_sweep_t(lu: DeviceBand, b: torch.Tensor, forward: bool) -> torch.Tensor
     padded right-hand side ``b`` [nb*P] in the accumulator type, forward
     ``U^T`` or backward ``L^T``; see :func:`band_sweep_t_plain`.
 
-    On a CUDA device this is one launch of K11 on the current stream (it
-    raises if the inputs do not fit it or the launch fails); on the CPU it
-    runs the plain version. A sweep repeats bit for bit."""
+    ``lu`` must carry the inverses of its diagonal triangles (``lu.inv``, as
+    for :func:`band_sweep`); a band without them is refused on every device.
+    On a CUDA device this is one launch of K11 on the current stream, which
+    applies them transposed, ``(U_rr^-1)^T`` forward and ``(L_rr^-1)^T``
+    backward (it raises if the inputs do not fit it or the launch fails); on
+    the CPU it runs the plain version. Sums are taken in an order fixed by
+    the shape, so a sweep repeats bit for bit; it agrees with the plain
+    substitution within the sweep tolerance, as K2 does."""
     _check_rhs(lu, b, (lu.nb * lu.p,))
+    _check_inverses(lu)
     if lu.device.type == "cpu":
         return band_sweep_t_plain(lu, b, forward)
     if lu.device.type != "cuda":
@@ -700,8 +707,9 @@ def band_sweep_t(lu: DeviceBand, b: torch.Tensor, forward: bool) -> torch.Tensor
     mail = torch.zeros(2 * lu.nb * lu.p * (b.element_size() // 4), dtype=torch.int32,
                        device=lu.device)
     rc = getattr(_library(), name)(
-        lu.device.index, lu.nb, lu.p, lu.ml, lu.mu, lu.data.data_ptr(), b.data_ptr(),
-        out.data_ptr(), mail.data_ptr(), torch.cuda.current_stream(lu.device).cuda_stream)
+        lu.device.index, lu.nb, lu.p, lu.ml, lu.mu, lu.data.data_ptr(), lu.inv.data_ptr(),
+        b.data_ptr(), out.data_ptr(), mail.data_ptr(),
+        torch.cuda.current_stream(lu.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1

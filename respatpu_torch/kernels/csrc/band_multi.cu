@@ -472,9 +472,9 @@ __device__ __forceinline__ double mail_recv(const unsigned* mail, int64_t e, uns
 }
 
 // Solve the P x P triangle held in shared memory (`dblk`, row stride p + 1)
-// against the kFewCols columns of `acc` ([p][kFewCols]) in place:
-// band_lu.cu's tri_solve (K11's), its `mine` a value a column. In the solve's own
-// order t = 0..P-1 (t = i for a lower system, t = P-1-i for an upper one)
+// against the kFewCols columns of `acc` ([p][kFewCols]) in place: the
+// triangle solve of K2's and K11's first designs, its `mine` a value a
+// column. In the solve's own order t = 0..P-1 (t = i for a lower system, t = P-1-i for an upper one)
 // the system is lower; a non-unit row is first scaled by the reciprocal of
 // its diagonal entry. Warp k owns the unknowns 32 k .. 32 k + 31, solves them
 // through shuffles and puts them into shared memory; behind one barrier the

@@ -19,11 +19,13 @@ computed once every entry of the levels before it is. The plan
 level order, short entries (at most ``SHORT`` pairs) before long ones in a
 level, the level offsets, and the cut into tasks: up to ``TASK_ENTRIES``
 short entries of one level (a lane an entry) or a run of long entries of
-one level of about ``LONG_PAIRS`` pairs in all (a warp over each entry's
-pairs in turn). The factorization is one launch of a hand-written CUDA kernel
-(``csrc/splu.cu``, K8): warps take tasks by an atomic ticket in level order
-and wait once a task on a completion counter of the level before, as the
-exact triangular solve K7 does. respatpu's level-aligned chunks with
+one level (a warp over each entry's pairs in turn), each holding at most
+``PAIR_BUDGET`` pairs, or a long entry past the budget alone. The
+factorization is one launch of a hand-written CUDA kernel (``csrc/splu.cu``,
+K8): warps take tasks by an atomic ticket in level order, stage a task's pair
+positions in shared memory before they wait once on a completion counter of
+the level before, as the exact triangular solve K7 does, and then ask for
+all of the task's values at once. respatpu's level-aligned chunks with
 ``depth`` repeated sweeps (``chunk_nnz``, ``depth``) exist because the TPU
 has no fine-grained synchronisation; they are not ported.
 
@@ -71,15 +73,17 @@ LAUNCHES = {f"respa_splu_factor_{i}": 0 for i in ("f32", "f32_ftz", "bf16", "f64
 
 # The plan's sizes, as csrc/splu.cu was built with them (checked at the first
 # launch): a short entry has at most SHORT pairs; a task takes up to
-# TASK_ENTRIES short entries of one level.
-SHORT, TASK_ENTRIES = 32, 32
+# TASK_ENTRIES entries of one level; the kernel stages at most MAX_BUDGET
+# pairs a task (a longer entry streams its pairs through registers); each
+# level's counter takes CTL_LINE control words (a 128-byte line).
+SHORT, TASK_ENTRIES, MAX_BUDGET, CTL_LINE = 32, 32, 512, 32
 # warps taking K8's tasks: LOOKAHEAD levels' worth of them on the average, at
 # least 32
 LOOKAHEAD = 4
-# a run of long entries of one level is cut where its pairs pass a multiple
-# of LONG_PAIRS (1: an entry a run); 256 was the fastest of 1, 64, 256 and
-# 1024 on laplacian_2d(300, 300)'s fill (chip_smoke.py --splu-times, PERF.md)
-LONG_PAIRS = 256
+# pairs a task holds at most (SHORT to MAX_BUDGET), unless it is one long
+# entry past it; 512 was faster than 256 and 128 on laplacian_2d(300, 300)'s
+# fill (chip_smoke.py --splu-times times the plan cut at others, PERF.md)
+PAIR_BUDGET = 512
 # the numpy fallback of entry_levels is a Python loop over the entries
 _FALLBACK_MAX = 1 << 18
 
@@ -128,6 +132,7 @@ class ScheduledLuPlan:
     perm: np.ndarray  # int64[nnz]: the entry at each position
     level_ptr: np.ndarray  # int64[nlevels + 1]: each level's first position
     tasks: np.ndarray  # int32[ntasks, 4]: (q0, q1, v, w)
+    budget: int  # pairs a task holds at most, unless it is one entry past it
     warps: int  # warps to take the tasks
     clamp_pos: np.ndarray  # int64: the diagonal positions some L entry divides by
 
@@ -142,22 +147,41 @@ def build_scheduled_lu(f: CSRMatrix, sched: Optional[IluSchedule] = None) -> Sch
     level (short entries before long ones, entries ascending within each),
     and the tasks in level order, ``(q0, q1, v, w)`` for the positions q0 ..
     q1 - 1 of level v: ``w == v``, up to TASK_ENTRIES short entries, a lane
-    an entry; ``w == -1``, a run of long entries, a warp over each one's
-    pairs in turn, cut where the level's long entries' pairs pass a multiple
-    of LONG_PAIRS."""
+    an entry; ``w == -1``, a run of up to TASK_ENTRIES long entries, a warp
+    over each one's pairs in turn. Each run of a level's short or long
+    entries is cut greedily: a task takes the next entries as long as their
+    pairs stay within PAIR_BUDGET; an entry past the budget is a task of its
+    own."""
     return plan_from_schedule(f.nrows, chow_patel_schedule(f) if sched is None else sched)
 
 
 def plan_from_schedule(n: int, sched: IluSchedule) -> ScheduledLuPlan:
     """K8's plan of an n-row pattern from its ragged pair lists alone (see
     :func:`build_scheduled_lu`)."""
-    return _plan_cut(n, sched, LONG_PAIRS)
+    return _plan_cut(n, sched, PAIR_BUDGET)
 
 
-def _plan_cut(n: int, sched: IluSchedule, long_pairs: int) -> ScheduledLuPlan:
-    """:func:`plan_from_schedule` with the long entries' runs cut at
-    ``long_pairs``: other cuts only to time them (``chip_smoke.py
+def _task_starts(seg_start: np.ndarray, nxt: np.ndarray) -> np.ndarray:
+    """The positions where tasks start: each segment's start and then,
+    task by task, ``nxt`` of the one before, until the segment's end (where
+    the next segment starts); all segments advance together, one task a
+    round."""
+    out = []
+    cur, end = seg_start, np.r_[seg_start[1:], nxt.size]
+    while cur.size:
+        out.append(cur)
+        cur = nxt[cur]
+        keep = cur < end
+        cur, end = cur[keep], end[keep]
+    return np.sort(np.concatenate(out)) if out else np.zeros(0, np.int64)
+
+
+def _plan_cut(n: int, sched: IluSchedule, budget: int) -> ScheduledLuPlan:
+    """:func:`plan_from_schedule` with the tasks cut at ``budget`` pairs
+    (SHORT to MAX_BUDGET): other budgets only to time them (``chip_smoke.py
     --splu-times``) and test them."""
+    if not SHORT <= budget <= MAX_BUDGET:
+        raise ValueError(f"the pair budget must be in [{SHORT}, {MAX_BUDGET}], got {budget}")
     level = entry_levels(sched).astype(np.int64)
     nnz = sched.nnz
     nlev = int(level.max()) + 1 if nnz else 0
@@ -168,31 +192,25 @@ def _plan_cut(n: int, sched: IluSchedule, long_pairs: int) -> ScheduledLuPlan:
     level_ptr = np.zeros(nlev + 1, np.int64)
     np.cumsum(size, out=level_ptr[1:])
     ns = np.bincount(level[~long], minlength=nlev)
-    # short tasks: ceil(ns / TASK_ENTRIES) a level, each from its level's start
-    k = -(-ns // TASK_ENTRIES)
-    lev_s = np.repeat(np.arange(nlev), k)
-    first = np.zeros(nlev + 1, np.int64)
-    np.cumsum(k, out=first[1:])
-    q0s = level_ptr[lev_s] + TASK_ENTRIES * (np.arange(lev_s.size) - first[lev_s])
-    q1s = np.minimum(q0s + TASK_ENTRIES, level_ptr[lev_s] + ns[lev_s])
-    # long tasks: runs of a level's long entries (which follow its short
-    # ones), cut where their pairs before the entry pass a multiple of long_pairs
-    q_long = np.flatnonzero(long[perm])
-    lev_l = level[perm[q_long]]
-    c = lens[perm[q_long]]
-    before = np.cumsum(c) - c
-    before -= before[np.searchsorted(lev_l, lev_l)]  # within the level
-    cut = before // long_pairs
-    starts = np.flatnonzero(np.r_[q_long.size > 0, (np.diff(lev_l) != 0) | (np.diff(cut) != 0)])
-    ends = np.r_[starts[1:], q_long.size][:starts.size] - 1
-    tasks = np.concatenate([np.stack([q0s, q1s, lev_s, lev_s], 1),
-                            np.stack([q_long[starts], q_long[ends] + 1, lev_l[starts],
-                                      np.full(starts.size, -1)], 1)])
-    tasks = tasks[np.argsort(tasks[:, 0], kind="stable")].astype(np.int32)
+    # segments: each level's short entries, then its long ones (either may be
+    # empty); a task from position i ends at the first of: its segment's end,
+    # TASK_ENTRIES entries, or the entry that would take it past the budget
+    # (but it holds at least its first entry)
+    bounds = np.unique(np.r_[level_ptr[:-1], level_ptr[:-1] + ns, nnz])
+    seg_start = bounds[:-1][np.diff(bounds) > 0]
+    q = np.arange(nnz)
+    seg_end = np.r_[seg_start[1:], nnz][np.searchsorted(seg_start, q, side="right") - 1]
+    cum = np.zeros(nnz + 1, np.int64)
+    np.cumsum(lens[perm], out=cum[1:])
+    fit = np.searchsorted(cum, cum[:-1] + budget, side="right") - 1
+    nxt = np.minimum(np.minimum(np.maximum(fit, q + 1), q + TASK_ENTRIES), seg_end)
+    q0 = _task_starts(seg_start, nxt)
+    v = level[perm[q0]]
+    tasks = np.stack([q0, nxt[q0], v, np.where(long[perm[q0]], -1, v)], 1).astype(np.int32)
     low = sched.is_lower & (sched.diag_pos_col >= 0)
     return ScheduledLuPlan(
         n=n, nnz=nnz, t_max=sched.t_max, sched=sched, levels=level.astype(np.int32),
-        perm=perm, level_ptr=level_ptr, tasks=tasks.reshape(-1, 4),
+        perm=perm, level_ptr=level_ptr, tasks=tasks.reshape(-1, 4), budget=budget,
         warps=max(32, -(-LOOKAHEAD * len(tasks) // max(nlev, 1))),
         clamp_pos=np.unique(sched.diag_pos_col[low]))
 
@@ -207,6 +225,8 @@ class DeviceScheduledLu:
     tasks: torch.Tensor  # int32[ntasks, 4]
     warps: int
     ptr: torch.Tensor  # int64[nnz + 1]: entry p's pairs
+    first: torch.Tensor  # int64[nnz]: the first pair of the entry at each position
+    count: torch.Tensor  # int32[nnz]: its number of pairs
     pairs_a: torch.Tensor  # int32[npairs]: positions of l_ik
     pairs_b: torch.Tensor  # int32[npairs]: positions of u_kj
     is_lower: torch.Tensor  # int8[nnz]
@@ -235,7 +255,9 @@ def splu_to_device(plan: ScheduledLuPlan,
 
     return DeviceScheduledLu(
         nnz=s.nnz, perm=put(plan.perm, np.int32), level_ptr=put(plan.level_ptr, np.int32),
-        tasks=put(plan.tasks, np.int32), warps=plan.warps, ptr=put(s.ptr, np.int64),
+        tasks=put(plan.tasks, np.int32), warps=plan.warps,
+        ptr=put(s.ptr, np.int64), first=put(s.ptr[:-1][plan.perm], np.int64),
+        count=put(np.diff(s.ptr)[plan.perm], np.int32),
         pairs_a=put(s.pairs_a, np.int32), pairs_b=put(s.pairs_b, np.int32),
         is_lower=put(s.is_lower, np.int8), diag_pos_col=put(s.diag_pos_col, np.int32),
         clamp_pos=put(plan.clamp_pos, np.int64))
@@ -356,10 +378,10 @@ def _library():
     if _lib is None:
         from . import _build
         lib = _build.load()
-        sizes = (lib.respa_splu_limit(0), lib.respa_splu_limit(1))
-        if sizes != (SHORT, TASK_ENTRIES):
+        sizes = tuple(lib.respa_splu_limit(i) for i in range(4))
+        if sizes != (SHORT, TASK_ENTRIES, MAX_BUDGET, CTL_LINE):
             raise RuntimeError(f"csrc/splu.cu was built with the sizes {sizes}, the plan "
-                               f"makes {(SHORT, TASK_ENTRIES)}")
+                               f"makes {(SHORT, TASK_ENTRIES, MAX_BUDGET, CTL_LINE)}")
         _lib = lib
     return _lib
 
@@ -393,20 +415,22 @@ def splu_factor(d: DeviceScheduledLu, a: torch.Tensor, eps: float, flush: bool =
           or out.numel() < d.nnz or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous {a.dtype} vector of at least {d.nnz} "
                          f"on {d.device}")
-    arrays = (d.perm, d.level_ptr, d.tasks, d.ptr, d.pairs_a, d.pairs_b, d.is_lower,
-              d.diag_pos_col)
-    if (d.perm.dtype != torch.int32 or d.ptr.dtype != torch.int64 or d.tasks.dim() != 2
-            or d.ptr.shape != (d.nnz + 1,) or d.perm.shape != (d.nnz,)
+    arrays = (d.perm, d.level_ptr, d.tasks, d.first, d.count, d.pairs_a, d.pairs_b,
+              d.is_lower, d.diag_pos_col)
+    if (d.perm.dtype != torch.int32 or d.first.dtype != torch.int64
+            or d.count.dtype != torch.int32 or d.tasks.dim() != 2
+            or d.first.shape != (d.nnz,) or d.count.shape != (d.nnz,) or d.perm.shape != (d.nnz,)
             or any(t.device != d.device or not t.is_contiguous() for t in arrays)):
         raise ValueError("DeviceScheduledLu arrays do not match its size and device")
     if d.nnz == 0:
         return out
-    nctl = d.levels + 1
+    nctl = CTL_LINE * (d.levels + 1)
     ctl = torch.zeros(nctl, dtype=torch.int32, device=d.device)  # counters, then the ticket
     name = f"respa_splu_factor_{_INST[key]}"
     rc = getattr(_library(), name)(
         d.device.index, d.tasks.shape[0], d.warps, d.tasks.data_ptr(), d.level_ptr.data_ptr(),
-        d.perm.data_ptr(), d.ptr.data_ptr(), d.pairs_a.data_ptr(), d.pairs_b.data_ptr(),
+        d.perm.data_ptr(), d.first.data_ptr(), d.count.data_ptr(), d.pairs_a.data_ptr(),
+        d.pairs_b.data_ptr(),
         d.is_lower.data_ptr(), d.diag_pos_col.data_ptr(), a.data_ptr(), out.data_ptr(),
         float(eps), ctl.data_ptr(), nctl, torch.cuda.current_stream(d.device).cuda_stream)
     if rc != 0:

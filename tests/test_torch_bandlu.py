@@ -340,7 +340,7 @@ def test_wrappers_refuse_what_does_not_fit():
     """The band wrappers refuse on every device what their kernels do not
     take, each error naming the argument; K10 (``band_sweep_multi``) and K11
     (``band_sweep_t``) check b's shape, type, device and layout, the block
-    size and, for K10, nrhs and first_row."""
+    size and, for K10, nrhs and first_row; K2 and K11 the inverses."""
     a = csr_from_respatpu(laplacian_2d(8, 8))
     lu = bandlu.band_lu(bandlu.csr_to_device_band(a, "fp32", "cpu", p=16)).lu
     with pytest.raises(ValueError):
@@ -377,15 +377,18 @@ def test_wrappers_refuse_what_does_not_fit():
         multi(good, forward=False, first_row=1)
     with pytest.raises(ValueError, match="first_row"):
         bandlu.band_solve(lu, torch.zeros(64), first_row=1)
-    # K2 applies the inverses of the diagonal triangles: a band without them,
-    # or with inverses of another type or shape, is refused, never solved by
-    # substitution
+    # K2 and K11 apply the inverses of the diagonal triangles: a band without
+    # them, or with inverses of another type or shape, is refused, never
+    # solved by substitution
     for inv, err, match in ((None, ValueError, "no inverses"),
                             (lu.inv.double(), TypeError, "inverses must be torch.float32"),
                             (lu.inv[:-1].contiguous(), ValueError, "inverses must be contiguous"),
                             (lu.inv.transpose(2, 3), ValueError, "inverses must be contiguous")):
-        with pytest.raises(err, match=match):
-            bandlu.band_sweep(dataclasses.replace(lu, inv=inv), torch.zeros(64), True)
+        for sweep in (bandlu.band_sweep, bandlu.band_sweep_t):
+            with pytest.raises(err, match=match):
+                sweep(dataclasses.replace(lu, inv=inv), torch.zeros(64), True)
+    with pytest.raises(ValueError, match="no inverses"):
+        bandlu.band_solve_transpose(dataclasses.replace(lu, inv=None), torch.zeros(lu.n))
     with pytest.raises(TypeError, match="inverses must be torch.float64"):  # re-typed, not remade
         bandlu.band_solve(dataclasses.replace(lu, policy=get_policy("fp64"),
                                               data=lu.data.double()), torch.zeros(64).double())

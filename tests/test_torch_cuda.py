@@ -286,11 +286,13 @@ def test_band_solve_of_several_right_hand_sides_launches_k10(card, monkeypatch):
 
 
 def test_band_sweep_t_matches_plain(card):
-    """K11 against ``band_sweep_t_plain`` on every sweep case, policy and
-    direction, twice bit for bit, each launch counted; ``band_solve_transpose``
-    solves A^T z = s."""
-    for name in SWEEP_CASES:
-        a, p = _sweep_matrix(name)
+    """K11 against ``band_sweep_t_plain`` on every sweep case, and on a band
+    of blocks of 10 (not a multiple of 4: the panels read a value at a time),
+    in every policy and direction, twice bit for bit, each launch counted;
+    ``band_solve_transpose`` solves A^T z = s."""
+    cases = {name: _sweep_matrix(name) for name in SWEEP_CASES}
+    cases["p10"] = (synth.random_banded(300, 40, 8, seed=6), 10)
+    for name, (a, p) in cases.items():
         for policy in SWEEP_TOL:
             lu = B.band_lu(B.csr_to_device_band(a, policy, card, p=p)).lu
             acc = lu.policy.accum_dtype
@@ -705,18 +707,29 @@ def test_ilu_kernels_match_plain(card):
 def test_splu_kernel_matches_plain(card):
     """K8 (the scheduled LU in one launch) bit for bit with its plain
     version in every instance, twice, counting its launches, the slot past
-    the output untouched: exact ILU(0) of a circuit with hub rows, the exact
-    LU of a band's fill (entries of up to 40 pairs: the warp's path) and of
-    a grid's, each plan with a long entry a run and with runs of about
-    LONG_PAIRS pairs; a perturbed pivot counted; a subnormal pivot flushed and
-    clamped under fp32_ftz; K8 on two streams at once equal to the
+    the output untouched: exact ILU(0) of a circuit with hub rows, and of one
+    with a hub row and column (an entry of 1,502 pairs, past the kernel's
+    staging budget: streamed in chunks), the exact LU of a band's fill
+    (entries of up to 40 pairs: the warp's path), of a wider band's (long
+    entries of 86 pairs at the median) and of a grid's, each plan cut at the
+    package's pair budget and at the smallest one (SHORT: every long entry a
+    task of its own); a perturbed pivot counted; a subnormal pivot flushed
+    and clamped under fp32_ftz; K8 on two streams at once equal to the
     sequential factorizations."""
-    pats = {"ilu0_circuit": synth.circuit_like(4000, 5, seed=2, diag="dominant"),
+    c = synth.circuit_like(4000, 5, seed=2, diag="dominant")
+    coo, rng = c.tocoo(), np.random.default_rng(7)
+    hub = rng.choice(c.nrows - 1, 1500, replace=False)
+    arrow = coo_to_csr(COOMatrix(
+        c.shape, np.r_[coo.row, np.full(hub.size, c.nrows - 1), hub].astype(np.int32),
+        np.r_[coo.col, hub, np.full(hub.size, c.nrows - 1)].astype(np.int32),
+        np.r_[coo.val, rng.uniform(-1.0, 1.0, 2 * hub.size)]))
+    pats = {"ilu0_circuit": c, "ilu0_circuit_hub": arrow,
             "lu_banded": analysis.symbolic_fill_lu(synth.random_banded(400, 40, 12, seed=5)),
+            "lu_banded_wide": analysis.symbolic_fill_lu(synth.random_banded(400, 165, 12, seed=5)),
             "lu_grid": analysis.symbolic_fill_lu(synth.laplacian_2d(40, 35))}
-    for (pname, f), long_pairs in [(kv, lp) for kv in pats.items() for lp in (1, SP.LONG_PAIRS)]:
-        d = SP.splu_to_device(SP._plan_cut(f.nrows, analysis.chow_patel_schedule(f), long_pairs),
-                              card)
+    assert np.diff(analysis.chow_patel_schedule(arrow).ptr).max() > SP.MAX_BUDGET
+    for (pname, f), budget in [(kv, b) for kv in pats.items() for b in (SP.SHORT, SP.PAIR_BUDGET)]:
+        d = SP.splu_to_device(SP._plan_cut(f.nrows, analysis.chow_patel_schedule(f), budget), card)
         for inst, policy in ILU_INST.items():
             p = get_policy(policy)
             av = p.cast_host(f.data).to(card)
@@ -730,10 +743,10 @@ def test_splu_kernel_matches_plain(card):
                 outs.append(out)
             want = SP.splu_factor_plain(d, av, eps, p.flush_to_zero)
             torch.cuda.synchronize()
-            assert SP.LAUNCHES[name] == before + 2, (pname, long_pairs, inst)
+            assert SP.LAUNCHES[name] == before + 2, (pname, budget, inst)
             for out in outs:
                 assert torch.equal(out[:-1], want) and float(out[-1]) == 7.0, \
-                    (pname, long_pairs, inst)
+                    (pname, budget, inst)
     f = pats["lu_grid"]
     d = SP.splu_to_device(SP.build_scheduled_lu(f), card)
     a1 = torch.from_numpy(f.data).to(card)

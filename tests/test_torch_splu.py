@@ -98,40 +98,44 @@ def test_entry_levels_match_respatpu(case, monkeypatch):
     monkeypatch.setattr(analysis, "_USE_NATIVE", False)  # the numpy fallback
     assert np.array_equal(SP.entry_levels(ts), want)
     # the plan: positions by level, short entries before long ones, every
-    # dependency in an earlier level, tasks covering every position once:
-    # up to TASK_ENTRIES short entries of one level, or a run of one level's
-    # long entries cut where their pairs pass a multiple of long_pairs
-    for long_pairs in (1, 100, SP.LONG_PAIRS):
-        plan = SP._plan_cut(f.nrows, ts, long_pairs)
+    # dependency in an earlier level, tasks in level order covering every
+    # position once: up to TASK_ENTRIES entries of one level, all short (a
+    # lane an entry) or all long (a warp an entry), their pairs within the
+    # budget unless the task is one long entry past it; cut greedily (a task
+    # ends where its next entry would pass the budget); at the budget the
+    # package uses and at the smallest one the kernel takes
+    for budget in (SP.SHORT, SP.PAIR_BUDGET):
+        plan = SP._plan_cut(f.nrows, ts, budget)
         lev = plan.levels[plan.perm]
         assert np.all(np.diff(lev) >= 0) and plan.level_ptr[-1] == f.nnz
         lens = np.diff(ts.ptr)[plan.perm]
         for v in range(plan.nlevels):
             q = slice(plan.level_ptr[v], plan.level_ptr[v + 1])
             assert np.all(np.diff((lens[q] > SP.SHORT).astype(int)) >= 0)
-        t = plan.tasks
-        covered = np.concatenate([np.arange(q0, q1) for q0, q1, _, _ in t])
-        assert np.array_equal(covered, np.arange(f.nnz))
+        t = plan.tasks.astype(np.int64)
+        assert plan.budget == budget and np.all(t[1:, 0] == t[:-1, 1])
+        assert t[0, 0] == 0 and t[-1, 1] == f.nnz and np.all(t[:, 1] > t[:, 0])
+        assert np.all(np.diff(t[:, 2]) >= 0)
         assert np.all(lev[t[:, 0]] == t[:, 2]) and np.all(lev[t[:, 1] - 1] == t[:, 2])
         short = t[:, 3] == t[:, 2]
         assert np.all(short | (t[:, 3] == -1))
-        assert np.all(t[short, 1] - t[short, 0] <= SP.TASK_ENTRIES)
-        # the cut: a long entry's place is the pairs of its level's long
-        # entries before it // long_pairs, one place a run, a new place a new run
-        place = {}
-        for v in range(plan.nlevels):
-            q = np.arange(plan.level_ptr[v], plan.level_ptr[v + 1])
-            q = q[lens[q] > SP.SHORT]
-            place.update(zip(q.tolist(), ((np.cumsum(lens[q]) - lens[q]) // long_pairs).tolist()))
-        last = None
+        assert np.all(t[:, 1] - t[:, 0] <= SP.TASK_ENTRIES)
+        cum = np.r_[0, np.cumsum(lens)]
+        pairs = cum[t[:, 1]] - cum[t[:, 0]]
+        lone = t[:, 1] - t[:, 0] == 1
+        assert np.all((pairs <= budget) | (lone & ~short))
         for q0, q1, v, w in t:
             assert np.all((lens[q0:q1] > SP.SHORT) == (w == -1))
-            if w == -1:
-                assert len({place[q] for q in range(q0, q1)}) == 1
-                assert last is None or last[0] != v or last[1] != place[q0]
-                last = (v, place[q0])
-        if long_pairs == 1:
-            assert np.all(t[~short, 1] - t[~short, 0] == 1)
+            # greedy: the next entry of the same level and kind would not have fit
+            if q1 < f.nnz and q1 - q0 < SP.TASK_ENTRIES and lev[q1] == v \
+                    and (lens[q1] > SP.SHORT) == (w == -1):
+                assert cum[q1 + 1] - cum[q0] > budget
+        if budget == SP.SHORT:
+            assert np.all(lone[~short])  # every long entry is past the smallest budget
+    assert SP.SHORT <= SP.PAIR_BUDGET <= SP.MAX_BUDGET
+    for budget in (SP.SHORT - 1, SP.MAX_BUDGET + 1):
+        with pytest.raises(ValueError, match="pair budget"):
+            SP._plan_cut(f.nrows, ts, budget)
     for p in range(f.nnz):
         deps = np.r_[ts.pairs_a[ts.ptr[p]:ts.ptr[p + 1]], ts.pairs_b[ts.ptr[p]:ts.ptr[p + 1]]]
         if ts.is_lower[p] and ts.diag_pos_col[p] >= 0:
@@ -139,6 +143,8 @@ def test_entry_levels_match_respatpu(case, monkeypatch):
         assert np.all(plan.levels[deps] < plan.levels[p])
     if case == "lu_banded":
         assert (np.diff(ts.ptr) > SP.SHORT).any()  # the warp's path is reached
+        plan = SP._plan_cut(f.nrows, ts, SP.PAIR_BUDGET)
+        t = plan.tasks
         assert (t[:, 1] - t[:, 0] > 1)[t[:, 3] == -1].any()  # and a run of several
 
 
