@@ -345,10 +345,18 @@ ILU_DESIGNS_SOURCE = "respatpu_torch/bench/csrc/ilu0_designs.cu"
 PROBES_SOURCE = "respatpu_torch/bench/csrc/smoke_probes.cu"
 ILU_DESIGNS = ("body, evict-first", "body, plain loads", "first version",
                "warp-cooperative, 32 pairs a step", "warp-cooperative, 64 pairs a step")
-# the sweep's __global__ functions by (regime, forward), as the profiler names them
-SWEEP_KERNELS = {("warp", True): "front_fwd_warp", ("warp", False): "front_bwd_warp",
-                 ("block", True): "front_fwd_block", ("block", False): "front_bwd_block",
-                 ("wide", True): "front_wide_kernel", ("wide", False): "front_wide_kernel"}
+# the sweeps' __global__ functions by (regime, forward, transposed), as the
+# profiler names them: K4's, and K12's of its own
+SWEEP_KERNELS = {("warp", True, False): "front_fwd_warp", ("warp", False, False): "front_bwd_warp",
+                 ("block", True, False): "front_fwd_block",
+                 ("block", False, False): "front_bwd_block",
+                 ("wide", True, False): "front_wide_kernel",
+                 ("wide", False, False): "front_wide_kernel",
+                 ("warp", True, True): "front_fwd_warp_t", ("warp", False, True): "front_bwd_warp_t",
+                 ("block", True, True): "front_fwd_block_t",
+                 ("block", False, True): "front_bwd_block_t",
+                 ("wide", True, True): "front_wide_t_kernel",
+                 ("wide", False, True): "front_wide_t_kernel"}
 
 
 # Calls of the port's plain versions outside the holds: none may happen. The
@@ -1535,14 +1543,17 @@ def check_frontal_kernels(errs):
     docstring."""
     # (name, fronts, wp, rp, parents): a hub parent of 300 children for the
     # extend-add, the sweep's warp regime (up to 2,000
-    # fronts of wp 8 and 32), its block regime (wp 24-128, a 6,144-row panel
-    # over 96 tiles), its wide regime (wp 192-2,048, rp 0-384, 1-3 fronts)
+    # fronts of wp 8 and 32, a panel of two passes), its block regime (wp
+    # 24-128, a 6,144-row panel over 96 tiles, 333 rows over 5 tiles of 67),
+    # its wide regime (wp 192-2,048, rp 0-384, 1-3 fronts; odd widths)
     shapes = [("one_front", 1, 8, 8, 1), ("many_children", 700, 8, 16, 2), ("hub", 300, 8, 16, 1),
               ("warp_wp8", 2000, 8, 16, 40), ("warp_wp32", 2000, 32, 32, 40),
-              ("roots_rp0", 3, 24, 0, 0), ("wp24", 6, 24, 32, 4), ("wp128", 5, 128, 48, 3),
-              ("tall_wp64", 1, 64, 6144, 1), ("wide192", 2, 192, 96, 1),
-              ("wide200", 3, 200, 64, 2), ("wide1000", 2, 1000, 384, 1),
-              ("wide2048", 1, 2048, 256, 1), ("wide2048_rp0", 1, 2048, 0, 0)]
+              ("warp_wp32_rp40", 300, 32, 40, 5), ("roots_rp0", 3, 24, 0, 0),
+              ("wp24", 6, 24, 32, 4), ("wp128", 5, 128, 48, 3), ("tall_wp64", 1, 64, 6144, 1),
+              ("tall_wp40_rp333", 1, 40, 333, 1), ("wide192", 2, 192, 96, 1),
+              ("wide200", 3, 200, 64, 2), ("wide333_rp77", 2, 333, 77, 1),
+              ("wide1000", 2, 1000, 384, 1), ("wide2048", 1, 2048, 256, 1),
+              ("wide640_rp0", 1, 640, 0, 0), ("wide2048_rp0", 1, 2048, 0, 0)]
     for cname, nf, wp, rp, npar in shapes:
         host = frontal_group(nf, wp, rp, npar, seed=nf + wp)
         regime, tiles = F.sweep_regime(nf, wp, rp)
@@ -1793,16 +1804,42 @@ def hold_frontal_full(name_limit, name, fac, errs, full):
         raise AssertionError(f"{name} at full width: " + "; ".join(failed))
 
 
+def frontal_picks(groups):
+    """Three groups of a frontal plan by index: the one with the most fronts
+    among those with parents (populous), the one with the most update rows
+    among those a warp or a thread block solves (tallest), and the widest
+    front."""
+    with_parents = [i for i, g in enumerate(groups) if g.seg_ptr.size > 1]
+    narrow = [i for i, g in enumerate(groups) if g.wp <= F.MAX_TRI]
+    return {"populous": max(with_parents, key=lambda i: groups[i].nfronts),
+            "tallest": max(narrow, key=lambda i: (groups[i].rp, groups[i].nfronts)),
+            "widest": max(range(len(groups)), key=lambda i: groups[i].wp)}
+
+
+def sweep_chain(g, latency, barrier):
+    """A sweep's chain bound for group ``g`` (ms and what it counts): the
+    wide regime's row blocks of 64, one after the other, each handed over
+    through L2 (``latency``, the link probe); the block regime's pivots,
+    each handed over through shared memory past a barrier (``barrier``, the
+    barrier probe); none for the warp regime, whose pivots go by shuffles
+    that no probe measures."""
+    if g.regime == "wide":
+        links = -(-g.wp // 64) - 1
+        return links * latency * 1e3, f"{links} row-block hand-overs x the link probe"
+    if g.regime == "block":
+        return (g.wp - 1) * barrier * 1e3, f"{g.wp - 1} pivot hand-overs x the barrier probe"
+    return None, "none: a pivot goes by a shuffle, which no probe measures"
+
+
 @held
-def time_frontal(name_limit, fac, times, probes):
-    """The frontal kernels of ``fac``'s instance at three group shapes of its
-    plan: the group with the most fronts among those with parents
-    (populous), the one with the most update rows among those a warp or a
-    thread block solves (tallest), and the widest front. ``ms`` is the
+def time_frontal(name_limit, fac, times, probes, latency, barrier):
+    """The frontal kernels of ``fac``'s instance at the three groups of
+    :func:`frontal_picks`. ``ms`` is the
     wrapper's window by events with a cold L2 (y is reset before each window,
     outside it), ``profiler_ms`` the kernel alone from a trace. The bound is
     the bytes the function needs (a sweep: the triangle, not the square it
-    lies in, the panel, y's entries, the indices) at 3.35 TB/s. Beside it
+    lies in, the panel, y's entries, the indices) at 3.35 TB/s; a sweep's
+    chain bound (:func:`sweep_chain`) is printed beside it. Beside them
     the plain version; for the extend-add and the reduction the one PyTorch
     call with the same function (``index_add_`` on materialised indices, on
     ``rsx``; for the extend-add also under deterministic algorithms, the
@@ -1815,11 +1852,7 @@ def time_frontal(name_limit, fac, times, probes):
     item = pool.element_size()
     dgs = plan.on_device(pool.device)
     groups = plan.groups
-    with_parents = [i for i, g in enumerate(groups) if g.seg_ptr.size > 1]
-    narrow = [i for i, g in enumerate(groups) if g.wp <= F.MAX_TRI]
-    picks = {"populous": max(with_parents, key=lambda i: groups[i].nfronts),
-             "tallest": max(narrow, key=lambda i: (groups[i].rp, groups[i].nfronts)),
-             "widest": max(range(len(groups)), key=lambda i: groups[i].wp)}
+    picks = frontal_picks(groups)
     y0 = torch.randn(plan.part.n + 1, dtype=pool.dtype, device=pool.device)
     y0[-1] = 0
     y = y0.clone()
@@ -1840,7 +1873,7 @@ def time_frontal(name_limit, fac, times, probes):
         y.copy_(y0)
 
     def record(name, tag, shape, fn, plain_fn, lib_fn, kernel_name, nbytes, setup=None,
-               extra=None, reps=10, regime=None):
+               extra=None, reps=10, regime=None, chain=None):
         setup = setup or (lambda: None)
         torch.cuda.synchronize()
         setup()
@@ -1861,6 +1894,10 @@ def time_frontal(name_limit, fac, times, probes):
         if regime:
             t["regime"] = regime
         more = "".join(f"; {k.replace('_', ' ')} {t[k]:.4f} ms" for k in (extra or {}))
+        if chain:
+            t["chain_bound"] = {"bound_ms": chain[0], "bound_by": "chain", "counts": chain[1]}
+            more += (f"; chain bound {'none' if chain[0] is None else f'{chain[0]:.4f} ms'} "
+                     f"({chain[1]})")
         print(f"[time] {name_limit} | {name} {tag} {shape}: {fmt_ms(t['ms'])} by events, "
               f"{fmt_ms(t['profiler_ms'])} the kernel alone by the profiler; bound "
               f"{t['bound_ms'] * 1e3:.3f} us ({nbytes} bytes at 3.35 TB/s); library "
@@ -1916,7 +1953,7 @@ def time_frontal(name_limit, fac, times, probes):
         pv, rs = d["piv"].long(), d["rsx"].long()
         for trans, fwd in ((False, True), (False, False), (True, True), (True, False)):
             name = f"respa_front_sweep_{'t_' if trans else ''}{'fwd' if fwd else 'bwd'}_{inst}"
-            kernel_name = SWEEP_KERNELS[g.regime, fwd]
+            kernel_name = SWEEP_KERNELS[g.regime, fwd, trans]
             # the function: the triangle and the panel once, y[piv] read and
             # written, y[rsx] read (backward) or upd written (forward), indices
             need = nf * ((tri + rp * wp + 2 * wp + rp) * item + (wp if fwd else wp + rp) * 4)
@@ -1954,7 +1991,8 @@ def time_frontal(name_limit, fac, times, probes):
 
             record(name, tag, f"{shape}, {g.regime} regime x{g.tiles}", sweep,
                    plain, None, kernel_name, need, setup=reset,
-                   extra={"library_route_ms": lambda: events_ms(library_route, 10, reset)})
+                   extra={"library_route_ms": lambda: events_ms(library_route, 10, reset)},
+                   chain=sweep_chain(g, latency, barrier))
         if rp and not flush:
             upd = F.front_sweep(pool, y0.clone(), *grp, d["piv"], d["rsx"], True, flush,
                                 control=F.control_zeros(pool, *grp[1:]))
@@ -2196,16 +2234,120 @@ def k3_against_first(name_limit, what, fac, probes):
         del scratch
 
 
+@held
+def k12_against_first(name_limit, what, fac, probes):
+    """``--before``: K12 beside its first version (the probes'
+    ``respa_front_sweep_t_before_*``: K4's kernels read transposed) at the
+    groups of :func:`frontal_picks`, both directions, in turns, by events
+    (10 calls of the entry through ctypes, ``launch_sweep`` for K12, y reset
+    before each outside the window; control words zeroed inside it for both)
+    and by the profiler. Both run twice bit for bit on
+    the same inputs as the plain version; K12 stays within ``FRONT_TOL`` of
+    plain, or within ``AMPLIFIED`` times the first version's distance where
+    the front amplifies rounding past it."""
+    plan, pool, flush = fac._plan, fac._frontal.pool, fac._frontal.flush
+    inst = F._INST[pool.dtype, flush]
+    tol = FRONT_TOL[pool.dtype]
+    dgs = plan.on_device(pool.device)
+    groups = plan.groups
+    y0 = torch.randn(plan.part.n + 1, dtype=pool.dtype, device=pool.device,
+                     generator=torch.Generator(device=pool.device).manual_seed(12))
+    y0[-1] = 0
+    y = y0.clone()
+
+    def reset():
+        y.copy_(y0)
+
+    for tag, gi in frontal_picks(groups).items():
+        g, d = groups[gi], dgs[gi]
+        grp = (g.g0, g.nfronts, g.wp, g.rp)
+        words = F.control_words(g.nfronts, g.wp, g.rp, pool.element_size())
+        tickets = g.nfronts + (g.nfronts & 1)
+        for fwd in (True, False):
+            dname = "fwd" if fwd else "bwd"
+            first = getattr(probes, f"respa_front_sweep_t_before_{dname}_{inst}")
+            shape = (g.nfronts, g.rp) if fwd else (
+                (g.nfronts, g.tiles, g.wp) if g.tiles > 1 else (1,))
+            out = torch.empty(shape, dtype=pool.dtype, device=pool.device)
+
+            def old(first=first, out=out, fwd=fwd):
+                ctl = torch.zeros(words, dtype=torch.int32, device=pool.device)
+                rc = first(pool.device.index, pool.data_ptr(), g.g0, g.nfronts, g.wp, g.rp,
+                           d["piv"].data_ptr(), d["rsx"].data_ptr(), y.data_ptr(),
+                           y.numel() - 1, out.data_ptr(), F._REGIMES[g.regime], g.tiles,
+                           ctl.data_ptr(),
+                           ctl[tickets:].data_ptr() if g.regime == "wide" else ctl.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"K12's first version launch failed: cudaError {rc}")
+                return out if fwd else None
+
+            def new(out=out, fwd=fwd):  # the wrapper's kernel part, as old() is the entry's
+                F.launch_sweep(pool, y, *grp, d["piv"], d["rsx"], fwd, flush, out,
+                               F.control_zeros(pool, *grp[1:]), transposed=True)
+                return out if fwd else None
+
+            def result(fn):
+                reset()
+                u = fn()
+                torch.cuda.synchronize()
+                return torch.cat([y, u.reshape(-1)]) if fwd and g.rp else y.clone()
+
+            reset()
+            yp = y0.clone()
+            up = F.front_sweep_t_plain(pool, yp, *grp, d["piv"], d["rsx"], fwd, flush)
+            want = torch.cat([yp, up.reshape(-1)]) if fwd and g.rp else yp
+            scale = max(float(want.abs().max()), 1e-300)
+            errs = {}
+            with uncounted():
+                for who, fn in (("K12", new), ("first version", old)):
+                    got = result(fn)
+                    if not torch.equal(got, result(fn)):
+                        raise AssertionError(f"K12 {what} {tag} {dname}: {who} not bit for bit "
+                                             "twice")
+                    errs[who] = float((got.double() - want.double()).abs().max()) / scale
+                if not errs["K12"] <= max(tol, AMPLIFIED * errs["first version"]):
+                    raise AssertionError(f"K12 {what} {tag} {dname}: rel_err {errs['K12']:.3e} "
+                                         f"against plain, the first version "
+                                         f"{errs['first version']:.3e} (tol {tol:.0e})")
+                turns = [events_ms(fn, 10, reset) for fn in (new, old, old, new)]
+                kname = SWEEP_KERNELS[g.regime, fwd, True]
+                prof = (profiler_ms(lambda: (reset(), new()), kname, 5),
+                        profiler_ms(lambda: (reset(), old()),
+                                    "first_k12::" + SWEEP_KERNELS[g.regime, fwd, False], 5))
+            print(f"[before] {name_limit} | respa_front_sweep_t_{dname}_{inst} {what} {tag} "
+                  f"(B={g.nfronts} wp={g.wp} rp={g.rp}, {g.regime} regime x{g.tiles}): K12 "
+                  f"{min(turns[0], turns[3]):.4f} ms by events ({fmt_ms(prof[0])} by the "
+                  f"profiler) against its first version {min(turns[1], turns[2]):.4f} ms "
+                  f"({fmt_ms(prof[1])}), in turns {', '.join(f'{t:.4f}' for t in turns)}; "
+                  f"rel_err vs plain {errs['K12']:.2e} against {errs['first version']:.2e}; "
+                  f"both bit for bit twice", flush=True)
+        del out
+
+
 def before_path(name_limit, probes):
     """``--before``: K8 beside its first version at the Laplacian's fill in every instance and at
-    2cubes_sphere's ILU(0) in fp32; K2, K11 and K3 beside their first
+    2cubes_sphere's ILU(0) in fp32; K2, K11, K3 and K12 beside their first
     versions, in turns, at the main paths' shapes (2cubes_sphere's band factor
     in every instance; dc1 fp32, 2cubes_sphere fp64 and the Laplacian
     fp32_ftz by snlu), and each warm factorization traced with the first
     versions of K1 and K3 and with the package's, in one run."""
+    cubes = corpus.load_matrix("2cubes_sphere")[0]
+    # the frontal kernels first: the profiler drops records after many traces
+    for what, a, policy, method in (
+            ("dc1 fp32", corpus.load_matrix("dc1")[0], "fp32", "auto"),
+            ("2cubes_sphere fp64", cubes, "fp64", "snlu"),
+            ("laplacian_2d(300, 300) fp32_ftz", laplacian_2d(300, 300), "fp32_ftz", "snlu")):
+        f = slv.factorize(a, policy, method=method, device="cuda")
+        k12_against_first(name_limit, what, f, probes)
+        k3_against_first(name_limit, what, f, probes)
+        with uncounted():
+            factor_busy(name_limit, "[before]", f"{what} multifrontal", f.refactorize_timed,
+                        probes)
+        del f
+        torch.cuda.empty_cache()
     lap = laplacian_2d(300, 300)
     fill = analysis.symbolic_fill_lu(analysis.permute_csr(lap, analysis.ordering(lap, "fillauto")))
-    cubes = corpus.load_matrix("2cubes_sphere")[0]
     for what, f, insts in (("laplacian_2d(300, 300) fill", fill, tuple(ILU_POLICIES)),
                            ("2cubes_sphere ILU(0)", cubes, ("f32",))):
         plan = SP.build_scheduled_lu(f)
@@ -2227,17 +2369,6 @@ def before_path(name_limit, probes):
                     probes)
     del fac, fac64
     torch.cuda.empty_cache()
-    for what, a, policy, method in (
-            ("dc1 fp32", corpus.load_matrix("dc1")[0], "fp32", "auto"),
-            ("2cubes_sphere fp64", cubes, "fp64", "snlu"),
-            ("laplacian_2d(300, 300) fp32_ftz", laplacian_2d(300, 300), "fp32_ftz", "snlu")):
-        f = slv.factorize(a, policy, method=method, device="cuda")
-        k3_against_first(name_limit, what, f, probes)
-        with uncounted():
-            factor_busy(name_limit, "[before]", f"{what} multifrontal", f.refactorize_timed,
-                        probes)
-        del f
-        torch.cuda.empty_cache()
 
 
 def deterministic_ms(fn, reps=10):
@@ -2366,10 +2497,11 @@ def two_streams_frontal(name_limit, fac, bd):
           f"{fmt_ms(busy)}", flush=True)
 
 
-def multifrontal_path(name_limit, mats, errs, full, times, probes):
+def multifrontal_path(name_limit, mats, errs, full, times, probes, latency):
     """Phase 8; returns the launch counts of the frontal, block-LU and fp64
     SpMV kernels on the multifrontal path, and dc1's fp32 factorization
-    (phase 13 saves it)."""
+    (phase 13 saves it). ``latency``: the link probe's hand-over, for the
+    sweeps' chain bounds."""
     reset_counts()
     a = mats["dc1"]
     if slv.structural_symmetry(a) >= 0.9:
@@ -2436,13 +2568,14 @@ def multifrontal_path(name_limit, mats, errs, full, times, probes):
     for name, f in (("dc1 fp32", fac), ("2cubes_sphere fp64", fac64),
                     ("laplacian_2d(300, 300) fp32_ftz", fac_z)):
         hold_frontal_full(name_limit, name, f, errs, full)
-    time_frontal(name_limit, fac, times, probes)
-    time_frontal(name_limit, fac64, times, probes)
+    barrier = block_barrier(name_limit, probes)
+    time_frontal(name_limit, fac, times, probes, latency, barrier)
+    time_frontal(name_limit, fac64, times, probes, latency, barrier)
     with uncounted():  # K1's and K3's shares; their first versions beside them: --before
         factor_busy(name_limit, "[frontal]", "2cubes_sphere fp64 multifrontal",
                     fac64.refactorize_timed)
     del fac64
-    time_frontal(name_limit, fac_z, times, probes)
+    time_frontal(name_limit, fac_z, times, probes, latency, barrier)
     with uncounted():
         factor_busy(name_limit, "[frontal]", "dc1 fp32 multifrontal", fac.refactorize_timed)
     return launches, fac
@@ -3205,11 +3338,13 @@ def l2_read_rate(name_limit, probes, mib=16, rounds=64):
 
 
 @held
-def hold_splu(what, d, values, eps, insts, errs):
+def hold_splu(what, d, values, eps, insts, errs, plain=True):
     """K8 against its plain version on a plan and values (A's values on the
     pattern, fp64 on the host), twice, bit for bit, in each instance of
     ``insts``, the slot past the output untouched; returns {instance: (A's
-    values on the card, plain ms)}."""
+    values on the card, plain ms)}. Without ``plain`` the two runs are held
+    to each other alone (plain ms None): for instances that phase 10 holds
+    against plain on other plans."""
     out = {}
     for inst in insts:
         p = get_policy(ILU_POLICIES[inst])
@@ -3220,28 +3355,36 @@ def hold_splu(what, d, values, eps, insts, errs):
             SP.splu_factor(d, av, eps, p.flush_to_zero, out=o)
             runs.append(o)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = SP.splu_factor_plain(d, av, eps, p.flush_to_zero)
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3
+        ms = None
+        if plain:
+            t0 = time.perf_counter()
+            want = SP.splu_factor_plain(d, av, eps, p.flush_to_zero)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            errs[f"respa_splu_factor_{inst}"] = 0.0
+        else:
+            want = runs[1][:-1]
         if not all(torch.equal(o[:-1], want) and float(o[-1]) == 7.0 for o in runs):
-            raise AssertionError(f"K8 {inst} on {what}: kernel != plain")
-        errs[f"respa_splu_factor_{inst}"] = 0.0
-        print(f"[kernel] K8 {inst} {what} nnz={d.nnz} pairs={d.pairs_a.numel()}: == plain bit "
-              f"for bit twice", flush=True)
-        out[inst] = (av, plain)
+            raise AssertionError(f"K8 {inst} on {what}: kernel != plain, or not twice the same")
+        held = "== plain bit for bit twice" if plain else "bit for bit twice (phase 10 holds it)"
+        print(f"[kernel] K8 {inst} {what} nnz={d.nnz} pairs={d.pairs_a.numel()}: {held}",
+              flush=True)
+        out[inst] = (av, ms)
     return out
 
 
 @held
-def hold_and_time_splu(name_limit, what, d, values, eps, insts, errs, latency, l2, reps=10):
+def hold_and_time_splu(name_limit, what, d, values, eps, insts, errs, latency, l2, reps=10,
+                       hold=True):
     """K8 held against its plain version (:func:`hold_splu`) on the path's
-    own plan and values, then timed by events and the profiler beside its
+    own plan and values (with ``hold=False`` only repeated bit for bit), then
+    timed by events and the profiler beside its
     byte and chain bounds, its value gathers against the L2 read rate ``l2``
     (bytes/s, :func:`l2_read_rate`), and the plain version (one run, host
-    clock to a synchronize). Returns {kernel name: times}."""
+    clock to a synchronize; None without the hold). Returns {kernel name:
+    times}."""
     out = {}
-    for inst, (av, plain) in hold_splu(what, d, values, eps, insts, errs).items():
+    for inst, (av, plain) in hold_splu(what, d, values, eps, insts, errs, hold).items():
         p = get_policy(ILU_POLICIES[inst])
         name = f"respa_splu_factor_{inst}"
         nbytes = splu_bytes(d, p.dtype.itemsize)
@@ -3270,7 +3413,8 @@ def hold_and_time_splu(name_limit, what, d, values, eps, insts, errs, latency, l
               f"bytes at 3.35 TB/s; {ops} operations {by_ops:.4f} ms); value gathers "
               f"{t['l2_gather_ms']:.4f} ms ({gather} bytes at the L2 read rate {l2 / 1e12:.3f} "
               f"TB/s); chain bound {chain:.4f} ms ({d.levels - 1} hand-overs x "
-              f"{latency * 1e6:.4f} us); library none; plain {plain:.1f} ms", flush=True)
+              f"{latency * 1e6:.4f} us); library none; plain "
+              f"{'not run' if plain is None else f'{plain:.1f} ms'}", flush=True)
     return out
 
 
@@ -3422,10 +3566,11 @@ def splu_direct_path(name_limit):
 
 @held
 def hold_splu_direct(name_limit, fac, fac64, errs, latency, l2):
-    """Beside phase 11, not counted: the condition estimate once, and K8
-    against its plain version on the Laplacian's filled pattern in every
-    instance (fp32 and fp64, the path's, and fp32_ftz and bf16 on the fp32
-    factor's plan), timed."""
+    """Beside phase 11, not counted: the condition estimate once, and K8 on
+    the Laplacian's filled pattern in every instance, timed: fp32 and fp64,
+    the path's, against their plain versions; fp32_ftz and bf16 on the fp32
+    factor's plan repeated bit for bit (phase 10 holds them against plain on
+    2cubes_sphere's and the Laplacian's ILU(0) plans)."""
     t0 = time.perf_counter()
     rcond = fac.condest()
     if not (np.isfinite(rcond) and 0 < rcond <= 1):
@@ -3433,10 +3578,11 @@ def hold_splu_direct(name_limit, fac, fac64, errs, latency, l2):
     print(f"[splu] {name_limit} | laplacian_2d(300, 300) condest (Hager, transpose solves of the "
           f"scheduled factor): rcond {rcond:.3e} in {time.perf_counter() - t0:.2f} s", flush=True)
     out = {}
-    for f, insts in ((fac, ("f32", "f32_ftz", "bf16")), (fac64, ("f64",))):
+    for f, insts, hold in ((fac, ("f32",), True), (fac, ("f32_ftz", "bf16"), False),
+                           (fac64, ("f64",), True)):
         out.update(hold_and_time_splu(name_limit, "laplacian_2d(300, 300) fill", f._dev,
                                       f._filled.data, f._pivot_eps, insts, errs, latency, l2,
-                                      reps=5))
+                                      reps=5, hold=hold))
     return out
 
 
@@ -3484,8 +3630,8 @@ def dia_path(name_limit):
 def build_probes():
     """``bench/csrc/smoke_probes.cu`` (K9's other remainder design, which
     includes the package's kernel source, the L2 read and barrier probes, and
-    the first versions of K1, K2 and K3) in a library of its own, bound by
-    ctypes."""
+    the first versions of K1, K2, K3, K8, K11 and K12) in a library of its
+    own, bound by ctypes."""
     here = os.path.dirname(os.path.abspath(__file__))
     csrc = os.path.join(here, "respatpu_torch", "kernels", "csrc")
     path = build_shared("librespa_smoke_probes.so", [os.path.join(here, PROBES_SOURCE)],
@@ -3525,6 +3671,14 @@ def build_probes():
         fn = getattr(lib, f"respa_splu_factor_before_{inst}")
         fn.argtypes = [i32, i32, i32, *[ptr] * 10, ctypes.c_double, ptr, i32, ptr]
         fn.restype = i32
+    for d in ("fwd", "bwd"):
+        for inst in ("f32", "f32_ftz", "f64"):
+            # K12's first version: device, pool, g0, nfronts, wp, rp, piv, rsx, y, n, out,
+            # regime, tiles, ctl, mail, stream
+            fn = getattr(lib, f"respa_front_sweep_t_before_{d}_{inst}")
+            fn.argtypes = [i32, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i32, ptr, i32, i32, ptr,
+                           ptr, ptr]
+            fn.restype = i32
     return lib
 
 
@@ -3672,15 +3826,16 @@ def no_triangle_room():
         persist._tri_budget = budget
 
 
-def persist_row(name_limit, what, live, a, tmp, bitwise, no_room=False):
-    """Save ``live``, load it back bound to ``a`` (with no room for the
-    triangles where ``no_room``), one solve and a refined solve; the loaded
-    solve equal to the live one bit for bit where ``bitwise``. Returns the
-    loaded factorization."""
+def persist_row(name_limit, what, live, a, tmp, bitwise, no_room=False, compressed=True):
+    """Save ``live`` (a sparse factor without zlib where not ``compressed``),
+    load it back bound to ``a`` (with no room for the triangles where
+    ``no_room``), one solve and a refined solve; the loaded solve equal to
+    the live one bit for bit where ``bitwise``. Returns the loaded
+    factorization."""
     band = isinstance(live, slv.BandLuFactorization)
     path = os.path.join(tmp, "_".join(re.findall(r"\w+", what)) + ".npz")
-    _, t_save = synced(lambda: (persist.save_band_factorization if band else
-                                persist.save_sparse_factorization)(path, live))
+    _, t_save = synced(lambda: persist.save_band_factorization(path, live) if band else
+                       persist.save_sparse_factorization(path, live, compressed=compressed))
     nbytes = os.path.getsize(path)
     with no_triangle_room() if no_room else contextlib.nullcontext():
         fac, t_load = synced(lambda: persist.load_band_factorization(path, a) if band else
@@ -3695,7 +3850,7 @@ def persist_row(name_limit, what, live, a, tmp, bitwise, no_room=False):
             and xr.shape == (a.nrows,)):
         raise AssertionError(f"{what}, loaded and refined: {rep}")
     print(f"[persist] {name_limit} | {what} [{fac.report.notes}, {type(fac).__name__}]: save "
-          f"{t_save:.2f} s, file {nbytes} bytes, load {t_load:.2f} s (the triangles' schedules "
+          f"{t_save:.2f} s{'' if compressed else ' (uncompressed)'}, file {nbytes} bytes, load {t_load:.2f} s (the triangles' schedules "
           f"or the pool included), one solve {t_one * 1e3:.1f} ms (residual {r_one:.3e}), refined "
           f"solve {rep.t_solve * 1e3:.1f} ms in {rep.iterations} iterations to {rep.residual:.3e} "
           f"(host oracle) [{rep.notes}]{'; loaded solve == live solve bit for bit' if bitwise else ''} "
@@ -3736,8 +3891,8 @@ PERSIST_KERNELS = ("respa_tri_solve_lower_f32", "respa_tri_solve_upper_f32",
 
 def persistence_path(name_limit, fac_dc1, fac_s, fac_s64):
     """Phase 13: factors saved, loaded back and solved: dc1's multifrontal
-    fp32 factor from phase 8 (loaded onto K7 triangles, refined through
-    GMRES-IR to 1e-10), laplacian_2d(300, 300)'s scheduled factors from
+    fp32 factor from phase 8 (saved without zlib, loaded onto K7 triangles,
+    refined through GMRES-IR to 1e-10), laplacian_2d(300, 300)'s scheduled factors from
     phase 11 (fp32, fp64) and its band factor (fp32), both solving bit for
     bit like the live ones, and an fp64 multifrontal factor forced onto its
     frontal pool, which stays fp64. The live band and fp64 factors are made
@@ -3748,8 +3903,9 @@ def persistence_path(name_limit, fac_dc1, fac_s, fac_s64):
     snlu64 = slv.SupernodalLuFactorization(circ, policy="fp64", matching=True, device="cuda")
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
+        # uncompressed: zlib took 39-46 s of the phase here; the other sparse rows keep it
         dc1 = persist_row(name_limit, "dc1 multifrontal fp32, matched", fac_dc1, fac_dc1.a, tmp,
-                          False)
+                          False, compressed=False)
         if not isinstance(dc1, persist.LoadedSparseLu):
             raise AssertionError(f"dc1 loaded as {type(dc1).__name__}, not onto K7")
         hold_loaded_triangles(dc1, fac_dc1)
@@ -4732,9 +4888,11 @@ def main():
     check_frontal_kernels(front_errs)
     phase_done(7)
 
-    # 8. multifrontal path at full width
+    # 8. multifrontal path at full width (the link probe first: the wide
+    # sweeps' chain bounds, and phase 9's)
+    latency = link_probe(name_limit)
     front_launches, fac_dc1 = multifrontal_path(name_limit, mats, front_errs, front_full,
-                                                front_times, probes.result())
+                                                front_times, probes.result(), latency)
     for name in (*F.LAUNCHES, "respa_block_lu_f32", "respa_block_lu_f32_ftz",
                  "respa_block_lu_f64", "spmv_fp64"):
         if front_launches[name] < 1:
@@ -4744,7 +4902,6 @@ def main():
     # 9. the ILU(0) path
     ilu_errs, ilu_times = {}, {}
     check_ilu_synthetic(ilu_errs)
-    latency = link_probe(name_limit)
     check_tri_synthetic(name_limit, ilu_errs, latency)
     ilu_launches = ilu_path(name_limit, mats)
     no_plain("ILU(0) path")

@@ -106,14 +106,34 @@
 //   `_bwd_group_t` :537-556, the transposed solves of the Hager condition
 //   estimate). Forward U^T z = y[piv] (lower, a zero diagonal read as one),
 //   y[piv] = z, upd = -U12^T z; backward y[piv] = L11^-T (y[piv] - L21^T
-//   y[rsx]) (unit upper). They are K4's kernels in each regime with the
-//   front read transposed (TRANS: entry (i, j) of a block is read at (j, i))
-//   and the unit diagonal moved from the forward to the backward sweep: the
-//   same blocks' bytes bound them, the same chain stands in the way, and K4's
-//   control words, tickets and mailbox serve them unchanged. The transposed
-//   reads run along a front's columns, so a warp's lanes that took one row's
-//   consecutive entries now take one column's; the wide regime swaps its
-//   staging loops' index order so that its block loads stay in rows.
+//   y[rsx]) (unit upper). The same blocks' bytes bound them as K4, the same
+//   chain stands in the way, and K4's regimes, control words, tickets and
+//   mailbox serve them unchanged; the kernels are their own, because read
+//   transposed a front's outputs are consecutive entries of its rows, and
+//   every product maps its lanes onto them:
+//   * warp (built for W = wp rounded up to 8, 16 or 32): lane i holds column
+//     i of the triangle (F's rows read along their entries); the forward
+//     panel gives a lane an update row and loops over the pivots with z by
+//     shuffles, no reduction tree; the backward panel puts the lanes on the
+//     pivots and 32 / W lane groups on update rows, met in a fixed butterfly.
+//   * block: a thread a pivot reads F's row c at step c, kAhead steps ahead;
+//     the forward panel is a thread an update row over half the pivots (two
+//     halves summed in order), the backward one threads on the pivots and
+//     groups on update rows, y[rsx] staged in shared memory.
+//   * wide (front_wide_t_kernel): a task streams 64 x 64 tiles of F's rows
+//     (64 of them, its 64 columns) into a ring of shared memory by cp.async,
+//     wide_t_stages() tiles ahead of the mailbox wait for their z block, so
+//     that a block that arrives finds its tile there; a warp takes 8 rows of a
+//     tile, a lane two outputs, and the eight warps' partials meet in a fixed
+//     tree. The tasks, tickets, mailbox, the diagonal inverse built before
+//     the wait, fp64 sums for fp32 and z rounded as it is published are K4's;
+//     the inverse is its own: built four rows a step, its rows padded so that
+//     the product z = X rhs, four threads a row on entries 4 apart held in
+//     registers, meets no bank conflict (K4's quarters of its rows met four
+//     at a time in one bank, and that product took most of a link).
+//   The forward sweeps divide by U11's diagonal through its correctly
+//   rounded reciprocal, taken before the chain; the FTZ instance rounds and
+//   flushes through PTX's .ftz instructions. Every sum has a fixed order.
 //
 // rows_reduce (the forward sweep's `y.at[rsx].add(upd)`, :486, as a gather).
 //   The plan holds, per group, the destination rows and for each the list of
@@ -175,13 +195,6 @@ __device__ __forceinline__ float muladd(float a, float b, float c) {
 }
 template <bool FTZ>
 __device__ __forceinline__ double muladd(double a, double b, double c) { return fma(a, b, c); }
-
-// Offset of entry (row, col) of a front of size mp, or of (col, row) where the
-// front is read transposed (K12).
-template <bool TRANS>
-__device__ __forceinline__ int64_t at(int64_t row, int64_t col, int64_t mp) {
-    return TRANS ? col * mp + row : row * mp + col;
-}
 
 // A front's diagonal entry at row t, a zero read as one (t < wp).
 template <typename A>
@@ -329,10 +342,10 @@ extend_add_gather(A* __restrict__ pool, int64_t g0, int64_t base, int nd, int km
 }
 
 // ---------------------------------------------------------------------------
-// frontal sweeps: the warp regime
+// frontal sweeps (K4): the warp regime
 // ---------------------------------------------------------------------------
 
-template <typename A, bool FTZ, bool TRANS>
+template <typename A, bool FTZ>
 __global__ void __launch_bounds__(kWarpFronts * 32)
 front_fwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
                const int32_t* __restrict__ piv, A* __restrict__ y, int n, A* __restrict__ upd) {
@@ -343,11 +356,9 @@ front_fwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
     const A* F = pool + g0 + b * mp * mp;
     const int row = lane < wp ? piv[static_cast<int64_t>(b) * wp + lane] : n;
     A v = row < n ? fz<FTZ>(y[row]) : A(0);
-    A l[kWarpTri];  // lane i: row i of L11 (U11^T) left of the diagonal
+    A l[kWarpTri];  // lane i: row i of L11 left of the diagonal
 #pragma unroll
-    for (int c = 0; c < kWarpTri; ++c)
-        l[c] = c < lane && lane < wp ? F[at<TRANS>(lane, c, mp)] : A(0);
-    const A dl = TRANS && lane < wp ? diag_or_one(F, lane, mp) : A(1);
+    for (int c = 0; c < kWarpTri; ++c) l[c] = c < lane && lane < wp ? F[lane * mp + c] : A(0);
     // upd = -L21 z: g lanes a row on consecutive columns (g >= wp), 32 / g rows a
     // pass; the first kPre passes' values are asked for before the triangle
     constexpr int kPre = 4;
@@ -356,16 +367,13 @@ front_fwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
 #pragma unroll
     for (int q = 0; q < kPre; ++q) {
         const int i = q * per + sub;
-        pre[q] = i < rp && ln < wp ? F[at<TRANS>(wp + i, ln, mp)] : A(0);
+        pre[q] = i < rp && ln < wp ? F[(wp + i) * mp + ln] : A(0);
     }
 #pragma unroll
     for (int c = 0; c < kWarpTri; ++c) {
-        if (c < wp) {
-            if (TRANS && lane == c) v = fz<FTZ>(v / dl);  // U^T's diagonal
-            if (c + 1 < wp) {  // z[c] is final here
-                const A zc = __shfl_sync(kFull, v, c);
-                if (lane > c) v = muladd<FTZ>(-l[c], zc, v);
-            }
+        if (c + 1 < wp) {  // z[c] is final here
+            const A zc = __shfl_sync(kFull, v, c);
+            if (lane > c) v = muladd<FTZ>(-l[c], zc, v);
         }
     }
     if (row < n) y[row] = v;
@@ -383,13 +391,13 @@ front_fwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
     for (int i0 = kPre * per; i0 < rp; i0 += per) {
         const int i = i0 + sub;
         A s = A(0);
-        if (i < rp && ln < wp) s = muladd<FTZ>(F[at<TRANS>(wp + i, ln, mp)], zc, s);
+        if (i < rp && ln < wp) s = muladd<FTZ>(F[(wp + i) * mp + ln], zc, s);
         s = group_sum(s, g);
         if (i < rp && ln == 0) upd[static_cast<int64_t>(b) * rp + i] = fz<FTZ>(-s);
     }
 }
 
-template <typename A, bool FTZ, bool TRANS>
+template <typename A, bool FTZ>
 __global__ void __launch_bounds__(kWarpFronts * 32)
 front_bwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
                const int32_t* __restrict__ piv, const int32_t* __restrict__ rsx,
@@ -401,10 +409,9 @@ front_bwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
     const int64_t mp = wp + rp;
     const A* F = pool + g0 + b * mp * mp;
     const int32_t* rs = rsx + static_cast<int64_t>(b) * rp;
-    A u[kWarpTri];  // lane i: row i of U11 (L11^T) from the diagonal on, asked for first
+    A u[kWarpTri];  // lane i: row i of U11 from the diagonal on, asked for first
 #pragma unroll
-    for (int c = 0; c < kWarpTri; ++c)
-        u[c] = c >= lane && c < wp ? F[at<TRANS>(lane, c, mp)] : A(0);
+    for (int c = 0; c < kWarpTri; ++c) u[c] = c >= lane && c < wp ? F[lane * mp + c] : A(0);
     // U12 y[rsx]: g lanes a pivot row on consecutive update rows
     const int g = lanes_for(rp), ln = lane % g, sub = lane / g, per = 32 / g;
     for (int i0 = 0; i0 < wp; i0 += per) {
@@ -413,7 +420,7 @@ front_bwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
         if (i < wp) {
             for (int r = ln; r < rp; r += g) {
                 const int row = rs[r];
-                if (row < n) s = muladd<FTZ>(F[at<TRANS>(i, wp + r, mp)], fz<FTZ>(y[row]), s);
+                if (row < n) s = muladd<FTZ>(F[i * mp + wp + r], fz<FTZ>(y[row]), s);
             }
         }
         s = group_sum(s, g);
@@ -425,7 +432,7 @@ front_bwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
 #pragma unroll
     for (int c = kWarpTri - 1; c >= 0; --c) {
         if (c < wp) {
-            if (!TRANS && lane == c) {  // L11^T has a unit diagonal
+            if (lane == c) {
                 A d = u[c];
                 if (d == A(0)) d = A(1);
                 v = fz<FTZ>(v / d);
@@ -438,10 +445,10 @@ front_bwd_warp(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
 }
 
 // ---------------------------------------------------------------------------
-// frontal sweeps: the block regime, a front's panel over gridDim.y tiles
+// frontal sweeps (K4): the block regime, a front's panel over gridDim.y tiles
 // ---------------------------------------------------------------------------
 
-template <typename A, bool FTZ, bool TRANS>
+template <typename A, bool FTZ>
 __global__ void __launch_bounds__(kSweepThreads)
 front_fwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
                 const int32_t* __restrict__ piv, A* __restrict__ y, int n, A* __restrict__ upd,
@@ -453,8 +460,6 @@ front_fwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
     const A* F = pool + g0 + b * mp * mp;
     const int row = t < wp ? piv[static_cast<int64_t>(b) * wp + t] : n;
     A v = row < n ? fz<FTZ>(y[row]) : A(0);
-    const A dt = TRANS && t < wp ? diag_or_one(F, t, mp) : A(1);  // U^T's diagonal
-    if (TRANS && t == 0) v = fz<FTZ>(v / dt);
     if (t < wp) z[t] = v;
     __syncthreads();
     if (tiles > 1) {
@@ -465,11 +470,8 @@ front_fwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
         __syncthreads();
     }
     for (int c = 0; c + 1 < wp; ++c) {  // z[c] is final here
-        if (t > c && t < wp) v = muladd<FTZ>(-F[at<TRANS>(t, c, mp)], z[c], v);
-        if (t == c + 1) {
-            if (TRANS) v = fz<FTZ>(v / dt);
-            z[t] = v;
-        }
+        if (t > c && t < wp) v = muladd<FTZ>(-F[t * mp + c], z[c], v);
+        if (t == c + 1) z[t] = v;
         __syncthreads();
     }
     if (row < n && (tiles == 1 || last)) y[row] = v;
@@ -484,14 +486,14 @@ front_fwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
         const int i = base + sub;
         A s = A(0);
         if (i < i_end) {
-            for (int w = ln; w < wp; w += g) s = muladd<FTZ>(F[at<TRANS>(wp + i, w, mp)], z[w], s);
+            for (int w = ln; w < wp; w += g) s = muladd<FTZ>(F[(wp + i) * mp + w], z[w], s);
         }
         s = group_sum(s, g);
         if (i < i_end && ln == 0) upd[static_cast<int64_t>(b) * rp + i] = fz<FTZ>(-s);
     }
 }
 
-template <typename A, bool FTZ, bool TRANS>
+template <typename A, bool FTZ>
 __global__ void __launch_bounds__(kSweepThreads)
 front_bwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
                 const int32_t* __restrict__ piv, const int32_t* __restrict__ rsx,
@@ -515,7 +517,7 @@ front_bwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
         if (i < wp) {
             for (int r = r0 + ln; r < r1; r += g) {
                 const int row = rs[r];
-                if (row < n) s = muladd<FTZ>(F[at<TRANS>(i, wp + r, mp)], fz<FTZ>(y[row]), s);
+                if (row < n) s = muladd<FTZ>(F[i * mp + wp + r], fz<FTZ>(y[row]), s);
             }
         }
         s = group_sum(s, g);
@@ -550,11 +552,11 @@ front_bwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
     A v = t < wp ? z[t] : A(0);
     for (int c = wp - 1; c >= 0; --c) {
         if (t == c) {
-            if (!TRANS) v = fz<FTZ>(v / diag_or_one(F, t, mp));  // L11^T: unit
+            v = fz<FTZ>(v / diag_or_one(F, t, mp));
             z[c] = v;
         }
         __syncthreads();
-        if (t < c) v = muladd<FTZ>(-F[at<TRANS>(t, c, mp)], z[c], v);
+        if (t < c) v = muladd<FTZ>(-F[t * mp + c], z[c], v);
     }
     if (t < wp) {
         const int row = pv[t];
@@ -563,7 +565,7 @@ front_bwd_block(const A* __restrict__ pool, int64_t g0, int wp, int rp,
 }
 
 // ---------------------------------------------------------------------------
-// frontal sweeps: the wide regime, blocked substitution by ticketed tasks
+// frontal sweeps (K4): the wide regime, blocked substitution by ticketed tasks
 // ---------------------------------------------------------------------------
 
 // The mailbox: every 32-bit word of a solved value travels with the tag kTag
@@ -686,14 +688,14 @@ __device__ __forceinline__ Acc quarter_dot(const M* m, const Z* x, int q) {
 // column, in Acc) and loads the two blocks beside it, so that once the z block
 // solved just before its own arrives, the block takes it through two 64 x 64
 // products in shared memory, four threads a row, and publishes.
-template <typename A, bool FTZ, bool FWD, bool TRANS>
+template <typename A, bool FTZ, bool FWD>
 __global__ void __launch_bounds__(kWideThreads)
 front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
                   const int32_t* __restrict__ piv, const int32_t* __restrict__ rsx,
                   A* __restrict__ y, int n, A* __restrict__ upd, int* __restrict__ ctl,
                   unsigned* __restrict__ mail, unsigned tag) {
     using Acc = WideAcc<A, FTZ>;
-    constexpr bool kUnit = FWD != TRANS;  // L11 forward, L11^T backward
+    constexpr bool kUnit = FWD;  // L11 forward
     extern __shared__ __align__(16) unsigned char wide_smem[];
     Acc* X = reinterpret_cast<Acc*>(wide_smem);  // the diagonal block's inverse
     A* S1 = reinterpret_cast<A*>(X + kWideRows * kWidePad);  // the block solved just before
@@ -732,15 +734,12 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
             }
         }
         for (int e = t; e < kWideRows * kWideRows; e += kWideThreads) {
-            // consecutive threads read along the front's rows either way
-            const int i = TRANS ? e % kWideRows : e / kWideRows;
-            const int c = TRANS ? e / kWideRows : e % kWideRows;
+            const int i = e / kWideRows, c = e % kWideRows;  // along the front's rows
             const bool tri = FWD ? c < i : c > i;
             S2[i * kWidePad + c] =
-                i < nrows && c < nrows && tri ? F[at<TRANS>(r0 + i, r0 + c, mp)] : A(0);
+                i < nrows && c < nrows && tri ? F[(r0 + i) * mp + r0 + c] : A(0);
             const int c1 = n1 * kWideRows + c;
-            S1[i * kWidePad + c] =
-                i < nrows && has1 && c1 < wp ? F[at<TRANS>(r0 + i, c1, mp)] : A(0);
+            S1[i * kWidePad + c] = i < nrows && has1 && c1 < wp ? F[(r0 + i) * mp + c1] : A(0);
         }
         __syncthreads();
         if (t < kWideRows) {  // column t of the inverse: unit lower, or upper times 1/d
@@ -755,11 +754,9 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
         }
         __syncthreads();
         for (int e = t; e < kWideRows * kWideRows; e += kWideThreads) {
-            const int i = TRANS ? e % kWideRows : e / kWideRows;
-            const int c = TRANS ? e / kWideRows : e % kWideRows;
+            const int i = e / kWideRows, c = e % kWideRows;
             const int c2 = n2 * kWideRows + c;
-            S2[i * kWidePad + c] =
-                i < nrows && has2 && c2 < wp ? F[at<TRANS>(r0 + i, c2, mp)] : A(0);
+            S2[i * kWidePad + c] = i < nrows && has2 && c2 < wp ? F[(r0 + i) * mp + c2] : A(0);
         }
     }
 
@@ -781,8 +778,7 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
                 x[h] = row < n ? Acc(fz<FTZ>(y[row])) : Acc(0);
 #pragma unroll
                 for (int j = 0; j < kWideRowsPerWarp; ++j)
-                    lv[j][h] =
-                        rw + j < nrows && c < rp ? F[at<TRANS>(rows0 + j, wp + c, mp)] : A(0);
+                    lv[j][h] = rw + j < nrows && c < rp ? F[(rows0 + j) * mp + wp + c] : A(0);
             }
 #pragma unroll
             for (int j = 0; j < kWideRowsPerWarp; ++j) {
@@ -804,7 +800,7 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int c = c0 + lane + 32 * h;
-                lv[j][h] = rw + j < nrows && c < wp ? F[at<TRANS>(rows0 + j, c, mp)] : A(0);
+                lv[j][h] = rw + j < nrows && c < wp ? F[(rows0 + j) * mp + c] : A(0);
             }
         }
         if (warp == 0) {
@@ -857,6 +853,614 @@ front_wide_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp
             const int row = piv[static_cast<int64_t>(b) * wp + r0 + r];
             if (row < n) y[row] = zr;
         }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// the transposed sweeps (K12)
+// ---------------------------------------------------------------------------
+
+// K12's arithmetic. Under FTZ it takes PTX's .ftz instructions, which flush
+// subnormal inputs and results within the instruction (to a zero of the
+// result's sign): a product and a sum are still rounded and flushed one after
+// the other, in two instructions where an explicit flush took six.
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+    float r;
+    asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+__device__ __forceinline__ float add_ftz(float a, float b) {
+    float r;
+    asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+template <bool FTZ>
+__device__ __forceinline__ float madd(float a, float b, float c) {
+    if constexpr (FTZ) return add_ftz(mul_ftz(a, b), c);
+    return fmaf(a, b, c);
+}
+template <bool FTZ>
+__device__ __forceinline__ double madd(double a, double b, double c) { return fma(a, b, c); }
+template <bool FTZ, typename A>
+__device__ __forceinline__ A mul_t(A a, A b) {
+    if constexpr (FTZ) return mul_ftz(a, b);
+    return a * b;
+}
+template <bool FTZ, typename A>
+__device__ __forceinline__ A add_t(A a, A b) {
+    if constexpr (FTZ) return add_ftz(a, b);
+    return a + b;
+}
+
+// 1 / d, a zero d read as 1, correctly rounded: the forward sweep's division
+// by U11's diagonal, taken off the chain, which then multiplies by it (within
+// an ulp of the quotient).
+__device__ __forceinline__ float recip_or_one(float d) { return d == 0.0f ? 1.0f : __frcp_rn(d); }
+__device__ __forceinline__ double recip_or_one(double d) { return d == 0.0 ? 1.0 : __drcp_rn(d); }
+
+// The warp regime's kernels are built for W = wp rounded up to 8, 16 or 32
+// (the launch picks it), so that a group of narrow fronts, the populous ones,
+// runs loops of W steps and holds W entries a lane.
+
+// Warp regime, forward: lane i holds row i of U11^T, which is column i of U11:
+// at pivot c the lanes read F's row c, consecutive entries. upd = -U12^T z:
+// lane i takes update row i (F's column wp + i), the even and the odd pivots
+// in order as two sums, z[c] by a shuffle; a pass of 32 update rows reads F's
+// rows 0 .. wp - 1 along 32 consecutive entries. The first pass's entries of
+// the first kPreC pivots are asked for before the triangle.
+template <typename A, bool FTZ, int W>
+__global__ void __launch_bounds__(kWarpFronts * 32)
+front_fwd_warp_t(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
+                 const int32_t* __restrict__ piv, A* __restrict__ y, int n,
+                 A* __restrict__ upd) {
+    constexpr int kPreC = W < 8 ? W : 8;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * kWarpFronts + (threadIdx.x >> 5);
+    if (b >= nf) return;  // whole warps leave together
+    const int64_t mp = wp + rp;
+    const A* F = pool + g0 + b * mp * mp;
+    const int row = lane < wp ? piv[static_cast<int64_t>(b) * wp + lane] : n;
+    A v = row < n ? fz<FTZ>(y[row]) : A(0);
+    A l[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) l[c] = c < lane && lane < wp ? F[c * mp + lane] : A(0);
+    const A rd = lane < wp ? recip_or_one(F[lane * mp + lane]) : A(1);
+    const A* col = F + wp + lane;  // update row `lane` of U12^T: F's column wp + lane
+    A pre[kPreC];
+#pragma unroll
+    for (int c = 0; c < kPreC; ++c) pre[c] = c < wp && lane < rp ? col[c * mp] : A(0);
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+        if (c < wp) {
+            if (lane == c) v = mul_t<FTZ>(v, rd);
+            if (c + 1 < wp) {  // z[c] is final here
+                const A zc = __shfl_sync(kFull, v, c);
+                if (lane > c) v = madd<FTZ>(-l[c], zc, v);
+            }
+        }
+    }
+    if (row < n) y[row] = v;
+    if (rp == 0) return;
+    for (int i0 = 0; i0 < rp; i0 += 32) {
+        const bool live = i0 + lane < rp;
+        A s[2] = {A(0), A(0)};  // even and odd pivots: two chains half as long
+#pragma unroll
+        for (int c = 0; c < W; ++c) {
+            if (c < wp) {
+                const A zc = __shfl_sync(kFull, v, c);
+                const A f = i0 == 0 && c < kPreC ? pre[c < kPreC ? c : 0]
+                                                 : (live ? col[c * mp + i0] : A(0));
+                s[c & 1] = madd<FTZ>(f, zc, s[c & 1]);
+            }
+        }
+        if (live) upd[static_cast<int64_t>(b) * rp + i0 + lane] = -add_t<FTZ>(s[0], s[1]);
+    }
+}
+
+// Warp regime, backward: rhs = y[piv] - L21^T y[rsx]. Lane i % W takes pivot
+// i, the 32 / W lane groups update rows 32 / W apart, each in order: an update
+// row is F's row wp + r, read along its entries. The groups' partials meet in
+// a fixed butterfly, then the unit upper triangle L11^T (lane i: column i of
+// L11 below the diagonal).
+template <typename A, bool FTZ, int W>
+__global__ void __launch_bounds__(kWarpFronts * 32)
+front_bwd_warp_t(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
+                 const int32_t* __restrict__ piv, const int32_t* __restrict__ rsx,
+                 A* __restrict__ y, int n) {
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * kWarpFronts + (threadIdx.x >> 5);
+    if (b >= nf) return;
+    const int64_t mp = wp + rp;
+    const A* F = pool + g0 + b * mp * mp;
+    const int32_t* rs = rsx + static_cast<int64_t>(b) * rp;
+    A u[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) u[c] = c > lane && c < wp ? F[c * mp + lane] : A(0);
+    const int prow = lane < wp ? piv[static_cast<int64_t>(b) * wp + lane] : n;
+    const A yp = prow < n ? fz<FTZ>(y[prow]) : A(0);
+    const int i = lane % W, grp = lane / W;
+    A s = A(0);
+#pragma unroll 4
+    for (int r = grp; r < rp; r += 32 / W) {
+        const int row = rs[r];
+        const A x = row < n ? fz<FTZ>(y[row]) : A(0);
+        if (i < wp) s = madd<FTZ>(F[(wp + r) * mp + i], x, s);
+    }
+#pragma unroll
+    for (int off = W; off < 32; off <<= 1) s = add_t<FTZ>(s, __shfl_xor_sync(kFull, s, off));
+    A v = lane < wp ? fz<FTZ>(yp - s) : A(0);
+#pragma unroll
+    for (int c = W - 1; c >= 0; --c) {
+        if (c < wp) {
+            const A zc = __shfl_sync(kFull, v, c);
+            if (lane < c) v = madd<FTZ>(-u[c], zc, v);
+        }
+    }
+    if (prow < n) y[prow] = v;
+}
+
+// Block regime: the triangle's entries of a pivot step are a row of F (thread
+// t reads entry t), asked for kAhead steps before the step that uses them; the
+// backward panel's entries are asked for kBatch at a time before their
+// products (left to the compiler, that loop ran slower in fp32_ftz; the
+// forward panel's loop measured faster left to it).
+constexpr int kAhead = 8;
+constexpr int kBatch = 8;
+
+// Block regime, forward: U11^T z = y[piv] by substitution in shared memory
+// (1 / the diagonal taken before the chain); then this tile's rows of upd =
+// -U12^T z, a thread an update row (F's column wp + i) over one half of the
+// pivots, the two halves summed in order; a pass of 64 rows reads F's rows
+// along 64 consecutive entries.
+template <typename A, bool FTZ>
+__global__ void __launch_bounds__(kSweepThreads)
+front_fwd_block_t(const A* __restrict__ pool, int64_t g0, int wp, int rp,
+                  const int32_t* __restrict__ piv, A* __restrict__ y, int n,
+                  A* __restrict__ upd, int* __restrict__ ticket) {
+    constexpr int kRows = kSweepThreads / 2;
+    __shared__ A z[kMaxTri];
+    __shared__ A half[kRows];
+    __shared__ int last;
+    const int b = blockIdx.x, t = threadIdx.x, tiles = gridDim.y;
+    const int64_t mp = wp + rp;
+    const A* F = pool + g0 + b * mp * mp;
+    const bool mine = t < wp;
+    const int row = mine ? piv[static_cast<int64_t>(b) * wp + t] : n;
+    A v = row < n ? fz<FTZ>(y[row]) : A(0);
+    const A rd = mine ? recip_or_one(F[t * mp + t]) : A(1);
+    A ahead[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) ahead[k] = mine && k < wp ? F[k * mp + t] : A(0);
+    if (t == 0) v = mul_t<FTZ>(v, rd);
+    if (mine) z[t] = v;
+    __syncthreads();
+    if (tiles > 1) {
+        // a tile draws its ticket once it has read y[piv]: the last to draw writes y[piv]
+        if (t == 0) {
+            last = atomicAdd(ticket + b, 1) == tiles - 1;
+        }
+        __syncthreads();
+    }
+    for (int c0 = 0; c0 + 1 < wp; c0 += kAhead) {
+        A cur[kAhead];
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) {
+            cur[k] = ahead[k];
+            const int c = c0 + kAhead + k;
+            ahead[k] = mine && c < wp ? F[c * mp + t] : A(0);
+        }
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) {
+            const int c = c0 + k;
+            if (c + 1 < wp) {  // z[c] is final here
+                if (t > c && mine) v = madd<FTZ>(-cur[k], z[c], v);
+                if (t == c + 1) {
+                    v = mul_t<FTZ>(v, rd);
+                    z[t] = v;
+                }
+                __syncthreads();
+            }
+        }
+    }
+    if (row < n && (tiles == 1 || last)) y[row] = v;
+    if (rp == 0) return;
+    const int chunk = (rp + tiles - 1) / tiles;
+    const int i_end = min(rp, static_cast<int>(blockIdx.y + 1) * chunk);
+    const int h = t / kRows, wh = (wp + 1) / 2;
+    const int w0 = h * wh, w1 = min(wp, w0 + wh);
+    for (int base = static_cast<int>(blockIdx.y) * chunk; base < i_end; base += kRows) {
+        const int i = base + t % kRows;
+        A s = A(0);
+        if (i < i_end) {
+#pragma unroll 8
+            for (int w = w0; w < w1; ++w) s = madd<FTZ>(F[w * mp + wp + i], z[w], s);
+        }
+        if (h == 1) half[t - kRows] = s;
+        __syncthreads();
+        if (h == 0 && i < i_end)
+            upd[static_cast<int64_t>(b) * rp + i] = -add_t<FTZ>(s, half[t]);
+        __syncthreads();
+    }
+}
+
+// Block regime, backward: this tile's update rows r0 .. r1 - 1 of L21^T
+// y[rsx], thread t % P on pivot t % P (P = wp rounded up to 32, 64 or 128),
+// the 128 / P thread groups on update rows 128 / P apart, each in order, an
+// update row read along F's row wp + r; y[rsx] staged in shared memory 128
+// rows at a time; the groups' partials summed in group order. Then as K4:
+// tiles leave partials [B, tiles, wp], the last tile sums them in tile order,
+// and the unit upper triangle L11^T by substitution.
+template <typename A, bool FTZ>
+__global__ void __launch_bounds__(kSweepThreads)
+front_bwd_block_t(const A* __restrict__ pool, int64_t g0, int wp, int rp,
+                  const int32_t* __restrict__ piv, const int32_t* __restrict__ rsx,
+                  A* __restrict__ y, int n, A* __restrict__ part, int* __restrict__ ticket) {
+    __shared__ A z[kMaxTri];
+    __shared__ A xr[kSweepThreads];
+    __shared__ A grp_sum[kSweepThreads];
+    __shared__ int last;
+    const int b = blockIdx.x, t = threadIdx.x, tiles = gridDim.y, tile = blockIdx.y;
+    const int64_t mp = wp + rp;
+    const A* F = pool + g0 + b * mp * mp;
+    const int32_t* pv = piv + static_cast<int64_t>(b) * wp;
+    const int32_t* rs = rsx + static_cast<int64_t>(b) * rp;
+    const int chunk = (rp + tiles - 1) / tiles;
+    const int r0 = tile * chunk, r1 = min(rp, r0 + chunk);
+    const int P = wp > 64 ? 128 : (wp > 32 ? 64 : 32), G = kSweepThreads / P;
+    const int i = t % P, grp = t / P;
+    A s = A(0);
+    for (int s0 = r0; s0 < r1; s0 += kSweepThreads) {
+        const int rows = min(kSweepThreads, r1 - s0);
+        if (t < rows) {
+            const int row = rs[s0 + t];
+            xr[t] = row < n ? fz<FTZ>(y[row]) : A(0);
+        }
+        __syncthreads();
+        if (i < wp) {
+            for (int kb = grp; kb < rows; kb += kBatch * G) {  // kBatch loads, then products
+                A f[kBatch];
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u) {
+                    const int k = kb + u * G;
+                    f[u] = k < rows ? F[(wp + s0 + k) * mp + i] : A(0);
+                }
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u)
+                    if (kb + u * G < rows) s = madd<FTZ>(f[u], xr[kb + u * G], s);
+            }
+        }
+        __syncthreads();
+    }
+    grp_sum[t] = s;
+    __syncthreads();
+    if (t < wp) {
+        for (int k = 1; k < G; ++k) s = add_t<FTZ>(s, grp_sum[k * P + t]);
+        if (tiles > 1) {
+            part[(static_cast<int64_t>(b) * tiles + tile) * wp + t] = s;
+        } else {
+            const int row = pv[t];
+            z[t] = fz<FTZ>((row < n ? fz<FTZ>(y[row]) : A(0)) - s);
+        }
+    }
+    if (tiles > 1) {
+        // the tile that draws the last ticket sums the partials in tile order
+        __threadfence();
+        __syncthreads();
+        if (t == 0) {
+            last = atomicAdd(ticket + b, 1) == tiles - 1;
+        }
+        __syncthreads();
+        if (!last) return;
+        __threadfence();
+        if (t < wp) {
+            A p = A(0);
+            for (int k = 0; k < tiles; ++k)
+                p = fz<FTZ>(p + __ldcg(part + (static_cast<int64_t>(b) * tiles + k) * wp + t));
+            const int row = pv[t];
+            z[t] = fz<FTZ>((row < n ? fz<FTZ>(y[row]) : A(0)) - p);
+        }
+    }
+    __syncthreads();
+    const bool mine = t < wp;
+    A v = mine ? z[t] : A(0);
+    A ahead[kAhead];  // F's rows wp - 1, wp - 2, ...: column t of L11 from the bottom
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+        const int c = wp - 1 - k;
+        ahead[k] = mine && c >= 0 ? F[c * mp + t] : A(0);
+    }
+    for (int c0 = wp - 1; c0 >= 0; c0 -= kAhead) {
+        A cur[kAhead];
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) {
+            cur[k] = ahead[k];
+            const int c = c0 - kAhead - k;
+            ahead[k] = mine && c >= 0 ? F[c * mp + t] : A(0);
+        }
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) {
+            const int c = c0 - k;
+            if (c >= 0) {
+                if (t == c) z[c] = v;  // L11^T has a unit diagonal
+                __syncthreads();
+                if (t < c) v = madd<FTZ>(-cur[k], z[c], v);
+            }
+        }
+    }
+    if (mine) {
+        const int row = pv[t];
+        if (row < n) y[row] = v;
+    }
+}
+
+// Wide regime: the streamed tiles go through shared memory by cp.async, 16
+// bytes at a time where a tile's rows start on 16-byte boundaries and it is
+// 64 columns wide (every tile of a plan's front), else element by element (any
+// front offset and width); a missing element is filled with zero.
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool live) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
+                 "r"(live ? 4 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async(double* dst, const double* src, bool live) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src),
+                 "r"(live ? 8 : 0)
+                 : "memory");
+}
+// 16 bytes, bypassing L1, for a tile whose rows start on 16-byte boundaries.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+                 "r"(live ? 16 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Tiles of a wide task's stream in flight at once: 16 KB each in fp32, 32 KB
+// in fp64, so that two blocks fit an SM either way.
+template <typename A>
+__host__ __device__ constexpr int wide_t_stages() { return sizeof(A) == 4 ? 3 : 2; }
+// K12's inverse X, rows padded to 68 words: the four threads of a row read
+// entries 4 apart (k = 4j + q), so that a warp's eight rows and four quarters
+// fall on distinct banks (K4's 16-entry quarters of 65-word rows met in one
+// bank four at a time, and its product took most of a link).
+constexpr int kXPad = kWideRows + 4;
+
+// Row r of X times rhs, the quarter q of a row's four threads taking k = 4j + q
+// (its entries of X, xr[j] = X[r][4j + q], held in registers) in four chains,
+// met by a butterfly that gives the four the same bits.
+template <bool FTZ, typename Acc>
+__device__ __forceinline__ Acc x_dot(const Acc (&xr)[kWideRows / 4], const Acc* rhs, int q) {
+    Acc p[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+#pragma unroll
+    for (int j = 0; j < kWideRows / 4; ++j) p[j & 3] = madd<FTZ>(xr[j], rhs[4 * j + q], p[j & 3]);
+    Acc v = add_t<FTZ>(add_t<FTZ>(p[0], p[1]), add_t<FTZ>(p[2], p[3]));
+    v = add_t<FTZ>(v, __shfl_xor_sync(kFull, v, 1));
+    return add_t<FTZ>(v, __shfl_xor_sync(kFull, v, 2));
+}
+// Two neighbouring elements, read from shared memory at once.
+template <typename A>
+using Pair = std::conditional_t<sizeof(A) == 4, float2, double2>;
+constexpr int kWideTile = kWideRows * kWideRows;
+
+// One task of a wide front read transposed: outputs r0 .. r0 + nrows - 1,
+// which are consecutive entries of F's rows. A triangle task (row block
+// `blk`) solves its 64 unknowns: forward U11^T (lower, 1 / the diagonal from
+// its inverse), backward L11^T (unit upper); a forward panel task forms its
+// 64 entries of upd = -U12^T z. The task streams 64 x 64 tiles of F, 64 of
+// its rows and the task's 64 columns: backward first the update rows' tiles
+// (x = y[rsx]), then the z blocks after its own, last first; forward the z
+// blocks before its own. Each tile comes by cp.async into a ring of
+// wide_t_stages() stages, issued that many tiles before its x is waited for,
+// so that a z block that arrives finds its tile in shared memory. A warp
+// takes 8 of a tile's rows and a lane two neighbouring outputs: every load of
+// the tile and every read of it runs along F's rows. The eight warps'
+// partials are summed in a fixed tree, then z = X rhs (x_dot). Before its
+// stream a triangle task builds the inverse X of its diagonal block (staged
+// in the ring's last stage, which is issued after), four threads a column
+// and four rows a step, and each thread takes its entries of X into
+// registers.
+template <typename A, bool FTZ, bool FWD>
+__global__ void __launch_bounds__(kWideThreads)
+front_wide_t_kernel(const A* __restrict__ pool, int64_t g0, int nf, int wp, int rp,
+                    const int32_t* __restrict__ piv, const int32_t* __restrict__ rsx,
+                    A* __restrict__ y, int n, A* __restrict__ upd, int* __restrict__ ctl,
+                    unsigned* __restrict__ mail, unsigned tag) {
+    using Acc = WideAcc<A, FTZ>;
+    constexpr int kStages = wide_t_stages<A>();
+    constexpr bool kUnit = !FWD;  // L11^T backward; U11^T forward has its diagonal
+    extern __shared__ __align__(16) unsigned char wide_smem[];
+    Acc* X = reinterpret_cast<Acc*>(wide_smem);  // the diagonal block's inverse
+    A* ring = reinterpret_cast<A*>(X + kWideRows * kXPad);
+    A* D = ring + (kStages - 1) * kWideTile;  // the diagonal block (padded rows) while X is built
+    __shared__ Acc xs[kWideRows];              // the x of the tile being summed
+    __shared__ Acc red[kWideWarps][kWideRows];
+    __shared__ Acc rhs[kWideRows];
+    __shared__ Acc rcp[kWideRows];
+    __shared__ A yp[kWideRows];
+    __shared__ int task;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int nrb = (wp + kWideRows - 1) / kWideRows;
+    if (t == 0) task = atomicAdd(ctl, 1);
+    __syncthreads();
+    const int b = task % nf, step = task / nf;
+    const int64_t mp = wp + rp;
+    const A* F = pool + g0 + b * mp * mp;
+    unsigned* mb = mail + static_cast<int64_t>(b) * wp * (sizeof(A) / 2);
+    const bool panel = FWD && step >= nrb;
+    const int blk = FWD ? step : nrb - 1 - step;  // a triangle task's row block
+    const int r0 = panel ? wp + (step - nrb) * kWideRows : blk * kWideRows;
+    const int nrows = min(kWideRows, (panel ? wp + rp : wp) - r0);
+    const int npan = FWD ? 0 : (rp + kWideRows - 1) / kWideRows;
+    const int ntiles = npan + (panel ? nrb : (FWD ? blk : nrb - 1 - blk));
+    // tile s: F's rows from row0 (those before rend), x from y[rsx] or z block kb
+    auto kb_of = [&](int s) { return FWD ? s - npan : nrb - 1 - (s - npan); };
+    const A* Fc = F + r0;  // the task's first column
+    const bool vec = nrows == kWideRows &&
+        (reinterpret_cast<uintptr_t>(Fc) | static_cast<uintptr_t>(mp * sizeof(A))) % 16 == 0;
+    auto issue = [&](int s) {
+        if (s < ntiles) {
+            const int64_t row0 = s < npan ? wp + s * kWideRows : kb_of(s) * kWideRows;
+            const int64_t rend = s < npan ? mp : wp;
+            A* st = ring + (s % kStages) * kWideTile;
+            if (vec) {
+                constexpr int kPer = 16 / sizeof(A), kRowChunks = kWideRows / kPer;
+#pragma unroll
+                for (int e = t; e < kWideTile / kPer; e += kWideThreads) {
+                    const int cc = e / kRowChunks, ii = e % kRowChunks * kPer;
+                    const bool live = row0 + cc < rend;
+                    cp_async16(st + cc * kWideRows + ii, live ? Fc + (row0 + cc) * mp + ii : Fc,
+                               live);
+                }
+            } else {
+#pragma unroll 4
+                for (int e = t; e < kWideTile; e += kWideThreads) {
+                    const int cc = e / kWideRows, ii = e % kWideRows;
+                    const bool live = row0 + cc < rend && ii < nrows;
+                    cp_async(st + e, live ? Fc + (row0 + cc) * mp + ii : F, live);
+                }
+            }
+        }
+        cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s + 1 < kStages; ++s) issue(s);
+
+    if (!panel) {
+        if (t < kWideRows) {
+            const int row = t < nrows ? piv[static_cast<int64_t>(b) * wp + r0 + t] : n;
+            yp[t] = row < n ? fz<FTZ>(y[row]) : A(0);
+            if (!kUnit) {
+                const A d = t < nrows ? F[static_cast<int64_t>(r0 + t) * mp + r0 + t] : A(0);
+                rcp[t] = Acc(1) / (d == A(0) ? Acc(1) : Acc(d));
+            }
+        }
+        // D[i][c] = F[r0 + c][r0 + i]: consecutive threads read along F's row r0 + c
+        for (int e = t; e < kWideTile; e += kWideThreads) {
+            const int c = e / kWideRows, i = e % kWideRows;
+            const bool tri = FWD ? c < i : c > i;
+            D[i * kWidePad + c] =
+                i < nrows && c < nrows && tri ? F[(r0 + c) * mp + r0 + i] : A(0);
+        }
+        __syncthreads();
+        {  // column c of the inverse (lower times 1/d, or unit upper): four threads a
+           // column, four rows a step (their sums over the rows solved before the step
+           // side by side, then the four in order)
+            const int c = t >> 2, q = t & 3;
+            Acc* x = X + c;
+            for (int b4 = 0; b4 < kWideRows; b4 += 4) {
+                int ii[4];
+#pragma unroll
+                for (int m = 0; m < 4; ++m) ii[m] = FWD ? b4 + m : kWideRows - 1 - b4 - m;
+                const int k0 = FWD ? c : kWideRows - b4, k1 = FWD ? b4 : c + 1;
+                Acc pp[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+                for (int k = k0 + ((q - k0) & 3); k < k1; k += 4) {  // k % 4 == q
+                    const Acc xk = x[k * kXPad];
+#pragma unroll
+                    for (int m = 0; m < 4; ++m)
+                        pp[m] = madd<FTZ>(Acc(D[ii[m] * kWidePad + k]), xk, pp[m]);
+                }
+                Acc v[4];
+#pragma unroll
+                for (int m = 0; m < 4; ++m) {
+                    Acc sm = add_t<FTZ>(pp[m], __shfl_xor_sync(kFull, pp[m], 1));
+                    sm = add_t<FTZ>(sm, __shfl_xor_sync(kFull, sm, 2));
+#pragma unroll
+                    for (int l = 0; l < m; ++l)
+                        sm = madd<FTZ>(Acc(D[ii[m] * kWidePad + ii[l]]), v[l], sm);
+                    const Acc w = fz<FTZ>(Acc(ii[m] == c) - sm);
+                    v[m] = kUnit ? w : mul_t<FTZ>(w, rcp[ii[m]]);
+                }
+                if (q == 0) {
+#pragma unroll
+                    for (int m = 0; m < 4; ++m) x[ii[m] * kXPad] = v[m];
+                }
+                __syncwarp();  // the quad reads them at the next step
+            }
+        }
+        __syncthreads();  // D's stage is free for the ring
+    }
+    const int r = t >> 2, q = t & 3;  // z = X rhs at the end, four threads a row
+    Acc xr[kWideRows / 4];            // this thread's entries of X, asked for before the stream
+#pragma unroll
+    for (int j = 0; j < kWideRows / 4; ++j) xr[j] = panel ? Acc(0) : X[r * kXPad + 4 * j + q];
+
+    // outputs 2 lane and 2 lane + 1 over this warp's rows, each in two chains (even and odd rows)
+    Acc acc[2][2] = {{Acc(0), Acc(0)}, {Acc(0), Acc(0)}};
+    int prow[2] = {n, n};               // warp 0: the update rows of the next y[rsx] tile
+    if (warp == 0 && npan > 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = lane + 32 * h;
+            prow[h] = r < rp ? rsx[static_cast<int64_t>(b) * rp + r] : n;
+        }
+    }
+    for (int s = 0; s < ntiles; ++s) {
+        issue(s + kStages - 1);  // into the stage tile s - 1 left
+        if (warp == 0) {
+            A x[2];
+            if (s < npan) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) x[h] = prow[h] < n ? fz<FTZ>(y[prow[h]]) : A(0);
+                if (s + 1 < npan) {
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int r = (s + 1) * kWideRows + lane + 32 * h;
+                        prow[h] = r < rp ? rsx[static_cast<int64_t>(b) * rp + r] : n;
+                    }
+                }
+            } else {
+                // a block far from this task's own is not on the chain's path: poll it at leisure
+                const int kb = kb_of(s);
+                const bool patient = panel ? kb < nrb - 2 : (FWD ? kb < blk - 4 : kb > blk + 4);
+                mail_recv_pair(mb, kb * kWideRows + lane, wp, tag, patient, x);
+            }
+            xs[lane] = Acc(x[0]);
+            xs[lane + 32] = Acc(x[1]);
+        }
+        cp_async_wait<kStages - 1>();
+        __syncthreads();
+        const A* st = ring + (s % kStages) * kWideTile + 2 * lane;
+#pragma unroll
+        for (int j = 0; j < kWideRowsPerWarp; ++j) {
+            const int cc = warp * kWideRowsPerWarp + j;
+            const Acc x = xs[cc];
+            const auto pair = *reinterpret_cast<const Pair<A>*>(st + cc * kWideRows);
+            acc[0][j & 1] = madd<FTZ>(Acc(pair.x), x, acc[0][j & 1]);
+            acc[1][j & 1] = madd<FTZ>(Acc(pair.y), x, acc[1][j & 1]);
+        }
+        if (s + 1 < ntiles) __syncthreads();  // the stage and xs are read before they are refilled
+    }
+    cp_async_wait<0>();
+    red[warp][2 * lane] = add_t<FTZ>(acc[0][0], acc[0][1]);
+    red[warp][2 * lane + 1] = add_t<FTZ>(acc[1][0], acc[1][1]);
+    __syncthreads();
+    if (t < kWideRows) {  // the eight warps' partials in a fixed tree
+        Acc h[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) h[w] = add_t<FTZ>(red[2 * w][t], red[2 * w + 1][t]);
+        const Acc s = add_t<FTZ>(add_t<FTZ>(h[0], h[1]), add_t<FTZ>(h[2], h[3]));
+        if (panel) {
+            if (t < nrows) upd[static_cast<int64_t>(b) * rp + (r0 - wp) + t] = fz<FTZ>(A(-s));
+        } else {
+            rhs[t] = t < nrows ? fz<FTZ>(Acc(yp[t]) - s) : Acc(0);
+        }
+    }
+    if (panel) return;
+    __syncthreads();
+    const A zr = A(x_dot<FTZ>(xr, rhs, q));
+    if (q == 0 && r < nrows) {
+        mail_send(mb, r0 + r, zr, tag);
+        const int row = piv[static_cast<int64_t>(b) * wp + r0 + r];
+        if (row < n) y[row] = zr;
     }
 }
 
@@ -933,12 +1537,32 @@ rows_reduce_kernel(A* __restrict__ y, const A* __restrict__ upd,
     }
 }
 
-bool bad_group(int nfronts, int wp, int rp) { return nfronts < 1 || wp < 1 || rp < 0; }
-
-// The wide kernel's dynamic shared memory: the inverse and the two blocks beside it.
+// The wide kernels' dynamic shared memory. K4: the inverse and the two blocks
+// beside it. K12: the inverse and the ring of streamed tiles, whose last
+// stage (and 64 elements past it) holds the padded diagonal block while the
+// inverse is built.
 template <typename A, bool FTZ>
 constexpr size_t wide_smem_bytes() {
     return kWideRows * kWidePad * (sizeof(WideAcc<A, FTZ>) + 2 * sizeof(A));
+}
+template <typename A, bool FTZ>
+constexpr size_t wide_t_smem_bytes() {
+    return kWideRows * kXPad * sizeof(WideAcc<A, FTZ>) +
+           (wide_t_stages<A>() * kWideTile + kWideRows) * sizeof(A);
+}
+
+bool bad_group(int nfronts, int wp, int rp) { return nfronts < 1 || wp < 1 || rp < 0; }
+
+// One launch of a wide kernel over ``tasks`` tasks, after raising its dynamic
+// shared memory to ``smem`` bytes.
+template <typename Kernel, typename... Args>
+int launch_wide(Kernel kernel, size_t smem, int64_t tasks, cudaStream_t stream, Args... args) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (tasks >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<static_cast<unsigned>(tasks), kWideThreads, smem, stream>>>(args...);
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <typename A, bool FTZ, bool TRANS>
@@ -954,24 +1578,25 @@ int sweep_fwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
         return static_cast<int>(cudaErrorInvalidValue);
     if (regime == kWarp) {
         const unsigned blocks = static_cast<unsigned>((nf + kWarpFronts - 1) / kWarpFronts);
-        front_fwd_warp<A, FTZ, TRANS><<<blocks, kWarpFronts * 32, 0, stream>>>(
-            pool, g0, nf, wp, rp, piv, y, n, upd);
+        auto kernel = !TRANS    ? front_fwd_warp<A, FTZ>
+                      : wp <= 8  ? front_fwd_warp_t<A, FTZ, 8>
+                      : wp <= 16 ? front_fwd_warp_t<A, FTZ, 16>
+                                 : front_fwd_warp_t<A, FTZ, 32>;
+        kernel<<<blocks, kWarpFronts * 32, 0, stream>>>(pool, g0, nf, wp, rp, piv, y, n, upd);
     } else if (regime == kBlock) {
         dim3 grid(static_cast<unsigned>(nf), static_cast<unsigned>(tiles));
-        front_fwd_block<A, FTZ, TRANS><<<grid, kSweepThreads, 0, stream>>>(pool, g0, wp, rp, piv,
-                                                                          y, n, upd, ctl);
+        auto kernel = TRANS ? front_fwd_block_t<A, FTZ> : front_fwd_block<A, FTZ>;
+        kernel<<<grid, kSweepThreads, 0, stream>>>(pool, g0, wp, rp, piv, y, n, upd, ctl);
     } else {
-        const size_t smem = wide_smem_bytes<A, FTZ>();
-        err = cudaFuncSetAttribute(front_wide_kernel<A, FTZ, true, TRANS>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
         const int64_t tasks = static_cast<int64_t>(nf) *
             ((wp + kWideRows - 1) / kWideRows + (rp + kWideRows - 1) / kWideRows);
-        if (tasks >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
-        front_wide_kernel<A, FTZ, true, TRANS><<<static_cast<unsigned>(tasks), kWideThreads, smem,
-                                                 stream>>>(pool, g0, nf, wp, rp, piv, nullptr, y,
-                                                           n, upd, ctl, mail, kTag);
+        const int32_t* none = nullptr;
+        if (TRANS)
+            return launch_wide(front_wide_t_kernel<A, FTZ, true>, wide_t_smem_bytes<A, FTZ>(),
+                               tasks, stream, pool, g0, nf, wp, rp, piv, none, y, n, upd, ctl,
+                               mail, kTag);
+        return launch_wide(front_wide_kernel<A, FTZ, true>, wide_smem_bytes<A, FTZ>(), tasks,
+                           stream, pool, g0, nf, wp, rp, piv, none, y, n, upd, ctl, mail, kTag);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -989,23 +1614,24 @@ int sweep_bwd(int device, const A* pool, int64_t g0, int nf, int wp, int rp, con
         return static_cast<int>(cudaErrorInvalidValue);
     if (regime == kWarp) {
         const unsigned blocks = static_cast<unsigned>((nf + kWarpFronts - 1) / kWarpFronts);
-        front_bwd_warp<A, FTZ, TRANS><<<blocks, kWarpFronts * 32, 0, stream>>>(
-            pool, g0, nf, wp, rp, piv, rsx, y, n);
+        auto kernel = !TRANS    ? front_bwd_warp<A, FTZ>
+                      : wp <= 8  ? front_bwd_warp_t<A, FTZ, 8>
+                      : wp <= 16 ? front_bwd_warp_t<A, FTZ, 16>
+                                 : front_bwd_warp_t<A, FTZ, 32>;
+        kernel<<<blocks, kWarpFronts * 32, 0, stream>>>(pool, g0, nf, wp, rp, piv, rsx, y, n);
     } else if (regime == kBlock) {
         dim3 grid(static_cast<unsigned>(nf), static_cast<unsigned>(tiles));
-        front_bwd_block<A, FTZ, TRANS><<<grid, kSweepThreads, 0, stream>>>(pool, g0, wp, rp, piv,
-                                                                          rsx, y, n, part, ctl);
+        auto kernel = TRANS ? front_bwd_block_t<A, FTZ> : front_bwd_block<A, FTZ>;
+        kernel<<<grid, kSweepThreads, 0, stream>>>(pool, g0, wp, rp, piv, rsx, y, n, part, ctl);
     } else {
-        const size_t smem = wide_smem_bytes<A, FTZ>();
-        err = cudaFuncSetAttribute(front_wide_kernel<A, FTZ, false, TRANS>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
         const int64_t tasks = static_cast<int64_t>(nf) * ((wp + kWideRows - 1) / kWideRows);
-        if (tasks >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
-        front_wide_kernel<A, FTZ, false, TRANS><<<static_cast<unsigned>(tasks), kWideThreads,
-                                                  smem, stream>>>(pool, g0, nf, wp, rp, piv, rsx,
-                                                                  y, n, nullptr, ctl, mail, kTag);
+        A* none = nullptr;
+        if (TRANS)
+            return launch_wide(front_wide_t_kernel<A, FTZ, false>, wide_t_smem_bytes<A, FTZ>(),
+                               tasks, stream, pool, g0, nf, wp, rp, piv, rsx, y, n, none, ctl,
+                               mail, kTag);
+        return launch_wide(front_wide_kernel<A, FTZ, false>, wide_smem_bytes<A, FTZ>(), tasks,
+                           stream, pool, g0, nf, wp, rp, piv, rsx, y, n, none, ctl, mail, kTag);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -44,8 +44,9 @@ take the data-dependent steps:
 * ``rows_reduce``: the forward sweep's updates summed into y per destination
   row in plan order, no atomics, the rows binned by their number of sources;
 * ``front_sweep_t`` (K12): the transposed system's group solves (``U^T``
-  forward, ``L^T`` backward; the condition estimate's), the sweep kernel's
-  regimes reading the fronts transposed.
+  forward, ``L^T`` backward; the condition estimate's) in the sweep's three
+  regimes, by kernels of their own whose lanes run along the fronts' rows
+  (the wide regime streams its tiles through shared memory).
 
 Each has its plain PyTorch version beside it (``extend_add_plain``,
 ``front_sweep_plain``, ``rows_reduce_plain``, ``front_sweep_t_plain``). A

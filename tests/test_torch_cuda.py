@@ -9,6 +9,7 @@ with one, run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``tests/conftest.py`` imports JAX, which this file does not need).
 """
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -371,10 +372,20 @@ FRONT_INST = {"f32": (torch.float32, False), "f32_ftz": (torch.float32, True),
 FRONT_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 # (fronts, wp, rp, parents): one front; hundreds of children of two parents
 # (warp regime); roots without update rows; wp = 24; the widest a thread block
-# solves; a panel over 10 tiles; wide fronts, without update rows too
+# solves; a panel over 10 tiles; wide fronts, without update rows too; a hub
+# of 180 children of one parent; the warp regime at wp = 32 with a panel of
+# two passes; 333 update rows over 5 tiles of 67; a wide front of odd widths;
+# a wide root of 10 row blocks
 FRONT_SHAPES = [(1, 8, 8, 1), (700, 8, 16, 2), (3, 24, 0, 0), (6, 24, 32, 4),
                 (5, 128, 48, 3), (2, 48, 640, 1), (2, 192, 96, 1), (1, 200, 0, 0),
-                (3, 300, 70, 2), (180, 8, 16, 1)]  # the last a hub: 180 children of one parent
+                (3, 300, 70, 2), (180, 8, 16, 1), (50, 32, 40, 3), (1, 40, 333, 1),
+                (2, 333, 77, 1), (1, 640, 0, 0)]
+# SHA-256 of K4's outputs on FRONT_SHAPES (:func:`_k4_digest`) from the build
+# before K12 had kernels of its own, when K4's kernels also served K12: the
+# same bits now say that K4's code did not change with K12's.
+K4_DIGESTS = {"f32": "1c8a1715ec423bccb7d2893590809a711c195cd1308f7476456dea84b492ba9a",
+              "f32_ftz": "fe25784270ce379e48f9a8a722f55e75765f1b8fde600d0f8b9d3b7ced1a203c",
+              "f64": "7937f52b98274e4d468deb911f201ba6b275d22f6f2cfe1de1019600428c17d5"}
 
 
 def _front_group(shape, dtype, card):
@@ -442,6 +453,31 @@ def _check_frontal_kernels(card, shape, inst):
             torch.cuda.synchronize()
             assert torch.equal(ys[0], ys[1]) and _held(ys[0], ys[2], dtype)
             assert torch.equal(ys[0], same)
+
+
+def _k4_digest(inst, card):
+    """SHA-256 over K4's outputs on every shape of FRONT_SHAPES in one
+    instance: the forward sweep's y and upd, then the backward sweep's y."""
+    dtype, flush = FRONT_INST[inst]
+    h = hashlib.sha256()
+    for shape in FRONT_SHAPES:
+        nf, wp, rp, _ = shape
+        t = _front_group(shape, dtype, card)
+        grp = (0, nf, wp, rp)
+        for fwd in (True, False):
+            y = t["y"].clone()
+            u = F.front_sweep(t["pool"], y, *grp, t["piv"], t["rsx"], fwd, flush,
+                              control=F.control_zeros(t["pool"], *grp[1:]))
+            for out in (y, u) if fwd else (y,):
+                h.update(out.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_front_sweep_bits_are_unchanged(card):
+    """K4's outputs on FRONT_SHAPES in every instance are the bits saved
+    in K4_DIGESTS."""
+    for inst in FRONT_INST:
+        assert _k4_digest(inst, card) == K4_DIGESTS[inst], inst
 
 
 def test_front_sweep_t_matches_plain(card):
