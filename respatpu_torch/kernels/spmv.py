@@ -38,7 +38,7 @@ import torch
 
 from ..formats import CSRMatrix
 from ..precision import Policy, ftz, get_policy
-from ..timing import spmv_csr_sol_bytes
+from ..timing import span, spmv_csr_sol_bytes
 from .dia import DeviceDia, build_dia, dia_coverage, dia_spmv, dia_to_device, diagonals
 
 __all__ = ["DeviceCsr", "DeviceDia", "to_device", "row_blocks", "spmv", "spmv_plain",
@@ -121,23 +121,28 @@ def to_device(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
                          "use fmt='csr'")
     if fmt not in ("auto", "csr", "dia"):
         raise ValueError(f"unknown fmt {fmt!r}")
-    diag = diagonals(a) if fmt != "csr" else None
-    if fmt == "auto":
-        offs, cov = dia_coverage(a, diag=diag)
-        waste = len(offs) * a.shape[0] / max(a.nnz, 1)
-        fmt = "dia" if cov >= 0.90 and waste <= 3.0 else "csr"
-    if fmt == "dia":
-        return dia_to_device(build_dia(a, diag=diag), policy, device)
     m, n = a.shape
-    if a.nnz >= 2 ** 31 or n >= 2 ** 31 or m >= 2 ** 31:
-        raise ValueError("column and row-block indices are int32: nnz, nrows "
-                         "and ncols must be < 2^31")
+    with span("layout"):        # the host's work before the copies
+        diag = diagonals(a) if fmt != "csr" else None
+        if fmt == "auto":
+            offs, cov = dia_coverage(a, diag=diag)
+            waste = len(offs) * a.shape[0] / max(a.nnz, 1)
+            fmt = "dia" if cov >= 0.90 and waste <= 3.0 else "csr"
+        if fmt == "dia":
+            dia = build_dia(a, diag=diag)
+        elif a.nnz >= 2 ** 31 or n >= 2 ** 31 or m >= 2 ** 31:
+            raise ValueError("column and row-block indices are int32: nnz, nrows "
+                             "and ncols must be < 2^31")
+        else:
+            blocks = row_blocks(a.indptr)
+    if fmt == "dia":
+        return dia_to_device(dia, policy, device)
     device = torch.device(device)
     return DeviceCsr(
         indptr=torch.from_numpy(np.ascontiguousarray(a.indptr, np.int64)).to(device),
         indices=torch.from_numpy(np.ascontiguousarray(a.indices, np.int32)).to(device),
         vals=policy.cast_host(a.data).to(device),
-        row_blocks=torch.from_numpy(row_blocks(a.indptr)).to(device),
+        row_blocks=torch.from_numpy(blocks).to(device),
         policy=policy, shape=(m, n))
 
 

@@ -47,7 +47,7 @@ from .kernels.snlu import analyze_supernodes
 from .kernels.spmv import spmv, spmv_sol_bytes, to_device
 from .kernels.sptrsv import isai_tri, jacobi_tri, sptrsv, tri_to_device
 from .precision import Policy, get_policy
-from .timing import OpTiming, check_plausible, device_bandwidth, time_op
+from .timing import OpTiming, check_plausible, count, device_bandwidth, span, time_op
 
 __all__ = ["SolveReport", "spmv_timed", "condition_estimate",
            "BandLuFactorization", "band_ordering", "factorize_band",
@@ -63,6 +63,18 @@ def _to_host_f64(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", torch.float64).numpy()
     return np.asarray(x, np.float64)
+
+
+def _wait(t: torch.Tensor) -> float:
+    """A device scalar on the host: a wait on the device, counted as a ``sync``."""
+    count("sync")
+    return float(t)
+
+
+def _pull(x: torch.Tensor) -> np.ndarray:
+    """:func:`_to_host_f64` of a device tensor, counted as a ``sync``."""
+    count("sync")
+    return _to_host_f64(x)
 
 
 def relative_residual(a: CSRMatrix, x, b) -> float:
@@ -731,39 +743,45 @@ def _gmres_ir(a: CSRMatrix, b: np.ndarray, fac, x0: np.ndarray,
     by modified Gram-Schmidt. One host sync an inner iteration (the
     breakdown test); the small least-squares problem is solved on the host."""
     dev = fac.device
-    a64 = to_device(a, "fp64", dev)
-    bb = torch.from_numpy(np.asarray(b, np.float64)).to(dev)
-    nb = float(torch.linalg.vector_norm(bb))
-    nb = nb if nb > 0 else 1.0
-    x = torch.from_numpy(np.array(x0, dtype=np.float64)).to(dev)
-    total_inner = 0
-    for _ in range(max_outer):
-        r = bb - spmv(a64, x)
-        beta = float(torch.linalg.vector_norm(r))
-        if beta / nb <= tol:
-            break
-        V = torch.zeros((m + 1, a.nrows), dtype=torch.float64, device=dev)
-        Z = torch.zeros((m, a.nrows), dtype=torch.float64, device=dev)
-        H = torch.zeros((m + 1, m), dtype=torch.float64, device=dev)
-        V[0] = r / beta
-        k = m
-        for j in range(m):
-            Z[j] = fac.solve_original_device(V[j])
-            w = spmv(a64, Z[j])
-            for i in range(j + 1):          # MGS in fp64
-                H[i, j] = torch.dot(w, V[i])
-                w -= H[i, j] * V[i]
-            H[j + 1, j] = torch.linalg.vector_norm(w)
-            total_inner += 1
-            if float(H[j + 1, j]) < 1e-300:
-                k = j + 1
+    with span("gmres"):
+        with span("upload"):
+            a64 = to_device(a, "fp64", dev)
+            bb = torch.from_numpy(np.asarray(b, np.float64)).to(dev)
+            x = torch.from_numpy(np.array(x0, dtype=np.float64)).to(dev)
+        nb = _wait(torch.linalg.vector_norm(bb))
+        nb = nb if nb > 0 else 1.0
+        total_inner = 0
+        for _ in range(max_outer):
+            r = bb - spmv(a64, x)
+            beta = _wait(torch.linalg.vector_norm(r))
+            if beta / nb <= tol:
                 break
-            V[j + 1] = w / H[j + 1, j]
-        e1 = np.zeros(k + 1)
-        e1[0] = beta
-        y, *_ = np.linalg.lstsq(H[:k + 1, :k].cpu().numpy(), e1, rcond=None)
-        x = x + Z[:k].T @ torch.from_numpy(y).to(dev)
-    return _to_host_f64(x), total_inner
+            V = torch.zeros((m + 1, a.nrows), dtype=torch.float64, device=dev)
+            Z = torch.zeros((m, a.nrows), dtype=torch.float64, device=dev)
+            H = torch.zeros((m + 1, m), dtype=torch.float64, device=dev)
+            V[0] = r / beta
+            k = m
+            for j in range(m):
+                with span("apply"):
+                    Z[j] = fac.solve_original_device(V[j])
+                with span("orthogonalize"):
+                    w = spmv(a64, Z[j])
+                    for i in range(j + 1):          # MGS in fp64
+                        H[i, j] = torch.dot(w, V[i])
+                        w -= H[i, j] * V[i]
+                    H[j + 1, j] = torch.linalg.vector_norm(w)
+                    total_inner += 1
+                    if _wait(H[j + 1, j]) < 1e-300:
+                        k = j + 1
+                        break
+                    V[j + 1] = w / H[j + 1, j]
+            with span("lstsq"):
+                e1 = np.zeros(k + 1)
+                e1[0] = beta
+                y, *_ = np.linalg.lstsq(_pull(H[:k + 1, :k]), e1, rcond=None)
+                x = x + Z[:k].T @ torch.from_numpy(y).to(dev)
+        with span("to_host"):
+            return _pull(x), total_inner
 
 
 def solve_refined(a: CSRMatrix, b: np.ndarray,
@@ -788,50 +806,57 @@ def solve_refined(a: CSRMatrix, b: np.ndarray,
     """
     if fac is None:
         fac = BandLuFactorization(a, policy=policy, device=device)
-    report = SolveReport(policy=f"{fac.policy.name}+ir_fp64",
-                         t_analyze=fac.report.t_analyze,
-                         t_factorize=fac.report.t_factorize,
-                         n_pivot_perturbed=fac.report.n_pivot_perturbed,
-                         notes=fac.report.notes)
-    t0 = time.perf_counter()
-    dev = fac.device
-    bb = np.asarray(b, np.float64)
-    if isinstance(fac, BandLuFactorization):
-        acc = fac.policy.accum_dtype
-        perm, a_res = fac.perm, fac._ap
+    with span("solve_refined"):
+        report = SolveReport(policy=f"{fac.policy.name}+ir_fp64",
+                             t_analyze=fac.report.t_analyze,
+                             t_factorize=fac.report.t_factorize,
+                             n_pivot_perturbed=fac.report.n_pivot_perturbed,
+                             notes=fac.report.notes)
+        t0 = time.perf_counter()
+        dev = fac.device
+        bb = np.asarray(b, np.float64)
+        if isinstance(fac, BandLuFactorization):
+            acc = fac.policy.accum_dtype
+            perm, a_res = fac.perm, fac._ap
 
-        def correct(r):
-            return fac.solve_device(r.to(acc)).double()
-    else:
-        perm, a_res, correct = None, a, fac.solve_original_device
-    bp = bb if perm is None else bb[perm]
-    a64 = to_device(a_res, "fp64", dev)
-    b64 = torch.from_numpy(bp).to(dev)
-    x = torch.zeros(a.nrows, dtype=torch.float64, device=dev)
-    nb = float(np.linalg.norm(bp))
-    nb = nb if nb > 0 else 1.0
-    res_hist = []
-    for _ in range(max_iters):
-        r = b64 - spmv(a64, x)
-        rnorm = float(torch.linalg.vector_norm(r)) / nb
-        res_hist.append(rnorm)
-        if rnorm < tol:
-            break
-        if len(res_hist) > 3 and rnorm > 0.9 * res_hist[-2]:
-            break  # stagnated
-        x += correct(r)
-    out = _to_host_f64(x)
-    if perm is not None:
-        xh = out
-        out = np.empty_like(xh)
-        out[perm] = xh
-    report.t_solve = time.perf_counter() - t0
-    report.iterations = len(res_hist)
-    report.residual = relative_residual(a, out, bb)
-    report.converged = report.residual < max(tol * 100, 1e-10)
-    if not report.converged:
-        out, report = _refine_gmres_fallback(a, b, fac, out, tol, report, t0)
-    return out, report
+            def correct(r):
+                return fac.solve_device(r.to(acc)).double()
+        else:
+            perm, a_res, correct = None, a, fac.solve_original_device
+        bp = bb if perm is None else bb[perm]
+        with span("upload"):
+            a64 = to_device(a_res, "fp64", dev)
+            b64 = torch.from_numpy(bp).to(dev)
+            x = torch.zeros(a.nrows, dtype=torch.float64, device=dev)
+        nb = float(np.linalg.norm(bp))
+        nb = nb if nb > 0 else 1.0
+        res_hist = []
+        with span("ir"):
+            for _ in range(max_iters):
+                with span("residual"):
+                    r = b64 - spmv(a64, x)
+                    rnorm = _wait(torch.linalg.vector_norm(r)) / nb
+                res_hist.append(rnorm)
+                if rnorm < tol:
+                    break
+                if len(res_hist) > 3 and rnorm > 0.9 * res_hist[-2]:
+                    break  # stagnated
+                with span("apply"):
+                    x += correct(r)
+        with span("to_host"):
+            out = _pull(x)
+            if perm is not None:
+                xh = out
+                out = np.empty_like(xh)
+                out[perm] = xh
+        report.t_solve = time.perf_counter() - t0
+        report.iterations = len(res_hist)
+        with span("host_residual"):
+            report.residual = relative_residual(a, out, bb)
+        report.converged = report.residual < max(tol * 100, 1e-10)
+        if not report.converged:
+            out, report = _refine_gmres_fallback(a, b, fac, out, tol, report, t0)
+        return out, report
 
 
 def _refine_gmres_fallback(a, b, fac, x, tol, report, t0):
@@ -839,7 +864,8 @@ def _refine_gmres_fallback(a, b, fac, x, tol, report, t0):
     x2, inner = _gmres_ir(a, b, fac, x, tol=max(tol, 1e-12))
     report.t_solve = time.perf_counter() - t0
     report.iterations += inner
-    report.residual = relative_residual(a, x2, np.asarray(b, np.float64))
+    with span("host_residual"):
+        report.residual = relative_residual(a, x2, np.asarray(b, np.float64))
     report.converged = report.residual < max(tol * 100, 1e-10)
     report.notes = ((report.notes + "," if report.notes else "")
                     + f"gmres_ir={inner}it")

@@ -12,20 +12,31 @@ The gate (``check_plausible``) raises when a time is below the least time
 the op's bytes can take at the measured copy bandwidth. It never clamps a
 time to a floor: respatpu's ``timing.py:116`` did, and reported 0.0 us/op
 (ROADMAP R1).
+
+Spans and counters inside a request: ``span(name)`` around a piece of the
+program's host work and ``count(name)`` at an event such as a host wait on
+the device. Both do nothing, after one check of a module global, unless a
+:func:`recording` is open; inside one, spans are timed on ``time.time_ns()``,
+the clock of ``torch.profiler``'s records, and kept in memory with the
+span that was open when each began. A top-level span's index is the request
+that its spans share.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import statistics
 import subprocess
+import sys
 import time
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 __all__ = ["OpTiming", "time_op", "stream_bandwidth", "device_bandwidth", "device_events",
            "kernel_times", "ProfilerUnavailable", "check_plausible",
-           "spmv_csr_sol_bytes", "ImplausibleTiming", "card_line", "busy_by_name"]
+           "spmv_csr_sol_bytes", "ImplausibleTiming", "card_line", "busy_by_name",
+           "Recording", "recording", "span", "count"]
 
 _FLUSH_BYTES = 256 << 20  # >= 5x the H100's 50 MB L2
 _STREAM_BYTES = {"cuda": 1 << 30, "cpu": 1 << 26}
@@ -224,3 +235,100 @@ def spmv_csr_sol_bytes(m: int, n: int, nnz: int, value_bytes: int,
     """Least bytes one CSR SpMV moves: int64 row pointer, int32 column
     indices, the values, x read once and y written once."""
     return (m + 1) * 8 + nnz * 4 + nnz * value_bytes + n * vec_bytes + m * vec_bytes
+
+
+# ---------------------------------------------------------------------------
+# Spans and counters inside a request
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Recording:
+    """What one :func:`recording` saw. Span ``i`` is ``names[i]``, from
+    ``starts[i]`` to ``ends[i]`` (ns, ``time.time_ns()``), begun inside span
+    ``parents[i]`` (-1 at the top level); spans are numbered as they begin.
+    ``counts`` holds the counters' totals; ``launches`` each kernel module's
+    ``LAUNCHES`` raised over the recording, ``"<module>.<entry>"``, the
+    entries that were launched only."""
+
+    names: List[str] = dataclasses.field(default_factory=list)
+    starts: List[int] = dataclasses.field(default_factory=list)
+    ends: List[int] = dataclasses.field(default_factory=list)
+    parents: List[int] = dataclasses.field(default_factory=list)
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    _open: List[int] = dataclasses.field(default_factory=list, repr=False)
+
+
+class _Span:
+    __slots__ = ("rec", "name", "index")
+
+    def __init__(self, rec: Recording, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        rec = self.rec
+        self.index = len(rec.names)
+        rec.parents.append(rec._open[-1] if rec._open else -1)
+        rec.names.append(self.name)
+        rec.ends.append(-1)
+        rec._open.append(self.index)
+        rec.starts.append(time.time_ns())
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec.ends[self.index] = time.time_ns()
+        rec._open.pop()
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+_recording: Optional[Recording] = None  # the open recording, or None
+
+
+def span(name: str):
+    """A context manager that records the host time of its block as the
+    span ``name`` in the open :func:`recording`; the one shared no-op
+    context when none is open."""
+    if _recording is None:
+        return _NO_SPAN
+    return _Span(_recording, name)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to the counter ``name`` of the open :func:`recording`, if
+    one is open."""
+    if _recording is not None:
+        _recording.counts[name] = _recording.counts.get(name, 0) + k
+
+
+def _launch_totals() -> Dict[str, int]:
+    """Every imported kernel module's ``LAUNCHES``, ``"<module>.<entry>"``; a
+    module not imported has launched nothing."""
+    prefix = f"{__package__}.kernels."
+    out = {}
+    for name, mod in list(sys.modules.items()):
+        launches = getattr(mod, "LAUNCHES", None) if name.startswith(prefix) else None
+        if launches:
+            out.update((f"{name[len(prefix):]}.{entry}", n) for entry, n in launches.items())
+    return out
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recording]:
+    """Turn :func:`span` and :func:`count` on for the block and yield what
+    they record; the kernel modules' ``LAUNCHES`` are read at both ends. One
+    recording at a time, on the thread that runs the program."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a recording is already open")
+    rec = Recording()
+    before = _launch_totals()
+    _recording = rec
+    try:
+        yield rec
+    finally:
+        _recording = None
+        after = _launch_totals()
+        rec.launches = {k: n - before.get(k, 0) for k, n in after.items()
+                        if n != before.get(k, 0)}
