@@ -77,17 +77,26 @@ def _pull(x: torch.Tensor) -> np.ndarray:
     return _to_host_f64(x)
 
 
-def relative_residual(a: CSRMatrix, x, b) -> float:
-    """||A x - b||_2 / ||b||_2 computed in host fp64 with an independent SpMV
-    (the test_pardiso.c:258-275 gate)."""
+def _host_csr(a: CSRMatrix):
+    """A ``scipy.sparse`` CSR over ``a``'s own arrays (no copy of the
+    entries): its product sums each row in order, as a scatter would."""
+    import scipy.sparse as sp
+    return sp.csr_matrix((a.data, a.indices, a.indptr), shape=a.shape, copy=False)
+
+
+def _host_relative_residual(a_host, x, b) -> float:
     xh = _to_host_f64(x)
     bh = _to_host_f64(b)
-    rows = np.repeat(np.arange(a.nrows), a.row_lengths())
-    ax = np.zeros(a.nrows)
-    np.add.at(ax, rows, a.data * xh[a.indices])
-    r = ax - bh
+    r = a_host @ xh - bh
     nb = np.linalg.norm(bh)
     return float(np.linalg.norm(r) / (nb if nb > 0 else 1.0))
+
+
+def relative_residual(a: CSRMatrix, x, b) -> float:
+    """||A x - b||_2 / ||b||_2 computed in host fp64 with an independent SpMV
+    (the test_pardiso.c:258-275 gate): one compiled CSR product on the
+    host."""
+    return _host_relative_residual(_host_csr(a), x, b)
 
 
 def inf_norm_error(x, x_true: np.ndarray) -> float:
@@ -731,6 +740,48 @@ def factorize(a: CSRMatrix, policy: Union[str, Policy] = "fp32",
 # ---------------------------------------------------------------------------
 
 
+class _ResidualOperator:
+    """A's fp64 residual operator on one device, in two forms, each made at
+    its first use: the device form (:func:`to_device`'s DIA or CSR, the
+    refinement's residuals) and the host form (:func:`_host_csr`, the gate
+    of :func:`relative_residual`). ``a`` is the host matrix both are made
+    from."""
+
+    def __init__(self, a: CSRMatrix, device: torch.device):
+        self.a, self.device = a, device
+        self._dev = self._host = None
+
+    def on_device(self):
+        if self._dev is None:
+            count("a_upload")
+            self._dev = to_device(self.a, "fp64", self.device)
+        else:
+            count("a_reuse")
+        return self._dev
+
+    def on_host(self):
+        if self._host is None:
+            self._host = _host_csr(self.a)
+        return self._host
+
+
+def _residual_operator(fac, a: CSRMatrix) -> _ResidualOperator:
+    """The residual operator of ``a`` on ``fac.device``. Held by ``fac`` when
+    ``a`` is one of its own matrices (``fac.a``, or a band's permuted
+    ``fac._ap``) and made anew once that attribute holds another matrix;
+    any other matrix gets an operator of its own, made for this call."""
+    ops = getattr(fac, "_residual_ops", None)
+    if ops is None:
+        ops = fac._residual_ops = {}
+    for own in ("a", "_ap"):
+        if getattr(fac, own, None) is a:
+            op = ops.get(own)
+            if op is None or op.a is not a:
+                op = ops[own] = _ResidualOperator(a, fac.device)
+            return op
+    return _ResidualOperator(a, fac.device)
+
+
 def _gmres_ir(a: CSRMatrix, b: np.ndarray, fac, x0: np.ndarray,
               tol: float, max_outer: int = 4, m: int = 40):
     """GMRES-based iterative refinement (Carson & Higham 2017/18): when
@@ -745,7 +796,7 @@ def _gmres_ir(a: CSRMatrix, b: np.ndarray, fac, x0: np.ndarray,
     dev = fac.device
     with span("gmres"):
         with span("upload"):
-            a64 = to_device(a, "fp64", dev)
+            a64 = _residual_operator(fac, a).on_device()
             bb = torch.from_numpy(np.asarray(b, np.float64)).to(dev)
             x = torch.from_numpy(np.array(x0, dtype=np.float64)).to(dev)
         nb = _wait(torch.linalg.vector_norm(bb))
@@ -801,6 +852,13 @@ def solve_refined(a: CSRMatrix, b: np.ndarray,
     the original system, its scaling and permutations unwound on the device
     inside the correction solve. A solve that stalls escalates to GMRES-IR.
     ``device`` is used only when ``fac`` is None.
+
+    A factorization holds its own matrix's residual operator for its life,
+    as it holds its factor: the fp64 copy on its device that the residuals
+    run on, and the host CSR of the final residual, each made at the first
+    refined solve that needs it (no factorization API gives its matrix new
+    values). ``a`` is the factorization's own when it is the very object
+    ``fac.a`` holds; any other matrix is uploaded for this call alone.
     ``report.policy`` is ``"<policy>+ir_fp64"``; respatpu, whose fp64 is a
     pair of fp32 words, writes ``+ir_df64``.
     """
@@ -825,7 +883,7 @@ def solve_refined(a: CSRMatrix, b: np.ndarray,
             perm, a_res, correct = None, a, fac.solve_original_device
         bp = bb if perm is None else bb[perm]
         with span("upload"):
-            a64 = to_device(a_res, "fp64", dev)
+            a64 = _residual_operator(fac, a_res).on_device()
             b64 = torch.from_numpy(bp).to(dev)
             x = torch.zeros(a.nrows, dtype=torch.float64, device=dev)
         nb = float(np.linalg.norm(bp))
@@ -852,7 +910,8 @@ def solve_refined(a: CSRMatrix, b: np.ndarray,
         report.t_solve = time.perf_counter() - t0
         report.iterations = len(res_hist)
         with span("host_residual"):
-            report.residual = relative_residual(a, out, bb)
+            report.residual = _host_relative_residual(_residual_operator(fac, a).on_host(),
+                                                      out, bb)
         report.converged = report.residual < max(tol * 100, 1e-10)
         if not report.converged:
             out, report = _refine_gmres_fallback(a, b, fac, out, tol, report, t0)
@@ -865,7 +924,8 @@ def _refine_gmres_fallback(a, b, fac, x, tol, report, t0):
     report.t_solve = time.perf_counter() - t0
     report.iterations += inner
     with span("host_residual"):
-        report.residual = relative_residual(a, x2, np.asarray(b, np.float64))
+        report.residual = _host_relative_residual(_residual_operator(fac, a).on_host(),
+                                                  x2, np.asarray(b, np.float64))
     report.converged = report.residual < max(tol * 100, 1e-10)
     report.notes = ((report.notes + "," if report.notes else "")
                     + f"gmres_ir={inner}it")
