@@ -439,8 +439,16 @@ class _TriangleSolves(_OriginalSolves):
 
     def solve_device(self, bp_dev: torch.Tensor) -> torch.Tensor:
         """Device-side solve in the permuted system's coordinates; the
-        solution comes back in the policy's accumulator type."""
-        return sptrsv(self._u, sptrsv(self._l, bp_dev))
+        solution comes back in the policy's accumulator type. Recorded as
+        the span ``tri_solve`` with ``lower`` and ``upper`` around the two
+        launches, and the counter ``tri_levels`` raised by the levels the
+        two walk."""
+        with span("tri_solve"):
+            count("tri_levels", self._l.levels + self._u.levels)
+            with span("lower"):
+                y = sptrsv(self._l, bp_dev)
+            with span("upper"):
+                return sptrsv(self._u, y)
 
     def _solve_t_permuted(self, sp: torch.Tensor) -> torch.Tensor:
         """A^T = U^T L^T: U^T lower triangular with its diagonal and L^T unit
@@ -603,7 +611,12 @@ class SparseLuFactorization(_TriangleSolves):
     the device (ragged int32 positions and an int64 offset an entry,
     ``IluSchedule.layout_bytes()["ragged"]``); past it this raises
     ``MemoryError``. respatpu's guard counts its lists padded to t_max and
-    refuses patterns this one admits (divergence D4)."""
+    refuses patterns this one admits (divergence D4).
+
+    An open :func:`~respatpu_torch.timing.recording` sees the set-up as the
+    spans ``schedule`` (ordering, fill, pair lists and K8's plan, on the
+    device), ``factor`` (each K8 launch to its synchronize) and
+    ``triangles`` (K7's two triangles scheduled and uploaded)."""
 
     def __init__(self, a: CSRMatrix, policy: Union[str, Policy] = "fp32",
                  order: str = "fillauto", pivot_eps: Optional[float] = None,
@@ -619,19 +632,20 @@ class SparseLuFactorization(_TriangleSolves):
 
         t0 = time.perf_counter()
         self._order, self._amalg = order, None  # persisted; no supernodes to amalgamate
-        self.perm = ordering(a, order)
-        filled = symbolic_fill_lu(permute_csr(a, self.perm))
-        sched = chow_patel_schedule(filled)
-        need = _splu.estimate_schedule_bytes(sched)
-        if need > max_schedule_bytes:
-            raise MemoryError(
-                f"scheduled-LU pair lists would need {need / 2**30:.1f} GiB ragged "
-                f"(fill nnz={filled.nnz}, {sched.npairs} pairs, t_max={sched.t_max})")
-        self._filled = filled
-        self.plan = _splu.build_scheduled_lu(filled, sched)
-        self._dev = _splu.splu_to_device(self.plan, self.device)
-        self._perm_dev = torch.from_numpy(self.perm.astype(np.int64)).to(self.device)
-        _sync(self.device)
+        with span("schedule"):
+            self.perm = ordering(a, order)
+            filled = symbolic_fill_lu(permute_csr(a, self.perm))
+            sched = chow_patel_schedule(filled)
+            need = _splu.estimate_schedule_bytes(sched)
+            if need > max_schedule_bytes:
+                raise MemoryError(
+                    f"scheduled-LU pair lists would need {need / 2**30:.1f} GiB ragged "
+                    f"(fill nnz={filled.nnz}, {sched.npairs} pairs, t_max={sched.t_max})")
+            self._filled = filled
+            self.plan = _splu.build_scheduled_lu(filled, sched)
+            self._dev = _splu.splu_to_device(self.plan, self.device)
+            self._perm_dev = torch.from_numpy(self.perm.astype(np.int64)).to(self.device)
+            _sync(self.device)
         self.report.t_analyze = time.perf_counter() - t0
         amax = float(np.abs(filled.data).max()) if filled.nnz else 1.0
         self._pivot_eps = (pivot_eps if pivot_eps is not None else
@@ -641,10 +655,12 @@ class SparseLuFactorization(_TriangleSolves):
         # the triangles' schedules are made once on the host, from the first
         # factorization's values (a refactorization gives the same bits)
         t0 = time.perf_counter()
-        self._fill_vals = _to_host_f64(self.values)
-        self._l, self._u = lu_triangles_to_device(filled, self._fill_vals, policy, self.device)
-        self._lt = None
-        _sync(self.device)
+        with span("triangles"):
+            self._fill_vals = _to_host_f64(self.values)
+            self._l, self._u = lu_triangles_to_device(filled, self._fill_vals, policy,
+                                                      self.device)
+            self._lt = None
+            _sync(self.device)
         self.report.t_analyze += time.perf_counter() - t0
         amax = float(np.abs(a.data).max()) if a.nnz else 1.0
         self.report.pivot_growth = float(np.abs(self._fill_vals).max()) / max(amax, 1e-300)
@@ -655,10 +671,11 @@ class SparseLuFactorization(_TriangleSolves):
         synchronize: one launch of K8 on the filled pattern and the count of
         perturbed pivots. Refreshes the stored factor values."""
         t0 = time.perf_counter()
-        res, _ = _splu.scheduled_lu_factor(self._filled, plan=self.plan, policy=self.policy,
-                                           pivot_eps=self._pivot_eps, device=self.device,
-                                           dev_plan=self._dev)
-        _sync(self.device)
+        with span("factor"):
+            res, _ = _splu.scheduled_lu_factor(self._filled, plan=self.plan, policy=self.policy,
+                                               pivot_eps=self._pivot_eps, device=self.device,
+                                               dev_plan=self._dev)
+            _sync(self.device)
         self.values = res.values
         self.report.n_pivot_perturbed = res.n_pivot_perturbed
         return time.perf_counter() - t0
