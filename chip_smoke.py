@@ -248,6 +248,7 @@ import torch  # noqa: E402
 from respatpu_torch import io as rio  # noqa: E402
 from respatpu_torch._buildlib import build_shared  # noqa: E402
 from respatpu_torch import persist  # noqa: E402
+from respatpu_torch import timing  # noqa: E402
 from respatpu_torch.bench import corpus, fetch, runner, study  # noqa: E402
 from respatpu_torch import solve as slv  # noqa: E402
 from respatpu_torch.bench.synth import (circuit_like, frontal_group, laplacian_2d,  # noqa: E402
@@ -2497,6 +2498,50 @@ def two_streams_frontal(name_limit, fac, bd):
           f"{fmt_ms(busy)}", flush=True)
 
 
+def graphed_frontal(name_limit, fac, bd, a, b):
+    """dc1's solves through the solver's CUDA graph equal the eager loop
+    (``FrontalSolver._eager``) bit for bit, K4 and K12; the graphs' hit rate
+    over one refined solve (GMRES-IR's applies); and one solve's wall time
+    (host clock to a synchronize, median of 10) against its busy time (the
+    profiler), launch by launch and replayed."""
+    solver = fac._frontal
+    bp = bd.to(solver.pool.dtype)
+    for sweep, solve in ((F.front_sweep, solver.solve_device),
+                         (F.front_sweep_t, solver.solve_t_device)):
+        eager, graphed = solver._eager(bp, sweep).clone(), solve(bp)
+        if not torch.equal(eager, graphed):
+            raise AssertionError(f"dc1: the graphed {sweep.__name__} solve differs from the "
+                                 "eager loop")
+    with timing.recording() as rec:
+        _, rep = slv.solve_refined(a, b, fac=fac)
+    c = {k: rec.counts.get(f"frontal_{k}", 0) for k in ("capture", "replay", "eager")}
+    hit = c["replay"] / max(sum(c.values()), 1)
+
+    def wall_busy(fn):
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        try:
+            busy = sum(t for _, t in device_events(fn)) * 1e3
+        except ProfilerUnavailable as e:
+            print(f"[frontal] a solve's busy time not measured ({e})", flush=True)
+            busy = None
+        return float(np.median(walls)) * 1e3, busy
+
+    eager_ms, eager_busy = wall_busy(lambda: solver._eager(bp, F.front_sweep))
+    graph_ms, graph_busy = wall_busy(lambda: solver.solve_device(bp))
+    print(f"[frontal] {name_limit} | dc1: the graphed K4 and K12 solves == the eager loop bit for "
+          f"bit; one refined solve ({rep.iterations} iterations, {rep.notes}): captures "
+          f"{c['capture']}, replays {c['replay']}, eager {c['eager']}, hit rate {hit:.4f}; one "
+          f"solve launch by launch {eager_ms:.3f} ms wall, busy {fmt_ms(eager_busy)} "
+          f"({solver.launches_per_solve} launches); replayed {graph_ms:.3f} ms wall, busy "
+          f"{fmt_ms(graph_busy)}", flush=True)
+
+
 def multifrontal_path(name_limit, mats, errs, full, times, probes, latency):
     """Phase 8; returns the launch counts of the frontal, block-LU and fp64
     SpMV kernels on the multifrontal path, and dc1's fp32 factorization
@@ -2563,6 +2608,7 @@ def multifrontal_path(name_limit, mats, errs, full, times, probes, latency):
     if not torch.equal(x1, again):
         raise AssertionError("dc1: two solves differ bit for bit")
     two_streams_frontal(name_limit, fac, bd)
+    graphed_frontal(name_limit, fac, bd, a, b)
     print(f"[frontal] {name_limit} | dc1 one fp32 solve without refinement {t_one * 1e3:.1f} ms, "
           f"residual {r_one:.3e}, bitwise equal twice", flush=True)
     for name, f in (("dc1 fp32", fac), ("2cubes_sphere fp64", fac64),

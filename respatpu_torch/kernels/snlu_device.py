@@ -51,7 +51,8 @@ take the data-dependent steps:
 Each has its plain PyTorch version beside it (``extend_add_plain``,
 ``front_sweep_plain``, ``rows_reduce_plain``, ``front_sweep_t_plain``). A
 wrapper launches its kernel for a CUDA tensor and runs the plain version for
-a CPU tensor; nothing else chooses. The factored pool and every solve repeat
+a CPU tensor; nothing else chooses. On a card ``FrontalSolver`` replays a
+solve's launches as one CUDA graph. The factored pool and every solve repeat
 bit for bit.
 """
 from __future__ import annotations
@@ -63,6 +64,7 @@ import numpy as np
 import torch
 
 from ..precision import ftz
+from ..timing import count
 from .bandlu import MAX_P, block_lu
 from .snlu import SupernodePartition
 
@@ -957,6 +959,18 @@ def values_from_pool(plan: FrontalPlan, pool: torch.Tensor) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class _SolveGraph:
+    """One captured solve: ``graph`` replays every launch of a solve from the
+    right-hand side in ``b`` to the solution in ``x``, both buffers of the
+    graph's own pool; ``launches`` is what one replay adds to ``LAUNCHES``."""
+
+    graph: "torch.cuda.CUDAGraph"
+    b: torch.Tensor
+    x: torch.Tensor
+    launches: Dict[str, int]
+
+
 class FrontalSolver:
     """Triangular solves straight from the device-resident factored pool.
 
@@ -965,7 +979,20 @@ class FrontalSolver:
     pad every slot to the widest factor row, which a circuit's hub-coupled
     rows make hopeless; here wide rows are just rows of a dense front. Per
     (level, bucket) group one sweep launch each way, and forward one
-    reduction launch: ``launches_per_solve`` counts them."""
+    reduction launch: ``launches_per_solve`` counts them.
+
+    On a card the plan never changes, so the first solve of a direction (K4
+    or K12) on a stream captures all of its launches into a CUDA graph and
+    every later solve there replays it: one graph launch in place of
+    ``launches_per_solve`` enqueued from Python, the same kernels in the same
+    order on the same inputs, so the same bits. The solver keeps the graphs
+    of the last ``GRAPHS`` (direction, stream) pairs, so two streams never
+    share a graph's buffers. A solve inside a caller's own capture, and every
+    solve on the CPU, runs the eager loop. The counters ``frontal_capture``,
+    ``frontal_replay`` and ``frontal_eager`` of ``timing.count`` say how each
+    card solve was issued."""
+
+    GRAPHS = 4
 
     def __init__(self, plan: FrontalPlan, pool: torch.Tensor, flush: bool = False):
         self.plan = plan
@@ -978,17 +1005,21 @@ class FrontalSolver:
         words = [control_words(g.nfronts, g.wp, g.rp, pool.element_size())
                  for g in plan.groups]
         self._ctl_off = np.concatenate([[0], np.cumsum(words)]).tolist()
+        self._graphs: Dict[Tuple[bool, int], _SolveGraph] = {}  # oldest first
 
     @property
     def launches_per_solve(self) -> int:
         """Kernel launches of one ``solve_device`` on a card: a forward and a
         backward sweep a group, and a reduction for each group with update
-        rows."""
+        rows. A replayed solve launches the same kernels from its graph."""
         return sum(2 + (g.rp > 0) for g in self.plan.groups)
 
-    def _start(self, b: torch.Tensor) -> torch.Tensor:
+    def _check(self, b: torch.Tensor) -> None:
         if b.shape != (self.n,) or b.device != self.pool.device:
             raise ValueError(f"the right-hand side must be ({self.n},) on {self.pool.device}")
+
+    def _start(self, b: torch.Tensor) -> torch.Tensor:
+        self._check(b)
         y = torch.zeros(self.n + 1, dtype=self.pool.dtype, device=self.pool.device)
         y[:self.n] = b.to(self.pool.dtype)
         return y
@@ -1001,13 +1032,13 @@ class FrontalSolver:
             if forward and g.rp:
                 rows_reduce(y, upd, dg["red_rows"], dg["red_ptr"], dg["red_src"], self.flush)
 
-    def _solve(self, b: torch.Tensor, group_sweep) -> torch.Tensor:
+    def _eager(self, b: torch.Tensor, group_sweep) -> torch.Tensor:
         """Both sweeps of every group with ``group_sweep`` (K4's or K12's
-        wrapper). On a card every sweep launch takes fresh control words:
-        one buffer for the whole solve, zeroed on the current stream, forward
-        and backward each in their own half, every group in its own run.
-        Solves on two streams, or a replayed CUDA graph of one, share no
-        ticket and no mailbox word."""
+        wrapper), launch by launch. On a card every sweep launch takes fresh
+        control words: one buffer for the whole solve, zeroed on the current
+        stream, forward and backward each in their own half, every group in
+        its own run. Solves on two streams, or a replayed CUDA graph of one,
+        share no ticket and no mailbox word."""
         y = self._start(b)
         ctl = torch.zeros(2 * self._ctl_off[-1], dtype=torch.int32, device=self.pool.device)
 
@@ -1019,6 +1050,52 @@ class FrontalSolver:
         self._run(y, sweep, True)
         self._run(y, sweep, False)
         return y[:self.n]
+
+    def _capture(self, group_sweep) -> _SolveGraph:
+        """The eager solve captured on a side stream, from a right-hand side
+        buffer of the graph's pool: nothing runs, and ``LAUNCHES`` is left as
+        it was (each replay adds the launches)."""
+        before = dict(LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(self.pool.device)):
+                graph.capture_begin()
+                try:
+                    b = torch.empty(self.n, dtype=self.pool.dtype, device=self.pool.device)
+                    x = self._eager(b, group_sweep)
+                finally:
+                    graph.capture_end()
+        finally:
+            launches = {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
+            LAUNCHES.update(before)
+        return _SolveGraph(graph, b, x, launches)
+
+    def _solve(self, b: torch.Tensor, group_sweep) -> torch.Tensor:
+        """The eager loop on the CPU and inside a caller's capture; else this
+        stream's graph of the direction, captured at its first solve, with b
+        copied into its input. The solution is a copy the caller owns."""
+        if self.pool.device.type != "cuda":
+            return self._eager(b, group_sweep)
+        self._check(b)
+        with torch.cuda.device(self.pool.device):
+            if torch.cuda.is_current_stream_capturing():
+                count("frontal_eager")
+                return self._eager(b, group_sweep)
+            key = (group_sweep is front_sweep_t, torch.cuda.current_stream().cuda_stream)
+            solve = self._graphs.get(key)
+            if solve is None:
+                if len(self._graphs) >= self.GRAPHS:  # the oldest may still run
+                    torch.cuda.synchronize()
+                    del self._graphs[next(iter(self._graphs))]
+                solve = self._graphs[key] = self._capture(group_sweep)
+                count("frontal_capture")
+            else:
+                count("frontal_replay")
+            solve.b.copy_(b)
+            solve.graph.replay()
+            for name, k in solve.launches.items():
+                LAUNCHES[name] += k
+            return solve.x.clone()
 
     def solve_device(self, bp: torch.Tensor) -> torch.Tensor:
         """Solve L U x = bp in permuted coordinates; x in the pool's type

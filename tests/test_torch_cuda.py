@@ -17,7 +17,7 @@ import torch
 
 from respatpu_torch.bench import synth
 from respatpu_torch.formats import COOMatrix, coo_to_csr
-from respatpu_torch import analysis, solve
+from respatpu_torch import analysis, solve, timing
 from respatpu_torch.kernels import bandlu as B
 from respatpu_torch.kernels import dia as DI
 from respatpu_torch.kernels import ilu0 as I
@@ -587,6 +587,52 @@ def _check_factor_and_solve(card, a, plan, dtype, flush):
     x2 = solver.solve_device(b2)
     got = _on_two_streams(lambda: solver.solve_device(b.to(card)), lambda: solver.solve_device(b2))
     assert torch.equal(got[0], x) and torch.equal(got[1], x2)
+
+
+def test_a_frontal_solve_replays_its_graph_bit_for_bit(card):
+    """A circuit whose plan has groups in all three of K4's regimes, in every
+    instance, both directions (K4, K12): three solves of different b through
+    the graph each equal the eager loop bit for bit, the first unchanged
+    after the later ones, with 1 capture and 2 replays counted and
+    ``LAUNCHES`` raised by the eager loop's launches a solve; two solves on
+    two new streams at once equal the sequential ones; a solve inside a
+    caller's own capture runs the loop and replays with it."""
+    a = synth.circuit_like(2500, 5, seed=4, diag="dominant")
+    plan = F.build_frontal_plan(snlu.analyze_supernodes(a))
+    regimes = {F.sweep_regime(g.nfronts, g.wp, g.rp)[0] for g in plan.groups}
+    assert regimes == {"warp", "block", "wide"}
+    rng = np.random.default_rng(6)
+    for inst, (dtype, flush) in FRONT_INST.items():
+        pool, _ = F.frontal_factor_pool(plan, dtype, card, flush=flush)
+        solver = F.FrontalSolver(plan, pool, flush)
+        bs = [torch.from_numpy(rng.standard_normal(a.nrows)).to(dtype).to(card)
+              for _ in range(3)]
+        for sweep, solve in ((F.front_sweep, solver.solve_device),
+                             (F.front_sweep_t, solver.solve_t_device)):
+            case = (inst, sweep.__name__)
+            before = dict(F.LAUNCHES)
+            eager = [solver._eager(b, sweep).clone() for b in bs]
+            torch.cuda.synchronize()
+            one = {k: (n - before[k]) // 3 for k, n in F.LAUNCHES.items() if n != before[k]}
+            assert sum(one.values()) == solver.launches_per_solve, case
+            before = dict(F.LAUNCHES)
+            with timing.recording() as rec:
+                got = [solve(b) for b in bs]
+            torch.cuda.synchronize()
+            assert rec.counts == {"frontal_capture": 1, "frontal_replay": 2}, case
+            assert {k: n - before[k] for k, n in F.LAUNCHES.items()
+                    if n != before[k]} == {k: 3 * n for k, n in one.items()}, case
+            assert all(torch.equal(x, e) for x, e in zip(got, eager)), case
+            pair = _on_two_streams(lambda: solve(bs[0]), lambda: solve(bs[1]))
+            assert torch.equal(pair[0], eager[0]) and torch.equal(pair[1], eager[1]), case
+            theirs, b2 = torch.cuda.CUDAGraph(), bs[2].clone()
+            with timing.recording() as rec:
+                with torch.cuda.graph(theirs):
+                    x2 = solve(b2)
+            assert rec.counts == {"frontal_eager": 1}, case
+            theirs.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(x2, eager[2]), case
 
 
 def _on_two_streams(first, second):

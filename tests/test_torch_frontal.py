@@ -14,6 +14,7 @@ import torch
 from respatpu.bench.synth import circuit_like, laplacian_2d, mesh_fem_3d
 from respatpu.kernels import snlu_device as jdev
 
+from respatpu_torch import timing
 from respatpu_torch.bench.synth import frontal_group
 from respatpu_torch.interop import csr_from_respatpu, pool_from_respatpu
 from respatpu_torch.kernels import bandlu, snlu, snlu_device as dev
@@ -530,6 +531,36 @@ def test_factorization_and_solves_repeat_bit_for_bit(factored):
     assert torch.equal(solver.solve_t_device(b), solver.solve_t_device(b))
     assert solver.launches_per_solve == sum(2 + (g.rp > 0) for g in plan.groups)
     assert set(dev.LAUNCHES.values()) == {0} and set(bandlu.LAUNCHES.values()) == {0}
+
+
+def test_a_solve_on_the_cpu_is_the_plain_walk_and_no_graph():
+    """On the CPU both solves are the plain sweeps and reductions walked
+    group by group, bit for bit, on every matrix, and none is captured,
+    replayed or counted as an eager card solve."""
+    for name, make in MATRICES.items():
+        a = csr_from_respatpu(make())
+        plan = dev.build_frontal_plan(snlu.analyze_supernodes(a))
+        pool, _ = dev.frontal_factor_pool(plan, torch.float32, "cpu")
+        solver = dev.FrontalSolver(plan, pool)
+        b = torch.from_numpy(np.random.default_rng(5).standard_normal(a.nrows)).float()
+        with timing.recording() as rec:
+            x, z = solver.solve_device(b), solver.solve_t_device(b)
+        assert not {"frontal_capture", "frontal_replay", "frontal_eager"} & set(rec.counts), name
+        assert rec.launches == {}, name
+        on = plan.on_device("cpu")
+        order = list(range(len(plan.groups)))
+        for got, plain in ((x, dev.front_sweep_plain), (z, dev.front_sweep_t_plain)):
+            y = torch.zeros(a.nrows + 1)
+            y[:a.nrows] = b
+            for fwd, walk in ((True, order), (False, order[::-1])):
+                for gi in walk:
+                    g = plan.groups[gi]
+                    upd = plain(pool, y, g.g0, g.nfronts, g.wp, g.rp, on[gi]["piv"],
+                                on[gi]["rsx"], fwd)
+                    if fwd and g.rp:
+                        dev.rows_reduce_plain(y, upd, on[gi]["red_rows"], on[gi]["red_ptr"],
+                                              on[gi]["red_src"])
+            assert torch.equal(got, y[:a.nrows]), (name, plain.__name__)
 
 
 def test_transpose_solve_solves_the_transposed_system(factored):
